@@ -1,7 +1,7 @@
 """Turn the JAX package's parameters, given as numpy arrays, into the port's.
 
-Callers pass ``np.asarray`` of a reference ``Forest`` or ``BinnedData``
-field by field, so both packages compute on the same values.
+Callers pass ``np.asarray`` of a reference ``Forest``, ``BinnedData`` or
+``SparseBins`` field by field, so both packages compute on the same values.
 """
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.trees.binning import BinnedData
+from repro_torch.trees.binning import BinnedData, SparseBins
 from repro_torch.trees.forest import Forest
 
 
@@ -47,3 +47,14 @@ def binned_from_numpy(
         multiplicity=_tensor(multiplicity, np.float32, dev),
         n_bins=int(n_bins),
     )
+
+
+def sparse_from_numpy(
+    indices, codes, feat_rows, feat_codes, zero_bin,
+    device: str | torch.device | None = None,
+) -> SparseBins:
+    """A ``SparseBins`` from numpy arrays (the reference's five fields)."""
+    dev = resolve_device(device)
+
+    return SparseBins(*(_tensor(a, np.int32, dev) for a in
+                        (indices, codes, feat_rows, feat_codes, zero_bin)))

@@ -12,34 +12,23 @@
 // Bound: bytes. The (N, F) bin matrix is read once per row tile and the
 // (2, R, F, B) output written once; the adds are few per byte.
 //
-// Design:
-//  * a block owns 32 features (one per lane) x up to 4 node rows (one per
-//    warp; fewer when 256 bins would overflow shared memory);
-//    each warp accumulates its row into a private shared-memory tile, so
-//    no two threads ever add into one cell: no atomics, anywhere;
-//  * each warp walks the samples in ascending order (32 node ids at a
-//    time, one ballot; the hits in lane order), so every cell's adds run
-//    in one fixed order and two launches give identical bits;
-//  * hits are taken 8 at a time: their bin/grad/hess loads all start
-//    before the adds, to hide the global-memory latency;
-//  * the tile is [gh][bin][32 lanes] with the lane index XOR-swizzled by
-//    the bin, so the accumulate (lanes differ in bin) and the write-out
-//    (lanes walk consecutive bins of one feature, stored coalesced) both
-//    spread over the 32 banks.
-// A warp whose node holds few samples still walks all N node ids; sorting
-// rows by node would cut that and is left for a later change.
+// Design: a block owns 32 features (one per lane) x up to 4 node rows (one
+// per warp; fewer when 256 bins would overflow shared memory). Each warp
+// builds its row with level_common::warp_hist_row, which says how the adds
+// stay in one fixed order without atomics. A warp whose node holds few
+// samples still walks all N node ids; sorting rows by node would cut that
+// and is left for a later change.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
+#include "level_common.cuh"
+
 namespace {
 
-constexpr int kFeatTile = 32;  // features per block, one per lane
+using level_common::kFeatTile;
 constexpr int kMaxRowTile = 4;  // node rows per block, one per warp
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
-constexpr int kBatch = 8;      // hits whose loads start together
-
-__device__ __forceinline__ int swz(int b, int lane) { return b * kFeatTile + (lane ^ (b & 31)); }
 
 __global__ void __launch_bounds__(kFeatTile * kMaxRowTile)
 hist_kernel(const int* __restrict__ bins, const int* __restrict__ node,
@@ -47,61 +36,13 @@ hist_kernel(const int* __restrict__ bins, const int* __restrict__ node,
             const int* __restrict__ row_nodes, float* __restrict__ out,
             int n, int n_feat, int n_bins, int rows) {
   extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.y * (blockDim.x >> 5) + warp;
   if (r >= rows) return;  // warp-uniform; the block never synchronizes
   const int f0 = blockIdx.x * kFeatTile;
-  const int f = f0 + lane;
-  const bool f_ok = f < n_feat;
   float* acc_g = smem + (size_t)warp * 2 * n_bins * kFeatTile;
-  float* acc_h = acc_g + n_bins * kFeatTile;
-  for (int i = lane; i < 2 * n_bins * kFeatTile; i += 32) acc_g[i] = 0.f;
-  __syncwarp();
-
-  const int target = row_nodes[r];
-  for (int s0 = 0; s0 < n; s0 += 32) {
-    const int s = s0 + lane;
-    unsigned mask = __ballot_sync(0xffffffffu, s < n && node[s] == target);
-    while (mask) {
-      int b[kBatch];
-      float g[kBatch], h[kBatch];
-      int cnt = 0;
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        b[u] = -1;
-        g[u] = 0.f;
-        h[u] = 0.f;
-        if (mask) {
-          const int ss = s0 + __ffs(mask) - 1;
-          mask &= mask - 1;
-          b[u] = f_ok ? bins[(size_t)ss * n_feat + f] : -1;
-          g[u] = grad[ss];
-          h[u] = hess[ss];
-          cnt = u + 1;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (u < cnt && (unsigned)b[u] < (unsigned)n_bins) {
-          acc_g[swz(b[u], lane)] += g[u];
-          acc_h[swz(b[u], lane)] += h[u];
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // The (f0 .. f0+31, every bin) block of one output row is contiguous.
-  const int nf = n_feat - f0 < kFeatTile ? n_feat - f0 : kFeatTile;
-  for (int gh = 0; gh < 2; ++gh) {
-    float* dst = out + ((size_t)(gh * rows + r) * n_feat + f0) * n_bins;
-    const float* src = gh ? acc_h : acc_g;
-    for (int i = lane; i < nf * n_bins; i += 32) {
-      const int fl = i / n_bins;
-      dst[i] = src[swz(i - fl * n_bins, fl)];
-    }
-  }
+  level_common::warp_hist_row(bins, node, grad, hess, row_nodes[r], n, n_feat, n_bins, f0,
+                              acc_g, acc_g + n_bins * kFeatTile, out, r, rows);
 }
 
 }  // namespace

@@ -75,10 +75,12 @@ def sparse_regression_xy(
 
 def make_sparse_classification(
     n: int, dim: int, nnz: int, seed: int = 0, label_noise: float = 0.05,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, sparse: bool | str = False,
 ) -> BinnedData:
+    """``sparse`` passes through to ``bin_dataset``: ``True``/``"auto"``
+    give the ``SparseBins`` layout."""
     x, y = sparse_classification_xy(n, dim, nnz, seed, label_noise)
-    return bin_dataset(x, y, n_bins=64, device=device)
+    return bin_dataset(x, y, n_bins=64, device=device, sparse=sparse)
 
 
 def make_dense_low_diversity(

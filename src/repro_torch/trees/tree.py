@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.trees.binning import SparseBins, gather_feature_bins
+
 
 class Tree(NamedTuple):
     """feature/threshold (2^d - 1,) int32 (left iff bin <= threshold);
@@ -29,16 +31,18 @@ def tree_num_nodes(depth: int) -> tuple[int, int]:
     return (1 << depth) - 1, 1 << depth
 
 
-def leaf_indices(tree: Tree, bins: torch.Tensor) -> torch.Tensor:
-    """Route samples (N, F) to leaf indices (N,) int64 by a depth-step heap walk."""
+def leaf_indices(tree: Tree, bins: torch.Tensor | SparseBins) -> torch.Tensor:
+    """Route samples (N, F) to leaf indices (N,) int64 by a depth-step heap
+    walk; each step reads its bin through ``gather_feature_bins``, so the
+    dense and the sparse layout route alike."""
     feature = tree.feature.long()
     node = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
     for _ in range(tree.depth):
-        val = bins.gather(1, feature[node][:, None])[:, 0]
+        val = gather_feature_bins(bins, feature[node])
         node = 2 * node + 1 + (val > tree.threshold[node]).long()
     return node - ((1 << tree.depth) - 1)
 
 
-def apply_tree(tree: Tree, bins: torch.Tensor) -> torch.Tensor:
-    """Predict (N,) f32 for binned inputs (N, F)."""
+def apply_tree(tree: Tree, bins: torch.Tensor | SparseBins) -> torch.Tensor:
+    """Predict (N,) f32 for binned inputs (N, F), dense or sparse."""
     return tree.leaf_value[leaf_indices(tree, bins)]

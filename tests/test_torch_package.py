@@ -16,11 +16,11 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.convert import binned_from_numpy, forest_from_numpy
+from repro_torch.convert import binned_from_numpy, forest_from_numpy, sparse_from_numpy
 from repro_torch.core.sgbdt import SGBDTConfig
 from repro_torch.ps.engine import Trainer
 from repro_torch.serving.forest_server import ForestServer
-from repro_torch.trees.binning import bin_dataset
+from repro_torch.trees.binning import bin_dataset, to_sparse
 from repro_torch.trees.forest import empty_forest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -48,12 +48,14 @@ def test_port_never_imports_jax_or_repro(path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "engine.py", "histogram.py", "forest_server.py"} <= names
+    assert {"chip_smoke.py", "engine.py", "histogram.py", "forest_server.py",
+            "level_build.py", "histogram_sparse.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
     "repro_torch.kernels.histogram", "repro_torch.kernels.split_scan",
     "repro_torch.kernels.forest_traversal", "repro_torch.kernels.ops",
+    "repro_torch.kernels.level_build", "repro_torch.kernels.histogram_sparse",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -94,6 +96,8 @@ def test_server_without_device_raises_without_gpu(no_cuda):
     lambda: empty_forest(4, 2),
     lambda: forest_from_numpy(np.zeros((1, 1)), np.zeros((1, 1)), np.zeros((1, 2)), 1, 0.0),
     lambda: binned_from_numpy(np.zeros((2, 1)), np.zeros((1, 7)), np.zeros(2), np.ones(2), 8),
+    lambda: sparse_from_numpy(*[np.zeros((2, 1))] * 4, np.zeros(1)),
+    lambda: to_sparse(np.zeros((2, 1))),
 ])
 def test_data_entry_points_without_device_raise_without_gpu(no_cuda, make):
     with pytest.raises(RuntimeError, match="no CUDA device"):
