@@ -15,6 +15,14 @@ the sparse layout (``bin_dataset(..., sparse=True)``, twice); then a
 ``ForestServer`` answering raw float requests with the staged forest and
 with a seeded full 400-slot forest.
 
+Then the LM zoo's serving path: the flash-attention kernel against its
+plain version at the serving prefill's shape and at ragged shapes, and
+granite-3-2b at full width (40 layers, d_model 2048, bf16, seeded random
+weights, ``attn_impl="flash"``) served through ``ServingEngine`` in two
+waves of four requests (2048- and 1024-token prompts, 32 new tokens
+each), twice; the flash prefill's logits are held against the chunked
+path's.
+
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel: launches on the main path, error against the plain version, time,
 the plain version's time, the bound, a library call's time) and, last,
@@ -36,12 +44,16 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import dataclasses  # noqa: E402
+
+import repro_torch.configs as lm_configs  # noqa: E402
 from repro_torch.convert import forest_from_numpy  # noqa: E402
 from repro_torch.core.sgbdt import SGBDTConfig, init_state  # noqa: E402
 from repro_torch.data.sampling import bernoulli_weights  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
+    flash_attention,
     forest_traversal,
     histogram,
     histogram_sparse,
@@ -49,7 +61,10 @@ from repro_torch.kernels import (  # noqa: E402
     ref,
     split_scan,
 )
+from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.ps.engine import Trainer  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.forest_server import ForestServer, PredictRequest  # noqa: E402
 from repro_torch.trees.binning import apply_bins, bin_dataset, gather_feature_bins  # noqa: E402
 from repro_torch.trees.forest import forest_predict  # noqa: E402
@@ -64,6 +79,7 @@ from repro_torch.trees.learner import (  # noqa: E402
 # outside the tensor cores; the kernels' integer and float work is scalar.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_BF16_S = 989e12  # dense bf16 tensor-core rate
 SEED = 0
 ROUNDS = 16
 WORKERS = 4
@@ -86,6 +102,23 @@ KERNELS = {
                          "src/repro/kernels/histogram_sparse.py:87"),
 }
 
+# The LM zoo's serving path: granite-3-2b at full width through the flash
+# kernel; its prompts are the prefill shape the kernel is checked at.
+LM_ARCH = "granite-3-2b"
+LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 2112, 32
+LM_PROMPTS = (2048, 1024)  # one wave of LM_SLOTS requests each
+LM_KERNELS = {
+    "flash_attention": (flash_attention, "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:105"),
+}
+# (b, sq, sk, h, kv, d, causal, dtype): the ragged edges of the kernel.
+FLASH_RAGGED = [
+    (1, 100, 100, 4, 2, 32, True, torch.bfloat16),
+    (1, 96, 96, 2, 2, 128, False, torch.bfloat16),
+    (2, 64, 192, 4, 4, 64, False, torch.bfloat16),
+    (1, 100, 100, 4, 2, 80, True, torch.float32),
+]
+
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
@@ -101,8 +134,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -661,6 +694,244 @@ def drive(dev: torch.device, report: dict) -> list:
     return line
 
 
+def check_flash(dev, report: dict) -> dict:
+    """The flash kernel against its plain version (the f32 softmax) at the
+    serving prefill's shape and at the ragged shapes, two launches bitwise.
+    Tolerances: bf16 out atol/rtol 2e-2 (the kernel rounds p to bf16 before
+    p . v, as the TPU kernel does; the plain version keeps p in f32) and
+    lse 1e-3; f32 1e-4 for both. Times at the prefill's shape, beside
+    ``scaled_dot_product_attention`` on the same inputs (contiguous)."""
+    cfg = lm_configs.get(LM_ARCH)
+    b, s = LM_SLOTS, LM_PROMPTS[0]
+    cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16)]
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    shapes, out = {}, None
+    for bq, sq, sk, h, kv, d, causal, dtype in cases + FLASH_RAGGED:
+        # Model layout (B, S, H, d), read by the kernel in place.
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype).transpose(1, 2)
+                   for shape in ((bq, sq, h, d), (bq, sk, kv, d), (bq, sk, kv, d)))
+
+        def run(q=q, k=k, v=v, causal=causal):
+            return flash_attention.flash_attention(q, k, v, causal)
+        (o1, l1), (o2, l2) = run(), run()
+        torch.cuda.synchronize()
+        tag = f"{bq}x{sq}x{sk} h{h}/{kv} d{d} {'causal' if causal else 'full'} " + \
+            str(dtype).split(".")[-1]
+        if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
+            raise AssertionError(f"flash_attention {tag}: two launches differ")
+        want, want_lse = flash_attention.flash_attention_plain(q, k, v, causal)
+        bf16 = dtype == torch.bfloat16
+        err = close(f"flash_attention {tag} out", o1.float(), want.float(),
+                    2e-2 if bf16 else 1e-4, 2e-2 if bf16 else 1e-4)
+        err_lse = close(f"flash_attention {tag} lse", l1, want_lse,
+                        1e-3 if bf16 else 1e-4, 1e-3 if bf16 else 1e-4)
+        shapes[tag] = {"max_abs_err": err, "max_abs_err_lse": err_lse}
+        if out is None:  # the prefill's shape: times and bound
+            el = q.element_size()
+            # Bytes: q, k, v read once, out written once, lse; operations:
+            # two products of 2d flops for every (query, key) pair the mask
+            # keeps (causal: key <= query), in the bf16 tensor cores.
+            pairs = bq * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+            nbytes = el * (2 * bq * h * sq * d + 2 * bq * kv * sk * d) + 4 * bq * h * sq
+            bms, by = bound(nbytes, 4.0 * d * pairs, PEAK_BF16_S)
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            out = {
+                "max_abs_err": err, "ms": cuda_ms(run),
+                "plain_ms": cuda_ms(lambda q=q, k=k, v=v: flash_attention.flash_attention_plain(
+                    q, k, v, True), reps=5),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=True, enable_gqa=True)),
+            }
+            shapes[tag].update(out, bytes=nbytes, flops=4.0 * d * pairs)
+    report["flash_attention_shapes"] = shapes
+    out["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
+    return out
+
+
+def to_f32(tree: dict) -> dict:
+    return {k: to_f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+
+def count_params(tree: dict) -> int:
+    return sum(count_params(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+
+
+def lm_requests(cfg, rng) -> list:
+    """LM_SLOTS seeded requests for each prompt length of LM_PROMPTS."""
+    return [Request(uid=i * LM_SLOTS + j,
+                    prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+                    max_new_tokens=LM_NEW)
+            for i, plen in enumerate(LM_PROMPTS) for j in range(LM_SLOTS)]
+
+
+def serve_lm(engine, requests) -> tuple:
+    """One wave a ``run`` call (LM_SLOTS same-length requests fill the
+    slots); returns (completions, flash launches of each wave)."""
+    outs, per_wave = [], []
+    for i in range(0, len(requests), LM_SLOTS):
+        before = flash_attention.launches
+        outs += engine.run(requests[i:i + LM_SLOTS])
+        per_wave.append(flash_attention.launches - before)
+    return outs, per_wave
+
+
+def profile_lm(engine, requests, steps: int = 8) -> dict:
+    """Where a wave's device time goes: ``torch.profiler`` over one prefill
+    of the longest prompts and ``steps`` decode steps, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = engine.cfg, engine.device
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
+                                       device=dev)}
+    prefill_step = make_prefill_step(cfg, LM_MAX_LEN)
+    decode = make_decode_step(cfg)
+    res = {}
+    for phase in ("prefill", "decode"):
+        tok, _, cache = prefill_step(engine.params, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "prefill":
+                tok, _, cache = prefill_step(engine.params, batch)
+            else:
+                for _ in range(steps):
+                    tok, cache = decode(engine.params, tok[:, None], cache)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        n = 1 if phase == "prefill" else steps
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows.sort(key=lambda r: -r[1])
+        dev_ms = sum(r[1] for r in rows) / n
+        res[phase] = {"calls": n, "device_ms": dev_ms, "wall_ms_profiled": wall / n,
+                      "device_busy_share": dev_ms / (wall / n),
+                      "top": [{"name": k[:80], "device_ms": ms / n, "calls": c}
+                              for k, ms, c in rows[:12]]}
+    return res
+
+
+def drive_lm(dev: torch.device, report: dict) -> dict:
+    """The LM zoo's serving path; returns its kernel's ``kernels`` entry."""
+    kstats = check_flash(dev, report)
+    print("flash_attention check: " + json.dumps(
+        {k: v["max_abs_err"] for k, v in report["flash_attention_shapes"].items()}), flush=True)
+    cfg = dataclasses.replace(lm_configs.get(LM_ARCH), attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    n_params = count_params(params)
+    # ModelConfig.param_count counts the weight matrices, not the norm scales.
+    if n_params != cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model:
+        raise AssertionError(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    engine = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN, device=dev)
+    requests = lm_requests(cfg, np.random.default_rng(SEED))
+
+    # The main path: two waves, twice; only these launches are counted.
+    for mod, _, _ in list(KERNELS.values()) + list(LM_KERNELS.values()):
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve_lm(engine, requests) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = {name: mod.launches for name, (mod, _, _) in LM_KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    for outs, per_wave in runs:
+        if per_wave != [cfg.n_layers] * len(LM_PROMPTS):
+            raise AssertionError(f"flash launches per wave {per_wave}, expected "
+                                 f"{cfg.n_layers} (one a layer)")
+        if [c.uid for c in outs] != [r.uid for r in requests]:
+            raise AssertionError("not every LM request was answered")
+        for c in outs:
+            if c.tokens.shape != (LM_NEW,):
+                raise AssertionError(f"request {c.uid}: {c.tokens.shape[0]} tokens")
+            if not ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all():
+                raise AssertionError(f"request {c.uid}: a token id outside the vocab")
+    for a, b in zip(*(outs for outs, _ in runs)):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"request {a.uid}: the second run served other tokens")
+
+    # Flash against chunked on the 2048-token wave: last-position prefill
+    # logits, same weights. Tolerance: twice what bf16 costs the chunked
+    # path itself, measured against the chunked path in f32 (the same
+    # weights upcast; no TF32): if the flash path is as accurate, the two
+    # bf16 paths differ by at most that.
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
+                                       device=dev)}
+    flash_step = make_prefill_step(cfg, LM_MAX_LEN)
+    tok_f, lf, _ = flash_step(params, batch)
+    _, lf2, _ = flash_step(params, batch)
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    tok_c, lc, _ = make_prefill_step(chunked, LM_MAX_LEN)(params, batch)
+    params32 = to_f32(params)
+    _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"), LM_MAX_LEN)(
+        params32, batch)
+    del params32
+    vocab = slice(0, cfg.vocab_size)
+    lf, lf2, lc, lr = (x[:, vocab].float() for x in (lf, lf2, lc, lr))
+    if not all(torch.isfinite(x).all() for x in (lf, lc, lr)):
+        raise AssertionError("non-finite prefill logits")
+    err_c, err_f = float((lc - lr).abs().max()), float((lf - lr).abs().max())
+    tol = 2 * err_c
+    diff = float((lf - lc).abs().max())
+    if diff > tol:
+        raise AssertionError(f"flash vs chunked prefill logits: max |diff| {diff} > {tol}")
+    top2 = lf.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > tol
+    if not torch.equal(tok_f[decisive], tok_c[decisive]):
+        raise AssertionError("flash and chunked pick other first tokens where the top-2 "
+                             "margin exceeds the tolerance")
+    scale = float(lr.abs().max())
+    prefill_ms = [1e3 * outs[i * LM_SLOTS].prefill_s for outs, _ in runs
+                  for i in range(len(LM_PROMPTS))]
+    decode_ms_tok = [1e3 * outs[i * LM_SLOTS].decode_s / (LM_NEW - 1) for outs, _ in runs
+                     for i in range(len(LM_PROMPTS))]
+    tok_s = [LM_SLOTS * LM_NEW / (outs[i * LM_SLOTS].prefill_s + outs[i * LM_SLOTS].decode_s)
+             for outs, _ in runs for i in range(len(LM_PROMPTS))]
+    lm = {
+        "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                   "dtype": cfg.dtype, "attn_impl": cfg.attn_impl, "params": n_params},
+        "waves": [f"{LM_SLOTS} x {p}" for p in LM_PROMPTS], "new_tokens": LM_NEW,
+        "prefill_ms_per_wave": prefill_ms, "decode_ms_per_token": decode_ms_tok,
+        "tokens_per_s_per_wave": tok_s, "peak_mem_gb": peak_gb, "launches": counts,
+        "flash_launches_per_wave": [w for _, pw in runs for w in pw],
+        "flash_vs_chunked": {"max_abs_diff": diff, "tolerance": tol, "logit_scale": scale,
+                             "chunked_vs_f32": err_c, "flash_vs_f32": err_f,
+                             "decisive_rows": int(decisive.sum()),
+                             "first_tokens_equal": bool(torch.equal(tok_f, tok_c))},
+        "prefill_logits_bitwise_across_runs": bool(torch.equal(lf, lf2)),
+        "tokens_equal_across_runs": True,
+    }
+    lm["profile"] = profile_lm(engine, requests)
+    report["lm_serving"] = lm
+    card = report.get("nvidia_smi", "card not queried")
+    for i, p in enumerate(LM_PROMPTS):
+        print(f"serve {LM_ARCH} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
+              f"{cfg.attn_impl}) wave {LM_SLOTS} x {p}: prefill "
+              + " / ".join(f"{prefill_ms[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
+              + " ms, decode " + " / ".join(
+                  f"{decode_ms_tok[r * len(LM_PROMPTS) + i]:.2f}" for r in range(2))
+              + " ms a token, " + " / ".join(
+                  f"{tok_s[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
+              + f" generated tokens/s (two runs) [{card}]", flush=True)
+    print(f"serve {LM_ARCH}: tokens equal across two runs; prefill logits bitwise equal "
+          f"across runs: {lm['prefill_logits_bitwise_across_runs']}; flash vs chunked max "
+          f"|diff| {diff:.4g} (tolerance {tol:.4g}; against f32: chunked {err_c:.4g}, flash "
+          f"{err_f:.4g}; logit scale {scale:.4g}); peak device "
+          f"memory {peak_gb:.2f} GB [{card}]", flush=True)
+    for phase, prof in lm["profile"].items():
+        print(f"profile ({LM_ARCH} {phase}): device {prof['device_ms']:.2f} ms a "
+              f"{'wave' if phase == 'prefill' else 'step'}, busy "
+              f"{100 * prof['device_busy_share']:.0f}% [{card}]", flush=True)
+
+    name, (_, source, replaces) = next(iter(LM_KERNELS.items()))
+    if counts[name] <= 0:
+        raise AssertionError(f"{name}: no launch on the LM serving path")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name], **kstats}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -670,6 +941,9 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # f32 products in full f32 (the smoke's f32 reference), never TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     report: dict = {"nvidia_smi": smi, "torch": torch.__version__,
                     "cuda": torch.version.cuda,
                     "l2_bytes": torch.cuda.get_device_properties(0).L2_cache_size}
@@ -684,6 +958,7 @@ def main() -> None:
         report[f"ptxas_{name}"] = [ln for ln in log.splitlines() if "registers" in ln
                                    or "spill" in ln]
     line = drive(torch.device("cuda"), report)
+    line.append(drive_lm(torch.device("cuda"), report))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,0 +1,18 @@
+"""granite-3-2b [dense] — GQA. 40L d_model=2048 32H (kv=8) d_ff=8192
+vocab=49155. [hf:ibm-granite/granite-3.0-2b-base]
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    rope_theta=10_000.0,
+    long_context_window=8192,
+)

@@ -1,7 +1,8 @@
 """Turn the JAX package's parameters, given as numpy arrays, into the port's.
 
 Callers pass ``np.asarray`` of a reference ``Forest``, ``BinnedData`` or
-``SparseBins`` field by field, so both packages compute on the same values.
+``SparseBins`` field by field, or a language model's parameter tree as
+nested dicts of numpy arrays, so both packages compute on the same values.
 """
 from __future__ import annotations
 
@@ -9,6 +10,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.cache import torch_dtype
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import map_schema, param_schema
 from repro_torch.trees.binning import BinnedData, SparseBins
 from repro_torch.trees.forest import Forest
 
@@ -58,3 +62,29 @@ def sparse_from_numpy(
 
     return SparseBins(*(_tensor(a, np.int32, dev) for a in
                         (indices, codes, feat_rows, feat_codes, zero_bin)))
+
+
+def lm_params_from_numpy(
+    cfg: ModelConfig, params: dict, device: str | torch.device | None = None,
+) -> dict:
+    """The port's parameter tree from the reference's, name for name (both
+    follow ``param_schema``: stacked (L, ...) layers, ``x @ w`` layouts).
+    Leaves are numpy arrays, bfloat16 ones included (``ml_dtypes``); each
+    must have its entry's shape and becomes a tensor in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg)
+
+    def leaf(path, entry):
+        a = params
+        for name in path:
+            a = a[name]
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(entry.shape):
+            raise ValueError(f"{'.'.join(path)}: shape {a.shape}, expected {entry.shape}")
+        if a.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
+            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        return t.to(device=dev, dtype=dt)
+
+    return map_schema(leaf, param_schema(cfg))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (
+    flash_attention as _flash,
     forest_traversal,
     histogram,
     histogram_sparse,
@@ -24,6 +25,21 @@ from repro_torch.trees.binning import SparseBins
 split_gain = split_scan.split_gain  # gain surface (L, F, B), -inf where invalid
 forest_traverse = forest_traversal.forest_traverse  # masked forest sum (N,)
 level_build = _level_build.level_build  # one fused tree level
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, KV, hd)
+    v: torch.Tensor,  # (B, Sk, KV, hd)
+    causal: bool = True,
+) -> torch.Tensor:
+    """Fused attention in the model layout -> (B, Sq, H, hd), q head h
+    reading kv head h // (H // KV). The kernel reads the (B, S, H, hd)
+    tensors in place and masks the ragged edge itself, so nothing is padded
+    or transposed; on the card the result is contiguous."""
+    out, _ = _flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal)
+    return out.transpose(1, 2)
 
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:

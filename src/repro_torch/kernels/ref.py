@@ -242,3 +242,33 @@ def apply_forest_ref(
                                vals, torch.zeros_like(vals))
         total = total + vals
     return total
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (BH, Sq, d)
+    k: torch.Tensor,  # (BKV, Sk, d)
+    v: torch.Tensor,
+    causal: bool = True,
+    group: int = 1,  # q heads per kv head: q head h reads kv head h // group
+    seq_k: int | None = None,  # keys at or past seq_k are masked
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain softmax attention in f32 -> (out in q's dtype, lse (BH, Sq) f32).
+
+    The causal mask is top-left aligned (query i sees keys 0..i), as in
+    the reference oracle and kernel, also when Sq != Sk.
+    """
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=0)
+        v = v.repeat_interleave(group, dim=0)
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) / torch.sqrt(
+        torch.tensor(float(d)))
+    valid = torch.arange(sk, device=q.device)[None, :] < (sk if seq_k is None else seq_k)
+    if causal:
+        valid = valid & torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~valid[None], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("hqk,hkd->hqd", p, v.float()).to(q.dtype)
+    return out, lse

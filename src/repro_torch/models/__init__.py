@@ -1,0 +1,21 @@
+"""Model zoo of the PyTorch/CUDA port (twin of ``repro.models``): the dense
+family so far; the other families raise ``NotImplementedError``."""
+from repro_torch.models.cache import init_cache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import (
+    LanguageModel,
+    decode_step,
+    init_params,
+    param_schema,
+    prefill,
+)
+
+__all__ = [
+    "ModelConfig",
+    "LanguageModel",
+    "init_params",
+    "param_schema",
+    "prefill",
+    "decode_step",
+    "init_cache",
+]

@@ -1,0 +1,170 @@
+"""Transformer building blocks of the dense family: norms, rope, attention,
+MLP (twin of the dense part of ``repro.models.layers``).
+
+Attention is q-chunked on the plain path (a loop over query chunks), so
+peak score memory is bounded by (B, H, chunk, S_kv). With
+``attn_impl="flash"`` full-causal prefill goes through the flash kernel
+instead. The KV cache is a ring buffer over ``capacity`` slots with
+per-slot absolute positions, which unifies full attention (capacity =
+max_len) and a sliding window (capacity = window) under one code path.
+Dtype casts stand where the reference has them.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+Params = dict[str, torch.Tensor]
+
+
+# ------------------------------------------------------------------- basics
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The variance in f32, the product in x's dtype."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, hd); positions: (S,) or (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs  # (..., S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if ang.dim() == 2:  # (S, half) -> broadcast over batch and heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:  # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wd: torch.Tensor) -> torch.Tensor:
+    return (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd
+
+
+# ---------------------------------------------------------------- attention
+def _attend(
+    q: torch.Tensor,  # (B, Sq, H, hd), rope'd
+    k: torch.Tensor,  # (B, Sk, KV, hd)
+    v: torch.Tensor,  # (B, Sk, KV, hd)
+    q_pos: torch.Tensor,  # (B, Sq) absolute positions of queries
+    k_pos: torch.Tensor,  # (Sk,) absolute positions of keys (-1 = empty slot)
+    window: int,  # attend iff 0 <= qpos - kpos < window (causal SWA)
+    causal: bool,
+) -> torch.Tensor:
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    # The scale is divided in q's dtype, as the reference does.
+    root = float(torch.tensor(float(hd)).sqrt().to(q.dtype))
+    scores = (torch.einsum("bqkgd,bskd->bkgqs", qg, k) / root).float()
+    dist = q_pos[:, None, None, :, None] - k_pos[None, None, None, None, :]
+    valid = k_pos[None, None, None, None, :] >= 0
+    if causal:
+        valid = valid & (dist >= 0) & (dist < window)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.where(torch.isfinite(scores).any(-1, keepdim=True), p, torch.zeros_like(p))
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return out.reshape(b, sq, h, hd)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (Sq,) absolute query positions (shared across batch)
+    k_pos: torch.Tensor,  # (Sk,)
+    window: int,
+    causal: bool,
+    chunk: int,
+) -> torch.Tensor:
+    """A loop over query chunks: bounded score memory for long sequences.
+    The last chunk is simply shorter (rows are independent), where the
+    reference pads it."""
+    b, sq = q.shape[:2]
+    chunk = min(chunk, sq)
+    outs = [
+        _attend(q[:, i:i + chunk], k, v, q_pos[i:i + chunk].expand(b, -1), k_pos, window,
+                causal)
+        for i in range(0, sq, chunk)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def self_attention_train(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, window: int, return_kv: bool = False,
+):
+    """Full-sequence path (scoring, prefill): causal, or sliding window.
+    ``attn_impl="flash"`` takes the flash kernel when the window covers the
+    whole sequence; otherwise the chunked path runs."""
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    if cfg.attn_impl == "flash" and window >= s:
+        out = ops.flash_attention(q, k, v, causal=True)
+    else:
+        out = chunked_attention(q, k, v, pos, pos, window, True, cfg.attn_chunk)
+    out = out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def ring_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, cap: int):
+    """Fold full-sequence (B, S, KV, hd) K/V into a ring cache of ``cap``
+    slots. Requires cap | S so slot s holds absolute position S - cap + s."""
+    s = k.shape[1]
+    if s % cap:
+        raise ValueError("ring capacity must divide prefill length")
+    slot_pos = torch.arange(cap, dtype=torch.int32, device=k.device) + (s - cap)
+    return k[:, s - cap:], v[:, s - cap:], slot_pos
+
+
+def self_attention_decode(
+    p: Params,
+    x: torch.Tensor,  # (B, 1, D) current token
+    cache_k: torch.Tensor,  # (B, C, KV, hd) ring buffer
+    cache_v: torch.Tensor,
+    slot_pos: torch.Tensor,  # (C,) absolute position stored in each slot (-1 empty)
+    pos: torch.Tensor,  # () current absolute position
+    cfg: ModelConfig,
+    window: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step against the ring cache -> (out, k', v', slot').
+
+    Unlike the reference, which returns new arrays, the slot of ``pos`` is
+    written in place: ``cache_k``, ``cache_v`` and ``slot_pos`` (views into
+    the stacked cache) are updated and returned.
+    """
+    b = x.shape[0]
+    cap = cache_k.shape[1]
+    q, k, v = _project_qkv(p, x, cfg)
+    posb = pos.reshape(1)
+    q = rope(q, posb, cfg.rope_theta)
+    k = rope(k, posb, cfg.rope_theta)
+    slot = (posb % cap).long()
+    cache_k.index_copy_(1, slot, k)
+    cache_v.index_copy_(1, slot, v)
+    slot_pos.index_copy_(0, slot, posb.to(slot_pos.dtype))
+    out = _attend(q, cache_k, cache_v, posb[None, :].expand(b, 1), slot_pos, window, True)
+    return out.reshape(b, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v, slot_pos
+
+
+# ---------------------------------------------------------------------- MLP
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return swiglu(x, p["wg"], p["wu"], p["wd"])

@@ -1,0 +1,139 @@
+"""Batched serving engine: request queue -> same-length waves -> greedy decode
+(twin of ``repro.serving.engine`` for the dense family).
+
+Requests are bucketed by prompt length, packed into waves of ``slots``
+sequences (a short wave is padded with its last prompt), prefilled once,
+then decoded together against the ring cache until every sequence hits EOS
+or its token budget. Positions are shared by a wave (the cache carries
+one ``pos``), which is the same-length-bucket contract.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.cache import require_dense
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (P,) int32
+    max_new_tokens: int = 32
+
+
+@dataclasses.dataclass
+class Completion:
+    uid: int
+    tokens: np.ndarray  # generated ids (<= max_new_tokens)
+    prefill_s: float  # the wave's prefill, device work included
+    decode_s: float  # the wave's decode loop, device work included
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: dict,
+        slots: int = 4,
+        max_len: int = 512,
+        eos_id: int | None = None,
+        device: str | torch.device | None = None,
+    ):
+        require_dense(cfg)
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"parameters lie on {params['embed'].device}, the engine "
+                             f"runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self._prefill = make_prefill_step(cfg, max_len=max_len)
+        self._decode = make_decode_step(cfg)
+        self._queue: collections.deque[Request] = collections.deque()
+
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"request {req.uid}: prompt+budget exceeds max_len={self.max_len}"
+            )
+        self._queue.append(req)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ waves
+    def _next_wave(self) -> list[Request]:
+        """Pop up to ``slots`` queued requests sharing one prompt length."""
+        if not self._queue:
+            return []
+        plen = len(self._queue[0].prompt)
+        wave, rest = [], collections.deque()
+        while self._queue:
+            r = self._queue.popleft()
+            if len(r.prompt) == plen and len(wave) < self.slots:
+                wave.append(r)
+            else:
+                rest.append(r)
+        self._queue = rest
+        return wave
+
+    def _run_wave(self, wave: list[Request]) -> list[Completion]:
+        n = len(wave)
+        pad = self.slots - n
+        prompts = np.stack([r.prompt for r in wave] + [wave[-1].prompt] * pad)
+        batch = {"tokens": torch.as_tensor(prompts.astype(np.int32), device=self.device)}
+
+        self._sync()
+        t0 = time.perf_counter()
+        tok, _, cache = self._prefill(self.params, batch)
+        self._sync()
+        t1 = time.perf_counter()
+
+        budget = max(r.max_new_tokens for r in wave)
+        outs = [tok]
+        done = np.zeros(self.slots, bool)
+        cur = tok[:, None]
+        steps = 1
+        while steps < budget and not done[:n].all():
+            cur_tok, cache = self._decode(self.params, cur, cache)
+            outs.append(cur_tok)
+            if self.eos_id is not None:
+                done |= cur_tok.cpu().numpy() == self.eos_id
+            cur = cur_tok[:, None]
+            steps += 1
+        self._sync()
+        t2 = time.perf_counter()
+
+        gen = torch.stack(outs, dim=1).cpu().numpy()  # (slots, T)
+        results = []
+        for i, r in enumerate(wave):
+            toks = gen[i, : r.max_new_tokens]
+            if self.eos_id is not None:
+                hits = np.nonzero(toks == self.eos_id)[0]
+                if hits.size:
+                    toks = toks[: hits[0] + 1]
+            results.append(Completion(r.uid, toks, prefill_s=t1 - t0, decode_s=t2 - t1))
+        return results
+
+    def run(self, requests: Iterable[Request] | None = None) -> list[Completion]:
+        for r in requests or ():
+            self.submit(r)
+        done: list[Completion] = []
+        while self._queue:
+            wave = self._next_wave()
+            if not wave:
+                break
+            done.extend(self._run_wave(wave))
+        return sorted(done, key=lambda c: c.uid)

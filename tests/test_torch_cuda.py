@@ -10,7 +10,10 @@ plain histogram adds with atomics in another order); -inf masks exact;
 traversal bitwise (kernel and plain version both sum tree by tree); the
 fused level bitwise against the staged chain of kernels (they share the
 device code that fixes every sum's order), and its integer outputs exact
-against its plain version.
+against its plain version. Flash attention against its f32-softmax plain
+version: bf16 out atol/rtol 2e-2 (the kernel rounds p to bf16 before
+p . v, as the reference kernel does; the plain version does not) and lse
+1e-3; f32 out and lse 1e-4; two launches bitwise.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 from repro_torch.convert import binned_from_numpy
 from repro_torch.core.sgbdt import SGBDTConfig
 from repro_torch.kernels import (
+    flash_attention,
     forest_traversal,
     histogram,
     histogram_sparse,
@@ -290,3 +294,73 @@ def test_sparse_training_on_the_card_is_deterministic(dev):
     for name in ("feature", "threshold", "leaf_value"):
         assert torch.equal(getattr(runs[0].forest, name), getattr(runs[1].forest, name))
     assert torch.equal(runs[0].f, runs[1].f)
+
+
+# (b, sq, sk, h, kv, d, causal): the smoke's ragged cases, then more
+# ragged edges (Sq != Sk both ways under causal, one query row).
+FLASH_CASES = [
+    (1, 100, 100, 4, 2, 32, True),
+    (1, 100, 100, 4, 2, 80, True),
+    (1, 96, 96, 2, 2, 128, False),
+    (2, 64, 192, 4, 4, 64, False),
+    (2, 64, 192, 4, 4, 64, True),
+    (1, 130, 70, 8, 2, 80, True),
+    (2, 1, 129, 4, 1, 64, True),
+]
+
+
+def _flash_inputs(dev, b, sq, sk, h, kv, d, dtype, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype).transpose(1, 2)
+            for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, kv, d, causal, dtype):
+    q, k, v = _flash_inputs(dev, b, sq, sk, h, kv, d, dtype, sq + sk + d)
+    before = flash_attention.launches
+    out, lse = flash_attention.flash_attention(q, k, v, causal)
+    out2, lse2 = flash_attention.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2), "two launches differ"
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_masks_keys_past_seq_k(dev):
+    q, k, v = _flash_inputs(dev, 1, 80, 128, 4, 2, 64, torch.bfloat16, 9)
+    out, lse = flash_attention.flash_attention(q, k, v, False, seq_k=77)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 77:], v2[:, :, 77:] = float("nan"), float("nan")
+    out2, lse2 = flash_attention.flash_attention(q, k2, v2, False, seq_k=77)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, False, seq_k=77)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_attention_model_layout_entry_point(dev):
+    """``ops.flash_attention`` reads (B, S, H, d) in place and returns the
+    same layout, contiguous."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q, k, v = (torch.randn(s, generator=g).to(dev, torch.bfloat16)
+               for s in ((2, 200, 8, 64), (2, 200, 2, 64), (2, 200, 2, 64)))
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    torch.testing.assert_close(out.cpu().float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_kernel_rejects_other_head_dims(dev):
+    q, k, v = _flash_inputs(dev, 1, 16, 16, 2, 2, 48, torch.bfloat16, 1)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, k, v)
+    assert flash_attention.launches == before

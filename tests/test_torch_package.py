@@ -16,9 +16,17 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.convert import binned_from_numpy, forest_from_numpy, sparse_from_numpy
+import repro_torch.configs as configs
+from repro_torch.convert import (
+    binned_from_numpy,
+    forest_from_numpy,
+    lm_params_from_numpy,
+    sparse_from_numpy,
+)
 from repro_torch.core.sgbdt import SGBDTConfig
+from repro_torch.models import init_cache, init_params
 from repro_torch.ps.engine import Trainer
+from repro_torch.serving import ServingEngine
 from repro_torch.serving.forest_server import ForestServer
 from repro_torch.trees.binning import bin_dataset, to_sparse
 from repro_torch.trees.forest import empty_forest
@@ -49,13 +57,15 @@ def test_port_never_imports_jax_or_repro(path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "engine.py", "histogram.py", "forest_server.py",
-            "level_build.py", "histogram_sparse.py"} <= names
+            "level_build.py", "histogram_sparse.py", "flash_attention.py", "transformer.py",
+            "layers.py", "granite_3_2b.py", "steps.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
     "repro_torch.kernels.histogram", "repro_torch.kernels.split_scan",
     "repro_torch.kernels.forest_traversal", "repro_torch.kernels.ops",
     "repro_torch.kernels.level_build", "repro_torch.kernels.histogram_sparse",
+    "repro_torch.kernels.flash_attention", "repro_torch.models.transformer",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -91,7 +101,18 @@ def test_server_without_device_raises_without_gpu(no_cuda):
     assert ForestServer(forest, torch.zeros((3, 7)), device="cpu").device.type == "cpu"
 
 
+def test_serving_engine_without_device_raises_without_gpu(no_cuda):
+    cfg = configs.get("granite-3-2b").reduced()
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params)
+    assert ServingEngine(cfg, params, device="cpu").device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("make", [
+    lambda: init_params(configs.get("granite-3-2b").reduced()),
+    lambda: init_cache(configs.get("granite-3-2b").reduced(), 1, 8),
+    lambda: lm_params_from_numpy(configs.get("granite-3-2b").reduced(), {}),
     lambda: bin_dataset(np.zeros((4, 2), np.float32), np.zeros(4, np.float32), 8),
     lambda: empty_forest(4, 2),
     lambda: forest_from_numpy(np.zeros((1, 1)), np.zeros((1, 1)), np.zeros((1, 2)), 1, 0.0),
