@@ -23,6 +23,17 @@ waves of four requests (2048- and 1024-token prompts, 32 new tokens
 each), twice; the flash prefill's logits are held against the chunked
 path's.
 
+Then the LM zoo's training path: the flash-attention backward kernels (dq
+and dk/dv) against their plain version at the training shape and the
+ragged shapes, and granite-3-2b at full width trained on batches of
+4 x 2048 tokens from ``synthetic_batches`` through ``make_train_step``
+(flash attention, per-layer remat): the reference recipe (AdamW, cosine
+schedule, clipping, decay) at accum 2 for 6 steps, twice (bitwise equal),
+then the delayed-gradient wrapper (tau = 2, Proposition 1's step scale)
+with Bernoulli sampling (R = 0.8) for 6 steps; one more step is profiled,
+and one microbatch's loss and gradients are held against the chunked
+attention path's.
+
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel: launches on the main path, error against the plain version, time,
 the plain version's time, the bound, a library call's time) and, last,
@@ -61,8 +72,21 @@ from repro_torch.kernels import (  # noqa: E402
     ref,
     split_scan,
 )
-from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+)
+from repro_torch.launch.train import synthetic_batches  # noqa: E402
+from repro_torch.models import forward_train, init_params  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    adamw,
+    cosine_schedule,
+    delayed_gradient,
+    staleness_step_scale,
+)
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.ps.engine import Trainer  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.forest_server import ForestServer, PredictRequest  # noqa: E402
@@ -111,6 +135,16 @@ LM_KERNELS = {
     "flash_attention": (flash_attention, "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:105"),
 }
+# The LM zoo's training path: granite-3-2b at full width on LM_SLOTS x
+# LM_PROMPTS[0] tokens a step (the prefill's shape), the reference recipe.
+TRAIN_STEPS, TRAIN_ACCUM, TRAIN_LR = 6, 2, 1e-3
+TRAIN_DELAY, TRAIN_RHO, TRAIN_SAMPLE = 2, 0.3, 0.8
+TRAIN_KERNELS = {
+    "flash_attention_bwd_dq": ("dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                               "src/repro/kernels/flash_attention.py:305"),
+    "flash_attention_bwd_dkv": ("dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:329"),
+}
 # (b, sq, sk, h, kv, d, causal, dtype): the ragged edges of the kernel.
 FLASH_RAGGED = [
     (1, 100, 100, 4, 2, 32, True, torch.bfloat16),
@@ -152,6 +186,11 @@ def close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, atol: f
     if bool((err > atol + rtol * w.abs()).any()):
         raise AssertionError(f"{name}: max abs error {float(err.max())} over tolerance")
     return float(err.max()) if err.numel() else 0.0
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
 
 
 def seeded_forest(rng: np.random.Generator, n_feat: int, base: float, dev) -> object:
@@ -932,6 +971,407 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
             "launches": counts[name], **kstats}
 
 
+def bwd_close(tag: str, got, want, mag, dtype, one_key: bool = False) -> dict:
+    """dq, dk and dv against the plain version's, each held on its own: a
+    relative L2 error of at most 1e-2 (bf16) or 1e-4 (f32), and every
+    element within e (mag + |want|) + 1e-4 x the largest rms of the three,
+    where mag is the sum of |term| behind the element
+    (``flash_attention_bwd_magnitudes``). The kernels round p and ds to
+    bf16 before their products as the TPU kernels do, the plain version
+    only the result: that costs at most 2^-8 mag, and the two outputs'
+    roundings 2^-8 |want| each, so bf16 takes e = 2^-7; f32 sums in another
+    order, e = 3e-5. The floor covers gradients that are zero in exact
+    arithmetic (a query that sees one key: ds = p (dp - delta) = 0), which
+    both versions return as f32 noise; where every query sees one key
+    (``one_key``) dq and dk are such noise and are held by no relative
+    error. Returns each tensor's max abs and relative L2 error."""
+    e, rel_tol = (2.0 ** -7, 1e-2) if dtype == torch.bfloat16 else (3e-5, 1e-4)
+    floor = 1e-4 * max(float(w.float().square().mean().sqrt()) for w in want)
+    errs = {}
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mag):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"flash_attention_bwd {tag} {name}: non-finite values")
+        err = (g - w).abs()
+        rel = float((g - w).norm() / w.norm()) if w.norm() > 0 else float(g.norm() > 0)
+        limit = e * (m + w.abs()) + floor
+        if bool((err > limit).any()):
+            i = int((err - limit).argmax())
+            raise AssertionError(
+                f"flash_attention_bwd {tag} {name}: |error| {float(err.flatten()[i])} over "
+                f"{float(limit.flatten()[i])} (want {float(w.flatten()[i])}, sum of |term| "
+                f"{float(m.flatten()[i])})")
+        if not (one_key and name != "dv") and rel > rel_tol:
+            raise AssertionError(f"flash_attention_bwd {tag} {name}: relative L2 error {rel} "
+                                 f"over {rel_tol}")
+        errs[name] = {"max_abs_err": float(err.max()), "rel_l2_err": rel,
+                      "err_over_limit": float((err / limit).max())}
+    return errs
+
+
+def check_flash_bwd(dev, report: dict) -> dict:
+    """The backward kernels (delta, dq, dk/dv) against their plain version
+    (the f32 formulas) at the training shape and the ragged shapes, held by
+    ``bwd_close``; two launches bitwise; the gradient reaching wq through
+    ``ops.flash_attention`` on the card. Times at the training shape: the
+    whole backward (what the plain version and the backward alone of
+    ``scaled_dot_product_attention``, on the same inputs made contiguous,
+    compute), and each kernel alone beside a bound from its own products
+    and bytes. Returns each kernel's stats for the kernels line."""
+    cfg = lm_configs.get(LM_ARCH)
+    b, s = LM_SLOTS, LM_PROMPTS[0]
+    cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16)]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    shapes, out = {}, None
+    for bq, sq, sk, h, kv, d, causal, dtype in cases + FLASH_RAGGED:
+        q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype).transpose(1, 2)
+                       for shape in ((bq, sq, h, d), (bq, sk, kv, d), (bq, sk, kv, d),
+                                     (bq, sq, h, d)))
+        o, lse = flash_attention.flash_attention(q, k, v, causal)
+        args = (q, k, v, o, lse, do, causal)
+        g1 = flash_attention.flash_attention_bwd(*args)
+        g2 = flash_attention.flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        tag = f"{bq}x{sq}x{sk} h{h}/{kv} d{d} {'causal' if causal else 'full'} " + \
+            str(dtype).split(".")[-1]
+        if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
+            raise AssertionError(f"flash_attention_bwd {tag}: two launches differ")
+        want = flash_attention.flash_attention_bwd_plain(*args)
+        mag = flash_attention.flash_attention_bwd_magnitudes(*args)
+        errs = bwd_close(tag, g1, want, mag, dtype, one_key=causal and sq == 1)
+        shapes[tag] = {key: {n: e[key] for n, e in errs.items()}
+                       for key in ("max_abs_err", "rel_l2_err", "err_over_limit")}
+        del want, mag, g1, g2
+        if out is None:  # the training shape: times and bounds
+            el = q.element_size()
+            # Bytes: each input read once, each output written once (q, do,
+            # out, dq: B H Sq d; k, v, dk, dv: B KV Sk d; lse, delta: B H Sq
+            # f32). Operations: 2d flops a product for every kept (query,
+            # key) pair (causal: key <= query), in the bf16 tensor cores. The
+            # whole backward needs five products (s, dp, dq, dk, dv); the dq
+            # kernel (with the delta pre-pass, which reads out) three (s, dp,
+            # ds . k) and the dk/dv kernel four (s^T, dp^T, p^T . do,
+            # ds^T . q), taking delta as an input.
+            pairs = bq * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+            qb, kb, rb = el * bq * h * sq * d, el * bq * kv * sk * d, 4 * bq * h * sq
+            work = {"whole": (4 * qb + 4 * kb + rb, 5), "dq": (4 * qb + 2 * kb + rb, 3),
+                    "dkv": (2 * qb + 4 * kb + 2 * rb, 4)}
+            bounds = {kern: bound(nb, n * 2.0 * d * pairs, PEAK_BF16_S)
+                      for kern, (nb, n) in work.items()}
+            operands = flash_attention._bwd_operands(q, k, v, o, lse, do, causal, None)
+            alone = {kern: cuda_ms(lambda k=kern: flash_attention._launch_bwd(k, operands))
+                     for kern in flash_attention.BWD_KERNELS}
+            qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True)
+            doc = do.contiguous()
+            whole_ms, whole_by = bounds["whole"]
+            out = {
+                "ms": cuda_ms(lambda: flash_attention.flash_attention_bwd(*args)),
+                "plain_ms": cuda_ms(lambda: flash_attention.flash_attention_bwd_plain(*args),
+                                    reps=3, warmup=1),
+                "bound_ms": whole_ms, "bound_by": whole_by,
+                "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, (qc, kc, vc), doc, retain_graph=True)),
+                # Each kernel alone; the dq entry carries the delta pre-pass.
+                "kernel_ms": {"dq": alone["delta"] + alone["dq"], "dkv": alone["dkv"],
+                              "delta": alone["delta"]},
+                "kernel_bound_ms": {kern: bounds[kern][0] for kern in ("dq", "dkv")},
+                "kernel_bound_by": {kern: bounds[kern][1] for kern in ("dq", "dkv")},
+            }
+            shapes[tag].update(out, bytes=work["whole"][0], flops=5 * 2.0 * d * pairs)
+            del operands, lib_out, qc, kc, vc
+    report["flash_attention_bwd_shapes"] = shapes
+
+    # The repaired fault: the gradient reaches wq through the flash kernel.
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    x = torch.randn((1, 256, cfg.d_model), generator=g).to(torch.bfloat16)
+    ws = [(torch.randn((cfg.d_model, n), generator=g) * cfg.d_model ** -0.5).to(torch.bfloat16)
+          for n in (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)]
+    grads = []
+    for device in ("cpu", dev):
+        wq, wk, wv = (w.to(device).requires_grad_() for w in ws)
+        xd = x.to(device)
+        a = ops.flash_attention((xd @ wq).view(1, 256, cfg.n_heads, cfg.head_dim),
+                                (xd @ wk).view(1, 256, cfg.n_kv_heads, cfg.head_dim),
+                                (xd @ wv).view(1, 256, cfg.n_kv_heads, cfg.head_dim))
+        grads.append(torch.autograd.grad(a.float().square().sum(), wq)[0].float().cpu())
+    rel = rel_l2(grads[1], grads[0])
+    if not (grads[1].abs().max() > 0 and rel <= 5e-2):
+        raise AssertionError(f"wq gradient through the flash kernel: relative L2 error {rel} "
+                             "against the CPU route (tolerance 5e-2, bf16)")
+    report["flash_wq_grad_rel_err"] = rel
+
+    # The kernels line: each entry is the whole backward (delta, dq and
+    # dk/dv, launched together by every call), so ms, bound, plain and
+    # library are one function's; each kernel alone is in the report.
+    stats = {}
+    outputs = {"dq": ("dq",), "dkv": ("dk", "dv")}
+    for name, (kern, _, _) in TRAIN_KERNELS.items():
+        stats[name] = {
+            "max_abs_err": max(v["max_abs_err"][o] for v in shapes.values()
+                               for o in outputs[kern]),
+            **{key: out[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}}
+    report["flash_attention_bwd"] = out
+    return stats
+
+
+def param_copy(params: dict) -> list:
+    """The parameters' bits on the host, leaf by leaf."""
+    return [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+
+
+def same_params(tag: str, params: dict, copy: list) -> None:
+    for i, (p, c) in enumerate(zip(tree_leaves(params), copy)):
+        if not torch.equal(p.detach().cpu(), c):
+            raise AssertionError(f"{tag}: parameter leaf {i} differs")
+
+
+def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0) -> tuple:
+    """Seeded weights, then one ``make_train_step`` step a batch; returns
+    losses, step ms (host clock after ``synchronize``), flash launches a
+    step, peak memory, the parameters, the optimizer state, the step and
+    the generator. With ``warm_up`` > 0 the parameters after that many
+    steps must be bitwise the initial ones."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    initial = param_copy(params) if warm_up else None
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, accum=accum, sampling_rate=sample)
+    res = {"loss": [], "step_ms": [], "fwd_launches": [], "bwd_launches": []}
+    for i, batch in enumerate(batches):
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, gen)
+        torch.cuda.synchronize()
+        res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        res["loss"].append(float(m["loss"]))
+        res["fwd_launches"].append(flash_attention.launches - fwd)
+        res["bwd_launches"].append(flash_attention.bwd_launches - bwd)
+        if i + 1 == warm_up:
+            same_params(f"the parameters after {warm_up} warm-up steps", params, initial)
+            res["warm_up_bitwise"] = True
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res, params, state, step, gen
+
+
+def profile_train_step(step, params, state, batch, gen) -> dict:
+    """Where a training step's device time goes: ``torch.profiler`` over
+    one more step, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batch, gen)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+
+    def group(key: str) -> str:
+        if "flash_bwd_dq" in key:
+            return "flash_bwd_dq"
+        if "flash_bwd_dkv" in key:
+            return "flash_bwd_dkv"
+        if "flash_bwd_delta" in key:
+            return "flash_bwd_delta"
+        if "flash_fwd" in key:
+            return "flash_fwd"
+        if any(t in key for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")):
+            return "cuBLAS GEMMs"
+        return "elementwise, reductions and copies"
+    groups: dict = {}
+    for k, ms, _ in rows:
+        groups[group(k)] = groups.get(group(k), 0.0) + ms
+    return {"device_ms": dev_ms, "wall_ms_profiled": wall, "by_group_ms": groups,
+            "top": [{"name": k[:80], "device_ms": ms, "calls": c} for k, ms, c in rows[:15]]}
+
+
+def check_train_grads(cfg, batch: dict, dev) -> dict:
+    """One full-width microbatch's loss and gradients from the seeded
+    initial weights, flash against chunked: wq, wk, wv and wo over all
+    layers, and each MLP leaf of the first and the last layer. Tolerance,
+    as for the prefill logits: twice what bf16 costs the chunked path,
+    measured against the chunked path in f32 (the same weights upcast; no
+    TF32), by relative L2 a leaf; the loss within twice the chunked path's
+    own error or twice one bf16 rounding of a token's loss averaged over the
+    microbatch's tokens (2^-8 |loss| / sqrt(tokens)), whichever is larger,
+    since one number's error may land near zero by chance."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    routes = {"flash": cfg, "chunked": chunked,
+              "chunked_f32": dataclasses.replace(chunked, dtype="float32")}
+    out = {}
+    for route, c in routes.items():
+        base = to_f32(params) if c.dtype == "float32" else params
+        layers = base["layers"]
+        want = {f"{part}.{n}": t.detach().requires_grad_()
+                for part in ("attn", "mlp") for n, t in layers[part].items()}
+        p = {**base, "layers": {**layers, **{
+            part: {n: want[f"{part}.{n}"] for n in layers[part]} for part in ("attn", "mlp")}}}
+        loss, _ = forward_train(p, c, batch)
+        grads = dict(zip(want, torch.autograd.grad(loss, list(want.values()))))
+        kept = {n: g for n, g in grads.items() if n.startswith("attn.")}
+        for n in ("wg", "wu", "wd"):
+            kept[f"mlp.{n}[0]"] = grads[f"mlp.{n}"][0].clone()
+            kept[f"mlp.{n}[{cfg.n_layers - 1}]"] = grads[f"mlp.{n}"][-1].clone()
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in kept.values())):
+            raise AssertionError(f"train gradients ({route}): non-finite values")
+        out[route] = (float(loss.detach()), kept)
+        del grads, loss, want, layers, p, base
+    del params
+    torch.cuda.empty_cache()
+    (lf, gf), (lc, gc), (lr, gr) = out["flash"], out["chunked"], out["chunked_f32"]
+    res = {"loss": {"flash": lf, "chunked": lc, "chunked_f32": lr}, "leaves": {}}
+    loss_tol = 2 * max(abs(lc - lr), 2.0 ** -8 * abs(lr) / batch["tokens"].numel() ** 0.5)
+    if abs(lf - lc) > loss_tol:
+        raise AssertionError(f"flash vs chunked training loss: {lf} against {lc}, |diff| over "
+                             f"{loss_tol}")
+    res["loss"]["tolerance"] = loss_tol
+    for name in gf:
+        err_c, err_f, diff = rel_l2(gc[name], gr[name]), rel_l2(gf[name], gr[name]), \
+            rel_l2(gf[name], gc[name])
+        res["leaves"][name] = {"flash_vs_chunked": diff, "tolerance": 2 * err_c,
+                               "chunked_vs_f32": err_c, "flash_vs_f32": err_f}
+        if not (float(gf[name].abs().max()) > 0 and diff <= 2 * err_c):
+            raise AssertionError(f"flash vs chunked gradient of {name}: relative L2 {diff}, "
+                                 f"tolerance {2 * err_c} (chunked vs f32 {err_c}, flash vs "
+                                 f"f32 {err_f})")
+    return res
+
+
+def drive_lm_train(dev: torch.device, report: dict) -> list:
+    """The LM zoo's training path; returns the backward kernels' entries."""
+    kstats = check_flash_bwd(dev, report)
+    print("flash_attention_bwd check (max abs, relative L2 error): " + json.dumps(
+        {k: {n: [v["max_abs_err"][n], v["rel_l2_err"][n]] for n in v["max_abs_err"]}
+         for k, v in report["flash_attention_bwd_shapes"].items()}), flush=True)
+    bw = report["flash_attention_bwd"]
+    print(f"flash_attention_bwd at {LM_SLOTS} x {LM_PROMPTS[0]}: whole {bw['ms']:.3f} ms "
+          f"(bound {bw['bound_ms']:.3f}, plain {bw['plain_ms']:.1f}, SDPA backward "
+          f"{bw['library_ms']:.3f}); alone: " + ", ".join(
+              f"{kern} {bw['kernel_ms'][kern]:.3f} ms (bound "
+              f"{bw['kernel_bound_ms'][kern]:.3f}, {bw['kernel_bound_by'][kern]})"
+              for kern in ("dq", "dkv")) + f", of which delta {bw['kernel_ms']['delta']:.3f} "
+          f"[{report.get('nvidia_smi', 'card not queried')}]", flush=True)
+    cfg = dataclasses.replace(lm_configs.get(LM_ARCH), attn_impl="flash")
+    if not (cfg.remat and cfg.remat_policy == "full"):
+        raise AssertionError("the training path runs with per-layer remat")
+    b, s = LM_SLOTS, LM_PROMPTS[0]
+    batches = list(synthetic_batches(cfg, b, s, TRAIN_STEPS, seed=SEED, device=dev))
+    recipe = adamw(cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS),
+                   weight_decay=0.01, max_grad_norm=1.0)
+    lr_b = TRAIN_LR * staleness_step_scale(TRAIN_DELAY, TRAIN_RHO)
+    delayed = delayed_gradient(adamw(cosine_schedule(lr_b, max(TRAIN_STEPS // 20, 1),
+                                                     TRAIN_STEPS),
+                                     weight_decay=0.01, max_grad_norm=1.0), TRAIN_DELAY)
+
+    # The main path: run A twice, then run B; only these launches are counted.
+    for mod, _, _ in list(KERNELS.values()) + list(LM_KERNELS.values()):
+        mod.launches = 0
+    flash_attention.bwd_launches = 0
+    runs, copies = [], []
+    for _ in range(2):
+        res, params, state, step, gen = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev)
+        runs.append(res)
+        copies.append(param_copy(params))
+        if len(runs) == 1:
+            del params, state, step, gen
+    profile = profile_train_step(step, params, state, batches[-1], gen)
+    # Busy share: profiled device time over the median wall time of an
+    # unprofiled step (the profiler's own host cost inflates the profiled one).
+    profile["device_busy_share"] = (profile["device_ms"]
+                                    / float(np.median(runs[1]["step_ms"][1:])))
+    del params, state, step, gen
+    res_b, params, state, _, _ = train_lm(cfg, delayed, batches, 1, TRAIN_SAMPLE, dev,
+                                          warm_up=TRAIN_DELAY)
+    torch.cuda.synchronize()
+    counts = {"flash_attention_fwd": flash_attention.launches,
+              "flash_attention_bwd": flash_attention.bwd_launches}
+    del params, state
+    torch.cuda.empty_cache()
+    # Flash against chunked at full width (after the counts are read): one
+    # microbatch of run A, from the initial weights.
+    grads = check_train_grads(
+        cfg, {k: v[:b // TRAIN_ACCUM] for k, v in batches[0].items()}, dev)
+
+    card = report.get("nvidia_smi", "card not queried")
+    tokens = b * s
+    summary = {}
+    a1, a2 = runs
+    for tag, res in (("A", a1), ("A again", a2), ("B", res_b)):
+        med = float(np.median(res["step_ms"][1:]))
+        summary[tag] = {"median_step_ms": med, "tokens_per_s": tokens / med * 1e3,
+                        "peak_mem_gb": res["peak_mem_gb"]}
+        print(f"train {LM_ARCH} run {tag}: losses " + " ".join(f"{x:.4f}" for x in res["loss"])
+              + "; step ms " + " ".join(f"{x:.1f}" for x in res["step_ms"])
+              + f"; median (steps 2-{TRAIN_STEPS}) {med:.1f} ms, {tokens / med * 1e3:.0f} "
+              f"tokens/s; peak device memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    # The checks of the main path (after the counts are read).
+    if a1["loss"] != a2["loss"]:
+        raise AssertionError(f"run A's losses differ across two runs: {a1['loss']}, "
+                             f"{a2['loss']}")
+    for i, (x, y) in enumerate(zip(*copies)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"run A's parameter leaf {i} differs across two runs")
+    for tag, res in (("run A", a1), ("run B", res_b)):
+        loss = res["loss"]
+        if not (np.isfinite(loss[-1]) and loss[-1] < loss[0]):
+            raise AssertionError(f"{tag}: the loss did not fall: {loss}")
+    if not res_b.get("warm_up_bitwise"):
+        raise AssertionError("run B's warm-up check did not run")
+    per_mb = {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}  # forward + remat recompute
+    for tag, res, accum in (("run A", a1, TRAIN_ACCUM), ("run A again", a2, TRAIN_ACCUM),
+                            ("run B", res_b, 1)):
+        if res["fwd_launches"] != [accum * per_mb["fwd"]] * TRAIN_STEPS or \
+                res["bwd_launches"] != [accum * per_mb["bwd"]] * TRAIN_STEPS:
+            raise AssertionError(f"{tag}: flash launches a step {res['fwd_launches']} "
+                                 "forward, "
+                                 f"{res['bwd_launches']} backward; expected "
+                                 f"{accum * per_mb['fwd']} and {accum * per_mb['bwd']}")
+    print(f"train {LM_ARCH}: run A bitwise equal across two runs (losses and every "
+          f"parameter); run B's parameters after its {TRAIN_DELAY} warm-up steps bitwise the "
+          "initial ones; "
+          f"flash launches a step: {2 * cfg.n_layers} forward and {cfg.n_layers} backward a "
+          "microbatch", flush=True)
+    worst = max(grads["leaves"].items(), key=lambda kv: kv[1]["flash_vs_chunked"]
+                / kv[1]["tolerance"])
+    print(f"train {LM_ARCH}: flash vs chunked on one {b // TRAIN_ACCUM} x {s} microbatch: "
+          f"loss {grads['loss']['flash']:.6f} / {grads['loss']['chunked']:.6f} (f32 "
+          f"{grads['loss']['chunked_f32']:.6f}); gradients of {len(grads['leaves'])} leaves "
+          f"within twice the chunked path's own error, closest {worst[0]}: relative L2 "
+          f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}",
+          flush=True)
+    print(f"profile ({LM_ARCH} train step, run A): device {profile['device_ms']:.1f} ms, busy "
+          f"{100 * profile['device_busy_share']:.0f}% of an unprofiled step's wall time;"
+          " " + ", ".join(f"{k} {v:.1f}" for k, v in profile["by_group_ms"].items())
+          + f" [{card}]", flush=True)
+    report["lm_train"] = {
+        "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "dtype": cfg.dtype, "attn_impl": cfg.attn_impl, "remat": cfg.remat,
+                   "batch": b, "seq": s, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+                   "accum_run_a": TRAIN_ACCUM, "delay_run_b": TRAIN_DELAY,
+                   "lr_run_b": lr_b, "sample_run_b": TRAIN_SAMPLE},
+        "run_a": a1, "run_a_again": a2, "run_b": res_b, "summary": summary,
+        "launches": counts, "profile": profile, "flash_vs_chunked": grads,
+    }
+    line = []
+    for name, (_, source, replaces) in TRAIN_KERNELS.items():
+        if counts["flash_attention_bwd"] <= 0:
+            raise AssertionError(f"{name}: no launch on the LM training path")
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": counts["flash_attention_bwd"], **kstats[name]})
+    return line
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -959,6 +1399,7 @@ def main() -> None:
                                    or "spill" in ln]
     line = drive(torch.device("cuda"), report)
     line.append(drive_lm(torch.device("cuda"), report))
+    line += drive_lm_train(torch.device("cuda"), report)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,8 +1,9 @@
 """Turn the JAX package's parameters, given as numpy arrays, into the port's.
 
 Callers pass ``np.asarray`` of a reference ``Forest``, ``BinnedData`` or
-``SparseBins`` field by field, or a language model's parameter tree as
-nested dicts of numpy arrays, so both packages compute on the same values.
+``SparseBins`` field by field, a language model's parameter tree as
+nested dicts of numpy arrays, or an optimizer state with numpy leaves, so
+both packages compute on the same values.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from repro_torch import resolve_device
 from repro_torch.models.cache import torch_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import map_schema, param_schema
+from repro_torch.optim.delayed import DelayedState
+from repro_torch.optim.optimizers import AdamState, SgdState, tree_leaves
 from repro_torch.trees.binning import BinnedData, SparseBins
 from repro_torch.trees.forest import Forest
 
@@ -88,3 +91,43 @@ def lm_params_from_numpy(
         return t.to(device=dev, dtype=dt)
 
     return map_schema(leaf, param_schema(cfg))
+
+
+def opt_state_from_numpy(cfg: ModelConfig, opt_state, params_t: dict):
+    """The port's optimizer state from the reference's, with numpy leaves
+    (``jax.tree.map(np.asarray, state)``): ``AdamState``, ``SgdState`` and
+    ``DelayedState`` become the port's NamedTuples of the same name, tuples
+    (``chain``) stay tuples, and leaves keep their dtype on the device of
+    ``params_t``. Every moment tree must have ``param_schema(cfg)``'s
+    shapes; a delayed ring leaf has the delay in front."""
+    dev = tree_leaves(params_t)[0].device
+
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def tree(t, lead: tuple = ()) -> dict:
+        def leaf(path, entry):
+            a = t
+            for name in path:
+                a = a[name]
+            if tuple(np.shape(a)) != lead + tuple(entry.shape):
+                raise ValueError(f"{'.'.join(path)}: shape {np.shape(a)}, expected "
+                                 f"{lead + tuple(entry.shape)}")
+            return tensor(a)
+        return map_schema(leaf, param_schema(cfg))
+
+    def convert(s):
+        name = type(s).__name__
+        if name == "AdamState":
+            return AdamState(step=tensor(s.step), mu=tree(s.mu), nu=tree(s.nu))
+        if name == "SgdState":
+            return SgdState(momentum=tree(s.momentum) if len(s.momentum) else ())
+        if name == "DelayedState":
+            delay = tree_leaves(s.ring)[0].shape[0]
+            return DelayedState(step=tensor(s.step), ring=tree(s.ring, (delay,)),
+                                inner=convert(s.inner))
+        if type(s) is tuple:  # a chain's states
+            return tuple(convert(x) for x in s)
+        raise TypeError(f"opt_state_from_numpy: no port twin of {name}")
+
+    return convert(opt_state)

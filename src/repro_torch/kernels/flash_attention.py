@@ -1,26 +1,31 @@
-"""Flash-attention forward: CUDA kernel wrapper and its plain version.
+"""Flash attention, forward and backward: CUDA kernel wrappers, their plain
+versions and the autograd ``FlashAttention`` that joins them.
 
-Replaces ``repro.kernels.flash_attention.flash_attention_pallas``. The
-kernel (``csrc/flash_attention.cu``) says what bounds it and how its design
-answers that. Both functions here take head-major views: q (B, H, Sq, d)
+Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` (the
+forward, ``csrc/flash_attention.cu``) and ``flash_attention_bwd_pallas``
+(dq and dk/dv, ``csrc/flash_attention_bwd.cu``). Each kernel source says
+what bounds it and how its design answers that. The functions here take
+head-major views: q (B, H, Sq, d)
 and k, v (B, KV, Sk, d), where q head h reads kv head h // (H // KV). The
 reference kernel's flattened layout, q (B*H, Sq, d) and k (B*KV, Sk, d)
 with ``group`` q heads a kv head, is the view ``q.view(B*KV, group, Sq, d)``,
 ``k.view(B*KV, 1, Sk, d)``. The model's (B, S, H, d) tensors are the view
 ``x.transpose(1, 2)``, which the kernel reads in place through its strides.
 
-A CPU tensor runs ``flash_attention_plain``; a CUDA tensor launches the
-kernel or raises.
+A CPU tensor runs the plain versions; a CUDA tensor launches the kernels
+or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0  # kernel launches, counted where the kernel is launched
+launches = 0  # forward kernel launches, counted where the kernel is launched
+bwd_launches = 0  # backward launches: one each of the delta, dq and dk/dv kernels
 
 HEAD_DIMS = (32, 64, 80, 128)  # the kernel's compile-time head dims
 
@@ -55,6 +60,30 @@ def _check_view(t: torch.Tensor, name: str, shape: tuple, dtype, device) -> None
                          "multiples of 8 and a 16-byte aligned start")
 
 
+def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    seq_k: int | None) -> int:
+    """The kernels' input contract, forward and backward: dtype, head dim,
+    grouping, seq_k's range, the grid's limit and q, k, v's views. Returns
+    seq_k (Sk where None)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {q.dtype}; the kernels take bf16 or f32")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d}; the kernels are built for {HEAD_DIMS}")
+    if kv < 1 or h % kv:
+        raise ValueError(f"{name}: {h} q heads do not group over {kv} kv heads")
+    seq_k = sk if seq_k is None else seq_k
+    if not 1 <= seq_k <= sk:
+        raise ValueError(f"{name}: seq_k {seq_k} outside [1, {sk}]")
+    if b * h > 65535:
+        raise ValueError(f"{name}: {b * h} (batch, head) pairs exceed the grid")
+    _check_view(q, "q", (b, h, sq, d), q.dtype, q.device)
+    _check_view(k, "k", (b, kv, sk, d), q.dtype, q.device)
+    _check_view(v, "v", (b, kv, sk, d), q.dtype, q.device)
+    return seq_k
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, H, Sq, d)
     k: torch.Tensor,  # (B, KV, Sk, d)
@@ -77,20 +106,7 @@ def flash_attention(
     dev = q.device
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash_attention: dtype {q.dtype}; the kernel takes bf16 or f32")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d}; the kernel is built for {HEAD_DIMS}")
-    if kv < 1 or h % kv:
-        raise ValueError(f"flash_attention: {h} q heads do not group over {kv} kv heads")
-    seq_k = sk if seq_k is None else seq_k
-    if not 1 <= seq_k <= sk:
-        raise ValueError(f"flash_attention: seq_k {seq_k} outside [1, {sk}]")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: {b * h} (batch, head) pairs exceed the grid")
-    _check_view(q, "q", (b, h, sq, d), q.dtype, dev)
-    _check_view(k, "k", (b, kv, sk, d), q.dtype, dev)
-    _check_view(v, "v", (b, kv, sk, d), q.dtype, dev)
+    seq_k = _check_operands("flash_attention", q, k, v, seq_k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if sq == 0:
@@ -109,3 +125,160 @@ def flash_attention(
     _build.check(err, "flash_attention kernel")
     launches += 1
     return out, lse
+
+
+def _bwd_terms(q, k, v, out, lse, do, causal: bool, seq_k: int | None):
+    """The backward's f32 terms: p (masked) and ds = p (dp - delta), both
+    (B, H, Sq, Sk), with q, k (repeated to H heads) and do in f32."""
+    sq, sk = q.shape[2], k.shape[2]
+    group = q.shape[1] // k.shape[1]
+    qf, of, dof = q.float(), out.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)  # (B, H, Sk, d)
+    vf = v.float().repeat_interleave(group, dim=1)
+    valid = torch.arange(sk, device=q.device)[None, :] < (sk if seq_k is None else seq_k)
+    if causal:
+        valid = valid & torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (1.0 / math.sqrt(q.shape[3]))
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * of).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    return p, p * (dp - delta[..., None]), qf, kf, dof
+
+
+def _bwd_products(p, ds, qf, kf, dof, kv: int):
+    """dq, dk and dv from the terms, dk and dv summed over each kv head's
+    group of q heads."""
+    b, h, sq, d = qf.shape
+    sk = kf.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq, dk.view(b, kv, h // kv, sk, d).sum(2), dv.view(b, kv, h // kv, sk, d).sum(2)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool = True, seq_k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward: the TPU kernels' explicit
+    formulas in f32 (no autograd through the forward), P recomputed from
+    lse. Shapes as ``flash_attention``; returns (dq, dk, dv) in q's, k's
+    and v's dtypes, dk and dv summed over each kv head's group of q heads.
+    It rounds nowhere before the end, where the kernels round p and ds to
+    the inputs' dtype before their products."""
+    terms = _bwd_terms(q, k, v, out, lse, do, causal, seq_k)
+    dq, dk, dv = _bwd_products(*terms, k.shape[1])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_magnitudes(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool = True, seq_k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sum of |term| behind each element of dq, dk and dv (f32): the
+    scale of the error that rounding p and ds before their products puts
+    on that element. ds sums to zero over a row's keys, so an element can
+    be far smaller than its terms."""
+    p, ds, qf, kf, dof = _bwd_terms(q, k, v, out, lse, do, causal, seq_k)
+    return _bwd_products(p, ds.abs(), qf.abs(), kf.abs(), dof.abs(), k.shape[1])
+
+
+def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None) -> dict:
+    """Check the backward's operands (``_check_operands``, then out and do)
+    and allocate its outputs: dq (B, H, Sq, d) laid out as (B, Sq, H, d), dk and
+    dv (B, KV, Sk, d) laid out as (B, Sk, KV, d), delta (B, H, Sq) f32.
+    ``do`` is made contiguous only where its last dimension is strided."""
+    dev = q.device
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    seq_k = _check_operands("flash_attention_bwd", q, k, v, seq_k)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    for t, name in ((out, "out"), (do, "do")):
+        _check_view(t, name, (b, h, sq, d), q.dtype, dev)
+    _build.require(lse, "lse", torch.float32, (b, h, sq), dev)
+    return {
+        "q": q, "k": k, "v": v, "out": out, "lse": lse, "do": do,
+        "dq": torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2),
+        "dk": torch.empty((b, sk, kv, d), dtype=k.dtype, device=dev).transpose(1, 2),
+        "dv": torch.empty((b, sk, kv, d), dtype=v.dtype, device=dev).transpose(1, 2),
+        "delta": torch.empty((b, h, sq), dtype=torch.float32, device=dev),
+        "causal": bool(causal), "seq_k": seq_k,
+    }
+
+
+BWD_KERNELS = ("delta", "dq", "dkv")  # in launch order: dq and dk/dv read delta
+
+
+def _launch_bwd(kernel: str, o: dict) -> None:
+    """Launch one of the backward's kernels on operands from
+    ``_bwd_operands`` (no count: ``flash_attention_bwd`` counts)."""
+    fn = _build.function(
+        "flash_attention_bwd", "flash_attention_bwd_launch",
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
+    )
+    q, k = o["q"], o["k"]
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    names = ("q", "k", "v", "out", "do", "dq", "dk", "dv")
+    strides = (ctypes.c_longlong * 24)(*(s for n in names for s in o[n].stride()[:3]))
+    err = fn(
+        BWD_KERNELS.index(kernel), *(o[n].data_ptr() for n in names[:5]),
+        o["lse"].data_ptr(), o["delta"].data_ptr(), o["dq"].data_ptr(), o["dk"].data_ptr(),
+        o["dv"].data_ptr(), int(q.dtype == torch.bfloat16), d, b, h, kv, sq, sk, o["seq_k"],
+        int(o["causal"]), strides, _build.stream_of(q.device),
+    )
+    _build.check(err, f"flash_attention_bwd {kernel} kernel")
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, H, Sq, d)
+    k: torch.Tensor,  # (B, KV, Sk, d)
+    v: torch.Tensor,  # (B, KV, Sk, d)
+    out: torch.Tensor,  # (B, H, Sq, d), the forward's output
+    lse: torch.Tensor,  # (B, H, Sq) f32, the forward's lse
+    do: torch.Tensor,  # (B, H, Sq, d), the gradient of out
+    causal: bool = True,
+    seq_k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward -> (dq, dk, dv) in q's, k's and v's dtypes.
+
+    On the card: the delta, dq and dk/dv kernels, in that order on the
+    current stream. dq comes back laid out as (B, Sq, H, d) and dk, dv as
+    (B, Sk, KV, d), so ``.transpose(1, 2)`` is the model layout without a
+    copy. Keys at or past ``seq_k`` get zero gradients.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, seq_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    global bwd_launches
+    o = _bwd_operands(q, k, v, out, lse, do, causal, seq_k)
+    if q.shape[2] == 0:
+        return o["dq"], o["dk"].zero_(), o["dv"].zero_()
+    for kernel in BWD_KERNELS:
+        _launch_bwd(kernel, o)
+    bwd_launches += 1
+    return o["dq"], o["dk"], o["dv"]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention on head-major views: the forward
+    kernel (or its plain version) forward, the backward kernels (or their
+    plain version) backward, from the saved q, k, v, out and lse. Under
+    ``inference_mode`` or ``no_grad`` it records nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, seq_k: int | None = None):
+        out, lse = flash_attention(q, k, v, causal, seq_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.seq_k = causal, seq_k
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal, ctx.seq_k)
+        return dq, dk, dv, None, None

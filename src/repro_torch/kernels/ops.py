@@ -36,9 +36,13 @@ def flash_attention(
     """Fused attention in the model layout -> (B, Sq, H, hd), q head h
     reading kv head h // (H // KV). The kernel reads the (B, S, H, hd)
     tensors in place and masks the ragged edge itself, so nothing is padded
-    or transposed; on the card the result is contiguous."""
-    out, _ = _flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal)
+    or transposed; on the card the result is contiguous.
+
+    Differentiable on every device through ``FlashAttention``: its backward
+    is the backward kernels on the card and their plain version on the CPU
+    (not autograd through the plain forward)."""
+    out = _flash.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal)
     return out.transpose(1, 2)
 
 

@@ -1,10 +1,12 @@
 """Model zoo of the PyTorch/CUDA port (twin of ``repro.models``): the dense
-family so far; the other families raise ``NotImplementedError``."""
+family so far (training, prefill, decode); the other families raise
+``NotImplementedError``."""
 from repro_torch.models.cache import init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     LanguageModel,
     decode_step,
+    forward_train,
     init_params,
     param_schema,
     prefill,
@@ -17,5 +19,6 @@ __all__ = [
     "param_schema",
     "prefill",
     "decode_step",
+    "forward_train",
     "init_cache",
 ]

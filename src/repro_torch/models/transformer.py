@@ -1,19 +1,22 @@
-"""Model assembly of the dense family: parameter schema, init, prefill and
-decode (twin of the dense part of ``repro.models.transformer``).
+"""Model assembly of the dense family: parameter schema, init, the train
+forward, prefill and decode (twin of the dense part of
+``repro.models.transformer``).
 
 ``param_schema(cfg)`` is the one source of truth for parameter names and
 shapes: a nested dict of ``Entry(shape, axes, init)`` with layers stacked
 on a leading (L, ...) axis and weights laid out for ``x @ w``, as in the
 reference, so ``convert.lm_params_from_numpy`` is a copy name for name.
 The layer stack is a Python loop over the stacked tensors (the
-reference's ``lax.scan``); the reference's remat has no meaning without a
-backward pass. Prefill and decode run under ``torch.inference_mode()``.
+reference's ``lax.scan``). In training, with ``cfg.remat``, each layer
+runs under ``torch.utils.checkpoint`` (the reference's "full" remat
+policy). Prefill and decode run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -154,6 +157,66 @@ class LanguageModel(torch.nn.Module):
 
     def decode_step(self, tokens: torch.Tensor, cache: dict):
         return decode_step(self.params, self.cfg, tokens, cache)
+
+
+# ------------------------------------------------------------ train forward
+def _dense_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int) -> torch.Tensor:
+    x = x + L.self_attention_train(p["attn"], L.rms_norm(x, p["ln1"]), cfg, window)
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+
+
+def unstack(stacked: dict) -> list[dict]:
+    """Every layer's tree of a stacked (L, ...) tree, split once by
+    ``torch.unbind``: its backward is one ``stack`` a leaf, where L indexing
+    views would each give a zero-filled (L, ...) gradient."""
+    split = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v, 0)
+             for k, v in stacked.items()}
+    n = len(next(iter(split.values())))
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def backbone_train(params: Params, cfg: ModelConfig,
+                   x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hidden states (B, S, D) of the teacher-forced sequence, and the MoE
+    aux loss (0 for the dense family), from embedded tokens x (B, S, D)."""
+    require_dense(cfg)
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only the 'full' policy is ported "
+            "(ROADMAP.md, queue: remat_policy='dots')")
+    window = cfg.window_for(x.shape[1])
+    for p in unstack(params["layers"]):
+        if cfg.remat:
+            x = checkpoint(_dense_block, p, x, cfg, window, use_reentrant=False)
+        else:
+            x = _dense_block(p, x, cfg, window)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(params: Params, cfg: ModelConfig,
+                  batch: dict) -> tuple[torch.Tensor, dict]:
+    """Teacher-forced LM loss. batch: tokens (B, S), labels (B, S),
+    [weights (B,) — Bernoulli importance weights m'_i / R, the paper's
+    sampled objective lifted to sequence level]. Returns (loss, {"ce",
+    "aux"}). Logits are taken in ``cfg.dtype``, -1e9 past the vocab, then
+    cast to f32; the loss is logsumexp - gold, averaged per sequence."""
+    require_dense(cfg)
+    if batch.get("segments") is not None:
+        raise NotImplementedError("packed segments are not ported yet (ROADMAP.md, queue: "
+                                  "segments and data/pipeline.py)")
+    x = params["embed"][batch["tokens"].long()]
+    x, aux = backbone_train(params, cfg, x)
+    logits = _logits(params, cfg, x).float()  # (B, S, Vpad)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    per_seq = (logz - gold).mean(dim=-1)  # (B,)
+    w = batch.get("weights")
+    if w is None:
+        ce = per_seq.mean()
+    else:
+        ce = (w * per_seq).sum() / torch.clamp(w.sum(), min=1e-6)
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------ serving paths

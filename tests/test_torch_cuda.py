@@ -13,12 +13,28 @@ device code that fixes every sum's order), and its integer outputs exact
 against its plain version. Flash attention against its f32-softmax plain
 version: bf16 out atol/rtol 2e-2 (the kernel rounds p to bf16 before
 p . v, as the reference kernel does; the plain version does not) and lse
-1e-3; f32 out and lse 1e-4; two launches bitwise.
+1e-3; f32 out and lse 1e-4; two launches bitwise. The flash backward
+(dq, dk/dv) against its f32 plain version, each tensor on its own:
+relative L2 error 1e-2 (bf16) or 1e-4 (f32), and every element within
+e (mag + |want|) + 1e-4 x the largest rms of dq, dk and dv, mag the sum
+of |term| behind the element: the kernels round p and ds to bf16 before
+their products (at most 2^-8 mag) and both versions round the result
+(2^-8 |want| each), so bf16 takes e = 2^-7; f32 sums in another order,
+e = 3e-5; the floor covers gradients that are zero in exact arithmetic
+(one query, one key); two launches bitwise. Model gradients
+on the card against the CPU route: f32 rtol 1e-4, atol 1e-5 x the leaf's
+largest gradient; bf16 relative L2 error 5e-2 a leaf (bf16 roundings in
+other places: cuBLAS against the CPU's GEMMs, kernels against plain
+versions).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.configs as lm_configs
+import repro_torch.optim as O
 from repro_torch.convert import binned_from_numpy
 from repro_torch.core.sgbdt import SGBDTConfig
 from repro_torch.kernels import (
@@ -30,6 +46,11 @@ from repro_torch.kernels import (
     ops,
     split_scan,
 )
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import synthetic_batches
+from repro_torch.models import layers as LM
+from repro_torch.models import transformer as TT
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.ps.engine import Trainer
 from repro_torch.trees.binning import bin_dataset, to_dense
 from repro_torch.trees.learner import LearnerConfig, build_tree
@@ -364,3 +385,194 @@ def test_flash_attention_kernel_rejects_other_head_dims(dev):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+# (b, sq, sk, h, kv, d, causal): tests/test_kernels.py's FLASH_SWEEP, then
+# the ragged cases above.
+FLASH_BWD_CASES = [
+    (2, 128, 128, 4, 4, 64, True),
+    (2, 128, 128, 4, 4, 64, False),
+    (1, 256, 256, 8, 2, 64, True),
+    (2, 100, 100, 4, 2, 32, True),
+    (1, 96, 96, 2, 2, 128, False),
+    (2, 64, 192, 4, 4, 64, False),
+] + FLASH_CASES + [(1, 200, 200, 8, 2, 128, True), (1, 160, 160, 4, 1, 80, False)]
+
+
+def _bwd_close(got, args, causal, dtype, seq_k=None, one_key=False):
+    """dq, dk and dv against the plain version's on ``args`` (q, k, v, out,
+    lse, do), each held on its own: a relative L2 error of at most 1e-2
+    (bf16) or 1e-4 (f32), and every element within e (mag + |want|) +
+    1e-4 x the largest rms of the three, mag the sum of |term| behind the
+    element; e = 2^-7 (bf16) or 3e-5 (f32). Where every query sees one key
+    (``one_key``), dq and dk are zero in exact arithmetic (ds = p (dp -
+    delta) = 0), both versions return f32 noise under the floor, and they
+    are held by no relative error."""
+    want = flash_attention.flash_attention_bwd_plain(*args, causal, seq_k)
+    mag = flash_attention.flash_attention_bwd_magnitudes(*args, causal, seq_k)
+    e, rel_tol = (2.0 ** -7, 1e-2) if dtype == torch.bfloat16 else (3e-5, 1e-4)
+    floor = 1e-4 * max(float(w.float().square().mean().sqrt()) for w in want)
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mag):
+        g, w = g.float(), w.float()
+        err, limit = (g - w).abs(), e * (m + w.abs()) + floor
+        assert torch.isfinite(g).all() and bool((err <= limit).all()), \
+            f"{name}: |error| up to {float((err / limit).max())} x its limit"
+        if not (one_key and name != "dv"):
+            rel = float((g - w).norm() / w.norm())
+            assert rel <= rel_tol, f"{name}: relative L2 error {rel}"
+
+
+def _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, seed, seq_k=None):
+    q, k, v = _flash_inputs(dev, b, sq, sk, h, kv, d, dtype, seed)
+    out, lse = flash_attention.flash_attention(q, k, v, causal, seq_k)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.randn((b, sq, h, d), generator=g).to(dev, dtype).transpose(1, 2)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, kv, d, causal, dtype):
+    args = _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, sq + sk + d)
+    before = flash_attention.bwd_launches
+    got = flash_attention.flash_attention_bwd(*args, causal)
+    again = flash_attention.flash_attention_bwd(*args, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 2
+    for name, g1, g2, t in zip(("dq", "dk", "dv"), got, again, args[:3]):
+        assert g1.shape == t.shape and g1.dtype == dtype, name
+        assert torch.equal(g1, g2), f"{name}: two launches differ"
+    _bwd_close(got, args, causal, dtype, one_key=causal and sq == 1)
+
+
+def test_flash_bwd_tolerance_rejects_wrong_gradients(dev):
+    """``_bwd_close`` at the training shape (B 4, S 2048, H 32/8, d 64,
+    causal): the kernels pass, and each of these wrong results fails: dq
+    zeroed past query 300, dq scaled by 0.97, dk zeroed past key 1024, and
+    dq without the keys more than 1024 behind each query."""
+    args = _bwd_case(dev, 4, 2048, 2048, 32, 8, 64, True, torch.bfloat16, 0)
+    dq, dk, dv = flash_attention.flash_attention_bwd(*args, True)
+    _bwd_close((dq, dk, dv), args, True, torch.bfloat16)
+    q, k, v, out, lse, do = args
+    scale = 64 ** -0.5
+    kf, vf = (t.float().repeat_interleave(4, dim=1) for t in (k, v))
+    far = torch.ones((2048, 2048), dtype=torch.bool, device=dev).tril(-1024)
+    p = torch.where(far, torch.exp(q.float() @ kf.transpose(-1, -2) * scale - lse[..., None]),
+                    0.0)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    p *= do.float() @ vf.transpose(-1, -2) - delta  # ds of the far keys
+    dq_near = (dq.float() - scale * p @ kf).to(dq.dtype)
+    del p
+    zeroed_dq, zeroed_dk = dq.clone(), dk.clone()
+    zeroed_dq[:, :, 300:], zeroed_dk[:, :, 1024:] = 0, 0
+    for bad in ((zeroed_dq, dk, dv), ((dq.float() * 0.97).to(dq.dtype), dk, dv),
+                (dq, zeroed_dk, dv), (dq_near, dk, dv)):
+        with pytest.raises(AssertionError):
+            _bwd_close(bad, args, True, torch.bfloat16)
+
+
+def test_flash_bwd_kernels_mask_keys_past_seq_k(dev):
+    q, k, v, out, lse, do = _bwd_case(dev, 1, 80, 128, 4, 2, 64, False, torch.bfloat16, 9,
+                                      seq_k=77)
+    dq, dk, dv = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, False, 77)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 77:], v2[:, :, 77:] = float("nan"), float("nan")
+    dq2, dk2, dv2 = flash_attention.flash_attention_bwd(q, k2, v2, out, lse, do, False, 77)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert not dk[:, :, 77:].any() and not dv[:, :, 77:].any()
+    _bwd_close((dq, dk, dv), (q, k, v, out, lse, do), False, torch.bfloat16, seq_k=77)
+
+
+def test_flash_bwd_takes_a_strided_do(dev):
+    """A do whose last dimension is strided is made contiguous; the result
+    is the same."""
+    args = list(_bwd_case(dev, 1, 64, 64, 2, 2, 64, True, torch.bfloat16, 5))
+    want = flash_attention.flash_attention_bwd(*args)
+    do = args[5]
+    args[5] = torch.empty((*do.shape, 2), dtype=do.dtype, device=dev)[..., 0].copy_(do)
+    assert args[5].stride(-1) != 1
+    got = flash_attention.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _granite(dtype: str, **changes):
+    return dataclasses.replace(lm_configs.get("granite-3-2b").reduced(), attn_impl="flash",
+                               dtype=dtype, **changes)
+
+
+def _grad_close(got, want, dtype: str, name: str):
+    got, want = got.float().cpu(), want.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()),
+                                   msg=name)
+    else:
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 5e-2, f"{name}: relative L2 error {rel}"
+
+
+@pytest.mark.parametrize("kv", [4, 2])
+def test_flash_layer_gradient_reaches_wq_on_the_card(dev, kv):
+    """The detached-gradient fault: on the card ``ops.flash_attention``
+    returned no grad_fn, so wq, wk and wv got no gradient through attention.
+    Their gradients through a flash layer now equal the CPU route's."""
+    cfg = _granite("float32", n_kv_heads=kv)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_cpu = TT.layer(params["layers"], 0)["attn"]
+    x = torch.randn((2, 96, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for device in ("cpu", dev):
+        p = {k: v.detach().to(device).requires_grad_() for k, v in p_cpu.items()}
+        out = LM.self_attention_train(p, x.to(device), cfg, 96)
+        assert out.grad_fn is not None
+        grads.append(torch.autograd.grad(out.square().sum(), [p[k] for k in sorted(p)]))
+    for name, g_cpu, g_dev in zip(sorted(p_cpu), *grads):
+        assert g_dev.abs().max() > 0, name
+        _grad_close(g_dev, g_cpu, "float32", name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_train_gradients_on_the_card(dev, dtype):
+    cfg = _granite(dtype, n_kv_heads=2)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, 2, 128, 1, seed=3, device="cpu"))
+    results = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
+        before = flash_attention.bwd_launches
+        loss, _ = TT.forward_train(p, cfg, {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        results.append((loss, grads))
+        if device != "cpu":
+            assert flash_attention.bwd_launches == before + cfg.n_layers
+    (l_cpu, g_cpu), (l_dev, g_dev) = results
+    torch.testing.assert_close(l_dev.detach().float().cpu(), l_cpu.detach().float(),
+                               rtol=1e-4 if dtype == "float32" else 2e-2, atol=0)
+    names = []
+    TT.map_schema(lambda path, _: names.append(".".join(path)), TT.param_schema(cfg))
+    for name, a, b in zip(names, g_dev, g_cpu):
+        _grad_close(a, b, dtype, name)
+
+
+def test_train_step_accum_2_on_the_card(dev):
+    """One AdamW-recipe step at accum 2: parameters against the CPU route
+    (within 5e-5 for 99.9% of each leaf and 2 x lr for all: Adam's first
+    step is lr x sign(g), see tests/test_torch_lm_train.py)."""
+    cfg = _granite("float32")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, 4, 64, 1, seed=1, device="cpu"))
+    out = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.detach().clone().to(device), params)
+        opt = O.adamw(O.cosine_schedule(5e-3, 1, 3), weight_decay=0.01, max_grad_norm=1.0)
+        step = make_train_step(cfg, opt, accum=2)
+        p, _, m = step(p, opt.init(p), {k: v.to(device) for k, v in batch.items()})
+        out.append((float(m["loss"]), [t.detach().cpu() for t in tree_leaves(p)]))
+    (l_cpu, p_cpu), (l_dev, p_dev) = out
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(p_dev, p_cpu):
+        diff = (a - b).abs()
+        assert float((diff > 5e-5).float().mean()) <= 1e-3
+        assert float(diff.max()) <= 2 * 5e-3

@@ -24,6 +24,7 @@ from repro_torch.convert import (
     sparse_from_numpy,
 )
 from repro_torch.core.sgbdt import SGBDTConfig
+from repro_torch.launch import train as lm_train
 from repro_torch.models import init_cache, init_params
 from repro_torch.ps.engine import Trainer
 from repro_torch.serving import ServingEngine
@@ -58,7 +59,8 @@ def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "engine.py", "histogram.py", "forest_server.py",
             "level_build.py", "histogram_sparse.py", "flash_attention.py", "transformer.py",
-            "layers.py", "granite_3_2b.py", "steps.py"} <= names
+            "layers.py", "granite_3_2b.py", "steps.py", "train.py", "optimizers.py",
+            "delayed.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -66,6 +68,7 @@ def test_port_files_were_found():
     "repro_torch.kernels.forest_traversal", "repro_torch.kernels.ops",
     "repro_torch.kernels.level_build", "repro_torch.kernels.histogram_sparse",
     "repro_torch.kernels.flash_attention", "repro_torch.models.transformer",
+    "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.optimizers",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -119,6 +122,8 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     lambda: binned_from_numpy(np.zeros((2, 1)), np.zeros((1, 7)), np.zeros(2), np.ones(2), 8),
     lambda: sparse_from_numpy(*[np.zeros((2, 1))] * 4, np.zeros(1)),
     lambda: to_sparse(np.zeros((2, 1))),
+    lambda: next(lm_train.synthetic_batches(configs.get("granite-3-2b").reduced(), 1, 4, 1)),
+    lambda: lm_train.main(["--steps", "1"]),
 ])
 def test_data_entry_points_without_device_raise_without_gpu(no_cuda, make):
     with pytest.raises(RuntimeError, match="no CUDA device"):
