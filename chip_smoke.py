@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``,
-holds each one against its plain PyTorch version on the card at the main
-path's shapes, then drives the main path of the GBDT train and serve entry
-points: 16 boosting rounds of the paper's ``efficiency-realsim``
+drives the main path of the GBDT train and serve entry points, then holds
+each kernel against its plain PyTorch version on the card at the main
+path's shapes. The main path: 16 boosting rounds of the paper's ``efficiency-realsim``
 configuration (depth 9, 64 bins, feature fraction 0.8, R = 0.8, v = 0.01,
 histogram subtraction, 400-slot forest; dataset realsim-like, N = 4000,
 F = 1500) under four round-robin PS workers, three ways: staged (twice),
@@ -13,7 +13,9 @@ with the fused level (``backend="fused"``: levels 0-4 as one fused level
 each, 5-8 staged; its forest must be the staged one bit for bit) and on
 the sparse layout (``bin_dataset(..., sparse=True)``, twice); then a
 ``ForestServer`` answering raw float requests with the staged forest and
-with a seeded full 400-slot forest.
+with a seeded full 400-slot forest. The kernel checks come after it: the
+profiler that reads their device times would slow the host side of the
+rounds. Both histogram kernels are also timed at each level of one tree.
 
 Then the LM zoo's serving path: the flash-attention kernel against its
 plain version at the serving prefill's shape and at ragged shapes, and
@@ -35,8 +37,10 @@ and one microbatch's loss and gradients are held against the chunked
 attention path's.
 
 It prints the card's name and power limit, a ``kernels`` JSON line (per
-kernel: launches on the main path, error against the plain version, time,
-the plain version's time, the bound, a library call's time) and, last,
+kernel: launches on the main path, error against the plain version, time
+as a CUDA-event mean and as device time alone, the plain version's time,
+the bound, a library call's time), a sweep of both histogram kernels over
+one realsim tree's nine levels and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises: the exit code is
 then non-zero and the last line is not printed. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -168,6 +172,70 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# Device times waiting to be taken: (fn, reps, into, key). torch.profiler
+# leaves the tracer hooked into every later launch, which slows the host
+# side of each op for the rest of the process, so the device times are taken
+# after every event timing and every timed round that they could disturb.
+_PENDING: list = []
+
+
+def event_times(fn, into: dict | None = None, key: str = "", reps: int = 20,
+                warmup: int = 2) -> dict:
+    """``{key}ms``: the CUDA-event mean of ``reps`` back-to-back calls of
+    ``fn`` (it includes the wrapper's host time where that is longer than
+    the kernels), now; ``{key}device_ms``: the device time alone of the
+    kernels another ``reps`` calls launch, by ``torch.profiler`` (CUDA
+    activity), when ``fill_device_times`` runs (and, without a key,
+    ``device_kernels``: the same by kernel name). Returns ``into``."""
+    d = {} if into is None else into
+    d[key + "ms"] = cuda_ms(fn, reps, warmup)
+    d[key + "device_ms"] = None
+    _PENDING.append((fn, reps, d, key))
+    return d
+
+
+def fill_device_times() -> None:
+    """Profile every pending function and fill its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, reps, d, key in _PENDING:
+        for _ in range(3):  # a trace that caught no kernel is taken again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by = {e.key[:80]: e.self_device_time_total / 1e3 / reps
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+            if by:
+                break
+        else:
+            raise AssertionError("torch.profiler recorded no device time in three traces")
+        d[key + "device_ms"] = sum(by.values())
+        if not key:
+            d["device_kernels"] = by
+    _PENDING.clear()
+
+
+def kernel_times(fn, reps: int = 20, warmup: int = 2) -> dict:
+    """``event_times`` with the device time taken at once: ``ms`` and
+    ``device_ms``."""
+    d = event_times(fn, reps=reps, warmup=warmup)
+    fill_device_times()
+    return {"ms": d["ms"], "device_ms": d["device_ms"]}
+
+
+def line_stats(shapes: dict, tag: str, drop: tuple = ()) -> dict:
+    """A kernel's ``kernels``-line entry: the stats of shape ``tag`` (no
+    per-name split, nor the keys in ``drop``), with the largest error over
+    every shape checked."""
+    out = {k: v for k, v in shapes[tag].items() if k not in ("device_kernels", *drop)}
+    out["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
+    return out
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -232,7 +300,8 @@ def check_level_build(data, g, h, gen, report: dict) -> dict:
     """The fused level at realsim level 0 (full) and at the deepest level
     that fuses (subtract mode): against its plain version (integer outputs
     exact; histogram and best gain within 1e-5 x max|cell|), bitwise against
-    the learner's staged level on the same inputs, two launches bitwise."""
+    the learner's staged level on the same inputs, two launches bitwise.
+    Returns the stats by shape (device times pending)."""
     dev = data.bins.device
     n, f = data.bins.shape
     b, lc = CFG.learner.n_bins, CFG.learner
@@ -303,28 +372,25 @@ def check_level_build(data, g, h, gen, report: dict) -> dict:
                       + 2 * cells + 3 * n_nodes + routed + n)
         ops = 2.0 * f * hit + 12.0 * n_nodes * int(mask.sum()) * b
         bms, by = bound(nbytes, ops)
-        shapes[tag] = {
-            "max_abs_err": err, "ms": cuda_ms(run),
+        shapes[tag] = event_times(run)
+        shapes[tag].update({
+            "max_abs_err": err,
             "plain_ms": cuda_ms(lambda args=args: level_build.level_build_plain(*args),
                                 reps=5),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "staged_ms": cuda_ms(lambda node=node, parent=parent, level=level: _staged_level(
                 lc, data.bins, node, g, h, mask, level, parent)),
             "samples_hit": hit,
-        }
+        })
     report["level_build_shapes"] = shapes
     report["level_build_bitwise_vs_staged"] = True
-    out = dict(shapes[f"level{deep}"])
-    out["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
-    for key in ("staged_ms", "samples_hit"):
-        out.pop(key)
-    return out
+    return shapes
 
 
 def check_histogram_sparse(sp, node8, active, g, h, report: dict) -> dict:
     """The stored-entry sparse histogram at level 0 and at the level-8
     smaller-child subset: within 1e-5 x max|cell| of its plain version, two
-    launches bitwise."""
+    launches bitwise. Returns the stats by shape (device times pending)."""
     dev = sp.feat_rows.device
     f, c = sp.feat_rows.shape
     b = CFG.learner.n_bins
@@ -346,7 +412,7 @@ def check_histogram_sparse(sp, node8, active, g, h, report: dict) -> dict:
         scale = float(plain.abs().max())
         err = close(f"histogram_sparse {tag}", k1, plain, 1e-5, 1e-5 * scale)
         rows = k1.shape[1]
-        # Library yardstick: one index_add_ over the precomputed cells of the
+        # The library yardstick (``library_times``) over the cells of the
         # stored entries that land on a built row.
         e_row = ref.node_rows(torch.where(valid, node[safe], -1), act, n_nodes)
         keep = e_row >= 0
@@ -354,35 +420,46 @@ def check_histogram_sparse(sp, node8, active, g, h, report: dict) -> dict:
                 + sp.feat_codes.long())[keep]
         seg = torch.cat([cell, cell + rows * f * b])
         vals = torch.cat([g[safe][keep], h[safe][keep]])
-        flat = torch.zeros(2 * rows * f * b, device=dev)
         nnz = int(valid.sum())
         # Bytes the function needs: the (F, C) store, the node/grad/hess of
         # the stored entries, the row list and the (2, R, F, B) output.
         bms, by = bound(4 * (2 * f * c + 3 * nnz + rows + 2 * rows * f * b),
                         2.0 * int(keep.sum()))
-        shapes[tag] = {
-            "max_abs_err": err, "ms": cuda_ms(run),
+        shapes[tag] = event_times(run)
+        shapes[tag].update({
+            "max_abs_err": err,
             "plain_ms": cuda_ms(
                 lambda args=args: histogram_sparse.histogram_sparse_plain(*args), reps=5),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": cuda_ms(lambda: flat.index_add_(0, seg, vals)),
-            "entries_hit": int(keep.sum()),
-        }
+            "bound_ms": bms, "bound_by": by, "entries_hit": int(keep.sum()),
+        })
+        library_times(seg, vals, 2 * rows * f * b, shapes[tag])
     report["histogram_sparse_shapes"] = shapes
     report["sparse_store"] = {"F": f, "C": c, "E": sp.indices.shape[1], "nnz": nnz}
-    out = dict(shapes["level8_subset"])
-    out["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
-    out.pop("entries_hit")
-    return out
+    return shapes
 
 
-def check_kernels(data, sp, rng, report: dict) -> dict:
-    """Phase 2: each kernel against its plain version at the main path's
-    shapes, with its time, its plain version's time, its bound and a
-    library call's time."""
+def library_times(seg: torch.Tensor, vals: torch.Tensor, cells: int, into: dict) -> dict:
+    """The library yardstick, into ``into``: one ``index_add_`` into a fresh
+    zeroed buffer of the whole (2, R, F, B) output, as the function writes
+    it (allocation, zero fill and scatter on every repetition); ``seg``, the
+    cells the values land in, is computed before the timer starts. Also the
+    figure PR 14 recorded, an ``index_add_`` into one buffer zeroed once,
+    whose sums pile up across repetitions and which writes no zeros: below
+    the output-write bound at a deep level, so it is kept only to show what
+    changed."""
+    flat = torch.zeros(cells, device=seg.device)
+    event_times(lambda: torch.zeros(cells, device=seg.device).index_add_(0, seg, vals),
+                into, key="library_")
+    into["library_accumulating_ms"] = cuda_ms(lambda: flat.index_add_(0, seg, vals))
+    return into
+
+
+def kernel_inputs(data) -> tuple:
+    """Round 0's gradients under R = 0.8 sampling, a seeded level-8 node
+    assignment (samples with h = 0 on node -1), its smaller children, and
+    the generator that drew them."""
     dev = data.bins.device
-    n, f = data.bins.shape
-    b = CFG.learner.n_bins
+    n = data.n_samples
     state = init_state(CFG, data)
     g0, h0 = CFG.obj.grad_hess(data.labels, state.f)
     gen = torch.Generator(device=dev)
@@ -390,13 +467,20 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     m = torch.binomial(torch.ones(n, device=dev), torch.full((n,), 0.8, device=dev),
                        generator=gen) / 0.8
     g, h = (m * g0).contiguous(), m.contiguous()
-    out = {}
-
-    # Histogram: the full level 0, and the smaller-child subset at level 8.
-    node0 = torch.zeros(n, dtype=torch.int32, device=dev)
     node8 = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.int32)
     node8 = torch.where(h > 0, node8, torch.full_like(node8, -1))
-    active = _smaller_children(node8, h, 256)
+    return g, h, node8, _smaller_children(node8, h, 256), gen
+
+
+def check_histogram(data, g, h, node8, active, report: dict) -> dict:
+    """The histogram at the full level 0 and at the level-8 smaller-child
+    subset: within 1e-5 x max|cell| of its plain version, two launches
+    bitwise; times, bound and the library yardstick. Returns the stats by
+    shape (device times pending)."""
+    dev = data.bins.device
+    n, f = data.bins.shape
+    b = CFG.learner.n_bins
+    node0 = torch.zeros(n, dtype=torch.int32, device=dev)
     shapes = {}
     for tag, node, n_nodes, act in (("level0", node0, 1, None), ("level8_subset", node8, 256, active)):
         def run(node=node, n_nodes=n_nodes, act=act):
@@ -416,7 +500,6 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
         nbytes = 4 * (n + hit * (f + 2) + rows + 2 * rows * f * b)
         bms, by = bound(nbytes, 2.0 * f * hit)
         report.setdefault("histogram_samples_hit", {})[tag] = hit
-        # Library yardstick: one index_add_ over precomputed cells.
         row_of = torch.full((n_nodes,), -1, dtype=torch.int64, device=dev)
         row_of[(torch.arange(n_nodes, device=dev) if act is None else act.long())] = \
             torch.arange(rows, device=dev)
@@ -426,18 +509,67 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
         seg = torch.cat([cell.reshape(-1), (cell + rows * f * b).reshape(-1)])
         vals = torch.cat([g[keep][:, None].expand(-1, f).reshape(-1),
                           h[keep][:, None].expand(-1, f).reshape(-1)])
-        flat = torch.zeros(2 * rows * f * b, device=dev)
-        shapes[tag] = {
-            "max_abs_err": err, "ms": cuda_ms(run),
+        shapes[tag] = event_times(run)
+        shapes[tag].update({
+            "max_abs_err": err,
             "plain_ms": cuda_ms(lambda node=node, n_nodes=n_nodes, act=act:
                                 histogram.histogram_plain(data.bins, node, g, h, n_nodes, b, act),
                                 reps=5),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": cuda_ms(lambda: flat.index_add_(0, seg, vals)),
-        }
-    out["histogram"] = dict(shapes["level8_subset"])
-    out["histogram"]["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
+        })
+        library_times(seg, vals, 2 * rows * f * b, shapes[tag])
     report["histogram_shapes"] = shapes
+    return shapes
+
+
+def sweep_levels(data, sp, g, h, gen, report: dict) -> list:
+    """Both histogram kernels at each of one realsim tree's nine levels (the
+    staged learner's nodes, subtract mode: the full level 0, then each
+    level's smaller children): device time, rows, output bytes and the time
+    the output write alone takes at 3.35 TB/s, so the per-launch floor and
+    the output-write share can be read off. Takes every pending device
+    time (``fill_device_times``) once its own event timings are done."""
+    lc = CFG.learner
+    n, f = data.bins.shape
+    b = lc.n_bins
+    mask = torch.rand(f, generator=gen, device=data.bins.device) < lc.feature_fraction
+    node = torch.zeros(n, dtype=torch.int32, device=data.bins.device)
+    parent, rows_out = None, []
+    for level in range(lc.depth):
+        n_nodes = 1 << level
+        act = None if level == 0 else _smaller_children(node, h, n_nodes)
+        rows = 1 if act is None else act.shape[0]
+        times = (event_times(lambda node=node, n_nodes=n_nodes, act=act: histogram.histogram(
+                     data.bins, node, g, h, n_nodes, b, act)),
+                 event_times(lambda node=node, n_nodes=n_nodes, act=act:
+                             histogram_sparse.histogram_sparse(
+                                 sp.feat_rows, sp.feat_codes, node, g, h, n_nodes, b, act)))
+        out_bytes = 4 * 2 * rows * f * b
+        rows_out.append(({
+            "level": level, "rows": rows, "output_bytes": out_bytes,
+            "output_write_us": 1e6 * out_bytes / PEAK_BYTES_S,
+            "samples_hit": int((node >= 0).sum()) if act is None
+            else int(torch.isin(node, act).sum()),
+        }, times))
+        parent, _, _, node = _staged_level(lc, data.bins, node, g, h, mask, level, parent)
+    fill_device_times()
+    sweep = [{**row, "histogram_device_us": 1e3 * dense["device_ms"],
+              "histogram_us": 1e3 * dense["ms"],
+              "histogram_sparse_device_us": 1e3 * sparse["device_ms"],
+              "histogram_sparse_us": 1e3 * sparse["ms"]} for row, (dense, sparse) in rows_out]
+    report["histogram_level_sweep"] = sweep
+    return sweep
+
+
+def check_kernels(data, sp, rng, report: dict) -> dict:
+    """Phase 4: each kernel against its plain version at the main path's
+    shapes, with its time (event mean and device alone), its plain
+    version's time, its bound and a library call's time."""
+    dev = data.bins.device
+    n, f = data.bins.shape
+    b = CFG.learner.n_bins
+    g, h, node8, active, gen = kernel_inputs(data)
+    hist_shapes = check_histogram(data, g, h, node8, active, report)
 
     # Split gain at L = 256, on a real level-8 histogram.
     hist = histogram.histogram(data.bins, node8, g, h, 256, b)
@@ -448,12 +580,12 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     scale = float(finite.abs().max()) if finite.numel() else 1.0
     cells = 256 * f * b
     bms, by = bound(4 * 3 * cells, 12 * cells)
-    out["split_gain"] = {
+    gain_shapes = {"L=256": event_times(lambda: split_scan.split_gain(hist, lam, min_h))}
+    gain_shapes["L=256"].update({
         "max_abs_err": close("split_gain", gain, plain, 1e-5, 1e-5 * scale),
-        "ms": cuda_ms(lambda: split_scan.split_gain(hist, lam, min_h)),
         "plain_ms": cuda_ms(lambda: split_scan.split_gain_plain(hist, lam, min_h), reps=5),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-    }
+    })
     # The argmax stays in torch: its tie-break must be the first maximum.
     tie = torch.full((4, f * b), float("-inf"), device=dev)
     tie[:, [7, f * b // 2, f * b - 2]] = 3.5
@@ -464,7 +596,7 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     # Traversal: 4000 rows x 400 slots, n_trees = 400 and 16.
     forest = seeded_forest(rng, f, 0.0, dev)
     depth = forest.depth
-    shapes = {}
+    trav_shapes = {}
     for live in (400, 16):
         nt = torch.tensor(live, dtype=torch.int32, device=dev)
 
@@ -480,25 +612,33 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
         cells = touched_bins(data.bins, forest, live)
         nbytes = 4 * (cells + live * (3 * (1 << depth) - 2) + 1 + n)
         bms, by = bound(nbytes, n * live * (3 * depth + 1))
-        shapes[f"n_trees={live}"] = {
-            "max_abs_err": err, "ms": cuda_ms(run),
+        tag = f"n_trees={live}"
+        trav_shapes[tag] = event_times(run)
+        trav_shapes[tag].update({
+            "max_abs_err": err,
             "plain_ms": cuda_ms(lambda nt=nt: forest_traversal.forest_traverse_plain(
                 data.bins, forest.feature, forest.threshold, forest.leaf_value, nt, depth),
                 reps=2, warmup=1),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-        }
-        report.setdefault("forest_traverse_bin_cells_read", {})[f"n_trees={live}"] = cells
-    out["forest_traverse"] = dict(shapes["n_trees=400"])
-    out["forest_traverse"]["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
-    report["forest_traverse_shapes"] = shapes
+        })
+        report.setdefault("forest_traverse_bin_cells_read", {})[tag] = cells
+    report["forest_traverse_shapes"] = trav_shapes
 
-    out["level_build"] = check_level_build(data, g, h, gen, report)
-    out["histogram_sparse"] = check_histogram_sparse(sp, node8, active, g, h, report)
-    return out
+    lb_shapes = check_level_build(data, g, h, gen, report)
+    sp_shapes = check_histogram_sparse(sp, node8, active, g, h, report)
+    sweep_levels(data, sp, g, h, gen, report)  # takes every pending device time
+    deep = max(report["level_build_shapes"], key=lambda t: int(t[len("level"):]))
+    return {
+        "histogram": line_stats(hist_shapes, "level8_subset"),
+        "split_gain": line_stats(gain_shapes, "L=256"),
+        "forest_traverse": line_stats(trav_shapes, "n_trees=400"),
+        "level_build": line_stats(lb_shapes, deep, drop=("staged_ms", "samples_hit")),
+        "histogram_sparse": line_stats(sp_shapes, "level8_subset", drop=("entries_hit",)),
+    }
 
 
 def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | None = None):
-    """Phase 3: 16 rounds of efficiency-realsim (``cfg``: staged or fused)
+    """Phase 2: 16 rounds of efficiency-realsim (``cfg``: staged or fused)
     under round-robin W = 4. ``round_s`` collects a host time stamp after
     each round (and one before the first); ``fused_per_round`` the fused
     levels each round's tree ran."""
@@ -522,7 +662,7 @@ def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | No
 
 
 def serve(forest, x: np.ndarray, edges, rng) -> tuple:
-    """Phase 4: 8 raw-float requests of 1..600 rows, one of them oversized;
+    """Phase 3: 8 raw-float requests of 1..600 rows, one of them oversized;
     returns (server, requests, results)."""
     server = ForestServer(forest, edges, max_rows=256, objective="logistic",
                           device=edges.device)
@@ -628,22 +768,16 @@ def same_forest(tag: str, a, b) -> None:
 
 
 def drive(dev: torch.device, report: dict) -> list:
-    """Phases 2 to 5 on ``dev``; returns the ``kernels`` line's entries."""
+    """Phases 2 to 4 on ``dev``; returns the ``kernels`` line's entries."""
     spec = synthetic.PAPER_DATASETS["realsim-like"]
     x, y, mult = synthetic.raw(spec)
     data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
     sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True)
     rng = np.random.default_rng(SEED)
 
-    # Phase 2: every kernel against its plain version.
-    kstats = check_kernels(data, sparse.bins, rng, report)
-    print("kernel checks: " + json.dumps(
-        {k: {"max_abs_err": v["max_abs_err"], "ms": v["ms"]} for k, v in kstats.items()}),
-        flush=True)
-    print("level_build bitwise equal to the staged level at levels "
-          + ", ".join(report["level_build_shapes"]), flush=True)
-
-    # Phases 3 and 4 are the main path; only their launches are counted.
+    # Phases 2 and 3 are the main path; only their launches are counted. They
+    # run first: the kernel checks' profiler traces would slow the host side
+    # of every later op (see ``_PENDING``), and the rounds are host-bound.
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -661,7 +795,21 @@ def drive(dev: torch.device, report: dict) -> list:
     counts = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    # The checks of phases 3 and 4 (their launches are not counted).
+    # Phase 4: every kernel against its plain version.
+    kstats = check_kernels(data, sparse.bins, rng, report)
+    print("kernel checks: " + json.dumps(
+        {k: {"max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"]}
+         for k, v in kstats.items()}), flush=True)
+    print("level_build bitwise equal to the staged level at levels "
+          + ", ".join(report["level_build_shapes"]), flush=True)
+    sweep = "; ".join(
+        f"L{r['level']} R{r['rows']} {r['histogram_device_us']:.1f} / "
+        f"{r['histogram_sparse_device_us']:.1f} ({r['output_write_us']:.1f})"
+        for r in report["histogram_level_sweep"])
+    print("histogram sweep, device us per level (dense / sparse; output-write us): "
+          f"{sweep} [{report.get('nvidia_smi', '')}]", flush=True)
+
+    # The checks of phases 2 and 3.
     round_ms = {k: [1e3 * (b - a) for a, b in zip(v, v[1:])] for k, v in stamps.items()}
     median_ms = {k: float(np.median(v[1:])) for k, v in round_ms.items()}
     for k, v in round_ms.items():
@@ -723,7 +871,7 @@ def drive(dev: torch.device, report: dict) -> list:
                   f"busy {100 * prof['device_busy_share']:.0f}% of a round's wall time",
                   flush=True)
 
-    # Phase 5: the kernels line; every kernel of the path must have run.
+    # The kernels line; every kernel of the path must have run.
     line = []
     for name, (_, source, replaces) in KERNELS.items():
         if counts[name] <= 0:
@@ -775,7 +923,7 @@ def check_flash(dev, report: dict) -> dict:
             bms, by = bound(nbytes, 4.0 * d * pairs, PEAK_BF16_S)
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
             out = {
-                "max_abs_err": err, "ms": cuda_ms(run),
+                "max_abs_err": err, **kernel_times(run),
                 "plain_ms": cuda_ms(lambda q=q, k=k, v=v: flash_attention.flash_attention_plain(
                     q, k, v, True), reps=5),
                 "bound_ms": bms, "bound_by": by,
@@ -1067,7 +1215,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
             doc = do.contiguous()
             whole_ms, whole_by = bounds["whole"]
             out = {
-                "ms": cuda_ms(lambda: flash_attention.flash_attention_bwd(*args)),
+                **kernel_times(lambda: flash_attention.flash_attention_bwd(*args)),
                 "plain_ms": cuda_ms(lambda: flash_attention.flash_attention_bwd_plain(*args),
                                     reps=3, warmup=1),
                 "bound_ms": whole_ms, "bound_by": whole_by,
@@ -1111,7 +1259,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
         stats[name] = {
             "max_abs_err": max(v["max_abs_err"][o] for v in shapes.values()
                                for o in outputs[kern]),
-            **{key: out[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+            **{key: out[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")}}
     report["flash_attention_bwd"] = out
     return stats

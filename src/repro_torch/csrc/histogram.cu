@@ -6,60 +6,41 @@
 // Hopper it is a gather-accumulate instead: no one-hot matrix exists.
 //
 // out[gh][r][f][b] = sum of grad (gh = 0) or hess (gh = 1) over the samples
-// s with node[s] == row_nodes[r] and bins[s][f] == b. Samples on node -1,
-// or on a node no row names, add nothing.
+// s with node[s] == row_nodes[r] (node r where row_nodes is null) and
+// bins[s][f] == b. Samples on node -1, or on a node no row names, add
+// nothing.
 //
-// Bound: bytes. The (N, F) bin matrix is read once per row tile and the
-// (2, R, F, B) output written once; the adds are few per byte.
+// Bound: bytes. The bin rows of the samples on the rows' nodes are read
+// once and the (2, R, F, B) output written once; the adds are few per byte.
+// At realsim width a full level reads 24 MB of bins and writes 768 KB per
+// row; a deep subset level reads little and writes 98 MB, mostly zeros.
 //
-// Design: a block owns 32 features (one per lane) x up to 4 node rows (one
-// per warp; fewer when 256 bins would overflow shared memory). Each warp
-// builds its row with level_common::warp_hist_row, which says how the adds
-// stay in one fixed order without atomics. A warp whose node holds few
-// samples still walks all N node ids; sorting rows by node would cut that
-// and is left for a later change.
+// Design (level_common::hist_enqueue, shared with the fused level): a
+// stable counting pass lists each row's samples once, so a block walks only
+// its own row's samples (the earlier design scanned all N node ids for every
+// row). A block takes one (feature tile, row); a warp's lanes are 8, 16 or
+// 32 features x 4, 2 or 1 sample slots, and every lane column sums one
+// chunk of the row's samples, so a level of one row still spreads over the
+// card (the earlier design ran 47 warps at level 0: now 188 blocks of 7
+// warps). A row uses as many chunks as its count warrants, the loads run
+// two batches ahead of the adds, and the chunks are merged in shared memory
+// in column order: no float atomics, no partials in global memory, and two
+// launches give the same bits. The tile width and the warps a block come
+// from kernels/hist_plan.py.
 #include <cuda_runtime.h>
-
-#include <algorithm>
 
 #include "level_common.cuh"
 
-namespace {
-
-using level_common::kFeatTile;
-constexpr int kMaxRowTile = 4;  // node rows per block, one per warp
-constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
-
-__global__ void __launch_bounds__(kFeatTile * kMaxRowTile)
-hist_kernel(const int* __restrict__ bins, const int* __restrict__ node,
-            const float* __restrict__ grad, const float* __restrict__ hess,
-            const int* __restrict__ row_nodes, float* __restrict__ out,
-            int n, int n_feat, int n_bins, int rows) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.y * (blockDim.x >> 5) + warp;
-  if (r >= rows) return;  // warp-uniform; the block never synchronizes
-  const int f0 = blockIdx.x * kFeatTile;
-  float* acc_g = smem + (size_t)warp * 2 * n_bins * kFeatTile;
-  level_common::warp_hist_row(bins, node, grad, hess, row_nodes[r], n, n_feat, n_bins, f0,
-                              acc_g, acc_g + n_bins * kFeatTile, out, r, rows);
-}
-
-}  // namespace
-
+// out (2, rows, F, B); row_nodes (rows,) node ids, or null for node r at row
+// r; work n + 2 rows ints of scratch; feat_tile, warps and min_per_column
+// the plan of kernels/hist_plan.py.
 extern "C" int histogram_launch(const void* bins, const void* node, const void* grad,
                                 const void* hess, const void* row_nodes, void* out,
-                                int n, int n_feat, int n_bins, int rows, void* stream) {
-  const int row_bytes = 2 * n_bins * kFeatTile * (int)sizeof(float);
-  const int row_tile = std::min(kMaxRowTile, kSmemLimit / row_bytes);
-  if (row_tile < 1) return (int)cudaErrorInvalidValue;
-  const int smem = row_tile * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_feat + kFeatTile - 1) / kFeatTile, (rows + row_tile - 1) / row_tile);
-  hist_kernel<<<grid, kFeatTile * row_tile, smem, (cudaStream_t)stream>>>(
+                                void* work, int n, int n_feat, int n_bins, int rows,
+                                int feat_tile, int warps, int min_per_column,
+                                void* stream) {
+  return level_common::hist_enqueue(
       (const int*)bins, (const int*)node, (const float*)grad, (const float*)hess,
-      (const int*)row_nodes, (float*)out, n, n_feat, n_bins, rows);
-  return (int)cudaGetLastError();
+      (const int*)row_nodes, (float*)out, (int*)work, n, n_feat, n_bins, rows, rows, false,
+      feat_tile, warps, min_per_column, (cudaStream_t)stream);
 }

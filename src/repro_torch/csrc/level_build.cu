@@ -5,14 +5,14 @@
 // Replaces the TPU kernel repro/kernels/level_build.py::level_build_pallas
 // (_level_kernel), one Pallas program whose grid runs the phases in order
 // and keeps the level in VMEM. Hopper's blocks run in no order and share no
-// scratch, so the level is a fixed chain of three kernels that
-// level_build_launch enqueues on the caller's stream, with no host
-// synchronisation and no torch op between them:
+// scratch, so the level is a fixed chain of kernels (phase A two or three,
+// B and C one each) that level_build_launch enqueues on the caller's
+// stream, with no host synchronisation and no torch op between them:
 //
-//  A (level_hist_kernel) the built rows' histograms, row r = node
-//    active[r], written into the level histogram at row active[r]; the
-//    accumulation is level_common::warp_hist_row, the staged histogram
-//    kernel's own code, so the rows carry its bits;
+//  A the built rows' histograms, row r = node active[r], written into the
+//    level histogram at row active[r]: level_common::hist_enqueue, the
+//    staged histogram's own code and plan (kernels/hist_plan.py), so the
+//    rows carry its bits;
 //  B (level_decide_kernel) one block per (32-feature slice, node): each warp
 //    takes a feature row, in derive mode writes the sibling row
 //    parent[p] - hist[active[p]] (p = n >> 1; the built row is already in
@@ -36,8 +36,8 @@
 // Bound: bytes. The level reads the node ids, the bin rows and grad/hess
 // of samples on built nodes, the parent cache, one bin per sample, and
 // writes the level histogram, the split vectors and the new node ids; the
-// scan is about a dozen flops per cell. Phase A at level 0 builds one row:
-// ceil(F/32) blocks, too few for 132 SMs (as the staged histogram).
+// scan is about a dozen flops per cell. Phase A spreads a level of one row
+// over the card as the staged histogram does (csrc/histogram.cu).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -47,9 +47,6 @@
 
 namespace {
 
-using level_common::kFeatTile;
-constexpr int kMaxRowTile = 4;       // phase A: node rows per block, one per warp
-constexpr int kSmemLimit = 232448;   // bytes of shared memory a block may use
 constexpr int kDecideWarps = 8;      // phase B: warps per block
 constexpr int kSliceFeatures = 32;   // phase B: features per block
 constexpr int kRouteThreads = 256;   // phase C: samples per block
@@ -65,22 +62,6 @@ __device__ __forceinline__ void take_better(float g, int i, float& best, int& be
     best = g;
     best_i = i;
   }
-}
-
-__global__ void __launch_bounds__(kFeatTile * kMaxRowTile)
-level_hist_kernel(const int* __restrict__ bins, const int* __restrict__ node,
-                  const float* __restrict__ grad, const float* __restrict__ hess,
-                  const int* __restrict__ active, float* __restrict__ hist, int n,
-                  int n_feat, int n_bins, int n_nodes, int n_sub) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.y * (blockDim.x >> 5) + warp;
-  if (r >= n_sub) return;  // warp-uniform; the block never synchronizes
-  const int f0 = blockIdx.x * kFeatTile;
-  const int target = active[r];
-  float* acc_g = smem + (size_t)warp * 2 * n_bins * kFeatTile;
-  level_common::warp_hist_row(bins, node, grad, hess, target, n, n_feat, n_bins, f0, acc_g,
-                              acc_g + n_bins * kFeatTile, hist, target, n_nodes);
 }
 
 __global__ void __launch_bounds__(32 * kDecideWarps)
@@ -201,6 +182,8 @@ level_route_kernel(const int* __restrict__ bins, const int* __restrict__ node,
 }  // namespace
 
 // hist (2, n_nodes, F, B), part (2 * n_nodes * ceil(F/32) words of scratch),
+// work (N + 2 n_sub ints of scratch for phase A; feat_tile, warps and
+// min_per_column its plan),
 // feat / thr / best (n_nodes,), new_node (N,). In derive mode (derive != 0)
 // n_sub = n_nodes / 2, active[p] is the built child of parent p and parent
 // is the (2, n_sub, F, B) cache; otherwise active enumerates 0 .. n_nodes-1
@@ -208,9 +191,11 @@ level_route_kernel(const int* __restrict__ bins, const int* __restrict__ node,
 extern "C" int level_build_launch(const void* bins, const void* node, const void* grad,
                                   const void* hess, const void* active, const void* parent,
                                   const void* mask, void* hist, void* part, long long part_len,
-                                  void* feat, void* thr, void* best, void* new_node, int n,
-                                  int n_feat, int n_bins, int n_nodes, int n_sub, int derive,
-                                  float lam, float min_h, void* stream) {
+                                  void* work, void* feat, void* thr, void* best,
+                                  void* new_node, int n, int n_feat, int n_bins, int n_nodes,
+                                  int n_sub, int derive, int feat_tile, int warps,
+                                  int min_per_column, float lam,
+                                  float min_h, void* stream) {
   const int slices = (n_feat + kSliceFeatures - 1) / kSliceFeatures;
   if (n_bins < 1 || n_bins > 32 * level_common::kMaxPer || n_nodes < 1 ||
       n_nodes > kMaxNodes || n_sub < 1 || (derive && 2 * n_sub != n_nodes) ||
@@ -218,17 +203,12 @@ extern "C" int level_build_launch(const void* bins, const void* node, const void
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 
-  const int row_bytes = 2 * n_bins * kFeatTile * (int)sizeof(float);
-  const int row_tile = std::min(kMaxRowTile, kSmemLimit / row_bytes);
-  const int smem = row_tile * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      level_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_a((n_feat + kFeatTile - 1) / kFeatTile, (n_sub + row_tile - 1) / row_tile);
-  level_hist_kernel<<<grid_a, kFeatTile * row_tile, smem, st>>>(
+  int code = level_common::hist_enqueue(
       (const int*)bins, (const int*)node, (const float*)grad, (const float*)hess,
-      (const int*)active, (float*)hist, n, n_feat, n_bins, n_nodes, n_sub);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      (const int*)active, (float*)hist, (int*)work, n, n_feat, n_bins, n_sub, n_nodes, true,
+      feat_tile, warps, min_per_column, st);
+  if (code != 0) return code;
+  cudaError_t err;
 
   float* part_gain = (float*)part;
   int* part_idx = (int*)part + (size_t)n_nodes * slices;

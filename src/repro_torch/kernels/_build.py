@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -86,10 +87,14 @@ def load(name: str) -> ctypes.CDLL:
 def function(lib_name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """A C entry point of ``csrc/<lib_name>.cu`` with its argument types
     declared (``c_void_p`` for pointers and the stream, so none is cut to
-    32 bits) and an ``int`` (``cudaError_t``) result."""
-    fn = getattr(load(lib_name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    32 bits) and an ``int`` (``cudaError_t``) result. Looked up once: later
+    calls return the bound entry point."""
+    fn = _FUNCTIONS.get((lib_name, symbol))
+    if fn is None:
+        fn = getattr(load(lib_name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[lib_name, symbol] = fn
     return fn
 
 

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, hist_plan, ref
 
 launches = 0  # kernel launches, counted where the kernel is launched
 
@@ -34,6 +34,14 @@ def histogram_plain(
     )
 
 
+def launch_plan(
+    bins: torch.Tensor, n_nodes: int, n_bins: int, active_nodes: torch.Tensor | None
+) -> hist_plan.HistPlan:
+    """The kernel's launch plan for these inputs (``kernels.hist_plan``)."""
+    rows = n_nodes if active_nodes is None else active_nodes.shape[0]
+    return hist_plan.plan(bins.shape[0], bins.shape[1], n_bins, rows)
+
+
 def histogram(
     bins: torch.Tensor,  # (N, F) int32
     node_ids: torch.Tensor,  # (N,) int32, -1 = inactive
@@ -51,26 +59,28 @@ def histogram(
         raise ValueError(f"histogram: no kernel for device {bins.device}")
     global launches
     dev = bins.device
-    if active_nodes is None:
-        active_nodes = torch.arange(n_nodes, dtype=torch.int32, device=dev)
     n, f = bins.shape
-    rows = active_nodes.shape[0]
+    rows = n_nodes if active_nodes is None else active_nodes.shape[0]
     _build.require(bins, "bins", torch.int32, (n, f), dev)
     _build.require(node_ids, "node_ids", torch.int32, (n,), dev)
     _build.require(grad, "grad", torch.float32, (n,), dev)
     _build.require(hess, "hess", torch.float32, (n,), dev)
-    _build.require(active_nodes, "active_nodes", torch.int32, (rows,), dev)
+    if active_nodes is not None:
+        _build.require(active_nodes, "active_nodes", torch.int32, (rows,), dev)
     out = torch.empty((2, rows, f, n_bins), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    plan = launch_plan(bins, n_nodes, n_bins, active_nodes)
+    work = torch.empty(n + 2 * rows, dtype=torch.int32, device=dev)
     fn = _build.function(
         "histogram", "histogram_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     err = fn(
         bins.data_ptr(), node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        active_nodes.data_ptr(), out.data_ptr(), n, f, n_bins, rows,
-        _build.stream_of(dev),
+        None if active_nodes is None else active_nodes.data_ptr(), out.data_ptr(),
+        work.data_ptr(), n, f, n_bins, rows, plan.feat_tile, plan.warps,
+        plan.min_per_column, _build.stream_of(dev),
     )
     _build.check(err, "histogram kernel")
     launches += 1

@@ -43,11 +43,9 @@ def histogram_sparse(
         raise ValueError(f"histogram_sparse: no kernel for device {feat_rows.device}")
     global launches
     dev = feat_rows.device
-    if active_nodes is None:
-        active_nodes = torch.arange(n_nodes, dtype=torch.int32, device=dev)
     f, c = feat_rows.shape
     n = node_ids.shape[0]
-    rows = active_nodes.shape[0]
+    rows = n_nodes if active_nodes is None else active_nodes.shape[0]
     if not 1 <= n_nodes <= MAX_NODES:
         raise ValueError(f"histogram_sparse kernel takes 1..{MAX_NODES} nodes, got {n_nodes}")
     _build.require(feat_rows, "feat_rows", torch.int32, (f, c), dev)
@@ -55,7 +53,8 @@ def histogram_sparse(
     _build.require(node_ids, "node_ids", torch.int32, (n,), dev)
     _build.require(grad, "grad", torch.float32, (n,), dev)
     _build.require(hess, "hess", torch.float32, (n,), dev)
-    _build.require(active_nodes, "active_nodes", torch.int32, (rows,), dev)
+    if active_nodes is not None:
+        _build.require(active_nodes, "active_nodes", torch.int32, (rows,), dev)
     out = torch.empty((2, rows, f, n_bins), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -65,8 +64,8 @@ def histogram_sparse(
     )
     err = fn(
         feat_rows.data_ptr(), feat_codes.data_ptr(), node_ids.data_ptr(), grad.data_ptr(),
-        hess.data_ptr(), active_nodes.data_ptr(), out.data_ptr(), f, c, n_bins, n_nodes,
-        rows, _build.stream_of(dev),
+        hess.data_ptr(), None if active_nodes is None else active_nodes.data_ptr(),
+        out.data_ptr(), f, c, n_bins, n_nodes, rows, _build.stream_of(dev),
     )
     _build.check(err, "histogram_sparse kernel")
     launches += 1

@@ -2,8 +2,8 @@
 Hopper budget model that decides which levels fuse.
 
 Replaces ``repro.kernels.level_build.level_build_pallas``. The kernel
-(``csrc/level_build.cu``) is a fixed chain of three kernels enqueued by one
-C call; its source says what bounds it and how it gives the staged chain's
+(``csrc/level_build.cu``) is a fixed chain of kernels enqueued by one C
+call; its source says what bounds it and how it gives the staged chain's
 bits. A CPU tensor runs ``level_build_plain``; a CUDA tensor launches the
 kernel or raises.
 """
@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, hist_plan, ref
 
 launches = 0  # kernel launches, counted where the kernel is launched
 
@@ -38,6 +38,9 @@ MAX_NODES = 4096  # the route phase keeps the (L,) split table in shared memory
 # F = 1500, B = 64; 384 000 B per (grad or hess, node) row) that is 24 MB +
 # 3 * 2^l * 384 KB at a subtract level l >= 1: levels 0-4 fuse (42.4 MB at
 # level 4) and levels 5-8 fall back to the staged kernels (60.9 MB at 5).
+# Phase A merges its chunks in shared memory, so it keeps no partials in
+# global memory; its row-sorted sample list (4 (N + 2 L_sub) bytes, 16 KB at
+# realsim) is left out of the price.
 FUSED_L2_BUDGET = 50 * 2**20
 
 
@@ -54,6 +57,15 @@ def fused_level_fits(
     split table fits the kernel's shared memory)."""
     return (n_nodes <= MAX_NODES
             and fused_level_bytes(n, n_nodes, n_sub, n_feat, n_bins) <= budget)
+
+
+def launch_plan(
+    bins: torch.Tensor, active_nodes: torch.Tensor, n_bins: int
+) -> hist_plan.HistPlan:
+    """Phase A's launch plan: the staged histogram's plan for the same
+    (N, F, B) and rows (``kernels.hist_plan``), so the built rows carry the
+    staged histogram's bits."""
+    return hist_plan.plan(bins.shape[0], bins.shape[1], n_bins, active_nodes.shape[0])
 
 
 def level_build(
@@ -108,17 +120,20 @@ def level_build(
     thr = torch.empty(n_nodes, dtype=torch.int32, device=dev)
     best = torch.empty(n_nodes, dtype=torch.float32, device=dev)
     new_node = torch.empty(n, dtype=torch.int32, device=dev)
+    plan = launch_plan(bins, active_nodes, n_bins)
+    work = torch.empty(n + 2 * n_sub, dtype=torch.int32, device=dev)
     fn = _build.function(
         "level_build", "level_build_launch",
-        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     )
     err = fn(
         bins.data_ptr(), node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
         active_nodes.data_ptr(), parent_hist.data_ptr() if derive_sibling else None,
         feat_mask.data_ptr(), hist.data_ptr(), part.data_ptr(), part.numel(),
-        feat.data_ptr(), thr.data_ptr(), best.data_ptr(), new_node.data_ptr(),
-        n, f, n_bins, n_nodes, n_sub, int(derive_sibling), lam, min_child_hess,
+        work.data_ptr(), feat.data_ptr(), thr.data_ptr(), best.data_ptr(),
+        new_node.data_ptr(), n, f, n_bins, n_nodes, n_sub, int(derive_sibling),
+        plan.feat_tile, plan.warps, plan.min_per_column, lam, min_child_hess,
         _build.stream_of(dev),
     )
     _build.check(err, "level_build kernel")

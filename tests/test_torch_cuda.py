@@ -53,7 +53,12 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.ps.engine import Trainer
 from repro_torch.trees.binning import bin_dataset, to_dense
-from repro_torch.trees.learner import LearnerConfig, build_tree
+from repro_torch.trees.learner import (
+    LearnerConfig,
+    _smaller_children,
+    _staged_level,
+    build_tree,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,14 +86,24 @@ def _case(dev, seed, n, f, n_bins, n_nodes):
     return [t.to(dev) for t in (bins, node, grad, hess)]
 
 
+# The launch plan's edges (kernels/hist_plan.py): N not a multiple of any
+# chunk size (4001), F not a multiple of the feature tile (70 over tiles of
+# 8; 1500 over 8 at realsim's level 0), R = 256 at the full level with most
+# rows empty, B = 256 (one 64 KB warp tile a block), realsim width.
 @pytest.mark.parametrize("n,f,n_bins,n_nodes", [
     (333, 11, 16, 1), (517, 40, 64, 8), (1000, 33, 256, 4), (64, 3, 64, 256),
+    (4001, 70, 64, 1), (2000, 45, 64, 256), (700, 20, 256, 2), (4000, 1500, 64, 1),
 ])
-@pytest.mark.parametrize("subset", [False, True])
+@pytest.mark.parametrize("subset", [False, True, "every"])
 def test_histogram_kernel_matches_plain(dev, n, f, n_bins, n_nodes, subset):
+    """subset True: every other node, in reverse, so some samples fall on no
+    row; "every": all nodes in reverse, so the rows hold every routed
+    sample."""
     bins, node, grad, hess = _case(dev, n + f, n, f, n_bins, n_nodes)
     active = None
-    if subset and n_nodes > 1:
+    if subset == "every":
+        active = torch.arange(n_nodes, dtype=torch.int32, device=dev).flip(0)
+    elif subset and n_nodes > 1:
         active = torch.arange(0, n_nodes, 2, dtype=torch.int32, device=dev).flip(0)
     before = histogram.launches
     a = histogram.histogram(bins, node, grad, hess, n_nodes, n_bins, active)
@@ -267,6 +282,40 @@ def test_fused_learner_is_bitwise_staged_across_a_budget_switch(dev, monkeypatch
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("level", [0, 4])
+def test_fused_level_is_bitwise_staged_at_realsim_width(dev, level):
+    """The fused level at efficiency-realsim width (N 4000, F 1500, B 64) at
+    level 0 (one row: the narrow-tile plan) and at level 4, the deepest
+    that fuses (eight built rows): every output bitwise the staged level's,
+    two launches bitwise."""
+    rng = np.random.default_rng(level)
+    n, f, n_bins = 4000, 1500, 64
+    bins = torch.from_numpy(rng.integers(0, n_bins, (n, f)).astype(np.int32)).to(dev)
+    h = torch.from_numpy((1.25 * rng.binomial(1, 0.8, n)).astype(np.float32)).to(dev)
+    g = h * torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(f) < 0.8).to(dev)
+    n_nodes = 1 << level
+    # Every sample on a node, as the learner routes them (samples with h = 0
+    # too); the staged level has no rule for node -1.
+    node = torch.from_numpy(rng.integers(0, n_nodes, n).astype(np.int32)).to(dev)
+    lc = LearnerConfig(depth=9, n_bins=n_bins)
+    parent, active = None, torch.zeros(1, dtype=torch.int32, device=dev)
+    if level:
+        parent = histogram.histogram(bins, node >> 1, g, h, n_nodes // 2, n_bins)
+        active = _smaller_children(node, h, n_nodes)
+    args = (bins, node, g, h, active, parent, mask.to(torch.int32), lc.lam,
+            lc.min_child_hess, n_nodes, n_bins, level > 0)
+    fused = level_build.level_build(*args)
+    again = level_build.level_build(*args)
+    staged = _staged_level(lc, bins, node, g, h, mask, level, parent)
+    torch.cuda.synchronize()
+    for a, b in zip(fused, again):
+        assert torch.equal(a, b), "two launches differ"
+    for name, a, b in zip(("hist", "feat", "thr", "new_node"),
+                          (fused[0], fused[1], fused[2], fused[4]), staged):
+        assert torch.equal(a, b), f"fused {name} differs from the staged level"
+
+
 def _sparse_case(dev, seed, n=600, f=50, n_bins=64, n_nodes=8):
     rng = np.random.default_rng(seed)
     x = np.where(rng.random((n, f)) < 0.06, rng.lognormal(size=(n, f)), 0.0)
@@ -278,26 +327,76 @@ def _sparse_case(dev, seed, n=600, f=50, n_bins=64, n_nodes=8):
     return data.bins, node, grad, hess
 
 
+def _sparse_edge_case(dev, case, subset):
+    """The sparse kernel's edges: many entries of one 32-entry group on the
+    same cell (two distinct values, two nodes), a feature with no stored
+    entry, codes outside [0, B), B = 256, R = 256."""
+    n_bins, n_nodes = 64, 8
+    if case == "repeats":
+        rng = np.random.default_rng(11)
+        x = np.where(rng.random((900, 30)) < 0.5, rng.integers(1, 3, (900, 30)), 0)
+        data = bin_dataset(x.astype(np.float32), np.zeros(900, np.float32), n_bins=n_bins,
+                           device=dev, sparse=True)
+        sp = data.bins
+        _, node, grad, hess = _sparse_case(dev, 11, n=900, f=30, n_nodes=2)
+        n_nodes = 2
+    elif case == "b256":
+        n_bins = 256
+        sp, node, grad, hess = _sparse_case(dev, 12, n=1500, f=40, n_bins=n_bins)
+    elif case == "r256":
+        n_nodes = 256
+        sp, node, grad, hess = _sparse_case(dev, 13, n=3000, n_nodes=n_nodes)
+    else:
+        sp, node, grad, hess = _sparse_case(dev, 5 + bool(subset))
+    rows, codes = sp.feat_rows, sp.feat_codes
+    if case == "all_pad_feature":
+        rows = rows.clone()
+        rows[7] = -1
+    if case == "codes_out_of_range":
+        codes = codes.clone()
+        codes[::3, ::2] = -3
+        codes[1::3, ::2] = n_bins + 5
+    active = None
+    if subset:
+        active = torch.arange(n_nodes - 2, -1, -3, dtype=torch.int32, device=dev)
+    return sp, rows, codes, node, grad, hess, n_nodes, n_bins, active
+
+
+@pytest.mark.parametrize("case", ["random", "repeats", "all_pad_feature",
+                                  "codes_out_of_range", "b256", "r256"])
 @pytest.mark.parametrize("subset", [False, True])
-def test_histogram_sparse_kernel_matches_plain(dev, subset):
-    sp, node, grad, hess = _sparse_case(dev, 5 + subset)
-    active = torch.tensor([6, 1, 2, 5], dtype=torch.int32, device=dev) if subset else None
-    args = (sp.feat_rows, sp.feat_codes, node, grad, hess, 8, 64, active)
+def test_histogram_sparse_kernel_matches_plain(dev, subset, case):
+    sp, rows, codes, node, grad, hess, n_nodes, n_bins, active = _sparse_edge_case(
+        dev, case, subset)
+    if case == "random" and subset:
+        active = torch.tensor([6, 1, 2, 5], dtype=torch.int32, device=dev)
+    args = (rows, codes, node, grad, hess, n_nodes, n_bins, active)
     before = histogram_sparse.launches
     a = histogram_sparse.histogram_sparse(*args)
     b = histogram_sparse.histogram_sparse(*args)
     torch.cuda.synchronize()
     assert histogram_sparse.launches == before + 2
     assert torch.equal(a, b), "two launches differ"
-    _close(a, histogram_sparse.histogram_sparse_plain(*args))
+    if case == "codes_out_of_range":
+        # The plain version takes codes in [0, B) only; an entry whose code
+        # is outside adds nothing, as a pad.
+        bad = (codes < 0) | (codes >= n_bins)
+        plain_args = (torch.where(bad, -1, rows), torch.where(bad, 0, codes)) + args[2:]
+    else:
+        plain_args = args
+    _close(a, histogram_sparse.histogram_sparse_plain(*plain_args))
+    if case == "all_pad_feature":
+        assert not a[:, :, 7].any()
+    if case in ("all_pad_feature", "codes_out_of_range"):
+        return
     # With the zero-bin complement it is the dense histogram of the same bins.
     dense = to_dense(sp)
     if subset:
-        got = ops.build_histogram_subset(sp, node, grad, hess, active, 8, 64)
-        want = histogram.histogram(dense, node, grad, hess, 8, 64, active)
+        got = ops.build_histogram_subset(sp, node, grad, hess, active, n_nodes, n_bins)
+        want = histogram.histogram(dense, node, grad, hess, n_nodes, n_bins, active)
     else:
-        got = ops.build_histogram(sp, node, grad, hess, 8, 64)
-        want = histogram.histogram(dense, node, grad, hess, 8, 64)
+        got = ops.build_histogram(sp, node, grad, hess, n_nodes, n_bins)
+        want = histogram.histogram(dense, node, grad, hess, n_nodes, n_bins)
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
 
