@@ -13,9 +13,28 @@ with the fused level (``backend="fused"``: levels 0-4 as one fused level
 each, 5-8 staged; its forest must be the staged one bit for bit) and on
 the sparse layout (``bin_dataset(..., sparse=True)``, twice); then a
 ``ForestServer`` answering raw float requests with the staged forest and
-with a seeded full 400-slot forest. The kernel checks come after it: the
-profiler that reads their device times would slow the host side of the
-rounds. Both histogram kernels are also timed at each level of one tree.
+with a seeded full 400-slot forest.
+
+The second main path follows at once, the multiclass path and quantized
+serving: the JAX package's K-output configuration (``multiclass:5``,
+depth 6, v = 0.15, 64 bins, 2000-slot forest;
+``make_multiclass_classification(4000, 60, 5, seed=0)``) trained 16 rounds
+at W = 4 staged (twice, bitwise equal) and fused (bitwise the staged
+forest), its loss falling and its accuracy above the largest class prior;
+then the realsim forest just trained and the multiclass forest each served
+f32, ``quantize="int8"`` and ``quantize="fp16"`` (8 requests of 1-600 rows
+each): every answer is link(forest_predict) on the installed forest, every
+multiclass row a softmax row, every quantized margin within
+``quantization_atol`` of the f32 forest's.
+
+The kernel checks come after both main paths: the profiler that reads
+their device times would slow the host side of the rounds and requests.
+The traversal kernel's int8, fp16 and K = 5 forms are held bit for bit
+against the plain version at those forests' full shapes and at a ragged
+shape; the histogram, split gain and fused level against theirs on the
+multiclass data at each of a tree's six levels; every kernel against its
+plain version at realsim's shapes. Both histogram kernels are also timed
+at each level of one realsim tree.
 
 Then the LM zoo's serving path: the flash-attention kernel against its
 plain version at the serving prefill's shape and at ragged shapes, and
@@ -37,9 +56,9 @@ and one microbatch's loss and gradients are held against the chunked
 attention path's.
 
 It prints the card's name and power limit, a ``kernels`` JSON line (per
-kernel: launches on the main path, error against the plain version, time
-as a CUDA-event mean and as device time alone, the plain version's time,
-the bound, a library call's time), a sweep of both histogram kernels over
+kernel, and per form of the traversal kernel: launches on its path, error
+against the plain version, time as a CUDA-event mean and as device time
+alone, the plain version's time, the bound, a library call's time), a sweep of both histogram kernels over
 one realsim tree's nine levels and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises: the exit code is
 then non-zero and the last line is not printed. Details go to
@@ -63,7 +82,7 @@ import dataclasses  # noqa: E402
 
 import repro_torch.configs as lm_configs  # noqa: E402
 from repro_torch.convert import forest_from_numpy  # noqa: E402
-from repro_torch.core.sgbdt import SGBDTConfig, init_state  # noqa: E402
+from repro_torch.core.sgbdt import SGBDTConfig, init_state, train_metrics  # noqa: E402
 from repro_torch.data.sampling import bernoulli_weights  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -95,7 +114,11 @@ from repro_torch.ps.engine import Trainer  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.forest_server import ForestServer, PredictRequest  # noqa: E402
 from repro_torch.trees.binning import apply_bins, bin_dataset, gather_feature_bins  # noqa: E402
-from repro_torch.trees.forest import forest_predict  # noqa: E402
+from repro_torch.trees.forest import (  # noqa: E402
+    QuantizedForest,
+    forest_predict,
+    quantization_atol,
+)
 from repro_torch.trees.learner import (  # noqa: E402
     LearnerConfig,
     _smaller_children,
@@ -130,6 +153,32 @@ KERNELS = {
                          "src/repro/kernels/histogram_sparse.py:87"),
 }
 
+# The multiclass path: the JAX package's own K-output configuration
+# (launch/train.py --arch gbdt --objective multiclass:5 on
+# gbdt_dataset_for("multiclass:5")): make_multiclass_classification(4000,
+# 60, 5, seed=0) at 64 bins, a 2000-slot forest (400 rounds x 5), 16 rounds
+# at W = 4 as the logistic phase runs.
+MC_SHAPE = (4000, 60, 5)  # rows, features, classes
+MC_CFG = SGBDTConfig(
+    n_trees=400, step_length=0.15, sampling_rate=0.8, objective="multiclass:5",
+    learner=LearnerConfig(depth=6, n_bins=64, feature_fraction=0.8, hist_mode="subtract"),
+)
+MC_CFG_FUSED = MC_CFG._replace(learner=MC_CFG.learner._replace(backend="fused"))
+QUANT_MODES = (None, "int8", "fp16")  # each forest is served f32 and packed both ways
+# The traversal forms' ragged case: rows (not a multiple of the kernel's
+# 16-sample block) and live slots of each forest (not a multiple of the
+# 16-tree pass, nor of K).
+RAGGED_ROWS, RAGGED_LIVE = 1001, {"realsim": 237, "multiclass": 1233}
+# The traversal kernel's forms beside the f32 one-output entry, by their key
+# in ``forest_traversal.form_launches``.
+TRAV_FORMS = {
+    "forest_traverse_int8": "int8",
+    "forest_traverse_fp16": "fp16",
+    "forest_traverse_k5": "k_f32",
+    "forest_traverse_k5_int8": "k_int8",
+    "forest_traverse_k5_fp16": "k_fp16",
+}
+
 # The LM zoo's serving path: granite-3-2b at full width through the flash
 # kernel; its prompts are the prefill shape the kernel is checked at.
 LM_ARCH = "granite-3-2b"
@@ -156,6 +205,15 @@ FLASH_RAGGED = [
     (2, 64, 192, 4, 4, 64, False, torch.bfloat16),
     (1, 100, 100, 4, 2, 80, True, torch.float32),
 ]
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0 (each traversal form's)."""
+    for mod, _, _ in list(KERNELS.values()) + list(LM_KERNELS.values()):
+        if mod is not forest_traversal:
+            mod.launches = 0
+    forest_traversal.form_launches.update(dict.fromkeys(forest_traversal.form_launches, 0))
+    flash_attention.bwd_launches = 0
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -296,92 +354,105 @@ def fused_levels(n: int, n_feat: int) -> list:
         n, 1 << lv, max(1, (1 << lv) // 2), n_feat, lc.n_bins)]
 
 
+def level_build_case(lc, bins, node, g, h, mask, level: int, parent, tag: str,
+                     report: dict, key: str = "level_build") -> dict:
+    """The fused level at ``level`` (``parent``, the level above's histogram,
+    from level 1 on; the active rows are the smaller children of ``node``)
+    under learner ``lc``: against its plain version (integer outputs exact;
+    histogram and best gain within 1e-5 x max|cell|), bitwise against the
+    learner's staged level on the same inputs, two launches bitwise. Ties
+    go to ``report[key + "_tied_nodes"]``. Returns the stats (device time
+    pending)."""
+    n, f = bins.shape
+    b = lc.n_bins
+    mask_i = mask.to(torch.int32)
+    n_nodes = 1 << level
+    derive = level > 0
+    active = (_smaller_children(node, h, n_nodes) if derive
+              else torch.zeros(1, dtype=torch.int32, device=bins.device))
+    args = (bins, node, g, h, active, parent, mask_i, lc.lam, lc.min_child_hess,
+            n_nodes, b, derive)
+
+    def run():
+        return level_build.level_build(*args)
+    k1, k2 = run(), run()
+    torch.cuda.synchronize()
+    for a, c in zip(k1, k2):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{key} {tag}: two launches differ")
+    staged = _staged_level(lc, bins, node, g, h, mask, level, parent)
+    for name, a, c in zip(("hist", "feat", "thr", "new_node"),
+                          (k1[0], k1[1], k1[2], k1[4]), staged):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{key} {tag}: {name} differs from the staged level")
+    plain = level_build.level_build_plain(*args)
+    scale = float(plain[0].abs().max())
+    err = max(close(f"{key} {tag} hist", k1[0], plain[0], 1e-5, 1e-5 * scale),
+              close(f"{key} {tag} best_gain", k1[3], plain[3], 1e-5, 1e-5 * scale))
+    # Integer outputs exact, up to ties: at realsim the first tree's
+    # gradients take two values (one per label) and most features hold a
+    # few stored entries, so many (feature, threshold) pairs tie in exact
+    # arithmetic. The plain version's atomics round the tied gains
+    # differently and may pick another of them. Where the two pick
+    # different splits, the kernel's must tie the plain best within the
+    # gain tolerance under the plain version's own gains; the samples of
+    # every node where they agree must be routed alike.
+    differ = (k1[1] != plain[1]) | (k1[2] != plain[2])
+    if bool(differ.any()):
+        gain = split_scan.split_gain_plain(plain[0], lc.lam, lc.min_child_hess)
+        flat = gain.masked_fill(~mask[None, :, None], float("-inf")).reshape(n_nodes, -1)
+        picked = flat.gather(1, (k1[1].long() * b + k1[2].long())[:, None])[:, 0]
+        tie = (picked - plain[3]).abs() <= 1e-5 * plain[3].abs()
+        if not bool(tie[differ].all()):
+            raise AssertionError(f"{key} {tag}: feat/thr differ from the plain "
+                                 "version at a node without a tie")
+    agree = ~differ[node.long()]
+    if not torch.equal(k1[4][agree], plain[4][agree]):
+        raise AssertionError(f"{key} {tag}: new_node differs from the plain version")
+    report.setdefault(f"{key}_tied_nodes", {})[tag] = int(differ.sum())
+    n_sub = active.shape[0]
+    hit = int(torch.isin(node, active).sum())
+    routed = int((node >= 0).sum())
+    cells = n_nodes * f * b
+    # Bytes the level needs: node ids, the bin rows and grad/hess of the
+    # samples on built nodes, the active list, the parent cache, the
+    # level histogram written, the split vectors, one bin per routed
+    # sample and the new node ids. Operations: two adds a built cell,
+    # about a dozen a scanned cell (unmasked features).
+    nbytes = 4 * (n + hit * (f + 2) + n_sub + (2 * n_sub * f * b if derive else 0)
+                  + 2 * cells + 3 * n_nodes + routed + n)
+    ops = 2.0 * f * hit + 12.0 * n_nodes * int(mask.sum()) * b
+    bms, by = bound(nbytes, ops)
+    stats = event_times(run)
+    stats.update({
+        "max_abs_err": err,
+        "plain_ms": cuda_ms(lambda: level_build.level_build_plain(*args), reps=5),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "staged_ms": cuda_ms(lambda: _staged_level(lc, bins, node, g, h, mask, level,
+                                                   parent)),
+        "samples_hit": hit,
+    })
+    return stats
+
+
 def check_level_build(data, g, h, gen, report: dict) -> dict:
     """The fused level at realsim level 0 (full) and at the deepest level
-    that fuses (subtract mode): against its plain version (integer outputs
-    exact; histogram and best gain within 1e-5 x max|cell|), bitwise against
-    the learner's staged level on the same inputs, two launches bitwise.
+    that fuses (subtract mode), on seeded node ids (``level_build_case``).
     Returns the stats by shape (device times pending)."""
     dev = data.bins.device
     n, f = data.bins.shape
     b, lc = CFG.learner.n_bins, CFG.learner
     mask = torch.rand(f, generator=gen, device=dev) < lc.feature_fraction
-    mask_i = mask.to(torch.int32)
     deep = fused_levels(n, f)[-1]
     shapes = {}
     for level in (0, deep):
         n_nodes = 1 << level
-        derive = level > 0
         node = torch.randint(0, n_nodes, (n,), generator=gen, device=dev, dtype=torch.int32)
-        parent, active = None, torch.zeros(1, dtype=torch.int32, device=dev)
-        if derive:
-            parent = histogram.histogram(data.bins, node >> 1, g, h, n_nodes // 2, b)
-            active = _smaller_children(node, h, n_nodes)
-        args = (data.bins, node, g, h, active, parent, mask_i, lc.lam, lc.min_child_hess,
-                n_nodes, b, derive)
-
-        def run(args=args):
-            return level_build.level_build(*args)
-        k1, k2 = run(), run()
-        torch.cuda.synchronize()
+        parent = (histogram.histogram(data.bins, node >> 1, g, h, n_nodes // 2, b)
+                  if level else None)
         tag = f"level{level}"
-        for a, c in zip(k1, k2):
-            if not torch.equal(a, c):
-                raise AssertionError(f"level_build {tag}: two launches differ")
-        staged = _staged_level(lc, data.bins, node, g, h, mask, level, parent)
-        for name, a, c in zip(("hist", "feat", "thr", "new_node"),
-                              (k1[0], k1[1], k1[2], k1[4]), staged):
-            if not torch.equal(a, c):
-                raise AssertionError(
-                    f"level_build {tag}: {name} differs from the staged level")
-        plain = level_build.level_build_plain(*args)
-        scale = float(plain[0].abs().max())
-        err = max(close(f"level_build {tag} hist", k1[0], plain[0], 1e-5, 1e-5 * scale),
-                  close(f"level_build {tag} best_gain", k1[3], plain[3], 1e-5, 1e-5 * scale))
-        # Integer outputs exact, up to ties: at realsim the first tree's
-        # gradients take two values (one per label) and most features hold a
-        # few stored entries, so many (feature, threshold) pairs tie in exact
-        # arithmetic. The plain version's atomics round the tied gains
-        # differently and may pick another of them. Where the two pick
-        # different splits, the kernel's must tie the plain best within the
-        # gain tolerance under the plain version's own gains; the samples of
-        # every node where they agree must be routed alike.
-        differ = (k1[1] != plain[1]) | (k1[2] != plain[2])
-        if bool(differ.any()):
-            gain = split_scan.split_gain_plain(plain[0], lc.lam, lc.min_child_hess)
-            flat = gain.masked_fill(~mask[None, :, None], float("-inf")).reshape(n_nodes, -1)
-            picked = flat.gather(1, (k1[1].long() * b + k1[2].long())[:, None])[:, 0]
-            tie = (picked - plain[3]).abs() <= 1e-5 * plain[3].abs()
-            if not bool(tie[differ].all()):
-                raise AssertionError(f"level_build {tag}: feat/thr differ from the plain "
-                                     "version at a node without a tie")
-        agree = ~differ[node.long()]
-        if not torch.equal(k1[4][agree], plain[4][agree]):
-            raise AssertionError(f"level_build {tag}: new_node differs from the plain version")
-        report.setdefault("level_build_tied_nodes", {})[tag] = int(differ.sum())
-        n_sub = active.shape[0]
-        hit = int(torch.isin(node, active).sum())
-        routed = int((node >= 0).sum())
-        cells = n_nodes * f * b
-        # Bytes the level needs: node ids, the bin rows and grad/hess of the
-        # samples on built nodes, the active list, the parent cache, the
-        # level histogram written, the split vectors, one bin per routed
-        # sample and the new node ids. Operations: two adds a built cell,
-        # about a dozen a scanned cell (unmasked features).
-        nbytes = 4 * (n + hit * (f + 2) + n_sub + (2 * n_sub * f * b if derive else 0)
-                      + 2 * cells + 3 * n_nodes + routed + n)
-        ops = 2.0 * f * hit + 12.0 * n_nodes * int(mask.sum()) * b
-        bms, by = bound(nbytes, ops)
-        shapes[tag] = event_times(run)
-        shapes[tag].update({
-            "max_abs_err": err,
-            "plain_ms": cuda_ms(lambda args=args: level_build.level_build_plain(*args),
-                                reps=5),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "staged_ms": cuda_ms(lambda node=node, parent=parent, level=level: _staged_level(
-                lc, data.bins, node, g, h, mask, level, parent)),
-            "samples_hit": hit,
-        })
+        shapes[tag] = level_build_case(lc, data.bins, node, g, h, mask, level, parent, tag,
+                                       report)
     report["level_build_shapes"] = shapes
     report["level_build_bitwise_vs_staged"] = True
     return shapes
@@ -472,52 +543,61 @@ def kernel_inputs(data) -> tuple:
     return g, h, node8, _smaller_children(node8, h, 256), gen
 
 
+def histogram_case(bins, g, h, node, n_nodes: int, act, n_bins: int, tag: str,
+                   report: dict, key: str = "histogram") -> dict:
+    """The histogram of the rows ``act`` (every node's row where None) of a
+    level of ``n_nodes``: within 1e-5 x max|cell| of its plain version, two
+    launches bitwise; times, bound and the library yardstick. The samples
+    on built rows go to ``report[key + "_samples_hit"]``. Returns the stats
+    (device times pending)."""
+    dev = bins.device
+    n, f = bins.shape
+    b = n_bins
+
+    def run():
+        return histogram.histogram(bins, node, g, h, n_nodes, b, act)
+    k1, k2 = run(), run()
+    torch.cuda.synchronize()
+    if not torch.equal(k1, k2):
+        raise AssertionError(f"{key} {tag}: two launches differ")
+    plain = histogram.histogram_plain(bins, node, g, h, n_nodes, b, act)
+    scale = float(plain.abs().max())
+    err = close(f"{key} {tag}", k1, plain, 1e-5, 1e-5 * scale)
+    rows = n_nodes if act is None else act.shape[0]
+    hit = int((node >= 0).sum()) if act is None else int(torch.isin(node, act).sum())
+    # Bytes the function needs: every node id, the bin rows and grad/hess
+    # of the samples on built nodes only, the row map and the output.
+    nbytes = 4 * (n + hit * (f + 2) + rows + 2 * rows * f * b)
+    bms, by = bound(nbytes, 2.0 * f * hit)
+    report.setdefault(f"{key}_samples_hit", {})[tag] = hit
+    row_of = torch.full((n_nodes,), -1, dtype=torch.int64, device=dev)
+    row_of[(torch.arange(n_nodes, device=dev) if act is None else act.long())] = \
+        torch.arange(rows, device=dev)
+    r = torch.where(node >= 0, row_of[node.long().clamp(min=0)], -1)
+    keep = r >= 0
+    cell = ((r[:, None] * f + torch.arange(f, device=dev)) * b + bins.long())[keep]
+    seg = torch.cat([cell.reshape(-1), (cell + rows * f * b).reshape(-1)])
+    vals = torch.cat([g[keep][:, None].expand(-1, f).reshape(-1),
+                      h[keep][:, None].expand(-1, f).reshape(-1)])
+    stats = event_times(run)
+    stats.update({
+        "max_abs_err": err,
+        "plain_ms": cuda_ms(lambda: histogram.histogram_plain(bins, node, g, h, n_nodes, b,
+                                                              act), reps=5),
+        "bound_ms": bms, "bound_by": by,
+    })
+    return library_times(seg, vals, 2 * rows * f * b, stats)
+
+
 def check_histogram(data, g, h, node8, active, report: dict) -> dict:
     """The histogram at the full level 0 and at the level-8 smaller-child
-    subset: within 1e-5 x max|cell| of its plain version, two launches
-    bitwise; times, bound and the library yardstick. Returns the stats by
-    shape (device times pending)."""
-    dev = data.bins.device
-    n, f = data.bins.shape
-    b = CFG.learner.n_bins
-    node0 = torch.zeros(n, dtype=torch.int32, device=dev)
-    shapes = {}
-    for tag, node, n_nodes, act in (("level0", node0, 1, None), ("level8_subset", node8, 256, active)):
-        def run(node=node, n_nodes=n_nodes, act=act):
-            return histogram.histogram(data.bins, node, g, h, n_nodes, b, act)
-        k1, k2 = run(), run()
-        torch.cuda.synchronize()
-        if not torch.equal(k1, k2):
-            raise AssertionError(f"histogram {tag}: two launches differ")
-        plain = histogram.histogram_plain(data.bins, node, g, h, n_nodes, b, act)
-        scale = float(plain.abs().max())
-        err = close(f"histogram {tag}", k1, plain, 1e-5, 1e-5 * scale)
-        rows = 1 if act is None else act.shape[0]
-        hit = int((node >= 0).sum()) if act is None else int(
-            torch.isin(node, act).sum())
-        # Bytes the function needs: every node id, the bin rows and grad/hess
-        # of the samples on built nodes only, the row map and the output.
-        nbytes = 4 * (n + hit * (f + 2) + rows + 2 * rows * f * b)
-        bms, by = bound(nbytes, 2.0 * f * hit)
-        report.setdefault("histogram_samples_hit", {})[tag] = hit
-        row_of = torch.full((n_nodes,), -1, dtype=torch.int64, device=dev)
-        row_of[(torch.arange(n_nodes, device=dev) if act is None else act.long())] = \
-            torch.arange(rows, device=dev)
-        r = torch.where(node >= 0, row_of[node.long().clamp(min=0)], -1)
-        keep = r >= 0
-        cell = ((r[:, None] * f + torch.arange(f, device=dev)) * b + data.bins.long())[keep]
-        seg = torch.cat([cell.reshape(-1), (cell + rows * f * b).reshape(-1)])
-        vals = torch.cat([g[keep][:, None].expand(-1, f).reshape(-1),
-                          h[keep][:, None].expand(-1, f).reshape(-1)])
-        shapes[tag] = event_times(run)
-        shapes[tag].update({
-            "max_abs_err": err,
-            "plain_ms": cuda_ms(lambda node=node, n_nodes=n_nodes, act=act:
-                                histogram.histogram_plain(data.bins, node, g, h, n_nodes, b, act),
-                                reps=5),
-            "bound_ms": bms, "bound_by": by,
-        })
-        library_times(seg, vals, 2 * rows * f * b, shapes[tag])
+    subset (``histogram_case``). Returns the stats by shape (device times
+    pending)."""
+    node0 = torch.zeros(data.n_samples, dtype=torch.int32, device=data.bins.device)
+    shapes = {tag: histogram_case(data.bins, g, h, node, n_nodes, act, CFG.learner.n_bins,
+                                  tag, report)
+              for tag, node, n_nodes, act in (("level0", node0, 1, None),
+                                              ("level8_subset", node8, 256, active))}
     report["histogram_shapes"] = shapes
     return shapes
 
@@ -561,6 +641,38 @@ def sweep_levels(data, sp, g, h, gen, report: dict) -> list:
     return sweep
 
 
+def split_gain_case(hist: torch.Tensor, lam: float, min_h: float,
+                    scale_by: str = "gain") -> dict:
+    """The split gain of ``hist`` within rtol 1e-5 and atol 1e-5 x scale of
+    its plain version, -inf cells exact; times and bound (device time
+    pending). The scale is the largest finite gain, or with ``scale_by=
+    "terms"`` the largest sum of a finite cell's three terms' magnitudes,
+    |G_L^2 / (H_L + lam)| + |G_R^2 / (H_R + lam)| + |G^2 / (H + lam)|: the
+    size the f32 prefix sums round at. Below a tree's root, where a node's
+    best gain is a small difference of large terms (the multiclass data),
+    the two versions' scans differ by ulps of the terms, not of the gain."""
+    gain = split_scan.split_gain(hist, lam, min_h)
+    plain = split_scan.split_gain_plain(hist, lam, min_h)
+    fin = torch.isfinite(plain)
+    if scale_by == "terms":
+        gl, hl = torch.cumsum(hist[0].double(), -1), torch.cumsum(hist[1].double(), -1)
+        gt, ht = gl[..., -1:], hl[..., -1:]
+        terms = gl ** 2 / (hl + lam) + (gt - gl) ** 2 / (ht - hl + lam) + gt ** 2 / (ht + lam)
+        finite = terms[fin]
+    else:
+        finite = plain[fin]
+    scale = float(finite.abs().max()) if finite.numel() else 1.0
+    cells = hist[0].numel()
+    bms, by = bound(4 * 3 * cells, 12 * cells)
+    stats = event_times(lambda: split_scan.split_gain(hist, lam, min_h))
+    stats.update({
+        "max_abs_err": close(f"split_gain L={hist.shape[1]}", gain, plain, 1e-5, 1e-5 * scale),
+        "plain_ms": cuda_ms(lambda: split_scan.split_gain_plain(hist, lam, min_h), reps=5),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+    })
+    return stats
+
+
 def check_kernels(data, sp, rng, report: dict) -> dict:
     """Phase 4: each kernel against its plain version at the main path's
     shapes, with its time (event mean and device alone), its plain
@@ -573,19 +685,7 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
 
     # Split gain at L = 256, on a real level-8 histogram.
     hist = histogram.histogram(data.bins, node8, g, h, 256, b)
-    lam, min_h = CFG.learner.lam, CFG.learner.min_child_hess
-    gain = split_scan.split_gain(hist, lam, min_h)
-    plain = split_scan.split_gain_plain(hist, lam, min_h)
-    finite = plain[torch.isfinite(plain)]
-    scale = float(finite.abs().max()) if finite.numel() else 1.0
-    cells = 256 * f * b
-    bms, by = bound(4 * 3 * cells, 12 * cells)
-    gain_shapes = {"L=256": event_times(lambda: split_scan.split_gain(hist, lam, min_h))}
-    gain_shapes["L=256"].update({
-        "max_abs_err": close("split_gain", gain, plain, 1e-5, 1e-5 * scale),
-        "plain_ms": cuda_ms(lambda: split_scan.split_gain_plain(hist, lam, min_h), reps=5),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-    })
+    gain_shapes = {"L=256": split_gain_case(hist, CFG.learner.lam, CFG.learner.min_child_hess)}
     # The argmax stays in torch: its tie-break must be the first maximum.
     tie = torch.full((4, f * b), float("-inf"), device=dev)
     tie[:, [7, f * b // 2, f * b - 2]] = 3.5
@@ -661,11 +761,12 @@ def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | No
     return state
 
 
-def serve(forest, x: np.ndarray, edges, rng) -> tuple:
-    """Phase 3: 8 raw-float requests of 1..600 rows, one of them oversized;
-    returns (server, requests, results)."""
-    server = ForestServer(forest, edges, max_rows=256, objective="logistic",
-                          device=edges.device)
+def serve(forest, x: np.ndarray, edges, rng, objective="logistic", quantize=None) -> tuple:
+    """Phase 3: 8 raw-float requests of 1..600 rows, one of them oversized,
+    through ``ForestServer`` (``quantize`` packs the forest); returns
+    (server, requests, results)."""
+    server = ForestServer(forest, edges, max_rows=256, objective=objective,
+                          quantize=quantize, device=edges.device)
     sizes = [600] + [int(s) for s in rng.integers(1, 257, 7)]
     reqs = []
     for uid, size in enumerate(sizes):
@@ -675,17 +776,22 @@ def serve(forest, x: np.ndarray, edges, rng) -> tuple:
 
 
 def check_served(tag: str, server, reqs, results) -> dict:
-    """Every request answered, each answer equal to link(forest_predict),
-    with the forest sum taken by the traversal's plain version."""
+    """Every request answered, each answer equal to link(forest_predict) on
+    the installed forest (f32 or quantized, one output or K), with the
+    forest sum taken by the traversal's plain version over all requests'
+    rows at once."""
     if [r.uid for r in results] != list(range(len(reqs))):
         raise AssertionError(f"{tag}: not every request was answered")
-    err = 0.0
     fo = server.forest
+    x = torch.from_numpy(np.concatenate([r.x for r in reqs])).to(server.device)
+    raw = fo.base_score + forest_traversal.forest_traverse_plain(
+        apply_bins(x, server.bin_edges), fo.feature, fo.threshold, fo.leaf_value,
+        fo.n_trees, fo.depth, fo.n_outputs, getattr(fo, "leaf_scale", None))
+    want_all = server.objective.link(raw).cpu().numpy()
+    err, lo = 0.0, 0
     for req, res in zip(reqs, results):
-        bins = apply_bins(torch.from_numpy(req.x).to(server.device), server.bin_edges)
-        raw = fo.base_score + forest_traversal.forest_traverse_plain(
-            bins, fo.feature, fo.threshold, fo.leaf_value, fo.n_trees, fo.depth)
-        want = CFG.obj.link(raw).cpu().numpy()
+        want = want_all[lo:lo + len(req.x)]
+        lo += len(req.x)
         if res.scores.shape != want.shape or not np.isfinite(res.scores).all():
             raise AssertionError(f"{tag}: request {req.uid} came back malformed")
         np.testing.assert_allclose(res.scores, want, rtol=1e-6, atol=1e-7)
@@ -767,35 +873,53 @@ def same_forest(tag: str, a, b) -> None:
         raise AssertionError(f"{tag}: f differs")
 
 
-def drive(dev: torch.device, report: dict) -> list:
-    """Phases 2 to 4 on ``dev``; returns the ``kernels`` line's entries."""
+def gbdt_counts() -> dict:
+    """Each GBDT kernel's launches since ``reset_counts``, with the
+    traversal's under its f32 one-output form's key (the kernel's name) and
+    every form's key."""
+    counts = {name: mod.launches for name, (mod, _, _) in KERNELS.items()
+              if mod is not forest_traversal}
+    counts.update(forest_traversal.form_launches)
+    counts["forest_traverse"] = counts["f32"]
+    return counts
+
+
+def drive(dev: torch.device) -> dict:
+    """Phases 2 and 3 on ``dev``, the main path: only their launches are
+    counted. They run before any kernel check: the profiler that reads the
+    checks' device times would slow the host side of every later op (see
+    ``_PENDING``), and the rounds are host-bound. Returns what the checks
+    need."""
     spec = synthetic.PAPER_DATASETS["realsim-like"]
     x, y, mult = synthetic.raw(spec)
     data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
     sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True)
     rng = np.random.default_rng(SEED)
-
-    # Phases 2 and 3 are the main path; only their launches are counted. They
-    # run first: the kernel checks' profiler traces would slow the host side
-    # of every later op (see ``_PENDING``), and the rounds are host-bound.
-    for mod, _, _ in KERNELS.values():
-        mod.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     stamps: dict = {"staged": [], "fused": [], "sparse": []}
     fused_per_round: list = []
-    state = train(data, CFG, stamps["staged"])
-    again = train(data, CFG)
-    fused = train(data, CFG_FUSED, stamps["fused"], fused_per_round)
-    sp1 = train(sparse, CFG, stamps["sparse"])
-    sp2 = train(sparse, CFG)
-    served = serve(state.forest, x, data.bin_edges, rng)
-    seeded = seeded_forest(rng, data.n_features, float(state.forest.base_score), dev)
+    runs = {"staged": train(data, CFG, stamps["staged"]), "again": train(data, CFG),
+            "fused": train(data, CFG_FUSED, stamps["fused"], fused_per_round),
+            "sparse": train(sparse, CFG, stamps["sparse"]), "sparse_again": train(sparse, CFG)}
+    served = serve(runs["staged"].forest, x, data.bin_edges, rng)
+    seeded = seeded_forest(rng, data.n_features, float(runs["staged"].forest.base_score), dev)
     full = serve(seeded, x, data.bin_edges, rng)
     torch.cuda.synchronize()
-    counts = {name: mod.launches for name, (mod, _, _) in KERNELS.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    return {"data": data, "sparse": sparse, "x": x, "rng": rng, "runs": runs,
+            "stamps": stamps, "fused_per_round": fused_per_round, "served": (served, full),
+            "counts": gbdt_counts(), "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "forest": runs["staged"].forest}
 
-    # Phase 4: every kernel against its plain version.
+
+def check_drive(run: dict, report: dict) -> list:
+    """Phase 4 (every kernel against its plain version; it takes every
+    pending device time) and the checks of phases 2 and 3 on ``drive``'s
+    run; then a profiled round of each run. Returns the ``kernels`` line's
+    entries."""
+    data, sparse, x, rng = run["data"], run["sparse"], run["x"], run["rng"]
+    runs, counts, peak_gb = run["runs"], run["counts"], run["peak_gb"]
+    state, sp1 = runs["staged"], runs["sparse"]
     kstats = check_kernels(data, sparse.bins, rng, report)
     print("kernel checks: " + json.dumps(
         {k: {"max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"]}
@@ -810,7 +934,7 @@ def drive(dev: torch.device, report: dict) -> list:
           f"{sweep} [{report.get('nvidia_smi', '')}]", flush=True)
 
     # The checks of phases 2 and 3.
-    round_ms = {k: [1e3 * (b - a) for a, b in zip(v, v[1:])] for k, v in stamps.items()}
+    round_ms = {k: [1e3 * (b - a) for a, b in zip(v, v[1:])] for k, v in run["stamps"].items()}
     median_ms = {k: float(np.median(v[1:])) for k, v in round_ms.items()}
     for k, v in round_ms.items():
         print(f"round ms ({k}): " + " ".join(f"{t:.1f}" for t in v), flush=True)
@@ -824,22 +948,23 @@ def drive(dev: torch.device, report: dict) -> list:
           f"{loss_sp:.6f})", flush=True)
     if not (np.isfinite(loss) and loss < loss0):
         raise AssertionError("training loss did not fall")
-    same_forest("second staged run", state, again)
+    same_forest("second staged run", state, runs["again"])
     torch.testing.assert_close(forest_predict(state.forest, data.bins), state.f,
                                rtol=1e-5, atol=1e-6)
 
     # (i) The fused run: the staged forest bit for bit.
     want = fused_levels(data.n_samples, data.n_features)
-    if fused_per_round != [len(want)] * ROUNDS:
-        raise AssertionError(f"fused levels per tree {fused_per_round}, expected {len(want)}")
-    same_forest("fused run vs staged run", fused, state)
+    if run["fused_per_round"] != [len(want)] * ROUNDS:
+        raise AssertionError(f"fused levels per tree {run['fused_per_round']}, "
+                             f"expected {len(want)}")
+    same_forest("fused run vs staged run", runs["fused"], state)
     print(f"fused run: levels {want} fused in each of the {ROUNDS} trees, levels "
           f"{[lv for lv in range(CFG.learner.depth) if lv not in want]} staged; forest and f "
           "bitwise equal to the staged run", flush=True)
 
     # (ii) The sparse layout: deterministic, the loss falls to within 1e-3 of
     # the dense run's, the first tree's levels 0-2 are the dense run's.
-    same_forest("second sparse run", sp1, sp2)
+    same_forest("second sparse run", sp1, runs["sparse_again"])
     if not (np.isfinite(loss_sp) and loss_sp < loss0 and abs(loss_sp - loss) <= 1e-3):
         raise AssertionError(f"sparse loss {loss_sp} vs dense {loss} (start {loss0})")
     ties = first_tree_ties(data, state, sp1)
@@ -849,17 +974,17 @@ def drive(dev: torch.device, report: dict) -> list:
           f"(|diff| {abs(loss_sp - loss):.2e}); first tree's levels 0-2 equal to the dense "
           f"run's up to {ties} tied node(s)", flush=True)
 
-    served = check_served("trained forest", *served)
-    full = check_served("seeded 400-slot forest", *full)
-    for label, s in (("trained", served), ("seeded 400-slot", full)):
-        print(f"serve {label}: {s['requests']} requests over {s['waves']} waves, latency "
-              f"p50 {s['latency_p50_ms']:.3f} ms p99 {s['latency_p99_ms']:.3f} ms", flush=True)
+    served = check_served("trained forest", *run["served"][0])
+    full = check_served("seeded 400-slot forest", *run["served"][1])
+    for label, st in (("trained", served), ("seeded 400-slot", full)):
+        print(f"serve {label}: {st['requests']} requests over {st['waves']} waves, latency "
+              f"p50 {st['latency_p50_ms']:.3f} ms p99 {st['latency_p99_ms']:.3f} ms", flush=True)
     report.update(round_ms=round_ms, median_round_ms=median_ms, fused_levels=want,
                   sparse_first_tree_ties=ties,
                   loss={"start": loss0, "staged": loss, "sparse": loss_sp},
                   serve_trained=served, serve_seeded=full, launches=counts,
                   peak_mem_gb=peak_gb, kernels=kstats)
-    if dev.type == "cuda":
+    if data.bins.device.type == "cuda":
         report["profile"] = {}
         for tag, d, cfg in (("staged", data, CFG), ("fused", data, CFG_FUSED),
                             ("sparse", sparse, CFG)):
@@ -878,6 +1003,279 @@ def drive(dev: torch.device, report: dict) -> list:
             raise AssertionError(f"{name}: no launch on the main path")
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": counts[name], **kstats[name]})
+    return line
+
+
+def seeded_multiclass_forest(rng: np.random.Generator, dev) -> object:
+    """A full 2000-slot (400 rounds x 5) depth-6 forest of valid random trees
+    over the multiclass set's 60 features and 64 bins."""
+    lc = MC_CFG.learner
+    slots, n_int = MC_CFG.n_trees * MC_SHAPE[2], (1 << lc.depth) - 1
+    return forest_from_numpy(
+        rng.integers(0, MC_SHAPE[1], (slots, n_int)),
+        rng.integers(0, lc.n_bins, (slots, n_int)),
+        0.01 * rng.standard_normal((slots, 1 << lc.depth)),
+        slots, 0.1 * rng.standard_normal(MC_SHAPE[2]), device=dev,
+    )
+
+
+def traversal_args(fo, live: int | None = None) -> tuple:
+    """The traversal's arguments after the bins, for forest ``fo`` (f32 or
+    quantized); ``live`` overrides its live-slot count."""
+    nt = fo.n_trees if live is None else torch.tensor(live, dtype=torch.int32,
+                                                       device=fo.feature.device)
+    return (fo.feature, fo.threshold, fo.leaf_value, nt, fo.depth, fo.n_outputs,
+            getattr(fo, "leaf_scale", None))
+
+
+def traversal_bound(bins: torch.Tensor, fo, live: int) -> tuple[float, str, int]:
+    """The least time for one traversal: the bin cells the walks read, each
+    live tree's arrays in their packed types (and an int8 tree's scale), the
+    live count and the output, over the memory rate; depth compares and
+    index steps a (sample, tree) pair (and the int8 product), over the f32
+    rate. Returns (ms, bound_by, cells read)."""
+    n = bins.shape[0]
+    n_int, n_leaf = fo.feature.shape[1], fo.leaf_value.shape[1]
+    per_tree = (4 * n_int + fo.threshold.element_size() * n_int
+                + fo.leaf_value.element_size() * n_leaf
+                + (4 if fo.leaf_value.dtype == torch.int8 else 0))
+    cells = touched_bins(bins, fo, live)
+    nbytes = 4 * cells + live * per_tree + 4 + 4 * n * fo.n_outputs
+    ops_per_pair = 3 * fo.depth + 1 + (1 if fo.leaf_value.dtype == torch.int8 else 0)
+    ms, by = bound(nbytes, n * live * ops_per_pair)
+    return ms, by, cells
+
+
+def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
+    """Each new traversal form against its plain version, every output bit
+    equal: int8 and fp16 on a seeded full realsim forest (4000 x 400, depth
+    9, F 1500), K = 5 in f32, int8 and fp16 on a seeded full multiclass
+    forest (4000 x 2000, depth 6, F 60); then a ragged case for every form
+    (the first 1001 rows, live slots 237 of 400 and 1233 of 2000, not a
+    multiple of 16 or of K, dead slots holding stale trees with huge
+    leaves). Event ms, device ms, plain ms and the bound at the full shapes.
+    Returns each kernels-line entry's stats (device times pending)."""
+    dev = realsim_bins.device
+    base = {"realsim": (realsim_bins, seeded_forest(rng, realsim_bins.shape[1], 0.0, dev)),
+            "multiclass": (mc_bins, seeded_multiclass_forest(rng, dev))}
+    cases = {"forest_traverse_int8": ("realsim", "int8"), "forest_traverse_fp16": ("realsim", "fp16"),
+             "forest_traverse_k5": ("multiclass", None),
+             "forest_traverse_k5_int8": ("multiclass", "int8"),
+             "forest_traverse_k5_fp16": ("multiclass", "fp16")}
+    shapes, stats = {}, {}
+    for name, (which, mode) in cases.items():
+        bins, f32 = base[which]
+        fo = f32.quantize(mode) if mode else f32
+        slots = fo.feature.shape[0]
+        per = {}
+        for tag, rows, live in (("full", bins.shape[0], slots),
+                                ("ragged", RAGGED_ROWS, RAGGED_LIVE[which])):
+            b = bins[:rows].contiguous()
+            if tag == "ragged":  # stale trees past the live count
+                fo = fo._replace(leaf_value=fo.leaf_value.clone())
+                fo.leaf_value[live:] = 100 if mode == "int8" else 1e4
+            args = traversal_args(fo, live)
+            got = forest_traversal.forest_traverse(b, *args)
+            want = forest_traversal.forest_traverse_plain(b, *args)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                bad = int((got != want).sum()) if got.shape == want.shape else -1
+                raise AssertionError(f"{name} {tag}: {bad} outputs differ from the plain version")
+            per[tag] = {"rows": rows, "live": live, "max_abs_err": 0.0}
+            if tag == "full":
+                bms, by, cells = traversal_bound(b, fo, live)
+                event_times(lambda b=b, args=args: forest_traversal.forest_traverse(b, *args),
+                            per[tag])
+                per[tag].update({
+                    "plain_ms": cuda_ms(lambda b=b, args=args: forest_traversal.forest_traverse_plain(
+                        b, *args), reps=2, warmup=1),
+                    "bound_ms": bms, "bound_by": by, "library_ms": None, "bin_cells_read": cells,
+                })
+        shapes[name] = per
+        stats[name] = per["full"]
+    report["forest_traverse_form_shapes"] = shapes
+    return stats
+
+
+def drive_multiclass(dev: torch.device, realsim: dict) -> dict:
+    """The multiclass path and quantized serving, the second main path
+    (only its launches are counted; it too runs before any kernel check):
+    multiclass:5 trained 16 rounds at W = 4 staged (twice) and fused; then
+    the realsim forest of ``drive``'s run and the multiclass forest served
+    f32, int8 and fp16. Returns what the checks need."""
+    x, y = synthetic.multiclass_xy(*MC_SHAPE, seed=0)
+    data = bin_dataset(x, y, n_bins=64, device=dev)
+    rng = np.random.default_rng(SEED + 3)
+    reset_counts()
+    stamps: dict = {"staged": [], "fused": []}
+    fused_per_round: list = []
+    runs = {"staged": train(data, MC_CFG, stamps["staged"]), "again": train(data, MC_CFG),
+            "fused": train(data, MC_CFG_FUSED, stamps["fused"], fused_per_round)}
+    servings = (("realsim", realsim["forest"], realsim["x"], realsim["data"].bin_edges,
+                 "logistic"),
+                ("multiclass", runs["staged"].forest, x, data.bin_edges, MC_CFG.objective))
+    served = {(tag, mode): serve(forest, xs, edges, rng, objective=obj, quantize=mode)
+              for tag, forest, xs, edges, obj in servings for mode in QUANT_MODES}
+    torch.cuda.synchronize()
+    return {"data": data, "y": y, "rng": rng, "runs": runs, "stamps": stamps,
+            "fused_per_round": fused_per_round, "servings": servings, "served": served,
+            "counts": gbdt_counts()}
+
+
+def check_multiclass_kernels(data, state, report: dict) -> dict:
+    """The histogram, the split gain and the fused level against their plain
+    versions on the multiclass path's data (N 4000, F 60, 64 bins), at each
+    of a tree's six levels on the staged learner's nodes: lane 0's (g, h)
+    of the round after the run (its draws from a seeded generator, the
+    gradient at the trained F, h = m'), the level's smaller children in
+    subtract mode. Tolerances as at realsim, but the split gain's atol
+    scales with its terms (``split_gain_case``). Returns the stats by
+    kernel and level (device times pending)."""
+    dev = data.bins.device
+    lc = MC_CFG.learner
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    m, _ = bernoulli_weights(gen, MC_CFG.sampling_rate, data.multiplicity)
+    mask = torch.rand(data.n_features, generator=gen, device=dev) < lc.feature_fraction
+    g0, _ = MC_CFG.obj.grad_hess(data.labels, state.f)
+    g, h = (m * g0[:, 0]).contiguous(), m.contiguous()
+    node = torch.zeros(data.n_samples, dtype=torch.int32, device=dev)
+    parent = None
+    shapes: dict = {"histogram": {}, "split_gain": {}, "level_build": {}}
+    for level in range(lc.depth):
+        n_nodes, tag = 1 << level, f"level{level}"
+        act = None if level == 0 else _smaller_children(node, h, n_nodes)
+        shapes["histogram"][tag] = histogram_case(
+            data.bins, g, h, node, n_nodes, act, lc.n_bins, tag, report,
+            key="multiclass_histogram")
+        shapes["level_build"][tag] = level_build_case(
+            lc, data.bins, node, g, h, mask, level, parent, tag, report,
+            key="multiclass_level_build")
+        parent, _, _, node = _staged_level(lc, data.bins, node, g, h, mask, level, parent)
+        shapes["split_gain"][tag] = split_gain_case(parent, lc.lam, lc.min_child_hess,
+                                                    scale_by="terms")
+    report["multiclass_kernel_shapes"] = shapes
+    return shapes
+
+
+def check_multiclass(mc: dict, realsim: dict, report: dict) -> dict:
+    """The checks of ``drive_multiclass``'s run, and its kernels against
+    their plain versions at its shapes (the traversal's new forms, then the
+    histogram, split gain and fused level on the multiclass data). Returns
+    the traversal forms' kernels-line stats and the other kernels' stats by
+    level (device times pending)."""
+    data, y, runs = mc["data"], mc["y"], mc["runs"]
+    state = runs["staged"]
+    card = report.get("nvidia_smi", "card not queried")
+    forms = check_traversal_forms(realsim["data"].bins, data.bins, mc["rng"], report)
+    levels = check_multiclass_kernels(data, state, report)
+
+    round_ms = {k: [1e3 * (b - a) for a, b in zip(v, v[1:])] for k, v in mc["stamps"].items()}
+    for k, v in round_ms.items():
+        print(f"multiclass:5 round ms ({k}): " + " ".join(f"{t:.1f}" for t in v)
+              + f"; median (rounds 2-{ROUNDS}) {float(np.median(v[1:])):.2f} [{card}]",
+              flush=True)
+    same_forest("multiclass: second staged run", state, runs["again"])
+    want = [lv for lv in range(MC_CFG.learner.depth) if level_build.fused_level_fits(
+        MC_SHAPE[0], 1 << lv, max(1, (1 << lv) // 2), MC_SHAPE[1], MC_CFG.learner.n_bins)]
+    fused_per_round = mc["fused_per_round"]
+    per_tree = [n // MC_SHAPE[2] for n in fused_per_round]
+    if per_tree != [len(want)] * ROUNDS or any(n % MC_SHAPE[2] for n in fused_per_round):
+        raise AssertionError(f"multiclass fused launches per round {fused_per_round}, "
+                             f"expected {len(want)} per tree")
+    same_forest("multiclass: fused run vs staged run", runs["fused"], state)
+    loss0 = float(MC_CFG.obj.loss(data.labels, init_state(MC_CFG, data).f, data.multiplicity))
+    met = train_metrics(MC_CFG, data, state)
+    loss, acc = float(met["loss"]), float(met["accuracy"])
+    prior = float(np.bincount(y.astype(np.int64), minlength=MC_SHAPE[2]).max() / len(y))
+    if not (np.isfinite(loss) and loss < loss0):
+        raise AssertionError(f"multiclass loss did not fall: {loss0} -> {loss}")
+    if not acc > prior:
+        raise AssertionError(f"multiclass accuracy {acc} not above the largest prior {prior}")
+    if int(state.forest.n_trees) != ROUNDS * MC_SHAPE[2] or state.f.shape != (MC_SHAPE[0], 5):
+        raise AssertionError("multiclass forest or F of the wrong size")
+    torch.testing.assert_close(forest_predict(state.forest, data.bins), state.f,
+                               rtol=1e-5, atol=1e-6)
+    print(f"multiclass:5 train loss {loss0:.6f} -> {loss:.6f}, accuracy {acc:.4f} (largest "
+          f"class prior {prior:.4f}) after {ROUNDS} rounds; second staged run and fused run "
+          f"(levels {want} fused) bitwise equal to the first", flush=True)
+
+    serve_stats = {}
+    for tag, f32, xs, edges, obj in mc["servings"]:
+        bins_all = apply_bins(torch.from_numpy(xs).to(data.bins.device), edges)
+        margin32 = forest_predict(f32, bins_all)
+        for mode in QUANT_MODES:
+            server, reqs, results = mc["served"][tag, mode]
+            key = f"{tag} {mode or 'f32'}"
+            st = serve_stats[key] = check_served(key, server, reqs, results)
+            if MC_SHAPE[2] == f32.n_outputs:
+                rows = np.concatenate([r.scores for r in results])
+                st["softmax_row_sum_err"] = float(np.abs(rows.sum(1) - 1.0).max())
+                if st["softmax_row_sum_err"] > 1e-5:
+                    raise AssertionError(f"{key}: a served row is no softmax row")
+            if mode:
+                if not isinstance(server.forest, QuantizedForest) or server.forest.mode != mode:
+                    raise AssertionError(f"{key}: the server did not install a {mode} forest")
+                atol = quantization_atol(f32, server.forest)
+                diff = float((forest_predict(server.forest, bins_all) - margin32).abs().max())
+                st.update(margin_max_abs_diff=diff, quantization_atol=atol)
+                if not diff <= atol + 1e-6:
+                    raise AssertionError(f"{key}: a margin moved {diff}, over the bound {atol}")
+            print(f"serve {key}: {st['requests']} requests over {st['waves']} waves, latency "
+                  f"p50 {st['latency_p50_ms']:.3f} ms p99 {st['latency_p99_ms']:.3f} ms"
+                  + (f"; margins within {st['margin_max_abs_diff']:.3g} of f32 (bound "
+                     f"{st['quantization_atol']:.3g})" if mode else "") + f" [{card}]", flush=True)
+    report["multiclass"] = {
+        "config": {"shape": MC_SHAPE, "objective": MC_CFG.objective, "depth": MC_CFG.learner.depth,
+                   "slots": MC_CFG.n_trees * MC_SHAPE[2], "rounds": ROUNDS, "workers": WORKERS},
+        "round_ms": round_ms, "fused_levels": want, "fused_launches_per_round": fused_per_round,
+        "loss": {"start": loss0, "staged": loss}, "accuracy": acc, "largest_prior": prior,
+        "serve": serve_stats, "launches": mc["counts"],
+    }
+    return forms, levels
+
+
+def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
+    """Once every device time is taken: the multiclass kernel checks'
+    times (``check_multiclass``'s stats; the histogram, split gain and
+    fused level at the deepest level, with the largest error of all six),
+    a profiled round of each multiclass run, and the ``kernels`` line's
+    entries of the multiclass path (each must have run on it)."""
+    card = report.get("nvidia_smi", "card not queried")
+    forms, levels = checked
+    deep = f"level{MC_CFG.learner.depth - 1}"
+    kstats = {**forms, **{f"{name}_multiclass": line_stats(per, deep,
+                                                          drop=("staged_ms", "samples_hit"))
+                          for name, per in levels.items()}}
+    print("multiclass path kernels (traversal forms bitwise equal to the plain version, full "
+          "and ragged; the rest at levels 0-5): " + json.dumps(
+              {k: {"ms": v["ms"], "device_ms": v["device_ms"], "bound_ms": v["bound_ms"],
+                   "plain_ms": v["plain_ms"], "max_abs_err": v["max_abs_err"]}
+               for k, v in kstats.items()}) + f" [{card}]", flush=True)
+    info = report["multiclass"]
+    info["profile"] = {}
+    if mc["data"].bins.device.type == "cuda":
+        for tag, cfg in (("staged", MC_CFG), ("fused", MC_CFG_FUSED)):
+            prof = info["profile"][tag] = profile_rounds(mc["data"], cfg)
+            prof["device_busy_share"] = (prof["device_ms_per_round"]
+                                         / float(np.median(info["round_ms"][tag][1:])))
+            print(f"profile (multiclass:5 {tag}): device {prof['device_ms_per_round']:.2f} ms "
+                  f"per round, busy {100 * prof['device_busy_share']:.0f}% of a round's wall "
+                  f"time [{card}]", flush=True)
+    counts = mc["counts"]
+    entries = [(name, "src/repro_torch/csrc/forest_traversal.cu",
+                "src/repro/kernels/forest_traversal.py:107", key)
+               for name, key in TRAV_FORMS.items()]
+    entries += [(f"{name}_multiclass", source, replaces, name)
+                for name, (_, source, replaces) in KERNELS.items()
+                if f"{name}_multiclass" in kstats]
+    line = []
+    for name, source, replaces, key in entries:
+        if counts[key] <= 0:
+            raise AssertionError(f"{name}: no launch on the multiclass and quantized path")
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": counts[key],
+                     **{k: v for k, v in kstats[name].items() if k not in ("rows", "live")}})
     return line
 
 
@@ -922,13 +1320,15 @@ def check_flash(dev, report: dict) -> dict:
             nbytes = el * (2 * bq * h * sq * d + 2 * bq * kv * sk * d) + 4 * bq * h * sq
             bms, by = bound(nbytes, 4.0 * d * pairs, PEAK_BF16_S)
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            # SDPA's event and device times (``library_ms``, ``library_device_ms``),
+            # the latter filled with the kernel's own by ``kernel_times``.
+            lib = event_times(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True), key="library_")
             out = {
                 "max_abs_err": err, **kernel_times(run),
                 "plain_ms": cuda_ms(lambda q=q, k=k, v=v: flash_attention.flash_attention_plain(
                     q, k, v, True), reps=5),
-                "bound_ms": bms, "bound_by": by,
-                "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=True, enable_gqa=True)),
+                "bound_ms": bms, "bound_by": by, **lib,
             }
             shapes[tag].update(out, bytes=nbytes, flops=4.0 * d * pairs)
     report["flash_attention_shapes"] = shapes
@@ -1003,6 +1403,10 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
     kstats = check_flash(dev, report)
     print("flash_attention check: " + json.dumps(
         {k: v["max_abs_err"] for k, v in report["flash_attention_shapes"].items()}), flush=True)
+    print(f"flash_attention at {LM_SLOTS} x {LM_PROMPTS[0]}: {kstats['ms']:.3f} ms, device "
+          f"{kstats['device_ms']:.3f} (bound {kstats['bound_ms']:.4f}); SDPA "
+          f"{kstats['library_ms']:.3f} ms, device {kstats['library_device_ms']:.3f} "
+          f"[{report.get('nvidia_smi', 'card not queried')}]", flush=True)
     cfg = dataclasses.replace(lm_configs.get(LM_ARCH), attn_impl="flash")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, device=dev)
@@ -1014,8 +1418,7 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
     requests = lm_requests(cfg, np.random.default_rng(SEED))
 
     # The main path: two waves, twice; only these launches are counted.
-    for mod, _, _ in list(KERNELS.values()) + list(LM_KERNELS.values()):
-        mod.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     runs = [serve_lm(engine, requests) for _ in range(2)]
     torch.cuda.synchronize()
@@ -1214,13 +1617,15 @@ def check_flash_bwd(dev, report: dict) -> dict:
                 qc, kc, vc, is_causal=True, enable_gqa=True)
             doc = do.contiguous()
             whole_ms, whole_by = bounds["whole"]
+            # SDPA's backward alone, event and device times (the latter
+            # filled with the kernels' own by ``kernel_times``).
+            lib = event_times(lambda: torch.autograd.grad(
+                lib_out, (qc, kc, vc), doc, retain_graph=True), key="library_")
             out = {
                 **kernel_times(lambda: flash_attention.flash_attention_bwd(*args)),
                 "plain_ms": cuda_ms(lambda: flash_attention.flash_attention_bwd_plain(*args),
                                     reps=3, warmup=1),
-                "bound_ms": whole_ms, "bound_by": whole_by,
-                "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                    lib_out, (qc, kc, vc), doc, retain_graph=True)),
+                "bound_ms": whole_ms, "bound_by": whole_by, **lib,
                 # Each kernel alone; the dq entry carries the delta pre-pass.
                 "kernel_ms": {"dq": alone["delta"] + alone["dq"], "dkv": alone["dkv"],
                               "delta": alone["delta"]},
@@ -1260,7 +1665,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
             "max_abs_err": max(v["max_abs_err"][o] for v in shapes.values()
                                for o in outputs[kern]),
             **{key: out[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")}}
+                                         "library_ms", "library_device_ms")}}
     report["flash_attention_bwd"] = out
     return stats
 
@@ -1405,7 +1810,7 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
     bw = report["flash_attention_bwd"]
     print(f"flash_attention_bwd at {LM_SLOTS} x {LM_PROMPTS[0]}: whole {bw['ms']:.3f} ms "
           f"(bound {bw['bound_ms']:.3f}, plain {bw['plain_ms']:.1f}, SDPA backward "
-          f"{bw['library_ms']:.3f}); alone: " + ", ".join(
+          f"{bw['library_ms']:.3f}, device {bw['library_device_ms']:.3f}); alone: " + ", ".join(
               f"{kern} {bw['kernel_ms'][kern]:.3f} ms (bound "
               f"{bw['kernel_bound_ms'][kern]:.3f}, {bw['kernel_bound_by'][kern]})"
               for kern in ("dq", "dkv")) + f", of which delta {bw['kernel_ms']['delta']:.3f} "
@@ -1423,9 +1828,7 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
                                      weight_decay=0.01, max_grad_norm=1.0), TRAIN_DELAY)
 
     # The main path: run A twice, then run B; only these launches are counted.
-    for mod, _, _ in list(KERNELS.values()) + list(LM_KERNELS.values()):
-        mod.launches = 0
-    flash_attention.bwd_launches = 0
+    reset_counts()
     runs, copies = [], []
     for _ in range(2):
         res, params, state, step, gen = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev)
@@ -1545,7 +1948,15 @@ def main() -> None:
         log = (lib.parent / f"{name}.log").read_text()
         report[f"ptxas_{name}"] = [ln for ln in log.splitlines() if "registers" in ln
                                    or "spill" in ln]
-    line = drive(torch.device("cuda"), report)
+    # Both GBDT main paths run before any kernel check (see ``drive``); the
+    # realsim checks take every pending device time, the multiclass
+    # checks' too.
+    gbdt = drive(torch.device("cuda"))
+    multi = drive_multiclass(torch.device("cuda"), gbdt)
+    checked = check_multiclass(multi, gbdt, report)
+    line = check_drive(gbdt, report)
+    line += multiclass_line(multi, checked, report)
+    del gbdt, multi
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)
     out_dir = ROOT / "chiprun_out"

@@ -17,7 +17,7 @@ from repro_torch.models.transformer import map_schema, param_schema
 from repro_torch.optim.delayed import DelayedState
 from repro_torch.optim.optimizers import AdamState, SgdState, tree_leaves
 from repro_torch.trees.binning import BinnedData, SparseBins
-from repro_torch.trees.forest import Forest
+from repro_torch.trees.forest import Forest, QuantizedForest
 
 
 def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
@@ -28,7 +28,8 @@ def forest_from_numpy(
     feature, threshold, leaf_value, n_trees, base_score,
     device: str | torch.device | None = None,
 ) -> Forest:
-    """A ``Forest`` (f32 layout, one output) from numpy arrays."""
+    """A ``Forest`` (f32 layout) from numpy arrays; ``base_score`` keeps its
+    shape: () for one output, (K,) for K."""
     dev = resolve_device(device)
 
     return Forest(
@@ -36,7 +37,29 @@ def forest_from_numpy(
         threshold=_tensor(threshold, np.int32, dev),
         leaf_value=_tensor(leaf_value, np.float32, dev),
         n_trees=_tensor(n_trees, np.int32, dev).reshape(()),
-        base_score=_tensor(base_score, np.float32, dev).reshape(()),
+        base_score=_tensor(base_score, np.float32, dev),
+    )
+
+
+def quantized_forest_from_numpy(
+    feature, threshold, leaf_value, leaf_scale, n_trees, base_score,
+    device: str | torch.device | None = None,
+) -> QuantizedForest:
+    """A ``QuantizedForest`` from numpy arrays (the reference's six fields):
+    thresholds stay int8 or int16 and leaves int8 or float16, as packed."""
+    dev = resolve_device(device)
+    threshold, leaf_value = np.asarray(threshold), np.asarray(leaf_value)
+    if (threshold.dtype, leaf_value.dtype) not in ((np.int8, np.int8),
+                                                   (np.int16, np.float16)):
+        raise TypeError(f"quantized forest of {threshold.dtype} thresholds and "
+                        f"{leaf_value.dtype} leaves: expected int8/int8 or int16/float16")
+    return QuantizedForest(
+        feature=_tensor(feature, np.int32, dev),
+        threshold=_tensor(threshold, threshold.dtype, dev),
+        leaf_value=_tensor(leaf_value, leaf_value.dtype, dev),
+        leaf_scale=_tensor(leaf_scale, np.float32, dev),
+        n_trees=_tensor(n_trees, np.int32, dev).reshape(()),
+        base_score=_tensor(base_score, np.float32, dev),
     )
 
 

@@ -1,8 +1,8 @@
 """Stochastic GBDT config and training state (twin of ``repro.core.sgbdt``).
 
 The functional-space view of the paper: the "parameter" is the prediction
-vector F in R^N over the training set; one boosting round is one projected
-SGD step on E[L_random(F; Q)].
+vector F in R^N (or R^{N x K} for a K-output objective) over the training
+set; one boosting round is one projected SGD step on E[L_random(F; Q)].
 """
 from __future__ import annotations
 
@@ -17,28 +17,44 @@ from repro_torch.trees.learner import LearnerConfig
 
 
 class SGBDTConfig(NamedTuple):
-    n_trees: int = 400  # boosting rounds
+    n_trees: int = 400  # boosting rounds (x n_outputs trees each)
     step_length: float = 0.01  # the paper's v
     sampling_rate: float = 0.8  # uniform R
-    loss: str = "logistic"  # a registered objective (only "logistic" so far)
+    loss: str = "logistic"  # a registered objective; ``objective`` wins when set
     learner: LearnerConfig = LearnerConfig()
+    # An Objective instance or a registry spec ("logistic", "multiclass:5").
+    objective: Objective | str | None = None
 
     @property
     def obj(self) -> Objective:
-        return get_objective(self.loss)
+        return get_objective(self.objective if self.objective is not None else self.loss)
+
+    @property
+    def n_outputs(self) -> int:
+        return self.obj.n_outputs
 
 
 class TrainState(NamedTuple):
     forest: Forest
-    f: torch.Tensor  # (N,) current train-set predictions
+    f: torch.Tensor  # (N,) or (N, K) current train-set predictions
     step: int  # server update counter j
 
 
 def init_state(cfg: SGBDTConfig, data: BinnedData) -> TrainState:
-    """Server init: the constant tree is the objective's prior."""
-    base = cfg.obj.init_score(data.labels, data.multiplicity).float()
-    forest = empty_forest(
-        cfg.n_trees, cfg.learner.depth, base_score=base, device=data.bins.device
-    )
-    f = base.expand(data.n_samples).clone()
+    """Server init: the constant tree is the objective's prior (log-odds for
+    logistic, log class priors (K,) for multiclass)."""
+    obj = cfg.obj
+    base = obj.init_score(data.labels, data.multiplicity).float()
+    forest = empty_forest(cfg.n_trees, cfg.learner.depth, base_score=base,
+                          n_outputs=obj.n_outputs, device=data.bins.device)
+    f = base.expand((data.n_samples,) + tuple(base.shape)).clone()
     return TrainState(forest=forest, f=f, step=0)
+
+
+def train_loss(cfg: SGBDTConfig, data: BinnedData, state: TrainState) -> torch.Tensor:
+    return cfg.obj.loss(data.labels, state.f, data.multiplicity)
+
+
+def train_metrics(cfg: SGBDTConfig, data: BinnedData, state: TrainState) -> dict:
+    """The objective's scalar diagnostics on the training set."""
+    return cfg.obj.metrics(data.labels, state.f, data.multiplicity)

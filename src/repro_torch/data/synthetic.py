@@ -73,6 +73,20 @@ def sparse_regression_xy(
     return x, y
 
 
+def multiclass_xy(
+    n: int, dim: int, n_classes: int, seed: int = 0, sep: float = 1.5,
+    label_noise: float = 0.05,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Gaussian blobs, one a class; labels are class ids stored as floats."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_classes, dim)).astype(np.float32) * sep
+    y = rng.integers(0, n_classes, size=n)
+    x = centers[y] + rng.standard_normal((n, dim)).astype(np.float32)
+    flip = rng.random(n) < label_noise
+    y = np.where(flip, rng.integers(0, n_classes, size=n), y)
+    return x, y.astype(np.float32)
+
+
 def make_sparse_classification(
     n: int, dim: int, nnz: int, seed: int = 0, label_noise: float = 0.05,
     device: str | torch.device | None = None, sparse: bool | str = False,
@@ -96,6 +110,16 @@ def make_sparse_regression(
     device: str | torch.device | None = None,
 ) -> BinnedData:
     x, y = sparse_regression_xy(n, dim, nnz, seed)
+    return bin_dataset(x, y, n_bins=64, device=device)
+
+
+def make_multiclass_classification(
+    n: int, dim: int, n_classes: int, seed: int = 0, sep: float = 1.5,
+    label_noise: float = 0.05, device: str | torch.device | None = None,
+) -> BinnedData:
+    """Pairs with ``objectives.MulticlassSoftmax(n_classes)``: one tree a
+    class a round against the (N, K) softmax gradient field."""
+    x, y = multiclass_xy(n, dim, n_classes, seed, sep, label_noise)
     return bin_dataset(x, y, n_bins=64, device=device)
 
 

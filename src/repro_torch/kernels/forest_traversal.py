@@ -1,9 +1,12 @@
 """Batched forest traversal: CUDA kernel wrapper and its plain version.
 
-Replaces ``repro.kernels.forest_traversal.forest_traverse_pallas`` (f32
-layout, one output). The kernel (``csrc/forest_traversal.cu``) says what
-bounds it and how its design answers that. A CPU tensor runs
-``forest_traverse_plain``; a CUDA tensor launches the kernel or raises.
+Replaces ``repro.kernels.forest_traversal.forest_traverse_pallas`` in each
+of its forms: the f32 layout, the quantized layouts of ``Forest.quantize``
+(int8 thresholds with int8 leaves times a per-tree scale; int16 thresholds
+with fp16 leaves) and K > 1 outputs (slot t adds into column t % K). The
+kernel (``csrc/forest_traversal.cu``) says what bounds it and how its
+design answers that. A CPU tensor runs ``forest_traverse_plain``; a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -13,9 +16,28 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0  # kernel launches, counted where the kernel is launched
+# Kernel launches by form, counted where the kernel is launched: the
+# layout's name ("f32", "int8", "fp16") with one output, "k_" and the name
+# with K > 1.
+form_launches = {f"{k}{q}": 0 for k in ("", "k_") for q in ("f32", "int8", "fp16")}
 
 MAX_DEPTH = 10  # the kernel stages 16 trees at a time in shared memory
+MAX_OUTPUTS = 64  # the kernel's (16 samples x K) accumulator tile, 4 KB at most
+
+# (threshold dtype, leaf dtype) -> the kernel's layout code and name.
+_LAYOUTS = {
+    (torch.int32, torch.float32): (0, "f32"),
+    (torch.int8, torch.int8): (1, "int8"),
+    (torch.int16, torch.float16): (2, "fp16"),
+}
+
+
+def _layout(threshold: torch.Tensor, leaf_value: torch.Tensor) -> tuple[int, str]:
+    key = (threshold.dtype, leaf_value.dtype)
+    if key not in _LAYOUTS:
+        raise TypeError(f"forest_traverse: {key[0]} thresholds with {key[1]} leaves; the "
+                        "layouts are int32/float32, int8/int8 and int16/float16")
+    return _LAYOUTS[key]
 
 
 def forest_traverse_plain(
@@ -25,28 +47,38 @@ def forest_traverse_plain(
     leaf_value: torch.Tensor,
     n_trees: torch.Tensor | int,
     depth: int,
+    n_outputs: int = 1,
+    leaf_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version: tree by tree in slot order, the same sum
-    the kernel takes (so the two agree bit for bit)."""
-    return ref.apply_forest_ref(bins, feature, threshold, leaf_value, depth, n_trees)
+    """The plain PyTorch version: dequantize up front, then sum tree by tree
+    in slot order into column t % K, the sum the kernel takes (so the two
+    agree bit for bit)."""
+    return ref.apply_forest_ref(bins, feature, threshold, leaf_value, depth, n_trees,
+                                n_outputs=n_outputs, leaf_scale=leaf_scale)
 
 
 def forest_traverse(
     bins: torch.Tensor,  # (N, F) int32
     feature: torch.Tensor,  # (T, 2^d - 1) int32, ids in [0, F)
-    threshold: torch.Tensor,  # (T, 2^d - 1) int32
-    leaf_value: torch.Tensor,  # (T, 2^d) f32
+    threshold: torch.Tensor,  # (T, 2^d - 1) int32; int8 or int16 quantized
+    leaf_value: torch.Tensor,  # (T, 2^d) f32; int8 or fp16 quantized
     n_trees: torch.Tensor | int,  # live slots; slots >= n_trees add 0
     depth: int,
+    n_outputs: int = 1,
+    leaf_scale: torch.Tensor | None = None,  # (T,) f32, int8 leaves only
 ) -> torch.Tensor:
-    """Masked forest sum (N,) f32."""
+    """Masked forest sum (N,) f32, or (N, K) with ``n_outputs`` = K > 1."""
+    layout, name = _layout(threshold, leaf_value)
     if bins.device.type == "cpu":
-        return forest_traverse_plain(bins, feature, threshold, leaf_value, n_trees, depth)
+        return forest_traverse_plain(bins, feature, threshold, leaf_value, n_trees, depth,
+                                     n_outputs, leaf_scale)
     if bins.device.type != "cuda":
         raise ValueError(f"forest_traverse: no kernel for device {bins.device}")
     if not 0 <= depth <= MAX_DEPTH:
         raise ValueError(f"forest_traverse kernel takes depth 0..{MAX_DEPTH}, got {depth}")
-    global launches
+    if not 1 <= n_outputs <= MAX_OUTPUTS:
+        raise ValueError(f"forest_traverse kernel takes 1..{MAX_OUTPUTS} outputs, "
+                         f"got {n_outputs}")
     dev = bins.device
     n, f = bins.shape
     t = feature.shape[0]
@@ -54,19 +86,28 @@ def forest_traverse(
     n_trees = torch.as_tensor(n_trees, dtype=torch.int32, device=dev).reshape(())
     _build.require(bins, "bins", torch.int32, (n, f), dev)
     _build.require(feature, "feature", torch.int32, (t, n_int), dev)
-    _build.require(threshold, "threshold", torch.int32, (t, n_int), dev)
-    _build.require(leaf_value, "leaf_value", torch.float32, (t, n_leaf), dev)
-    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    _build.require(threshold, "threshold", threshold.dtype, (t, n_int), dev)
+    _build.require(leaf_value, "leaf_value", leaf_value.dtype, (t, n_leaf), dev)
+    scale_ptr = None
+    if leaf_value.dtype == torch.int8:
+        if leaf_scale is None:
+            raise ValueError("int8 leaf_value needs a per-tree leaf_scale")
+        _build.require(leaf_scale, "leaf_scale", torch.float32, (t,), dev)
+        scale_ptr = leaf_scale.data_ptr()
+    shape = (n,) if n_outputs == 1 else (n, n_outputs)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if n == 0:
         return out
     fn = _build.function(
         "forest_traversal", "forest_traverse_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
     err = fn(
         bins.data_ptr(), feature.data_ptr(), threshold.data_ptr(), leaf_value.data_ptr(),
-        n_trees.data_ptr(), out.data_ptr(), n, f, t, depth, _build.stream_of(dev),
+        scale_ptr, n_trees.data_ptr(), out.data_ptr(), n, f, t, depth, n_outputs, layout,
+        _build.stream_of(dev),
     )
     _build.check(err, "forest_traverse kernel")
-    launches += 1
+    form_launches[("k_" if n_outputs > 1 else "") + name] += 1
     return out
+

@@ -23,7 +23,9 @@ from repro_torch.kernels import (
 from repro_torch.trees.binning import SparseBins
 
 split_gain = split_scan.split_gain  # gain surface (L, F, B), -inf where invalid
-forest_traverse = forest_traversal.forest_traverse  # masked forest sum (N,)
+# Masked forest sum (N,), or (N, K) with ``n_outputs``; quantized layouts
+# pass their packed arrays and ``leaf_scale``.
+forest_traverse = forest_traversal.forest_traverse
 level_build = _level_build.level_build  # one fused tree level
 
 

@@ -202,16 +202,36 @@ def _tree_leaf_values(
     return leaves[node - ((1 << depth) - 1)]
 
 
+def _dequantize_forest(
+    threshold: torch.Tensor, leaf_value: torch.Tensor, leaf_scale: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quantized layouts' prologue (reference ``_dequantize_forest``):
+    int8 leaves times the per-tree f32 ``leaf_scale``, fp16 leaves cast
+    exactly, int8/int16 thresholds widened to int32. On the f32/int32
+    layout both casts return their input, so that path is unchanged."""
+    leaf = leaf_value.to(torch.float32)
+    if leaf_value.dtype == torch.int8:
+        if leaf_scale is None:
+            raise ValueError("int8 leaf_value needs a per-tree leaf_scale")
+        leaf = leaf * leaf_scale[:, None]
+    return threshold.to(torch.int32), leaf
+
+
 def forest_traverse_ref(
     bins: torch.Tensor,  # (N, F) int32
     feature: torch.Tensor,  # (T, 2^d - 1) int32
-    threshold: torch.Tensor,  # (T, 2^d - 1) int32
-    leaf_value: torch.Tensor,  # (T, 2^d) f32
+    threshold: torch.Tensor,  # (T, 2^d - 1) int32, or int8/int16 quantized
+    leaf_value: torch.Tensor,  # (T, 2^d) f32, or int8/fp16 quantized
     n_trees: torch.Tensor | int,  # live slots
     depth: int,
+    n_outputs: int = 1,
+    leaf_scale: torch.Tensor | None = None,  # (T,) f32, int8 leaves only
 ) -> torch.Tensor:
-    """Masked forest sum (N,) f32, all trees at once then one reduce over
-    the tree axis (the shape of ``repro``'s traversal oracle)."""
+    """Masked forest sum (N,) f32, or (N, K) with ``n_outputs`` = K > 1
+    (slot t adds into column t % K): all trees at once, then one reduce
+    over the tree axis (the shape of ``repro``'s traversal oracle).
+    Quantized forests are dequantized up front."""
+    threshold, leaf_value = _dequantize_forest(threshold, leaf_value, leaf_scale)
     t, n = feature.shape[0], bins.shape[0]
     node = torch.zeros((t, n), dtype=torch.int64, device=bins.device)
     bins_t = bins.t().long()
@@ -221,7 +241,10 @@ def forest_traverse_ref(
         node = 2 * node + 1 + (v > threshold.gather(1, node)).long()
     vals = leaf_value.gather(1, node - ((1 << depth) - 1))
     live = torch.arange(t, device=bins.device)[:, None] < n_trees
-    return torch.where(live, vals, torch.zeros_like(vals)).sum(0)
+    masked = torch.where(live, vals, torch.zeros_like(vals))
+    if n_outputs == 1:
+        return masked.sum(0)
+    return torch.stack([masked[k::n_outputs].sum(0) for k in range(n_outputs)], dim=1)
 
 
 def apply_forest_ref(
@@ -231,16 +254,26 @@ def apply_forest_ref(
     leaf_value: torch.Tensor,
     depth: int,
     n_trees: torch.Tensor | int | None = None,  # None = every slot live
+    n_outputs: int = 1,
+    leaf_scale: torch.Tensor | None = None,  # (T,) f32, int8 leaves only
 ) -> torch.Tensor:
-    """Sum of per-tree predictions (N,) f32, accumulated tree by tree in
-    slot order; slots >= ``n_trees`` add exactly 0."""
-    total = torch.zeros(bins.shape[0], dtype=torch.float32, device=bins.device)
+    """Sum of per-tree predictions (N,) f32, or (N, K) with ``n_outputs`` =
+    K > 1, accumulated tree by tree in slot order (slot t into column
+    t % K); slots >= ``n_trees`` add exactly 0. Quantized forests are
+    dequantized up front."""
+    threshold, leaf_value = _dequantize_forest(threshold, leaf_value, leaf_scale)
+    shape = (bins.shape[0],) if n_outputs == 1 else (bins.shape[0], n_outputs)
+    total = torch.zeros(shape, dtype=torch.float32, device=bins.device)
     for t in range(feature.shape[0]):
         vals = _tree_leaf_values(bins, feature[t], threshold[t], leaf_value[t], depth)
         if n_trees is not None:
             vals = torch.where(torch.as_tensor(t, device=bins.device) < n_trees,
                                vals, torch.zeros_like(vals))
-        total = total + vals
+        if n_outputs == 1:
+            total = total + vals
+        else:
+            k = t % n_outputs
+            total[:, k] = total[:, k] + vals
     return total
 
 

@@ -1,10 +1,12 @@
 """The Objective protocol (twin of ``repro.objectives.base``).
 
 An objective packages what a loss needs to flow through training and
-serving: ``n_outputs``, ``init_score`` (the optimal constant model),
-``grad_hess`` (per-sample d/dF and d2/dF2 of the unweighted loss; the
-engine applies the importance weights itself), ``link`` (raw score ->
-served prediction) and the weighted ``loss``/``metrics``.
+serving: ``n_outputs`` (K raw scores a sample; the forest fits K trees a
+round, and K = 1 keeps the (N,) shapes), ``init_score`` (the optimal
+constant model, () or (K,)), ``grad_hess`` (per-sample d/dF and d2/dF2 of
+the unweighted ``loss_sum``; the engine applies the importance weights
+itself), ``link`` (raw score -> served prediction) and the weighted
+``loss``/``metrics``.
 """
 from __future__ import annotations
 
@@ -29,8 +31,17 @@ class Objective:
     def link(self, f):
         return f
 
-    def loss(self, y, f, weight=None):
+    def per_example(self, y, f):
+        """Per-sample unweighted loss (N,)."""
         raise NotImplementedError
+
+    def loss_sum(self, y, f):
+        """Unnormalized total loss: the potential ``grad_hess`` derives."""
+        return self.per_example(y, f).sum()
+
+    def loss(self, y, f, weight=None):
+        """Multiplicity-weighted mean loss (the paper's Eq. 1 normalized)."""
+        return weighted_mean(self.per_example(y, f), weight)
 
     def metrics(self, y, f, weight=None):
         return {"loss": self.loss(y, f, weight)}

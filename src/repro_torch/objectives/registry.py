@@ -1,4 +1,10 @@
-"""Objective registry: name -> factory (twin of ``repro.objectives.registry``)."""
+"""Objective registry: name -> factory, with ``name:arg`` parameterization
+(twin of ``repro.objectives.registry``).
+
+    get_objective("logistic")          # the paper's symmetric-logit binary
+    get_objective("multiclass:5")      # 5-class softmax, K = 5 trees a round
+    get_objective(BinaryLogistic())    # instances pass through
+"""
 from __future__ import annotations
 
 from typing import Callable
@@ -21,12 +27,33 @@ def register(name: str, *aliases: str):
     return deco
 
 
-def get_objective(spec) -> Objective:
-    """Resolve an Objective from an instance or a registered name."""
+def registered_objectives() -> dict[str, Callable[..., Objective]]:
+    """Canonical name -> factory (aliases excluded)."""
+    seen, out = set(), {}
+    for name, factory in _REGISTRY.items():
+        if id(factory) not in seen:
+            seen.add(id(factory))
+            out[name] = factory
+    return out
+
+
+def _parse_arg(raw: str):
+    try:
+        return int(raw)
+    except ValueError:
+        return float(raw)
+
+
+def get_objective(spec, **kwargs) -> Objective:
+    """Resolve an Objective from an instance, a name, or ``name:arg``."""
     if isinstance(spec, Objective):
         return spec
     if not isinstance(spec, str):
         raise TypeError(f"objective spec must be Objective or str, got {type(spec)}")
-    if spec not in _REGISTRY:
-        raise ValueError(f"unknown objective {spec!r}; registered: {sorted(_REGISTRY)}")
-    return _REGISTRY[spec]()
+    name, _, arg = spec.partition(":")
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown objective {name!r}; registered: {sorted(_REGISTRY)}")
+    factory = _REGISTRY[name]
+    if arg:
+        return factory(_parse_arg(arg), **kwargs)
+    return factory(**kwargs)

@@ -29,8 +29,8 @@ from repro_torch.data.sampling import bernoulli_weights
 from repro_torch.ps.schedules import max_staleness, resolve_schedule
 from repro_torch.trees.binning import BinnedData
 from repro_torch.trees.forest import Forest, forest_push
-from repro_torch.trees.learner import build_tree
-from repro_torch.trees.tree import Tree, apply_tree
+from repro_torch.trees.learner import build_tree, build_tree_multi
+from repro_torch.trees.tree import Tree, apply_tree, apply_tree_stack
 
 # One round's draws: (m_prime (N,) f32, feat_mask (F,) bool).
 Draws = tuple[torch.Tensor, torch.Tensor]
@@ -47,10 +47,12 @@ def propose_tree(
     """Worker side: sample Q -> build target from F^{k(j)} -> fit a tree.
 
     Returns the tree and its prediction delta on the training bins (the
-    push payload). The step length v scales the leaf table HERE, before
-    the gather, so the server fold is a pure add (engine.py:73-81 of the
-    reference). Draws not injected come from ``gen``: Bernoulli weights
-    first, then the feature mask.
+    push payload). A K-output objective fits K trees against the (N, K)
+    field, one stacked group with an (N, K) delta: still one push, and one
+    (m', mask) draw a round. The step length v scales the leaf table HERE,
+    before the gather, so the server fold is a pure add (engine.py:73-81
+    of the reference). Draws not injected come from ``gen``: Bernoulli
+    weights first, then the feature mask.
     """
     obj = cfg.obj
     if m_prime is None:
@@ -63,19 +65,25 @@ def propose_tree(
         else:
             feat_mask = torch.ones(n_feat, dtype=torch.bool, device=data.bins.device)
     g, _ = obj.grad_hess(data.labels, f_target)
-    # The paper's gradient step: h_i = m'_i, so a leaf is the mean sampled
-    # gradient.
-    tree = build_tree(cfg.learner, data.bins, m_prime * g, m_prime, feat_mask.bool())
-    v = torch.tensor(cfg.step_length, dtype=torch.float32, device=tree.leaf_value.device)
-    tree = tree._replace(leaf_value=v * tree.leaf_value)
-    return tree, apply_tree(tree, data.bins)
+    v = torch.tensor(cfg.step_length, dtype=torch.float32, device=g.device)
+    # The paper's gradient step: h_i = m'_i (broadcast over the K outputs),
+    # so a leaf is the mean sampled gradient.
+    if obj.n_outputs == 1:
+        tree = build_tree(cfg.learner, data.bins, m_prime * g, m_prime, feat_mask.bool())
+        tree = tree._replace(leaf_value=v * tree.leaf_value)
+        return tree, apply_tree(tree, data.bins)
+    trees = build_tree_multi(cfg.learner, data.bins, m_prime[:, None] * g,
+                             m_prime[:, None].expand_as(g), feat_mask.bool())
+    trees = trees._replace(leaf_value=v * trees.leaf_value)
+    return trees, apply_tree_stack(trees, data.bins)
 
 
 def server_fold(
     forest: Forest, f_live: torch.Tensor, tree: Tree, delta: torch.Tensor
 ) -> tuple[Forest, torch.Tensor]:
-    """Server side: F <- F + v * Tree. The leaves arrive pre-scaled by v, so
-    this is a slot write plus a pure add."""
+    """Server side: F <- F + v * Tree (one tree, or a K-output group into K
+    slots). The leaves arrive pre-scaled by v, so this is a slot write plus
+    a pure add."""
     return forest_push(forest, tree, 1.0), f_live + delta
 
 
@@ -132,7 +140,7 @@ class Trainer:
         gen.manual_seed(seed)
         state = init_state(cfg, data)
         forest, f = state.forest, state.f
-        ring = [f] * ring_size  # the last ring_size versions of F, by j % ring_size
+        ring = [f] * ring_size  # the last ring_size versions of F ((N,) or (N, K))
         for j in range(rounds):
             f_target = ring[int(sched[j]) % ring_size]
             forest, f = round_body(

@@ -2,6 +2,9 @@
 
 Twin of ``repro.serving.forest_server`` without the checkpoint hot swap:
 
+- **Forests** — f32 or quantized (``quantize='int8'|'fp16'`` packs the
+  installed forest with ``Forest.quantize``; a ``QuantizedForest`` is kept
+  whole), one output or K (an objective's ``n_outputs`` must match).
 - **Wave batching** — variable-size requests are packed row-wise into
   waves of ``max_rows`` rows, padded to one static (max_rows, F) shape.
   Requests larger than ``max_rows`` are split into parts and reassembled
@@ -28,10 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import ops
 from repro_torch.objectives import Objective, get_objective
 from repro_torch.trees.binning import apply_bins
-from repro_torch.trees.forest import Forest
+from repro_torch.trees.forest import Forest, QuantizedForest, forest_predict
 
 
 def _nonfinite_rows(x: np.ndarray) -> np.ndarray:
@@ -48,7 +50,7 @@ class PredictRequest:
 @dataclasses.dataclass
 class PredictResult:
     uid: int
-    scores: np.ndarray  # (n,) raw margins, or linked predictions with an objective
+    scores: np.ndarray  # (n,) or (n, K) raw margins, or linked with an objective
     model_step: int
     latency_s: float  # queue_s + compute_s
     queue_s: float = 0.0  # arrival -> first part starts computing
@@ -84,12 +86,15 @@ class ForestServer:
 
     ``forest`` and ``bin_edges`` (the training-time quantile edges) move to
     the server's device. With ``objective``, its ``link`` is applied to the
-    served scores; without it raw F(x) margins are served.
+    served scores (for ``"multiclass:K"``, (rows, K) softmax rows); without
+    it raw F(x) margins are served. With ``quantize`` ('int8' or 'fp16')
+    the installed forest is packed by ``Forest.quantize``; scores then stay
+    within ``trees.forest.quantization_atol`` of the f32 forest's.
     """
 
     def __init__(
         self,
-        forest: Forest,
+        forest: Forest | QuantizedForest,
         bin_edges: torch.Tensor,
         *,
         max_rows: int = 256,
@@ -97,6 +102,7 @@ class ForestServer:
         objective: Objective | str | None = None,
         on_nonfinite: str = "reject",
         device: str | torch.device | None = None,
+        quantize: str | None = None,
     ):
         if on_nonfinite not in ("reject", "flag"):
             raise ValueError(
@@ -105,22 +111,32 @@ class ForestServer:
         self.device = resolve_device(device)
         self._lock = threading.Lock()  # forest + model_step + waves_served
         self._qlock = threading.Lock()  # part queue + reassembly state
-        self.forest = Forest(*(t.to(self.device) for t in forest))  # guarded-by: self._lock
+        forest = type(forest)(*(t.to(self.device) for t in forest))
+        if quantize is not None:
+            if isinstance(forest, QuantizedForest):
+                raise ValueError("quantize= packs an f32 Forest; this forest is already "
+                                 f"quantized ({forest.mode})")
+            forest = forest.quantize(quantize)
+        self.forest = forest  # guarded-by: self._lock
         self.model_step = model_step  # guarded-by: self._lock
         self.waves_served = 0  # guarded-by: self._lock
         self.bin_edges = torch.as_tensor(bin_edges, dtype=torch.float32).to(self.device)
         self.max_rows = max_rows
         self.on_nonfinite = on_nonfinite
         self.objective = get_objective(objective) if objective is not None else None
+        if self.objective is not None and self.objective.n_outputs != forest.n_outputs:
+            # A mismatched link would normalize across the wave (softmax over
+            # a (rows,) vector) instead of within each row.
+            raise ValueError(
+                f"objective {self.objective.name!r} has {self.objective.n_outputs} outputs "
+                f"but the forest serves {forest.n_outputs}"
+            )
         self._queue: collections.deque[_Part] = collections.deque()  # guarded-by: self._qlock
 
-    def _predict(self, forest: Forest, x: np.ndarray) -> np.ndarray:
+    def _predict(self, forest: Forest | QuantizedForest, x: np.ndarray) -> np.ndarray:
         """link(base + traverse(apply_bins(x))) on the server's device."""
         bins = apply_bins(torch.from_numpy(x).to(self.device), self.bin_edges)
-        raw = forest.base_score + ops.forest_traverse(
-            bins, forest.feature, forest.threshold, forest.leaf_value,
-            forest.n_trees, forest.depth,
-        )
+        raw = forest_predict(forest, bins)
         out = raw if self.objective is None else self.objective.link(raw)
         return out.cpu().numpy()
 
@@ -188,7 +204,8 @@ class ForestServer:
             asm = part.asm
             with self._qlock:
                 if asm.scores is None:
-                    asm.scores = np.zeros((asm.x.shape[0],), scores.dtype)
+                    asm.scores = np.zeros((asm.x.shape[0],) + scores.shape[1:],
+                                          scores.dtype)
                 if asm.queue_s < 0:
                     asm.queue_s = t0 - asm.arrival_s
                 asm.scores[part.lo : part.hi] = scores[off : off + n]

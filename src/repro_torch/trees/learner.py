@@ -170,3 +170,20 @@ def build_tree(
         threshold=torch.cat(thresholds),
         leaf_value=leaf_value.float(),
     )
+
+
+def build_tree_multi(
+    cfg: LearnerConfig,
+    bins: torch.Tensor | SparseBins,
+    g: torch.Tensor,  # (N, K) f32 per-output weighted gradient field
+    h: torch.Tensor,  # (N, K) f32 per-output weighted hessian / weight
+    feat_mask: torch.Tensor,  # (F,) bool, ONE mask shared by the K trees
+) -> Tree:
+    """K trees against the (N, K) field, stacked as one ``Tree`` of (K, ...)
+    arrays: the K-output round's one push. The K trees share the round's
+    feature mask; each lane is a standalone ``build_tree`` on its column.
+    The K builds run one after another (batching them into one histogram
+    launch of K x L rows is later work)."""
+    trees = [build_tree(cfg, bins, g[:, k].contiguous(), h[:, k].contiguous(), feat_mask)
+             for k in range(g.shape[1])]
+    return Tree(*(torch.stack(parts) for parts in zip(*trees)))

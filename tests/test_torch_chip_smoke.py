@@ -62,3 +62,106 @@ def test_line_stats_take_the_main_shape_and_the_largest_error():
                          "device_kernels": {"k": 1.5}, "entries_hit": 3}}
     line = chip_smoke.line_stats(shapes, "level8", drop=("entries_hit",))
     assert line == {"ms": 2.0, "device_ms": 1.5, "max_abs_err": 3e-4}
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp16"])
+def test_traversal_bound_counts_each_layout_s_bytes(mode):
+    """Bytes: each bin cell a walk reads (counted here by a plain loop),
+    each live tree's arrays in their packed types (and an int8 tree's
+    scale), the live count and the (N, K) output; operations: depth compares
+    and index steps a (sample, tree) pair, plus the int8 product."""
+    rng = np.random.default_rng(1)
+    n, f, depth, k, slots, live = 37, 9, 3, 2, 12, 7
+    bins = torch.from_numpy(rng.integers(0, 16, (n, f)).astype(np.int32))
+    fo = chip_smoke.forest_from_numpy(
+        rng.integers(0, f, (slots, 7)), rng.integers(0, 16, (slots, 7)),
+        rng.standard_normal((slots, 8)), live, np.zeros(k), device="cpu")
+    if mode:
+        fo = fo.quantize(mode)
+    seen = set()
+    for s in range(n):
+        for t in range(live):
+            node = 0
+            for _ in range(depth):
+                feat = int(fo.feature[t, node])
+                seen.add((s, feat))
+                node = 2 * node + 1 + int(bins[s, feat] > int(fo.threshold[t, node]))
+    per_tree = {None: 4 * 7 + 4 * 7 + 4 * 8, "int8": 4 * 7 + 7 + 8 + 4,
+                "fp16": 4 * 7 + 2 * 7 + 2 * 8}[mode]
+    nbytes = 4 * len(seen) + live * per_tree + 4 + 4 * n * k
+    ops = n * live * (3 * depth + 1 + (mode == "int8"))
+    ms, by, cells = chip_smoke.traversal_bound(bins, fo, live)
+    assert cells == len(seen)
+    assert (ms, by) == chip_smoke.bound(nbytes, ops)
+
+
+def test_traversal_form_checks_run_on_the_cpu(timed_calls, monkeypatch):
+    """The new forms' checks at a few rows and 40 rounds' slots: every
+    form's stats with the contract's keys, and the ragged case."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for name in ("CFG", "MC_CFG"):
+        monkeypatch.setattr(chip_smoke, name, getattr(chip_smoke, name)._replace(n_trees=40))
+    monkeypatch.setattr(chip_smoke, "RAGGED_LIVE", {"realsim": 23, "multiclass": 123})
+    rng = np.random.default_rng(2)
+    realsim = torch.from_numpy(rng.integers(0, 64, (24, 50)).astype(np.int32))
+    multi = torch.from_numpy(rng.integers(0, 64, (24, 60)).astype(np.int32))
+    report = {}
+    stats = chip_smoke.check_traversal_forms(realsim, multi, rng, report)
+    assert set(stats) == set(chip_smoke.TRAV_FORMS)
+    for name, st in stats.items():
+        assert st["max_abs_err"] == 0.0 and st["library_ms"] is None
+        assert {"ms", "device_ms", "plain_ms", "bound_ms", "bound_by"} <= set(st)
+        shapes = report["forest_traverse_form_shapes"][name]
+        assert shapes["ragged"]["live"] % (5 if "k5" in name else 16) != 0
+    assert len(chip_smoke._PENDING) == len(stats)  # device times taken later
+
+
+def test_multiclass_kernel_checks_run_on_the_cpu(timed_calls, monkeypatch):
+    """The histogram, split gain and fused level checks on multiclass data
+    (a few hundred rows, F 12, K 5) at each of a depth-6 tree's levels:
+    every level's stats with the contract's keys, the device times left
+    pending, and the kernels-line stats taken at the deepest level."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    x, y = chip_smoke.synthetic.multiclass_xy(300, 12, 5, seed=1)
+    data = chip_smoke.bin_dataset(x, y, n_bins=64, device="cpu")
+    state = chip_smoke.init_state(chip_smoke.MC_CFG, data)
+    report = {}
+    shapes = chip_smoke.check_multiclass_kernels(data, state, report)
+    levels = [f"level{lv}" for lv in range(chip_smoke.MC_CFG.learner.depth)]
+    assert set(shapes) == {"histogram", "split_gain", "level_build"}
+    for per in shapes.values():
+        assert list(per) == levels
+        for st in per.values():
+            assert {"ms", "device_ms", "max_abs_err", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms"} <= set(st)
+            assert st["device_ms"] is None
+    assert report["multiclass_histogram_samples_hit"]["level0"] == 300
+    # One pending device time per check, and one per histogram yardstick.
+    assert len(chip_smoke._PENDING) == 4 * len(levels)
+    line = chip_smoke.line_stats(shapes["level_build"], levels[-1],
+                                 drop=("staged_ms", "samples_hit"))
+    assert line["max_abs_err"] == max(st["max_abs_err"] for st in shapes["level_build"].values())
+
+
+@pytest.mark.parametrize("scale_by,shift,passes", [
+    ("gain", 0.0, True), ("gain", 3e-5, False),
+    ("terms", 3e-5, True), ("terms", 0.1, False)])
+def test_split_gain_tolerance_scales_with_its_terms(timed_calls, monkeypatch, scale_by, shift,
+                                                    passes):
+    """A node whose best gain (about 1) is a small difference of terms near
+    200: two ulps of the terms (3e-5) pass when the atol scales with the
+    terms and fail when it scales with the gain; an error of 0.1 fails
+    both ways."""
+    rng = np.random.default_rng(3)
+    g = (200.0 / 64 + 0.05 * rng.standard_normal((2, 3, 64))).astype(np.float32)
+    hist = torch.stack([torch.from_numpy(g), torch.full((2, 3, 64), 200.0 / 64)])
+    plain = chip_smoke.split_scan.split_gain_plain(hist, 1.0, 1.0)
+    fin = torch.isfinite(plain)
+    assert float(plain[fin].abs().max()) < 5.0
+    monkeypatch.setattr(chip_smoke.split_scan, "split_gain",
+                        lambda *a: torch.where(fin, plain + shift, plain))
+    if passes:
+        chip_smoke.split_gain_case(hist, 1.0, 1.0, scale_by=scale_by)
+    else:
+        with pytest.raises(AssertionError, match="over tolerance"):
+            chip_smoke.split_gain_case(hist, 1.0, 1.0, scale_by=scale_by)

@@ -7,7 +7,8 @@ card (no JAX needed, hence ``--noconftest``):
 
 Tolerances: histograms and gains rtol 1e-5, atol 1e-5 * max|cell| (the
 plain histogram adds with atomics in another order); -inf masks exact;
-traversal bitwise (kernel and plain version both sum tree by tree); the
+traversal bitwise in every form, f32 or quantized, one output or K
+(kernel and plain version both dequantize, then sum tree by tree); the
 fused level bitwise against the staged chain of kernels (they share the
 device code that fixes every sum's order), and its integer outputs exact
 against its plain version. Flash attention against its f32-softmax plain
@@ -52,7 +53,9 @@ from repro_torch.models import layers as LM
 from repro_torch.models import transformer as TT
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.ps.engine import Trainer
+from repro_torch.serving.forest_server import ForestServer, PredictRequest
 from repro_torch.trees.binning import bin_dataset, to_dense
+from repro_torch.trees.forest import Forest
 from repro_torch.trees.learner import (
     LearnerConfig,
     _smaller_children,
@@ -140,15 +143,103 @@ def test_forest_traverse_kernel_is_bitwise_plain(dev, t, live, depth):
     assert torch.equal(got, forest_traversal.forest_traverse_plain(*args, live, depth))
 
 
+def _traversal_launches() -> int:
+    """The traversal kernel's launches of every form."""
+    return sum(forest_traversal.form_launches.values())
+
+
 def test_forest_traverse_kernel_rejects_depth_past_its_limit(dev):
     depth = forest_traversal.MAX_DEPTH + 1
     args = [torch.zeros(s, dtype=dt, device=dev) for s, dt in (
         ((4, 3), torch.int32), ((2, (1 << depth) - 1), torch.int32),
         ((2, (1 << depth) - 1), torch.int32), ((2, 1 << depth), torch.float32))]
-    before = forest_traversal.launches
+    before = _traversal_launches()
     with pytest.raises(ValueError, match="depth"):
         forest_traversal.forest_traverse(*args, 2, depth)
-    assert forest_traversal.launches == before
+    assert _traversal_launches() == before
+
+
+def _stale_forest(dev, seed, n, t, live, depth, k):
+    """Bins (N, 30) and a ``Forest`` of ``t`` slots, ``live`` of them live;
+    the dead slots hold stale trees (valid feature ids, huge leaves) that
+    the mask must hide."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f, n_bins, n_int = 30, 64, (1 << depth) - 1
+    bins = torch.randint(0, n_bins, (n, f), generator=g, dtype=torch.int32)
+    feat = torch.randint(0, f, (t, n_int), generator=g, dtype=torch.int32)
+    thr = torch.randint(0, n_bins, (t, n_int), generator=g, dtype=torch.int32)
+    leaf = 0.01 * torch.randn((t, 1 << depth), generator=g)
+    leaf[live:] = 1e6
+    base = torch.zeros(()) if k == 1 else torch.zeros(k)
+    forest = Forest(feat, thr, leaf, torch.tensor(live, dtype=torch.int32), base)
+    return bins.to(dev), Forest(*(x.to(dev) for x in forest))
+
+
+def _traverse_both(bins, fo):
+    """The kernel and the plain version on one forest (f32 or quantized)."""
+    args = (bins, fo.feature, fo.threshold, fo.leaf_value, fo.n_trees, fo.depth,
+            fo.n_outputs, getattr(fo, "leaf_scale", None))
+    got = forest_traversal.forest_traverse(*args)
+    torch.cuda.synchronize()
+    return got, forest_traversal.forest_traverse_plain(*args)
+
+
+# Ragged N (not a multiple of the 16-sample block), live slots not a
+# multiple of K or of the 16-tree pass, stale trees in the dead slots, the
+# depth limit.
+@pytest.mark.parametrize("n,t,live,depth", [(301, 37, 20, 4), (17, 45, 44, 9),
+                                            (100, 18, 17, 10)])
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("mode", ["f32", "int8", "fp16"])
+def test_forest_traverse_forms_are_bitwise_plain(dev, mode, k, n, t, live, depth):
+    bins, fo = _stale_forest(dev, n + t + depth, n, t, live, depth, k)
+    if mode != "f32":
+        fo = fo.quantize(mode)
+    key = ("k_" if k > 1 else "") + mode
+    before = forest_traversal.form_launches[key]
+    got, want = _traverse_both(bins, fo)
+    assert forest_traversal.form_launches[key] == before + 1
+    assert got.shape == ((n,) if k == 1 else (n, k))
+    assert torch.equal(got, want)
+
+
+def test_forest_traverse_kernel_rejects_outputs_past_its_limit(dev):
+    bins, fo = _stale_forest(dev, 3, 40, 8, 8, 3, 1)
+    before = _traversal_launches()
+    k = forest_traversal.MAX_OUTPUTS
+    ok = forest_traversal.forest_traverse(bins, fo.feature, fo.threshold, fo.leaf_value,
+                                          fo.n_trees, 3, k)
+    torch.cuda.synchronize()
+    assert ok.shape == (40, k) and _traversal_launches() == before + 1
+    with pytest.raises(ValueError, match="outputs"):
+        forest_traversal.forest_traverse(bins, fo.feature, fo.threshold, fo.leaf_value,
+                                         fo.n_trees, 3, k + 1)
+    q = fo.quantize("int8")
+    with pytest.raises(ValueError, match="leaf_scale"):
+        forest_traversal.forest_traverse(bins, q.feature, q.threshold, q.leaf_value,
+                                         q.n_trees, 3)
+    assert _traversal_launches() == before + 1
+
+
+def test_quantized_multiclass_serving_on_the_card(dev):
+    """``ForestServer(..., objective="multiclass:5", quantize="int8")``
+    serves (rows, 5) softmax rows through the kernel, equal to the plain
+    version's answer, and the CPU server's."""
+    rng = np.random.default_rng(0)
+    edges = np.sort(rng.standard_normal((30, 63)).astype(np.float32), axis=1)
+    x = rng.standard_normal((300, 30)).astype(np.float32)
+    _, fo = _stale_forest("cpu", 9, 1, 50, 45, 6, 5)
+    answers = {}
+    for d in ("cpu", dev):
+        server = ForestServer(fo, torch.from_numpy(edges), max_rows=128,
+                              objective="multiclass:5", quantize="int8", device=d)
+        before = forest_traversal.form_launches["k_int8"]
+        res = server.run([PredictRequest(0, x[:200]), PredictRequest(1, x[200:])])
+        answers[str(d)] = np.concatenate([r.scores for r in res])
+    assert forest_traversal.form_launches["k_int8"] == before + 3
+    assert answers[str(dev)].shape == (300, 5)
+    np.testing.assert_allclose(answers[str(dev)], answers["cpu"], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(answers[str(dev)].sum(1), 1.0, atol=1e-5)
 
 
 def test_training_on_the_card_matches_the_cpu(dev):

@@ -58,8 +58,9 @@ def test_registry():
     assert isinstance(get_objective("binary_logistic"), BinaryLogistic)
     obj = BinaryLogistic()
     assert get_objective(obj) is obj
+    # multiclass is ported now; quantile is not yet (ROADMAP A4).
     with pytest.raises(ValueError, match="unknown objective"):
-        get_objective("multiclass:3")
+        get_objective("quantile:0.9")
 
 
 @pytest.mark.parametrize("spec", [

@@ -21,9 +21,11 @@ from repro_torch.convert import (
     binned_from_numpy,
     forest_from_numpy,
     lm_params_from_numpy,
+    quantized_forest_from_numpy,
     sparse_from_numpy,
 )
 from repro_torch.core.sgbdt import SGBDTConfig
+from repro_torch.data.synthetic import make_multiclass_classification
 from repro_torch.launch import train as lm_train
 from repro_torch.models import init_cache, init_params
 from repro_torch.ps.engine import Trainer
@@ -31,6 +33,7 @@ from repro_torch.serving import ServingEngine
 from repro_torch.serving.forest_server import ForestServer
 from repro_torch.trees.binning import bin_dataset, to_sparse
 from repro_torch.trees.forest import empty_forest
+from repro_torch.trees.tree import empty_tree
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -104,6 +107,15 @@ def test_server_without_device_raises_without_gpu(no_cuda):
     assert ForestServer(forest, torch.zeros((3, 7)), device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("quantize", ["int8", "fp16"])
+def test_quantized_server_without_device_raises_without_gpu(no_cuda, quantize):
+    forest = empty_forest(4, 2, n_outputs=3, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ForestServer(forest, torch.zeros((3, 7)), quantize=quantize)
+    server = ForestServer(forest, torch.zeros((3, 7)), device="cpu", quantize=quantize)
+    assert server.device.type == "cpu" and server.forest.mode == quantize
+
+
 def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     cfg = configs.get("granite-3-2b").reduced()
     params = init_params(cfg, device="cpu")
@@ -123,6 +135,11 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     lambda: sparse_from_numpy(*[np.zeros((2, 1))] * 4, np.zeros(1)),
     lambda: to_sparse(np.zeros((2, 1))),
     lambda: next(lm_train.synthetic_batches(configs.get("granite-3-2b").reduced(), 1, 4, 1)),
+    lambda: empty_forest(4, 2, n_outputs=3),
+    lambda: empty_tree(2),
+    lambda: make_multiclass_classification(20, 3, 3),
+    lambda: quantized_forest_from_numpy(np.zeros((1, 1)), np.zeros((1, 1), np.int8),
+                                        np.zeros((1, 2), np.int8), np.ones(1), 1, 0.0),
     lambda: lm_train.main(["--steps", "1"]),
 ])
 def test_data_entry_points_without_device_raise_without_gpu(no_cuda, make):

@@ -1,16 +1,25 @@
-"""Time the histogram kernels of one checkout of the PyTorch/CUDA port.
+"""Time the GBDT kernels of one checkout of the PyTorch/CUDA port.
 
-    python3 tools/hist_compare.py --src SRC_DIR --tag NAME
+    python3 tools/hist_compare.py --src SRC_DIR --tag NAME [--kernels histogram|traversal]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (this repository's ``src``, or the
-``src`` of another commit unpacked with ``git archive``), builds its
-kernels into that checkout's ``build/``, and runs ``chip_smoke.py``'s
-measurements of the dense histogram (level 0 and the level-8 subset), the
-fused level (level 0 and the deepest fused level), the sparse histogram
-(both shapes) and the nine-level sweep at efficiency-realsim width, each
-against its plain version. Writes ``chiprun_out/hist_compare_<NAME>.json``
-and prints one summary line. To compare two commits on one card, run it in
-turns in one session: parent, change, change, parent. Needs one GPU.
+``src`` of another commit unpacked with ``git archive``) and the
+``chip_smoke.py`` beside it, builds its kernels into that checkout's
+``build/``, and runs that ``chip_smoke.py``'s measurements at
+efficiency-realsim width, each against its plain version:
+
+- ``histogram`` (the default): the dense histogram (level 0 and the
+  level-8 subset), the fused level (level 0 and the deepest fused level),
+  the sparse histogram (both shapes) and the nine-level sweep;
+- ``traversal``: the f32 one-output traversal on the realsim-like bins
+  (4000 x 1500, 64 bins) and a seeded full 400-slot forest of depth 9,
+  with 400 and 16 live slots, through the entry point every commit has.
+
+Each time is a CUDA-event mean of 20 back-to-back calls and the device time
+alone of another 20 by ``torch.profiler``. Writes
+``chiprun_out/hist_compare_<NAME>.json`` and prints one summary line. To
+compare two commits on one card, run it in turns in one session: parent,
+change, change, parent. Needs one GPU.
 """
 from __future__ import annotations
 
@@ -20,24 +29,46 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def traversal(cs, data, report: dict) -> None:
+    """The f32 one-output traversal at 400 and 16 live slots, bitwise
+    against its plain version."""
+    import torch
+
+    from repro_torch.kernels import forest_traversal
+
+    forest = cs.seeded_forest(np.random.default_rng(0), data.n_features, 0.0, data.bins.device)
+    shapes = report["forest_traverse_shapes"] = {}
+    for live in (400, 16):
+        nt = torch.tensor(live, dtype=torch.int32, device=data.bins.device)
+        args = (data.bins, forest.feature, forest.threshold, forest.leaf_value, nt, forest.depth)
+        got = forest_traversal.forest_traverse(*args)
+        if not torch.equal(got, forest_traversal.forest_traverse_plain(*args)):
+            raise AssertionError(f"forest_traverse n_trees={live}: differs from the plain version")
+        shapes[f"n_trees={live}"] = cs.event_times(
+            lambda args=args: forest_traversal.forest_traverse(*args))
+    cs.fill_device_times()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the src directory of a checkout")
     ap.add_argument("--tag", required=True)
+    ap.add_argument("--kernels", choices=("histogram", "traversal"), default="histogram")
     args = ap.parse_args()
     src = pathlib.Path(args.src).resolve()
-    # The package comes from --src: it is imported before chip_smoke, whose
-    # own imports then find it loaded.
+    # The package comes from --src and the measurements from the
+    # chip_smoke.py of the same checkout, whose imports then resolve there.
     sys.path.insert(0, str(src))
-    import repro_torch.kernels.ops  # noqa: F401
+    sys.path.insert(0, str(src.parent))
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("hist_compare: no CUDA device")
-    sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import repro_torch
 
@@ -54,19 +85,23 @@ def main() -> None:
     dev = torch.device("cuda")
     x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
     data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
-    sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True).bins
-    g, h, node8, active, gen = cs.kernel_inputs(data)
-    cs.check_histogram(data, g, h, node8, active, report)
-    cs.check_level_build(data, g, h, gen, report)
-    cs.check_histogram_sparse(sparse, node8, active, g, h, report)
-    cs.sweep_levels(data, sparse, g, h, gen, report)
+    if args.kernels == "traversal":
+        traversal(cs, data, report)
+        kernels = ("forest_traverse",)
+    else:
+        sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True).bins
+        g, h, node8, active, gen = cs.kernel_inputs(data)
+        cs.check_histogram(data, g, h, node8, active, report)
+        cs.check_level_build(data, g, h, gen, report)
+        cs.check_histogram_sparse(sparse, node8, active, g, h, report)
+        cs.sweep_levels(data, sparse, g, h, gen, report)
+        kernels = ("histogram", "level_build", "histogram_sparse")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"hist_compare_{args.tag}.json").write_text(json.dumps(report, indent=1))
     keys = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")
     summary = {f"{kern} {tag}": {k: round(v[k], 5) for k in keys if v.get(k) is not None}
-               for kern in ("histogram", "level_build", "histogram_sparse")
-               for tag, v in report[f"{kern}_shapes"].items()}
+               for kern in kernels for tag, v in report[f"{kern}_shapes"].items()}
     print(f"{args.tag} [{smi}]: " + json.dumps(summary), flush=True)
 
 
