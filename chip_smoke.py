@@ -37,12 +37,15 @@ plain version at realsim's shapes. Both histogram kernels are also timed
 at each level of one realsim tree.
 
 Then the LM zoo's serving path: the flash-attention kernel against its
-plain version at the serving prefill's shape and at ragged shapes, and
-granite-3-2b at full width (40 layers, d_model 2048, bf16, seeded random
-weights, ``attn_impl="flash"``) served through ``ServingEngine`` in two
-waves of four requests (2048- and 1024-token prompts, 32 new tokens
-each), twice; the flash prefill's logits are held against the chunked
-path's.
+plain version at the serving prefill's shape and at ragged shapes (each
+shape's route: the wgmma kernel for bf16 at d 64 and 128, the mma.sync
+kernel for bf16 at d 32 and 80, the scalar kernel for f32), timed beside
+SDPA (whose backend is named by its kernels), and granite-3-2b at full
+width (40 layers, d_model 2048, bf16, seeded random weights,
+``attn_impl="flash"``) served through ``ServingEngine`` in two waves of
+four requests (2048- and 1024-token prompts, 32 new tokens each), twice,
+every forward launch on the wgmma route; the flash prefill's logits are
+held against the chunked path's.
 
 Then the LM zoo's training path: the flash-attention backward kernels (dq
 and dk/dv) against their plain version at the training shape and the
@@ -51,9 +54,9 @@ ragged shapes, and granite-3-2b at full width trained on batches of
 (flash attention, per-layer remat): the reference recipe (AdamW, cosine
 schedule, clipping, decay) at accum 2 for 6 steps, twice (bitwise equal),
 then the delayed-gradient wrapper (tau = 2, Proposition 1's step scale)
-with Bernoulli sampling (R = 0.8) for 6 steps; one more step is profiled,
-and one microbatch's loss and gradients are held against the chunked
-attention path's.
+with Bernoulli sampling (R = 0.8) for 6 steps, every forward launch on
+the wgmma route; one more step is profiled, and one microbatch's loss and
+gradients are held against the chunked attention path's.
 
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel, and per form of the traversal kernel: launches on its path, error
@@ -68,6 +71,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +92,7 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     flash_attention,
+    flash_plan,
     forest_traversal,
     histogram,
     histogram_sparse,
@@ -131,6 +136,8 @@ from repro_torch.trees.learner import (  # noqa: E402
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 PEAK_BF16_S = 989e12  # dense bf16 tensor-core rate
+# exp2 in the special-function units: 132 SMs x 16 a clock x 1.83 GHz.
+PEAK_EX2_S = 132 * 16 * 1.83e9
 SEED = 0
 ROUNDS = 16
 WORKERS = 4
@@ -198,13 +205,19 @@ TRAIN_KERNELS = {
     "flash_attention_bwd_dkv": ("dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:329"),
 }
-# (b, sq, sk, h, kv, d, causal, dtype): the ragged edges of the kernel.
+# (b, sq, sk, h, kv, d, causal, dtype): the ragged edges of each route
+# (the wgmma kernel off its 128-row q tiles and 128-key tiles last).
 FLASH_RAGGED = [
     (1, 100, 100, 4, 2, 32, True, torch.bfloat16),
     (1, 96, 96, 2, 2, 128, False, torch.bfloat16),
     (2, 64, 192, 4, 4, 64, False, torch.bfloat16),
     (1, 100, 100, 4, 2, 80, True, torch.float32),
+    (1, 200, 200, 8, 2, 64, True, torch.bfloat16),
+    (1, 130, 300, 4, 4, 128, False, torch.bfloat16),
 ]
+# The kernel names of SDPA's backends, matched in this order.
+SDPA_BACKENDS = (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha_cutlass", "memory-efficient"),
+                 ("efficient", "memory-efficient"))
 
 
 def reset_counts() -> None:
@@ -213,6 +226,7 @@ def reset_counts() -> None:
         if mod is not forest_traversal:
             mod.launches = 0
     forest_traversal.form_launches.update(dict.fromkeys(forest_traversal.form_launches, 0))
+    flash_attention.route_launches.update(dict.fromkeys(flash_attention.route_launches, 0))
     flash_attention.bwd_launches = 0
 
 
@@ -1279,13 +1293,32 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
     return line
 
 
+def sdpa_backend(fn) -> dict:
+    """Which of SDPA's backends one call of ``fn`` ran: the names of the
+    kernels it launched (``torch.profiler``) matched to ``SDPA_BACKENDS``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key[:120] for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0})
+    backend = next((b for key, b in SDPA_BACKENDS if any(key in n.lower() for n in names)),
+                   "math or other")
+    return {"backend": backend, "kernels": names}
+
+
 def check_flash(dev, report: dict) -> dict:
     """The flash kernel against its plain version (the f32 softmax) at the
-    serving prefill's shape and at the ragged shapes, two launches bitwise.
-    Tolerances: bf16 out atol/rtol 2e-2 (the kernel rounds p to bf16 before
-    p . v, as the TPU kernel does; the plain version keeps p in f32) and
-    lse 1e-3; f32 1e-4 for both. Times at the prefill's shape, beside
-    ``scaled_dot_product_attention`` on the same inputs (contiguous)."""
+    serving prefill's shape and at the ragged shapes, two launches bitwise,
+    each shape's route (``flash_plan.route``) reported. Tolerances: bf16
+    out atol/rtol 2e-2 (the kernel rounds p to bf16 before p . v, as the
+    TPU kernel does; the plain version keeps p in f32) and lse 1e-3; f32
+    1e-4 for both. Times at the prefill's shape, beside
+    ``scaled_dot_product_attention`` on the same inputs (contiguous), whose
+    backend is named."""
     cfg = lm_configs.get(LM_ARCH)
     b, s = LM_SLOTS, LM_PROMPTS[0]
     cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16)]
@@ -1310,7 +1343,8 @@ def check_flash(dev, report: dict) -> dict:
                     2e-2 if bf16 else 1e-4, 2e-2 if bf16 else 1e-4)
         err_lse = close(f"flash_attention {tag} lse", l1, want_lse,
                         1e-3 if bf16 else 1e-4, 1e-3 if bf16 else 1e-4)
-        shapes[tag] = {"max_abs_err": err, "max_abs_err_lse": err_lse}
+        shapes[tag] = {"max_abs_err": err, "max_abs_err_lse": err_lse,
+                       "route": flash_plan.route(dtype, d)}
         if out is None:  # the prefill's shape: times and bound
             el = q.element_size()
             # Bytes: q, k, v read once, out written once, lse; operations:
@@ -1322,15 +1356,20 @@ def check_flash(dev, report: dict) -> dict:
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
             # SDPA's event and device times (``library_ms``, ``library_device_ms``),
             # the latter filled with the kernel's own by ``kernel_times``.
-            lib = event_times(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=True, enable_gqa=True), key="library_")
+            def sdpa(qc=qc, kc=kc, vc=vc):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=True, enable_gqa=True)
+            lib = event_times(sdpa, key="library_")
             out = {
                 "max_abs_err": err, **kernel_times(run),
                 "plain_ms": cuda_ms(lambda q=q, k=k, v=v: flash_attention.flash_attention_plain(
                     q, k, v, True), reps=5),
                 "bound_ms": bms, "bound_by": by, **lib,
             }
-            shapes[tag].update(out, bytes=nbytes, flops=4.0 * d * pairs)
+            # The exponentials' own floor: one ex2 a kept pair.
+            shapes[tag].update(out, bytes=nbytes, flops=4.0 * d * pairs, pairs=pairs,
+                               ex2_bound_ms=pairs / PEAK_EX2_S * 1e3,
+                               library_backend=sdpa_backend(sdpa))
     report["flash_attention_shapes"] = shapes
     out["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
     return out
@@ -1401,11 +1440,15 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
 def drive_lm(dev: torch.device, report: dict) -> dict:
     """The LM zoo's serving path; returns its kernel's ``kernels`` entry."""
     kstats = check_flash(dev, report)
-    print("flash_attention check: " + json.dumps(
-        {k: v["max_abs_err"] for k, v in report["flash_attention_shapes"].items()}), flush=True)
-    print(f"flash_attention at {LM_SLOTS} x {LM_PROMPTS[0]}: {kstats['ms']:.3f} ms, device "
-          f"{kstats['device_ms']:.3f} (bound {kstats['bound_ms']:.4f}); SDPA "
-          f"{kstats['library_ms']:.3f} ms, device {kstats['library_device_ms']:.3f} "
+    fs = report["flash_attention_shapes"]
+    print("flash_attention check (max abs error, route): " + json.dumps(
+        {k: [v["max_abs_err"], v["route"]] for k, v in fs.items()}), flush=True)
+    prefill = next(iter(fs.values()))
+    print(f"flash_attention at {LM_SLOTS} x {LM_PROMPTS[0]} ({prefill['route']}): "
+          f"{kstats['ms']:.4f} ms, device {kstats['device_ms']:.4f} (bound "
+          f"{kstats['bound_ms']:.4f}, ex2 {prefill['ex2_bound_ms']:.4f}); SDPA "
+          f"({prefill['library_backend']['backend']}) {kstats['library_ms']:.4f} ms, device "
+          f"{kstats['library_device_ms']:.4f} "
           f"[{report.get('nvidia_smi', 'card not queried')}]", flush=True)
     cfg = dataclasses.replace(lm_configs.get(LM_ARCH), attn_impl="flash")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1423,7 +1466,11 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
     runs = [serve_lm(engine, requests) for _ in range(2)]
     torch.cuda.synchronize()
     counts = {name: mod.launches for name, (mod, _, _) in LM_KERNELS.items()}
+    routes = dict(flash_attention.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if routes["wgmma"] != counts["flash_attention"]:
+        raise AssertionError(f"flash launches by route {routes}: the prefill's "
+                             f"{counts['flash_attention']} must all be the wgmma kernel's")
 
     for outs, per_wave in runs:
         if per_wave != [cfg.n_layers] * len(LM_PROMPTS):
@@ -1485,6 +1532,7 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
         "waves": [f"{LM_SLOTS} x {p}" for p in LM_PROMPTS], "new_tokens": LM_NEW,
         "prefill_ms_per_wave": prefill_ms, "decode_ms_per_token": decode_ms_tok,
         "tokens_per_s_per_wave": tok_s, "peak_mem_gb": peak_gb, "launches": counts,
+        "launches_by_route": routes,
         "flash_launches_per_wave": [w for _, pw in runs for w in pw],
         "flash_vs_chunked": {"max_abs_diff": diff, "tolerance": tol, "logit_scale": scale,
                              "chunked_vs_f32": err_c, "flash_vs_f32": err_f,
@@ -1505,7 +1553,8 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
               + " ms a token, " + " / ".join(
                   f"{tok_s[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
               + f" generated tokens/s (two runs) [{card}]", flush=True)
-    print(f"serve {LM_ARCH}: tokens equal across two runs; prefill logits bitwise equal "
+    print(f"serve {LM_ARCH}: flash launches by route {routes}; tokens equal across two runs; "
+          f"prefill logits bitwise equal "
           f"across runs: {lm['prefill_logits_bitwise_across_runs']}; flash vs chunked max "
           f"|diff| {diff:.4g} (tolerance {tol:.4g}; against f32: chunked {err_c:.4g}, flash "
           f"{err_f:.4g}; logit scale {scale:.4g}); peak device "
@@ -1847,6 +1896,10 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
     torch.cuda.synchronize()
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches}
+    routes = dict(flash_attention.route_launches)
+    if routes["wgmma"] != counts["flash_attention_fwd"]:
+        raise AssertionError(f"flash forward launches by route {routes}: the training steps' "
+                             f"{counts['flash_attention_fwd']} must all be the wgmma kernel's")
     del params, state
     torch.cuda.empty_cache()
     # Flash against chunked at full width (after the counts are read): one
@@ -1892,7 +1945,7 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
           f"parameter); run B's parameters after its {TRAIN_DELAY} warm-up steps bitwise the "
           "initial ones; "
           f"flash launches a step: {2 * cfg.n_layers} forward and {cfg.n_layers} backward a "
-          "microbatch", flush=True)
+          f"microbatch; forward launches by route {routes}", flush=True)
     worst = max(grads["leaves"].items(), key=lambda kv: kv[1]["flash_vs_chunked"]
                 / kv[1]["tolerance"])
     print(f"train {LM_ARCH}: flash vs chunked on one {b // TRAIN_ACCUM} x {s} microbatch: "
@@ -1912,7 +1965,8 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
                    "accum_run_a": TRAIN_ACCUM, "delay_run_b": TRAIN_DELAY,
                    "lr_run_b": lr_b, "sample_run_b": TRAIN_SAMPLE},
         "run_a": a1, "run_a_again": a2, "run_b": res_b, "summary": summary,
-        "launches": counts, "profile": profile, "flash_vs_chunked": grads,
+        "launches": counts, "launches_by_route": routes, "profile": profile,
+        "flash_vs_chunked": grads,
     }
     line = []
     for name, (_, source, replaces) in TRAIN_KERNELS.items():
@@ -1921,6 +1975,29 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": counts["flash_attention_bwd"], **kstats[name]})
     return line
+
+
+def ptxas_kernels(lines: list) -> list:
+    """Each kernel of a ``-Xptxas -v`` log (its lines holding "registers",
+    "spill" or "wgmma"): the function, its registers, its spill bytes and
+    whether a notice says its wgmma instructions were serialized."""
+    out, fn = [], None
+    serialized = [ln for ln in lines if "wgmma" in ln and "serialized" in ln]
+    for ln in lines:
+        if "Function properties for" in ln:
+            fn = {"function": ln.split("for", 1)[1].strip(), "registers": None,
+                  "spill_stores": 0, "spill_loads": 0, "serialized": False}
+            out.append(fn)
+        elif fn is not None and "spill stores" in ln:
+            parts = ln.replace(",", " ").split()
+            fn["spill_stores"] = int(parts[parts.index("spill") - 2])
+            fn["spill_loads"] = int(parts[len(parts) - 4])
+        elif fn is not None and "Used" in ln and "registers" in ln:
+            fn["registers"] = int(ln.split("Used")[1].split()[0])
+            fn = None
+    for k in out:
+        k["serialized"] = any(k["function"] in ln for ln in serialized)
+    return out
 
 
 def main() -> None:
@@ -1947,7 +2024,17 @@ def main() -> None:
     for name, lib in libs.items():
         log = (lib.parent / f"{name}.log").read_text()
         report[f"ptxas_{name}"] = [ln for ln in log.splitlines() if "registers" in ln
-                                   or "spill" in ln]
+                                   or "spill" in ln or "wgmma" in ln
+                                   or "Function properties" in ln]
+    wgmma = [k for k in ptxas_kernels(report["ptxas_flash_attention"])
+             if "flash_fwd_wgmma" in k["function"]]
+    print("ptxas, flash_fwd_wgmma<D, BK, STAGES, PP>: " + "; ".join(
+        "<" + ", ".join(re.findall(r"L[ib](\d+)E", k["function"])) + f"> {k['registers']} "
+        f"registers, spills {k['spill_stores']}/{k['spill_loads']} bytes" for k in wgmma),
+        flush=True)
+    bad = [k for k in wgmma if k["spill_stores"] or k["spill_loads"] or k["serialized"]]
+    if not wgmma or bad:
+        raise AssertionError(f"flash_fwd_wgmma: ptxas spilled or serialized the wgmma: {bad}")
     # Both GBDT main paths run before any kernel check (see ``drive``); the
     # realsim checks take every pending device time, the multiclass
     # checks' too.

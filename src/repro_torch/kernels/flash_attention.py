@@ -2,9 +2,10 @@
 versions and the autograd ``FlashAttention`` that joins them.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` (the
-forward, ``csrc/flash_attention.cu``) and ``flash_attention_bwd_pallas``
-(dq and dk/dv, ``csrc/flash_attention_bwd.cu``). Each kernel source says
-what bounds it and how its design answers that. The functions here take
+forward, ``csrc/flash_attention.cu``, one kernel a route of
+``kernels/flash_plan.py``) and ``flash_attention_bwd_pallas`` (dq and
+dk/dv, ``csrc/flash_attention_bwd.cu``). Each kernel source says what
+bounds it and how its design answers that. The functions here take
 head-major views: q (B, H, Sq, d)
 and k, v (B, KV, Sk, d), where q head h reads kv head h // (H // KV). The
 reference kernel's flattened layout, q (B*H, Sq, d) and k (B*KV, Sk, d)
@@ -18,16 +19,17 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, flash_plan, ref
 
 launches = 0  # forward kernel launches, counted where the kernel is launched
+# The same launches by route (flash_plan.ROUTES): which kernel served them.
+route_launches = dict.fromkeys(flash_plan.ROUTES, 0)
 bwd_launches = 0  # backward launches: one each of the delta, dq and dk/dv kernels
-
-HEAD_DIMS = (32, 64, 80, 128)  # the kernel's compile-time head dims
 
 
 def flash_attention_plain(
@@ -69,8 +71,9 @@ def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     kv, sk = k.shape[1], k.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: dtype {q.dtype}; the kernels take bf16 or f32")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d}; the kernels are built for {HEAD_DIMS}")
+    if d not in flash_plan.HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d}; the kernels are built for "
+                         f"{flash_plan.HEAD_DIMS}")
     if kv < 1 or h % kv:
         raise ValueError(f"{name}: {h} q heads do not group over {kv} kv heads")
     seq_k = sk if seq_k is None else seq_k
@@ -96,35 +99,61 @@ def flash_attention(
     out is (B, H, Sq, d) in q's dtype, laid out in memory as (B, Sq, H, d),
     so ``out.transpose(1, 2)`` is the model layout without a copy; lse is
     (B, H, Sq) f32, the natural-log normalizer of each row. bf16 and f32
-    inputs are taken, at head dims 32, 64, 80 and 128.
+    inputs are taken, at head dims 32, 64, 80 and 128; ``flash_plan.plan``
+    picks the kernel (bf16 at d 64 and 128: the wgmma kernel).
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, seq_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    global launches
     dev = q.device
     b, h, sq, d = q.shape
-    kv, sk = k.shape[1], k.shape[2]
     seq_k = _check_operands("flash_attention", q, k, v, seq_k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if sq == 0:
         return out, lse
-    fn = _build.function(
-        "flash_attention", "flash_attention_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 12
-        + [ctypes.c_void_p],
-    )
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        int(q.dtype == torch.bfloat16), d, b, h, kv, sq, sk, seq_k, int(causal),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        _build.stream_of(dev),
-    )
-    _build.check(err, "flash_attention kernel")
-    launches += 1
+    p = flash_plan.plan(q, k, v, out, seq_k, sms=_multiprocessors(dev))
+    _launch_fwd(p, q, k, v, out, lse, causal, seq_k)
     return out, lse
+
+
+@functools.cache
+def _multiprocessors(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launch_fwd(p: flash_plan.FlashPlan, q, k, v, out, lse, causal: bool, seq_k: int) -> None:
+    """Launch the forward kernel of plan ``p`` on checked operands and count
+    it (in ``launches`` and ``route_launches``)."""
+    global launches
+    dev = q.device
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if p.route == "wgmma":
+        fn = _build.function(
+            "flash_attention", "flash_attention_wgmma_launch",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
+        )
+        fields = p.fields()
+        err = fn(*ptrs, d, b, h, kv, sq, seq_k, int(causal),
+                 (ctypes.c_longlong * len(fields))(*fields), _build.stream_of(dev))
+    else:
+        fn = _build.function(
+            "flash_attention", "flash_attention_launch",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 12
+            + [ctypes.c_void_p],
+        )
+        err = fn(
+            *ptrs, int(q.dtype == torch.bfloat16), d, b, h, kv, sq, sk, seq_k, int(causal),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            _build.stream_of(dev),
+        )
+    _build.check(err, f"flash_attention {p.route} kernel")
+    launches += 1
+    route_launches[p.route] += 1
 
 
 def _bwd_terms(q, k, v, out, lse, do, causal: bool, seq_k: int | None):

@@ -165,3 +165,28 @@ def test_split_gain_tolerance_scales_with_its_terms(timed_calls, monkeypatch, sc
     else:
         with pytest.raises(AssertionError, match="over tolerance"):
             chip_smoke.split_gain_case(hist, 1.0, 1.0, scale_by=scale_by)
+
+
+PTXAS_LOG = [
+    "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+    "serialized due to the presence of Extern calls in the function '_Z7k_slowv'",
+    "ptxas info    : (C7519) warpgroup.arrive is injected in around line 40 by compiler to "
+    "allow use of registers in GMMA in function '_Z7k_fastv'",
+    "ptxas info    : Function properties for _Z7k_fastv",
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 168 registers, used 16 barriers",
+    "ptxas info    : Function properties for _Z7k_slowv",
+    "    8 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads",
+    "ptxas info    : Used 255 registers, used 1 barriers, 1024 bytes smem",
+]
+
+
+def test_ptxas_kernels_reads_registers_spills_and_serialized_wgmma():
+    """The smoke test's ptxas gate: registers and spill bytes a kernel, and
+    the notice that serialized a kernel's wgmma (not the injected-fence
+    notice, which costs nothing)."""
+    got = {k["function"]: k for k in chip_smoke.ptxas_kernels(PTXAS_LOG)}
+    assert got["_Z7k_fastv"] == {"function": "_Z7k_fastv", "registers": 168,
+                                 "spill_stores": 0, "spill_loads": 0, "serialized": False}
+    assert got["_Z7k_slowv"] == {"function": "_Z7k_slowv", "registers": 255,
+                                 "spill_stores": 12, "spill_loads": 20, "serialized": True}

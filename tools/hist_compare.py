@@ -1,6 +1,7 @@
-"""Time the GBDT kernels of one checkout of the PyTorch/CUDA port.
+"""Time the kernels of one checkout of the PyTorch/CUDA port.
 
-    python3 tools/hist_compare.py --src SRC_DIR --tag NAME [--kernels histogram|traversal]
+    python3 tools/hist_compare.py --src SRC_DIR --tag NAME \
+        [--kernels histogram|traversal|flash]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (this repository's ``src``, or the
 ``src`` of another commit unpacked with ``git archive``) and the
@@ -13,7 +14,15 @@ efficiency-realsim width, each against its plain version:
   the sparse histogram (both shapes) and the nine-level sweep;
 - ``traversal``: the f32 one-output traversal on the realsim-like bins
   (4000 x 1500, 64 bins) and a seeded full 400-slot forest of depth 9,
-  with 400 and 16 live slots, through the entry point every commit has.
+  with 400 and 16 live slots, through the entry point every commit has;
+- ``flash``: the flash-attention forward at granite-3-2b's prefill shape
+  (4 x 2048, 32 q and 8 kv heads, d 64, bf16, causal, the model's (B, S,
+  H, d) layout) through ``flash_attention.flash_attention``, the entry
+  point every commit has, against its plain version and beside SDPA on
+  the same inputs made contiguous; where the checkout builds several wgmma
+  kernels (``flash_plan.WGMMA_BUILT``), each of them at its head dim (d
+  128 on the same shape otherwise), with a persistent grid and with a
+  block a work tile.
 
 Each time is a CUDA-event mean of 20 back-to-back calls and the device time
 alone of another 20 by ``torch.profiler``. Writes
@@ -24,6 +33,7 @@ change, change, parent. Needs one GPU.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import pathlib
 import subprocess
@@ -54,11 +64,63 @@ def traversal(cs, data, report: dict) -> None:
     cs.fill_device_times()
 
 
+def flash(cs, report: dict) -> None:
+    """The flash forward at the prefill shape, and each built wgmma variant."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, s, h, kv = 4, 2048, 32, 8
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def inputs(d):
+        return [torch.randn(shape, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+                for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+    def checked(tag, q, k, v, got):
+        want = fa.flash_attention_plain(q, k, v, True)[0]
+        cs.close(f"flash_attention {tag}", got.float(), want.float(), 2e-2, 2e-2)
+
+    shapes = report["flash_attention_shapes"] = {}
+    q, k, v = inputs(64)
+    checked("prefill", q, k, v, fa.flash_attention(q, k, v, True)[0])
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    pairs = b * h * s * (s + 1) // 2
+    bms, by = cs.bound(2 * (2 * b * h * s * 64 + 2 * b * kv * s * 64) + 4 * b * h * s,
+                       4.0 * 64 * pairs, cs.PEAK_BF16_S)
+    shapes["prefill"] = cs.event_times(lambda: fa.flash_attention(q, k, v, True))
+    shapes["prefill"].update(bound_ms=bms, bound_by=by)
+    cs.event_times(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), into=shapes["prefill"], key="library_")
+    plan = getattr(fa, "flash_plan", None)  # absent before the wgmma kernel
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d in (64, 128):
+        if plan is None:
+            break
+        qd, kd, vd = (q, k, v) if d == 64 else inputs(d)
+        o = torch.empty((b, s, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        for (dd, bk, stages, pp), persistent in itertools.product(plan.WGMMA_BUILT, (1, 0)):
+            if dd != d:
+                continue
+            p = plan.plan(qd, kd, vd, o, s, variant=(bk, stages, pp, persistent), sms=sms)
+
+            def run(p=p, qd=qd, kd=kd, vd=vd, o=o, lse=lse):
+                fa._launch_fwd(p, qd, kd, vd, o, lse, True, s)
+            tag = f"d{d} bk{bk} stages{stages} pingpong{pp} persistent{persistent}"
+            run()
+            checked(tag, qd, kd, vd, o)
+            shapes[tag] = cs.event_times(run)
+    cs.fill_device_times()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the src directory of a checkout")
     ap.add_argument("--tag", required=True)
-    ap.add_argument("--kernels", choices=("histogram", "traversal"), default="histogram")
+    ap.add_argument("--kernels", choices=("histogram", "traversal", "flash"),
+                    default="histogram")
     args = ap.parse_args()
     src = pathlib.Path(args.src).resolve()
     # The package comes from --src and the measurements from the
@@ -83,9 +145,13 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     report: dict = {"src": str(src), "nvidia_smi": smi}
     dev = torch.device("cuda")
-    x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
-    data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
-    if args.kernels == "traversal":
+    if args.kernels != "flash":
+        x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
+        data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
+    if args.kernels == "flash":
+        flash(cs, report)
+        kernels = ("flash_attention",)
+    elif args.kernels == "traversal":
         traversal(cs, data, report)
         kernels = ("forest_traverse",)
     else:
