@@ -205,16 +205,25 @@ TRAIN_KERNELS = {
     "flash_attention_bwd_dkv": ("dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:329"),
 }
-# (b, sq, sk, h, kv, d, causal, dtype): the ragged edges of each route
-# (the wgmma kernel off its 128-row q tiles and 128-key tiles last).
+# (b, sq, sk, h, kv, d, causal, dtype, seq_k): the ragged edges of each
+# route (the wgmma kernel off its 128-row q tiles and 128-key tiles last;
+# the 1000-row shapes give its persistent grid of 132 blocks 256 work
+# tiles, so blocks run a second tile, with keys past seq_k masked).
 FLASH_RAGGED = [
-    (1, 100, 100, 4, 2, 32, True, torch.bfloat16),
-    (1, 96, 96, 2, 2, 128, False, torch.bfloat16),
-    (2, 64, 192, 4, 4, 64, False, torch.bfloat16),
-    (1, 100, 100, 4, 2, 80, True, torch.float32),
-    (1, 200, 200, 8, 2, 64, True, torch.bfloat16),
-    (1, 130, 300, 4, 4, 128, False, torch.bfloat16),
+    (1, 100, 100, 4, 2, 32, True, torch.bfloat16, None),
+    (1, 96, 96, 2, 2, 128, False, torch.bfloat16, None),
+    (2, 64, 192, 4, 4, 64, False, torch.bfloat16, None),
+    (1, 100, 100, 4, 2, 80, True, torch.float32, None),
+    (1, 200, 200, 8, 2, 64, True, torch.bfloat16, None),
+    (1, 130, 300, 4, 4, 128, False, torch.bfloat16, None),
+    (2, 1000, 1100, 16, 4, 128, True, torch.bfloat16, 950),
+    (2, 1000, 1100, 16, 4, 128, False, torch.bfloat16, 1050),
+    (2, 1000, 1100, 16, 4, 64, False, torch.bfloat16, 1050),
 ]
+# A bf16 flash out's relative L2 error limit, over the whole tensor and
+# over its later half of rows: above every sound reading and below every
+# planted fault (``flash_planted_faults``; PERF.md, PR 17).
+FLASH_OUT_REL_L2 = 1e-2
 # The kernel names of SDPA's backends, matched in this order.
 SDPA_BACKENDS = (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha_cutlass", "memory-efficient"),
                  ("efficient", "memory-efficient"))
@@ -1310,42 +1319,94 @@ def sdpa_backend(fn) -> dict:
     return {"backend": backend, "kernels": names}
 
 
+def flash_tag(b, sq, sk, h, kv, d, causal, dtype, seq_k) -> str:
+    return (f"{b}x{sq}x{sk} h{h}/{kv} d{d} {'causal' if causal else 'full'} "
+            + str(dtype).split(".")[-1] + ("" if seq_k is None else f" seq_k {seq_k}"))
+
+
+def flash_planted_faults(q, k, v, lse, got) -> dict:
+    """Wrong outs that the element-wise limit lets through, each made from
+    the kernel's own ``got`` on its later half of rows: there the p . v of
+    the last 128-key tile every such row sees takes the tile before's V
+    ("v_stage"), or is dropped ("tile_dropped"), or the rows are 3% off
+    ("rescale"). The relative L2 limit must reject each."""
+    sq, d = q.shape[2], q.shape[3]
+    half, group = sq // 2, q.shape[1] // k.shape[1]
+    t0 = half - 128
+    kf, vf = (x[:, :, t0 - 128:half].float().repeat_interleave(group, dim=1) for x in (k, v))
+    p = torch.exp(q[:, :, half:].float() @ kf[:, :, 128:].transpose(-1, -2) / d ** 0.5
+                  - lse[:, :, half:, None])
+    pv, prev = p @ vf[:, :, 128:], p @ vf[:, :, :128]
+    late = got[:, :, half:].float()
+    faults = {}
+    for name, bad in (("v_stage", late - pv + prev), ("tile_dropped", late - pv),
+                      ("rescale", late * 0.97)):
+        out = got.clone()
+        out[:, :, half:] = bad.to(got.dtype)
+        faults[name] = out
+    return faults
+
+
+def flash_rel_l2(got, want) -> dict:
+    """The relative L2 error of a flash out, whole and on its later half of rows."""
+    half = got.shape[2] // 2
+    return {"whole": rel_l2(got, want), "later_rows": rel_l2(got[:, :, half:], want[:, :, half:])}
+
+
 def check_flash(dev, report: dict) -> dict:
     """The flash kernel against its plain version (the f32 softmax) at the
     serving prefill's shape and at the ragged shapes, two launches bitwise,
     each shape's route (``flash_plan.route``) reported. Tolerances: bf16
     out atol/rtol 2e-2 (the kernel rounds p to bf16 before p . v, as the
     TPU kernel does; the plain version keeps p in f32) and lse 1e-3; f32
-    1e-4 for both. Times at the prefill's shape, beside
+    1e-4 for both. A bf16 out is also held to a relative L2 error of
+    ``FLASH_OUT_REL_L2``, over the whole tensor and over its later half
+    of rows (past 1024 at the prefill), where |out| is small beside the
+    element-wise limit (about sqrt(e / n) for randn rows that see n keys).
+    Times at the prefill's shape, beside
     ``scaled_dot_product_attention`` on the same inputs (contiguous), whose
     backend is named."""
     cfg = lm_configs.get(LM_ARCH)
     b, s = LM_SLOTS, LM_PROMPTS[0]
-    cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16)]
+    cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     shapes, out = {}, None
-    for bq, sq, sk, h, kv, d, causal, dtype in cases + FLASH_RAGGED:
+    for bq, sq, sk, h, kv, d, causal, dtype, seq_k in cases + FLASH_RAGGED:
         # Model layout (B, S, H, d), read by the kernel in place.
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype).transpose(1, 2)
                    for shape in ((bq, sq, h, d), (bq, sk, kv, d), (bq, sk, kv, d)))
 
-        def run(q=q, k=k, v=v, causal=causal):
-            return flash_attention.flash_attention(q, k, v, causal)
+        def run(q=q, k=k, v=v, causal=causal, seq_k=seq_k):
+            return flash_attention.flash_attention(q, k, v, causal, seq_k)
         (o1, l1), (o2, l2) = run(), run()
         torch.cuda.synchronize()
-        tag = f"{bq}x{sq}x{sk} h{h}/{kv} d{d} {'causal' if causal else 'full'} " + \
-            str(dtype).split(".")[-1]
+        tag = flash_tag(bq, sq, sk, h, kv, d, causal, dtype, seq_k)
         if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
             raise AssertionError(f"flash_attention {tag}: two launches differ")
-        want, want_lse = flash_attention.flash_attention_plain(q, k, v, causal)
+        want, want_lse = flash_attention.flash_attention_plain(q, k, v, causal, seq_k)
         bf16 = dtype == torch.bfloat16
         err = close(f"flash_attention {tag} out", o1.float(), want.float(),
                     2e-2 if bf16 else 1e-4, 2e-2 if bf16 else 1e-4)
         err_lse = close(f"flash_attention {tag} lse", l1, want_lse,
                         1e-3 if bf16 else 1e-4, 1e-3 if bf16 else 1e-4)
-        shapes[tag] = {"max_abs_err": err, "max_abs_err_lse": err_lse,
+        rel = flash_rel_l2(o1, want)
+        if bf16 and max(rel.values()) > FLASH_OUT_REL_L2:
+            raise AssertionError(f"flash_attention {tag} out: relative L2 error {rel} over "
+                                 f"{FLASH_OUT_REL_L2}")
+        shapes[tag] = {"max_abs_err": err, "max_abs_err_lse": err_lse, "rel_l2_err": rel,
                        "route": flash_plan.route(dtype, d)}
-        if out is None:  # the prefill's shape: times and bound
+        if out is None:  # the prefill's shape: the planted faults, times and bound
+            planted = {}
+            for name, bad in flash_planted_faults(q, k, v, l1, o1).items():
+                r = flash_rel_l2(bad, want)
+                if max(r.values()) <= FLASH_OUT_REL_L2:
+                    raise AssertionError(f"flash_attention: the planted fault {name} passes "
+                                         f"the relative L2 limit: {r}")
+                diff = (bad.float() - want.float()).abs()
+                planted[name] = {"rel_l2_err": r, "passes_elementwise": bool(
+                    (diff <= 2e-2 + 2e-2 * want.float().abs()).all())}
+            shapes[tag]["planted_faults"] = planted
+            del bad, diff
             el = q.element_size()
             # Bytes: q, k, v read once, out written once, lse; operations:
             # two products of 2d flops for every (query, key) pair the mask
@@ -1441,9 +1502,15 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
     """The LM zoo's serving path; returns its kernel's ``kernels`` entry."""
     kstats = check_flash(dev, report)
     fs = report["flash_attention_shapes"]
-    print("flash_attention check (max abs error, route): " + json.dumps(
-        {k: [v["max_abs_err"], v["route"]] for k, v in fs.items()}), flush=True)
+    print("flash_attention check (max abs error, relative L2 whole and later rows, route): "
+          + json.dumps({k: [v["max_abs_err"], v["rel_l2_err"]["whole"],
+                            v["rel_l2_err"]["later_rows"], v["route"]]
+                        for k, v in fs.items()}), flush=True)
     prefill = next(iter(fs.values()))
+    print(f"flash_attention planted faults at the prefill (relative L2 later rows, passes "
+          f"element-wise), limit {FLASH_OUT_REL_L2}: " + json.dumps(
+              {k: [v["rel_l2_err"]["later_rows"], v["passes_elementwise"]]
+               for k, v in prefill["planted_faults"].items()}), flush=True)
     print(f"flash_attention at {LM_SLOTS} x {LM_PROMPTS[0]} ({prefill['route']}): "
           f"{kstats['ms']:.4f} ms, device {kstats['device_ms']:.4f} (bound "
           f"{kstats['bound_ms']:.4f}, ex2 {prefill['ex2_bound_ms']:.4f}); SDPA "
@@ -1620,20 +1687,19 @@ def check_flash_bwd(dev, report: dict) -> dict:
     and bytes. Returns each kernel's stats for the kernels line."""
     cfg = lm_configs.get(LM_ARCH)
     b, s = LM_SLOTS, LM_PROMPTS[0]
-    cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16)]
+    cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     shapes, out = {}, None
-    for bq, sq, sk, h, kv, d, causal, dtype in cases + FLASH_RAGGED:
+    for bq, sq, sk, h, kv, d, causal, dtype, seq_k in cases + FLASH_RAGGED:
         q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype).transpose(1, 2)
                        for shape in ((bq, sq, h, d), (bq, sk, kv, d), (bq, sk, kv, d),
                                      (bq, sq, h, d)))
-        o, lse = flash_attention.flash_attention(q, k, v, causal)
-        args = (q, k, v, o, lse, do, causal)
+        o, lse = flash_attention.flash_attention(q, k, v, causal, seq_k)
+        args = (q, k, v, o, lse, do, causal, seq_k)
         g1 = flash_attention.flash_attention_bwd(*args)
         g2 = flash_attention.flash_attention_bwd(*args)
         torch.cuda.synchronize()
-        tag = f"{bq}x{sq}x{sk} h{h}/{kv} d{d} {'causal' if causal else 'full'} " + \
-            str(dtype).split(".")[-1]
+        tag = flash_tag(bq, sq, sk, h, kv, d, causal, dtype, seq_k)
         if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
             raise AssertionError(f"flash_attention_bwd {tag}: two launches differ")
         want = flash_attention.flash_attention_bwd_plain(*args)
@@ -2028,7 +2094,7 @@ def main() -> None:
                                    or "Function properties" in ln]
     wgmma = [k for k in ptxas_kernels(report["ptxas_flash_attention"])
              if "flash_fwd_wgmma" in k["function"]]
-    print("ptxas, flash_fwd_wgmma<D, BK, STAGES, PP>: " + "; ".join(
+    print("ptxas, flash_fwd_wgmma<D>: " + "; ".join(
         "<" + ", ".join(re.findall(r"L[ib](\d+)E", k["function"])) + f"> {k['registers']} "
         f"registers, spills {k['spill_stores']}/{k['spill_loads']} bytes" for k in wgmma),
         flush=True)

@@ -33,26 +33,24 @@
 // kernel of its own (the wrapper's plan, kernels/flash_plan.py, picks):
 //   * "wgmma", bf16 at d 64 and 128 (flash_fwd_wgmma): work tiles of one
 //     q head's 128-row q tile, heaviest first; a persistent grid of one
-//     block a multiprocessor, each looping over its work tiles (or one
-//     block a tile), three warpgroups a block. The producer (one thread,
-//     its warpgroup's registers handed to the others by setmaxnreg) loads
-//     each q tile once and K, V tiles of BK keys into a ring of STAGES
-//     stages by TMA over 4-D tensor maps of the strided views, each stage
-//     with full/empty mbarriers; the next work tile's loads overlap this
-//     one's last p . v and epilogue. Two consumer warpgroups own 64 q rows
-//     each: s = q . k^T by wgmma m64nBKk16 (both operands K-major in
+//     block a multiprocessor, each looping over its work tiles, three
+//     warpgroups a block. The producer (one thread, its warpgroup's
+//     registers handed to the others by setmaxnreg) loads each q tile
+//     once and K, V tiles of 128 keys into a ring of 2 stages by TMA over
+//     4-D tensor maps of the strided views, each stage with full/empty
+//     mbarriers; the next work tile's loads overlap this one's last p . v
+//     and epilogue. Two consumer warpgroups own 64 q rows each: s = q .
+//     k^T by wgmma m64n128k16 (both operands K-major in
 //     shared memory), the softmax in registers with explicit FMAs
 //     (ex2(fma(s, scale log2 e, -m scale log2 e)), l = fma(l, alpha,
 //     rowsum)), then acc += p . v by wgmma m64nDk16 with p (bf16) from
 //     registers and V read MN-major. Tile j + 1's q . k^T and tile j's
 //     p . v are issued before tile j + 1's softmax, which runs under them;
-//     with PP the two warpgroups also take turns to issue (named
-//     barriers), so one's softmax runs under the other's products. The
-//     epilogue stages out (bf16) in an out tile and stores it by TMA
-//     through out's strides (rows past Sq are clipped). The plan runs BK
-//     128, 2 stages and the persistent grid, with PP at d 128 only; the
-//     other built variants are what it was chosen against
-//     (tools/hist_compare.py --kernels flash).
+//     at d 128 the two warpgroups also take turns to issue (ping-pong,
+//     named barriers), so one's softmax runs under the other's products.
+//     The epilogue stages out (bf16) in an out tile and stores it by TMA
+//     through out's strides (rows past Sq are clipped). That tiling was the
+//     fastest of those timed at the prefill shape (PERF.md).
 //   * "mma_sync", bf16 at d 32 and 80 (flash_fwd_bf16; 80 columns do not
 //     fill 128-byte swizzle rows evenly): four warps, each owning 16 q rows
 //     whose A fragments stay in registers; 64-key tiles of K and V staged
@@ -357,21 +355,24 @@ int launch_d(const Args& a, int is_bf16, dim3 grid, cudaStream_t stream) {
 // ----------------------------------------------------------------- wgmma
 
 constexpr int kBQw = 128;        // q rows a block: 64 a consumer warpgroup
+constexpr int kBKw = 128;        // keys a K/V tile
+constexpr int kStagesW = 2;      // K/V tiles in flight
+constexpr int kMaxDevices = 64;
 constexpr int kThreadsW = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int kBoxCols = 64;     // a TMA box row: 64 bf16 = 128 bytes, one swizzle row
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
 
 // The block's shared memory, in bytes from a 1024-aligned base: the q tile,
-// STAGES K tiles, STAGES V tiles, the out tile (staged for its TMA store),
+// the ring's K tiles and V tiles, the out tile (staged for its TMA store),
 // then the mbarriers (full_q, empty_q, full_k[S], full_v[S], empty_k[S],
 // empty_v[S]); 1024 bytes of slack align the base.
 // kernels/flash_plan.py::smem_bytes computes the same total.
-template <int D, int BK, int STAGES>
+template <int D>
 struct WLayout {
-  static constexpr int kQBytes = kBQw * D * 2, kKVBytes = BK * D * 2;
-  static constexpr int kK = kQBytes, kV = kK + STAGES * kKVBytes;
-  static constexpr int kO = kV + STAGES * kKVBytes, kBar = kO + kQBytes;
-  static constexpr int kBytes = kBar + 8 * (2 + 4 * STAGES) + 1024;
+  static constexpr int kQBytes = kBQw * D * 2, kKVBytes = kBKw * D * 2;
+  static constexpr int kK = kQBytes, kV = kK + kStagesW * kKVBytes;
+  static constexpr int kO = kV + kStagesW * kKVBytes, kBar = kO + kQBytes;
+  static constexpr int kBytes = kBar + 8 * (2 + 4 * kStagesW) + 1024;
 };
 
 struct WArgs {
@@ -387,7 +388,6 @@ struct WorkTile {
   int q0, b, h, bh, n_tiles;  // n_tiles: key tiles the q tile needs (at least one)
 };
 
-template <int BK>
 __device__ __forceinline__ WorkTile work_tile(const WArgs& a, int w) {
   WorkTile t;
   t.bh = w % a.bh;
@@ -395,7 +395,7 @@ __device__ __forceinline__ WorkTile work_tile(const WArgs& a, int w) {
   t.b = t.bh / a.heads;
   t.h = t.bh % a.heads;
   const int kend = a.causal ? min(a.seq_k, t.q0 + kBQw) : a.seq_k;
-  t.n_tiles = (kend + BK - 1) / BK;
+  t.n_tiles = (kend + kBKw - 1) / kBKw;
   return t;
 }
 
@@ -403,29 +403,28 @@ __device__ __forceinline__ WorkTile work_tile(const WArgs& a, int w) {
 // stage's K and V full/empty pairs. A stage is used by key tiles r, r + S,
 // ... of the block's running count r over its work tiles: round r / S,
 // whose parity its waits take (a fresh barrier passes parity 1).
-template <int STAGES>
 struct Ring {
   uint64_t* bars;
   __device__ uint64_t* full_q() const { return bars; }
   __device__ uint64_t* empty_q() const { return bars + 1; }
-  __device__ uint64_t* full_k(int r) const { return bars + 2 + r % STAGES; }
-  __device__ uint64_t* full_v(int r) const { return bars + 2 + STAGES + r % STAGES; }
-  __device__ uint64_t* empty_k(int r) const { return bars + 2 + 2 * STAGES + r % STAGES; }
-  __device__ uint64_t* empty_v(int r) const { return bars + 2 + 3 * STAGES + r % STAGES; }
-  static __device__ uint32_t parity(int r) { return (uint32_t)((r / STAGES) & 1); }
+  __device__ uint64_t* full_k(int r) const { return bars + 2 + r % kStagesW; }
+  __device__ uint64_t* full_v(int r) const { return bars + 2 + kStagesW + r % kStagesW; }
+  __device__ uint64_t* empty_k(int r) const { return bars + 2 + 2 * kStagesW + r % kStagesW; }
+  __device__ uint64_t* empty_v(int r) const { return bars + 2 + 3 * kStagesW + r % kStagesW; }
+  static __device__ uint32_t parity(int r) { return (uint32_t)((r / kStagesW) & 1); }
 };
 
 // The producer: one thread loads each work tile's q tile once the
 // consumers have released the last one, then its K and V tiles into the
 // ring, each after the consumers have released the stage.
-template <int D, int BK, int STAGES>
+template <int D>
 __device__ __forceinline__ void wgmma_producer(const CUtensorMap* tq, const CUtensorMap* tk,
                                                const CUtensorMap* tv, const WArgs& a,
-                                               uint8_t* sm, Ring<STAGES> ring) {
-  using L = WLayout<D, BK, STAGES>;
+                                               uint8_t* sm, Ring ring) {
+  using L = WLayout<D>;
   int r = 0;  // key tiles loaded so far
   for (int w = blockIdx.x, n = 0; w < a.n_qtiles * a.bh; w += gridDim.x, ++n) {
-    const WorkTile t = work_tile<BK>(a, w);
+    const WorkTile t = work_tile(a, w);
     const int kvh = t.h / a.group;
     mbar_wait(ring.empty_q(), (n & 1) ^ 1);
     mbar_expect_tx(ring.full_q(), L::kQBytes);
@@ -433,18 +432,18 @@ __device__ __forceinline__ void wgmma_producer(const CUtensorMap* tq, const CUte
     for (int c = 0; c < D / kBoxCols; ++c)
       tma_load_4d(sm + c * kBQw * 128, tq, ring.full_q(), c * kBoxCols, t.q0, t.h, t.b);
     for (int j = 0; j < t.n_tiles; ++j, ++r) {
-      uint8_t* ks = sm + L::kK + (r % STAGES) * L::kKVBytes;
-      uint8_t* vs = sm + L::kV + (r % STAGES) * L::kKVBytes;
+      uint8_t* ks = sm + L::kK + (r % kStagesW) * L::kKVBytes;
+      uint8_t* vs = sm + L::kV + (r % kStagesW) * L::kKVBytes;
       mbar_wait(ring.empty_k(r), ring.parity(r) ^ 1);
       mbar_expect_tx(ring.full_k(r), L::kKVBytes);
 #pragma unroll
       for (int c = 0; c < D / kBoxCols; ++c)
-        tma_load_4d(ks + c * BK * 128, tk, ring.full_k(r), c * kBoxCols, j * BK, kvh, t.b);
+        tma_load_4d(ks + c * kBKw * 128, tk, ring.full_k(r), c * kBoxCols, j * kBKw, kvh, t.b);
       mbar_wait(ring.empty_v(r), ring.parity(r) ^ 1);
       mbar_expect_tx(ring.full_v(r), L::kKVBytes);
 #pragma unroll
       for (int c = 0; c < D / kBoxCols; ++c)
-        tma_load_4d(vs + c * BK * 128, tv, ring.full_v(r), c * kBoxCols, j * BK, kvh, t.b);
+        tma_load_4d(vs + c * kBKw * 128, tv, ring.full_v(r), c * kBoxCols, j * kBKw, kvh, t.b);
     }
   }
 }
@@ -452,23 +451,23 @@ __device__ __forceinline__ void wgmma_producer(const CUtensorMap* tq, const CUte
 // s = q . k^T for the warpgroup's 64 rows and one key tile: D / 16 steps of
 // k16. Column chunk c of a tile starts c * rows * 128 bytes in; step kk
 // moves 32 bytes along its 128-byte rows.
-template <int D, int BK>
-__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint64_t qd, uint64_t kd) {
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBKw / 2], uint64_t qd, uint64_t kd) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk / 4, off = (kk % 4) * 32;
-    wgmma_ss<BK>(s, qd + ((c * kBQw * 128 + off) >> 4), kd + ((c * BK * 128 + off) >> 4),
+    wgmma_ss<kBKw>(s, qd + ((c * kBQw * 128 + off) >> 4), kd + ((c * kBKw * 128 + off) >> 4),
                  kk > 0);
   }
 }
 
-// acc += p . v over one key tile: BK / 16 steps of k16, each 16 key rows
+// acc += p . v over one key tile: 8 steps of k16, each 16 key rows
 // (2048 bytes) further into the V tile.
-template <int D, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[BK / 16][4],
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kBKw / 16][4],
                                          uint64_t vd) {
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(o, p[kk], vd + ((kk * 16 * 128) >> 4));
+  for (int kk = 0; kk < kBKw / 16; ++kk) wgmma_rs<D>(o, p[kk], vd + ((kk * 16 * 128) >> 4));
 }
 
 // The online softmax of one key tile, in place: s (raw scores, the wgmma
@@ -476,20 +475,19 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
 // 8j + 2t + (e & 1)) becomes p = 2^(s c - mc) (0 where masked), where mc
 // is the new running max of s c; l (this thread's share of each row's
 // sum) and mc are updated and alpha = 2^(mc_old - mc) returned.
-template <int BK>
-__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&mc)[2], float (&l)[2],
+__device__ __forceinline__ void softmax_tile(float (&s)[kBKw / 2], float (&mc)[2], float (&l)[2],
                                              float (&alpha)[2], const WArgs& a, bool masked,
                                              int row0, int k0, int t) {
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
+    for (int i = 0; i < kBKw / 2; ++i) {
       const int row = row0 + 8 * ((i >> 1) & 1), key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       if (key >= a.seq_k || (a.causal && key > row)) s[i] = -INFINITY;
     }
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  for (int i = 0; i < kBKw / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   float neg[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -504,7 +502,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&mc)[2],
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
+  for (int i = 0; i < kBKw / 2; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = ex2(__fmaf_rn(s[i], a.c, neg[r]));
     rs[r] += s[i];
@@ -515,10 +513,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&mc)[2],
 
 // p (f32, accumulator layout) as bf16 A fragments: the accumulators of
 // n-tiles 2kk and 2kk + 1 are the A fragment of keys 16kk .. 16kk + 15.
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[BK / 2]) {
+__device__ __forceinline__ void pack_p(uint32_t (&p)[kBKw / 16][4], const float (&s)[kBKw / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < kBKw / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
   }
@@ -526,20 +523,20 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&
 
 // One consumer warpgroup (cw = 0 or 1): rows q0 + 64 cw .. + 63 of each of
 // the block's work tiles.
-template <int D, int BK, int STAGES, bool PP>
+template <int D, bool PP>
 __device__ __forceinline__ void wgmma_consumer(const CUtensorMap* to, const WArgs& a,
-                                               uint8_t* sm, Ring<STAGES> ring, int cw) {
-  using L = WLayout<D, BK, STAGES>;
+                                               uint8_t* sm, Ring ring, int cw) {
+  using L = WLayout<D>;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t4 = lane & 3;
   const bool elected = (threadIdx.x & 127) == 0;
   // The warpgroup's 64 rows start 64 * 128 bytes into each column chunk.
   const uint64_t qd = wgmma_desc(sm + cw * 64 * 128, 16, 1024);
   auto kdesc = [&](int r) {
-    return wgmma_desc(sm + L::kK + (r % STAGES) * L::kKVBytes, 16, 1024);
+    return wgmma_desc(sm + L::kK + (r % kStagesW) * L::kKVBytes, 16, 1024);
   };
   auto vdesc = [&](int r) {
-    return wgmma_desc(sm + L::kV + (r % STAGES) * L::kKVBytes, BK * 128, 1024);
+    return wgmma_desc(sm + L::kV + (r % kStagesW) * L::kKVBytes, kBKw * 128, 1024);
   };
   auto release = [&](uint64_t* bar) {
     __syncwarp();
@@ -559,22 +556,22 @@ __device__ __forceinline__ void wgmma_consumer(const CUtensorMap* to, const WArg
     if (cw == 1) named_barrier_arrive(3, 256);  // warpgroup 0 goes first
   }
 
-  float s[BK / 2], o[D / 2];
-  uint32_t p[BK / 16][4];
+  float s[kBKw / 2], o[D / 2];
+  uint32_t p[kBKw / 16][4];
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  for (int i = 0; i < kBKw / 2; ++i) s[i] = 0.f;
   int r = 0;  // key tiles consumed so far
   const int n_work = a.n_qtiles * a.bh;
   for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-    const WorkTile wt = work_tile<BK>(a, w);
+    const WorkTile wt = work_tile(a, w);
     const bool last_work = w + (int)gridDim.x >= n_work;
     const int row0 = wt.q0 + 64 * cw + 16 * warp + g;  // this thread's rows: row0, row0 + 8
     const int wg_row = wt.q0 + 64 * cw;
     // A tile needs the mask where it crosses seq_k or, causal, the diagonal
     // of the warpgroup's rows.
     auto masked = [&](int j) {
-      const int k0 = j * BK;
-      return k0 + BK > a.seq_k || (a.causal && k0 + BK - 1 > wg_row);
+      const int k0 = j * kBKw;
+      return k0 + kBKw > a.seq_k || (a.causal && k0 + kBKw - 1 > wg_row);
     };
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -586,14 +583,14 @@ __device__ __forceinline__ void wgmma_consumer(const CUtensorMap* to, const WArg
     reg_fence(s);
     turn();
     wgmma_fence();
-    issue_qk<D, BK>(s, qd, kdesc(r));
+    issue_qk<D>(s, qd, kdesc(r));
     wgmma_commit();
     pass(false);
     wgmma_wait<0>();
     reg_fence(s);
     release(ring.empty_k(r));
-    softmax_tile<BK>(s, mc, l, alpha, a, masked(0), row0, 0, t4);
-    pack_p<BK>(p, s);
+    softmax_tile(s, mc, l, alpha, a, masked(0), row0, 0, t4);
+    pack_p(p, s);
 
     for (int j = 1; j < wt.n_tiles; ++j) {
       // Key tile j's q . k^T and tile j - 1's p . v go to the tensor
@@ -604,23 +601,23 @@ __device__ __forceinline__ void wgmma_consumer(const CUtensorMap* to, const WArg
       reg_fence(o);
       turn();
       wgmma_fence();
-      issue_qk<D, BK>(s, qd, kdesc(rj));
+      issue_qk<D>(s, qd, kdesc(rj));
       wgmma_commit();
       mbar_wait(ring.full_v(rj - 1), ring.parity(rj - 1));
-      issue_pv<D, BK>(o, p, vdesc(rj - 1));
+      issue_pv<D>(o, p, vdesc(rj - 1));
       wgmma_commit();
       pass(false);
       wgmma_wait<1>();
       reg_fence(s);
       release(ring.empty_k(rj));
-      softmax_tile<BK>(s, mc, l, alpha, a, masked(j), row0, j * BK, t4);
+      softmax_tile(s, mc, l, alpha, a, masked(j), row0, j * kBKw, t4);
       wgmma_wait<0>();
       reg_fence(o);
       reg_fence(p);
       release(ring.empty_v(rj - 1));
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-      pack_p<BK>(p, s);
+      pack_p(p, s);
     }
     // Every q . k^T of the work tile is done: the producer may load the next q tile.
     release(ring.empty_q());
@@ -630,7 +627,7 @@ __device__ __forceinline__ void wgmma_consumer(const CUtensorMap* to, const WArg
     reg_fence(o);
     turn();
     wgmma_fence();
-    issue_pv<D, BK>(o, p, vdesc(rl));
+    issue_pv<D>(o, p, vdesc(rl));
     wgmma_commit();
     pass(last_work);
     wgmma_wait<0>();
@@ -683,19 +680,19 @@ __device__ __forceinline__ void wgmma_consumer(const CUtensorMap* to, const WArg
   if (elected) tma_store_wait_all();
 }
 
-template <int D, int BK, int STAGES, bool PP>
+template <int D>
 __global__ void __launch_bounds__(kThreadsW, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                     WArgs a) {
-  using L = WLayout<D, BK, STAGES>;
+  using L = WLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const Ring<STAGES> ring{reinterpret_cast<uint64_t*>(sm + L::kBar)};
+  const Ring ring{reinterpret_cast<uint64_t*>(sm + L::kBar)};
   if (threadIdx.x == 0) {
     mbar_init(ring.full_q(), 1);   // the producer's expect_tx
     mbar_init(ring.empty_q(), 8);  // one arrival a consumer warp
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < kStagesW; ++s) {
       mbar_init(ring.full_k(s), 1);
       mbar_init(ring.full_v(s), 1);
       mbar_init(ring.empty_k(s), 8);
@@ -710,28 +707,35 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       prefetch_map(&tq);
       prefetch_map(&tk);
       prefetch_map(&tv);
-      wgmma_producer<D, BK, STAGES>(&tq, &tk, &tv, a, sm, ring);
+      wgmma_producer<D>(&tq, &tk, &tv, a, sm, ring);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    wgmma_consumer<D, BK, STAGES, PP>(&to, a, sm, ring, threadIdx.x / 128 - 1);
+    // Ping-pong at d 128 only: faster there, slower at d 64 (PERF.md).
+    wgmma_consumer<D, D == 128>(&to, a, sm, ring, threadIdx.x / 128 - 1);
   }
 }
 
 // The plan's fields (kernels/flash_plan.py::PLAN_FIELDS), in order: bq, bk,
-// stages, pingpong, persistent, smem bytes, blocks, then for each of q, k,
-// v, out: dims (4, innermost first), byte strides (3), box (2).
-constexpr int kPlanHead = 7, kPlanMap = 9;
+// smem bytes, blocks, then for each of q, k, v, out: dims (4, innermost
+// first), byte strides (3), box (2).
+constexpr int kPlanHead = 4, kPlanMap = 9;
 
-template <int D, int BK, int STAGES, bool PP>
-int launch_wgmma(const CUtensorMap* maps, const WArgs& a, long long smem, int blocks,
+template <int D>
+int launch_wgmma(const CUtensorMap* maps, const WArgs& a, long long smem, int blocks, int dev,
                  cudaStream_t stream) {
-  if (smem != WLayout<D, BK, STAGES>::kBytes) return (int)cudaErrorInvalidValue;
-  auto kern = flash_fwd_wgmma<D, BK, STAGES, PP>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<blocks, kThreadsW, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
+  using L = WLayout<D>;
+  if (smem != L::kBytes || dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma<D>;
+  // Its shared bytes are fixed: raise its cap once a device, not a launch.
+  static bool granted[kMaxDevices] = {};
+  if (!granted[dev]) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev] = true;
+  }
+  kern<<<blocks, kThreadsW, L::kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
   return (int)cudaGetLastError();
 }
 
@@ -766,13 +770,12 @@ extern "C" int flash_attention_launch(
 
 // The "wgmma" route: bf16 q, k, v, o of the same views as above, launched
 // by the plan (kernels/flash_plan.py::PLAN_FIELDS), which is checked
-// against the shapes: bq 128; (d, bk, stages, pingpong) one of the built
-// kernels; its shared bytes; one block a (q tile, batch, head), or
-// (persistent) one a streaming multiprocessor while the tiles last; q
-// and out maps of dims (d, sq, heads, batch), k and v maps of dims (d,
-// seq_k, kv_heads, batch) (keys past seq_k load as zeros); byte strides
-// positive multiples of 16; boxes 64 columns by bq (q), bk (k, v) or 64
-// (out) rows. Returns a cudaError_t.
+// against the shapes: bq and bk 128; the instance's shared bytes; one
+// block a streaming multiprocessor while the (q tile, batch, head) tiles
+// last; q and out maps of dims (d, sq, heads, batch), k and v maps of dims
+// (d, seq_k, kv_heads, batch) (keys past seq_k load as zeros); byte
+// strides positive multiples of 16; boxes 64 columns by bq (q), bk (k, v)
+// or 64 (out) rows. Returns a cudaError_t.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                             void* o, float* lse, int d, int batch, int heads,
                                             int kv_heads, int sq, int seq_k, int causal,
@@ -780,15 +783,14 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads != 0 || sq < 1 ||
       seq_k < 1 || (d != 64 && d != 128))
     return (int)cudaErrorInvalidValue;
-  const long long bq = plan[0], bk = plan[1], stages = plan[2], pp = plan[3],
-                  persistent = plan[4], smem = plan[5], blocks = plan[6];
+  const long long bq = plan[0], bk = plan[1], smem = plan[2], blocks = plan[3];
   const long long n_qtiles = (sq + kBQw - 1) / kBQw, bh = (long long)batch * heads;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return (int)cudaErrorInvalidValue;
-  if (bq != kBQw || n_qtiles * bh > 0x7fffffffLL ||
-      blocks != (persistent ? std::min<long long>(sms, n_qtiles * bh) : n_qtiles * bh))
+  if (bq != kBQw || bk != kBKw || n_qtiles * bh > 0x7fffffffLL ||
+      blocks != std::min<long long>(sms, n_qtiles * bh))
     return (int)cudaErrorInvalidValue;
   const void* bases[4] = {q, k, v, o};
   const long long rows[4] = {sq, seq_k, seq_k, sq}, hs[4] = {heads, kv_heads, kv_heads, heads};
@@ -808,15 +810,6 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   const WArgs a{lse,   heads,         heads / kv_heads, sq, seq_k, causal, (int)bh,
                 (int)n_qtiles, (float)(kLog2e / sqrt((double)d))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_WGMMA_CASE(D_, BK_, S_, PP_)                                 \
-  if (d == D_ && bk == BK_ && stages == S_ && pp == PP_)                   \
-    return launch_wgmma<D_, BK_, S_, PP_>(maps, a, smem, (int)blocks, st);
-  FLASH_WGMMA_CASE(64, 128, 2, 1)  // kernels/flash_plan.py::WGMMA_BUILT, in its order
-  FLASH_WGMMA_CASE(64, 128, 2, 0)
-  FLASH_WGMMA_CASE(64, 128, 3, 1)
-  FLASH_WGMMA_CASE(64, 64, 2, 1)
-  FLASH_WGMMA_CASE(128, 128, 2, 1)
-  FLASH_WGMMA_CASE(128, 128, 2, 0)
-#undef FLASH_WGMMA_CASE
-  return (int)cudaErrorInvalidValue;
+  if (d == 64) return launch_wgmma<64>(maps, a, smem, (int)blocks, dev, st);
+  return launch_wgmma<128>(maps, a, smem, (int)blocks, dev, st);
 }

@@ -7,24 +7,21 @@ the forward's launch from ``plan`` here, and the C entry point of
 Routes, by (dtype, head dim), each a hand-written kernel:
 
   * ``"wgmma"``: bf16 at d 64 and 128. Work tiles of one q head's 128-row
-    q tile; a persistent grid of one block a multiprocessor (``sms``)
-    looping over them, or a block a tile. The q, k, v and out views are
-    read and written by TMA through
-    4-D tensor maps (innermost first: d, rows, heads, batch) with the
-    views' own byte strides, boxes of 64 columns (128 bytes, one swizzle
-    row); K and V tiles of ``bk`` keys in a ring of ``stages`` stages;
-    with ``pingpong`` the two consumer warpgroups take turns to issue
-    their products. The k and v maps end at ``seq_k`` rows, so keys past
-    it load as zeros. Work tiles run heaviest first: every (batch, head)
-    of the last q tile, then of the one before, and so on; block i takes
-    tiles i, i + blocks, ... (``order``).
-    ``WGMMA_TILES`` is the tiling the route runs; ``WGMMA_BUILT`` also
-    holds the variants it was chosen against, which
-    ``tools/hist_compare.py --kernels flash`` times.
+    q tile, heaviest first (every (batch, head) of the last q tile, then of
+    the one before); a persistent grid of one block a multiprocessor
+    (``sms``) while the tiles last, block i taking tiles i, i + blocks, ...
+    The q, k, v and out views are read and written by TMA through 4-D
+    tensor maps (innermost first: d, rows, heads, batch) with the views'
+    own byte strides, boxes of 64 columns (128 bytes, one swizzle row); K
+    and V tiles of ``WGMMA_BK`` keys in a ring of ``WGMMA_STAGES`` stages.
+    The k and v maps end at ``seq_k`` rows, so keys past it load as zeros.
+    At d 128 the two consumer warpgroups take turns to issue their products
+    (ping-pong); at d 64 they do not. That tiling was the fastest of those
+    timed at granite-3-2b's prefill shape (``PERF.md``).
   * ``"mma_sync"``: bf16 at d 32 and 80 (80 columns do not fill 128-byte
-    swizzle rows evenly): 64-row q tiles, 64-key tiles, a grid of (q
-    tiles, batch x heads) with each (batch, head)'s q tiles heaviest first.
-  * ``"scalar"``: f32 at every head dim, the same grid with 32-key tiles.
+    swizzle rows evenly), and ``"scalar"``: f32 at every head dim. Their
+    tiling and grid are the C entry point's own; the plan holds only the
+    route.
 """
 from __future__ import annotations
 
@@ -36,20 +33,13 @@ ROUTES = ("wgmma", "mma_sync", "scalar")
 HEAD_DIMS = (32, 64, 80, 128)  # the kernels' compile-time head dims
 BOX_COLS = 64  # a TMA box row: 64 bf16, 128 bytes
 WGMMA_BQ = 128  # q rows a block: 64 for each of two consumer warpgroups
+WGMMA_BK = 128  # keys a K/V tile
+WGMMA_STAGES = 2  # K/V tiles in flight
 OUT_BOX_ROWS = 64  # each consumer warpgroup stores its own 64 rows
-H100_SMS = 132  # streaming multiprocessors: a persistent grid's size where none is given
-# d -> (bk, stages, pingpong, persistent): the tiling the wgmma route runs,
-# the fastest built variant at granite-3-2b's prefill shape (PERF.md §6).
-WGMMA_TILES = {64: (128, 2, 0, 1), 128: (128, 2, 1, 1)}
-# (d, bk, stages, pingpong) of every wgmma kernel csrc/flash_attention.cu
-# builds; each runs with a grid of one block a work tile or a persistent one.
-WGMMA_BUILT = ((64, 128, 2, 1), (64, 128, 2, 0), (64, 128, 3, 1), (64, 64, 2, 1),
-               (128, 128, 2, 1), (128, 128, 2, 0))
-SMALL_BQ = 64  # the mma_sync and scalar kernels' q rows a block
-SMALL_BK = {"mma_sync": 64, "scalar": 32}
+H100_SMS = 132  # streaming multiprocessors: the persistent grid's size where none is given
 MAP_NAMES = ("q", "k", "v", "out")
 # The integers the wgmma entry point takes, in order.
-PLAN_FIELDS = ("bq", "bk", "stages", "pingpong", "persistent", "smem_bytes", "blocks") + tuple(
+PLAN_FIELDS = ("bq", "bk", "smem_bytes", "blocks") + tuple(
     f"{name}_{field}" for name in MAP_NAMES
     for field in ("dim0", "dim1", "dim2", "dim3", "stride1", "stride2", "stride3",
                   "box0", "box1"))
@@ -64,26 +54,12 @@ class TensorMap(NamedTuple):
 class FlashPlan(NamedTuple):
     route: str
     d: int
-    bq: int  # q rows a block
-    bk: int  # keys a tile
-    stages: int  # K/V tiles in flight (1: the small kernels load and use one)
-    smem_bytes: int  # the block's shared memory
-    n_qtiles: int
-    bh: int  # batch x heads
-    blocks: int  # the grid: a block a work tile, or one a multiprocessor (persistent)
-    maps: dict | None  # name -> TensorMap (wgmma route only)
-    pingpong: int = 0  # 1: the consumer warpgroups take turns (wgmma route)
-    persistent: int = 0  # 1: each block loops over work tiles (wgmma route)
-
-    @property
-    def work_tiles(self) -> int:
-        """(q tile, batch x head) pairs: a block's work each."""
-        return self.n_qtiles * self.bh
+    blocks: int | None = None  # the persistent grid (wgmma route)
+    maps: dict | None = None  # name -> TensorMap (wgmma route)
 
     def fields(self) -> list[int]:
         """The wgmma entry point's integers, in ``PLAN_FIELDS`` order."""
-        out = [self.bq, self.bk, self.stages, self.pingpong, self.persistent,
-               self.smem_bytes, self.blocks]
+        out = [WGMMA_BQ, WGMMA_BK, smem_bytes(self.d), self.blocks]
         for name in MAP_NAMES:
             m = self.maps[name]
             out += [*m.dims, *m.strides, *m.box]
@@ -102,15 +78,12 @@ def route(dtype: torch.dtype, d: int) -> str:
     raise TypeError(f"flash_attention: dtype {dtype}; the kernels take bf16 or f32")
 
 
-def smem_bytes(route_: str, d: int, bk: int, stages: int) -> int:
-    """Shared bytes a block of the route uses (the kernel's own layout)."""
-    if route_ == "wgmma":
-        # q and out tiles, `stages` K and V tiles, 2 + 4 stages mbarriers,
-        # and 1024 bytes of slack that align the base for the 128-byte swizzle.
-        return 2 * d * (2 * WGMMA_BQ + 2 * stages * bk) + 8 * (2 + 4 * stages) + 1024
-    if route_ == "mma_sync":
-        return 2 * 2 * bk * (d + 8)  # K and V tiles, rows padded by 8 (static)
-    return 4 * (SMALL_BQ * d + bk * (d + 1) + bk * d)  # q, K (padded), V in f32
+def smem_bytes(d: int) -> int:
+    """Shared bytes a block of the wgmma kernel at head dim ``d`` uses: the
+    q and out tiles, the ring's K and V tiles, 2 + 4 stages mbarriers, and
+    1024 bytes of slack that align the base for the 128-byte swizzle."""
+    return 2 * d * (2 * WGMMA_BQ + 2 * WGMMA_STAGES * WGMMA_BK) + 8 * (2 + 4 * WGMMA_STAGES) \
+        + 1024
 
 
 def tensor_map(t: torch.Tensor, rows: int, box_rows: int) -> TensorMap:
@@ -123,37 +96,15 @@ def tensor_map(t: torch.Tensor, rows: int, box_rows: int) -> TensorMap:
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-         seq_k: int, variant: tuple[int, int, int, int] | None = None,
-         sms: int = H100_SMS) -> FlashPlan:
+         seq_k: int, sms: int = H100_SMS) -> FlashPlan:
     """The launch of the forward on q (B, H, Sq, d), k, v (B, KV, Sk, d) and
     out (B, H, Sq, d), keys past ``seq_k`` masked, on a card of ``sms``
-    multiprocessors. ``variant`` (bk, stages, pingpong, persistent) picks
-    another built wgmma kernel or grid than ``WGMMA_TILES``'."""
+    multiprocessors."""
     b, h, sq, d = q.shape
     r = route(q.dtype, d)
     if r != "wgmma":
-        if variant is not None:
-            raise ValueError(f"flash_attention: route {r} has one tiling")
-        kb, n_qtiles = SMALL_BK[r], -(-sq // SMALL_BQ)
-        return FlashPlan(r, d, SMALL_BQ, kb, 1, smem_bytes(r, d, kb, 1), n_qtiles, b * h,
-                         n_qtiles * b * h, None)
-    bk, stages, pingpong, persistent = variant or WGMMA_TILES[d]
-    if (d, bk, stages, pingpong) not in WGMMA_BUILT:
-        raise ValueError(f"flash_attention: no wgmma kernel is built for d {d}, bk {bk}, "
-                         f"stages {stages}, pingpong {pingpong}")
-    n_qtiles = -(-sq // WGMMA_BQ)
-    work = n_qtiles * b * h
-    maps = {"q": tensor_map(q, sq, WGMMA_BQ), "k": tensor_map(k, seq_k, bk),
-            "v": tensor_map(v, seq_k, bk), "out": tensor_map(out, sq, OUT_BOX_ROWS)}
-    return FlashPlan(r, d, WGMMA_BQ, bk, stages, smem_bytes(r, d, bk, stages), n_qtiles,
-                     b * h, min(sms, work) if persistent else work, maps, pingpong, persistent)
-
-
-def order(p: FlashPlan) -> list[list[tuple[int, int]]]:
-    """(q tile, batch x head index) of each work tile, for each block in
-    launch order: the work tiles a block does, in the order it does them."""
-    if p.route == "wgmma":  # work tile w is bh w % BH of q tile n - 1 - w // BH
-        return [[(p.n_qtiles - 1 - w // p.bh, w % p.bh)
-                 for w in range(i, p.work_tiles, p.blocks)] for i in range(p.blocks)]
-    # grid (q tiles, BH), x fastest: block (x, y) is q tile n - 1 - x of bh y
-    return [[(p.n_qtiles - 1 - x, y)] for y in range(p.bh) for x in range(p.n_qtiles)]
+        return FlashPlan(r, d)
+    work = -(-sq // WGMMA_BQ) * b * h
+    maps = {"q": tensor_map(q, sq, WGMMA_BQ), "k": tensor_map(k, seq_k, WGMMA_BK),
+            "v": tensor_map(v, seq_k, WGMMA_BK), "out": tensor_map(out, sq, OUT_BOX_ROWS)}
+    return FlashPlan(r, d, min(sms, work), maps)

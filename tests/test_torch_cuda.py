@@ -508,28 +508,36 @@ def test_sparse_training_on_the_card_is_deterministic(dev):
     assert torch.equal(runs[0].f, runs[1].f)
 
 
-# (b, sq, sk, h, kv, d, causal): the smoke's ragged cases, then more
+# (b, sq, sk, h, kv, d, causal, seq_k): the smoke's ragged cases, then more
 # ragged edges (Sq != Sk both ways under causal, one query row), then the
 # wgmma kernel's (bf16 at d 64 and 128): Sq of 1, 100, 128 and 200 against
 # its 128-row q tiles and 128-key tiles, Sq != Sk both ways, causal and
-# full, groups of 1 and 4.
+# full, groups of 1 and 4; last, 256 work tiles for its persistent grid of
+# 132 blocks (blocks run a second tile), Sq off the tile grid and keys
+# past seq_k masked, at d 128 causal and full and d 64 full.
 FLASH_CASES = [
-    (1, 100, 100, 4, 2, 32, True),
-    (1, 100, 100, 4, 2, 80, True),
-    (1, 96, 96, 2, 2, 128, False),
-    (2, 64, 192, 4, 4, 64, False),
-    (2, 64, 192, 4, 4, 64, True),
-    (1, 130, 70, 8, 2, 80, True),
-    (2, 1, 129, 4, 1, 64, True),
-    (1, 1, 1, 4, 1, 128, True),
-    (2, 100, 100, 4, 4, 64, False),
-    (1, 128, 128, 8, 2, 64, True),
-    (1, 200, 200, 8, 2, 128, True),
-    (1, 200, 77, 4, 1, 64, True),
-    (1, 100, 300, 4, 4, 128, True),
-    (1, 128, 260, 8, 2, 64, False),
-    (2, 200, 130, 4, 1, 128, False),
+    (1, 100, 100, 4, 2, 32, True, None),
+    (1, 100, 100, 4, 2, 80, True, None),
+    (1, 96, 96, 2, 2, 128, False, None),
+    (2, 64, 192, 4, 4, 64, False, None),
+    (2, 64, 192, 4, 4, 64, True, None),
+    (1, 130, 70, 8, 2, 80, True, None),
+    (2, 1, 129, 4, 1, 64, True, None),
+    (1, 1, 1, 4, 1, 128, True, None),
+    (2, 100, 100, 4, 4, 64, False, None),
+    (1, 128, 128, 8, 2, 64, True, None),
+    (1, 200, 200, 8, 2, 128, True, None),
+    (1, 200, 77, 4, 1, 64, True, None),
+    (1, 100, 300, 4, 4, 128, True, None),
+    (1, 128, 260, 8, 2, 64, False, None),
+    (2, 200, 130, 4, 1, 128, False, None),
+    (2, 1000, 1100, 16, 4, 128, True, 950),
+    (2, 1000, 1100, 16, 4, 128, False, 1050),
+    (2, 1000, 1100, 16, 4, 64, False, 1050),
 ]
+# A bf16 out's relative L2 error limit, whole and over its later half of
+# rows (chip_smoke.FLASH_OUT_REL_L2).
+FLASH_OUT_REL_L2 = 1e-2
 
 
 def _flash_inputs(dev, b, sq, sk, h, kv, d, dtype, seed):
@@ -538,24 +546,50 @@ def _flash_inputs(dev, b, sq, sk, h, kv, d, dtype, seed):
             for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
 
 
+def _flash_rel_l2(got, want):
+    """The relative L2 errors of an out, whole and on its later half of rows."""
+    half = got.shape[2] // 2
+    return [float((g.float() - w.float()).norm() / w.float().norm())
+            for g, w in ((got, want), (got[:, :, half:], want[:, :, half:]))]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, kv, d, causal, dtype):
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,seq_k", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, kv, d, causal, seq_k, dtype):
     q, k, v = _flash_inputs(dev, b, sq, sk, h, kv, d, dtype, sq + sk + d)
     before = flash_attention.launches
     route = flash_plan.route(dtype, d)
     before_route = flash_attention.route_launches[route]
-    out, lse = flash_attention.flash_attention(q, k, v, causal)
-    out2, lse2 = flash_attention.flash_attention(q, k, v, causal)
+    out, lse = flash_attention.flash_attention(q, k, v, causal, seq_k)
+    out2, lse2 = flash_attention.flash_attention(q, k, v, causal, seq_k)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 2
     assert flash_attention.route_launches[route] == before_route + 2
     assert torch.equal(out, out2) and torch.equal(lse, lse2), "two launches differ"
-    want, want_lse = flash_attention.flash_attention_plain(q, k, v, causal)
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, causal, seq_k)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert max(_flash_rel_l2(out, want)) <= FLASH_OUT_REL_L2
     tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
+def test_flash_forward_tolerance_rejects_wrong_outputs(dev):
+    """At the prefill shape (B 4, S 2048, H 32/8, d 64, causal) the kernel's
+    out passes the element-wise and relative L2 limits, and each of
+    ``chip_smoke.flash_planted_faults``' wrong outs (a late key tile's
+    p . v with the tile before's V, or dropped; the later rows 3% off)
+    fails the relative L2 limit."""
+    import chip_smoke
+
+    q, k, v = _flash_inputs(dev, 4, 2048, 2048, 32, 8, 64, torch.bfloat16, 0)
+    out, lse = flash_attention.flash_attention(q, k, v, True)
+    want = flash_attention.flash_attention_plain(q, k, v, True)[0]
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert max(_flash_rel_l2(out, want)) <= FLASH_OUT_REL_L2
+    for name, bad in chip_smoke.flash_planted_faults(q, k, v, lse, out).items():
+        assert max(_flash_rel_l2(bad, want)) > FLASH_OUT_REL_L2, name
 
 
 def test_flash_attention_kernel_masks_keys_past_seq_k(dev):
@@ -616,13 +650,13 @@ def test_flash_attention_kernel_rejects_other_head_dims(dev):
 # (b, sq, sk, h, kv, d, causal): tests/test_kernels.py's FLASH_SWEEP, then
 # the ragged cases above.
 FLASH_BWD_CASES = [
-    (2, 128, 128, 4, 4, 64, True),
-    (2, 128, 128, 4, 4, 64, False),
-    (1, 256, 256, 8, 2, 64, True),
-    (2, 100, 100, 4, 2, 32, True),
-    (1, 96, 96, 2, 2, 128, False),
-    (2, 64, 192, 4, 4, 64, False),
-] + FLASH_CASES + [(1, 160, 160, 4, 1, 80, False)]
+    (2, 128, 128, 4, 4, 64, True, None),
+    (2, 128, 128, 4, 4, 64, False, None),
+    (1, 256, 256, 8, 2, 64, True, None),
+    (2, 100, 100, 4, 2, 32, True, None),
+    (1, 96, 96, 2, 2, 128, False, None),
+    (2, 64, 192, 4, 4, 64, False, None),
+] + FLASH_CASES + [(1, 160, 160, 4, 1, 80, False, None)]
 
 
 def _bwd_close(got, args, causal, dtype, seq_k=None, one_key=False):
@@ -657,18 +691,18 @@ def _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, seed, seq_k=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_BWD_CASES)
-def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, kv, d, causal, dtype):
-    args = _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, sq + sk + d)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,seq_k", FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, kv, d, causal, seq_k, dtype):
+    args = _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, sq + sk + d, seq_k)
     before = flash_attention.bwd_launches
-    got = flash_attention.flash_attention_bwd(*args, causal)
-    again = flash_attention.flash_attention_bwd(*args, causal)
+    got = flash_attention.flash_attention_bwd(*args, causal, seq_k)
+    again = flash_attention.flash_attention_bwd(*args, causal, seq_k)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == before + 2
     for name, g1, g2, t in zip(("dq", "dk", "dv"), got, again, args[:3]):
         assert g1.shape == t.shape and g1.dtype == dtype, name
         assert torch.equal(g1, g2), f"{name}: two launches differ"
-    _bwd_close(got, args, causal, dtype, one_key=causal and sq == 1)
+    _bwd_close(got, args, causal, dtype, seq_k, one_key=causal and sq == 1)
 
 
 def test_flash_bwd_tolerance_rejects_wrong_gradients(dev):

@@ -1,9 +1,9 @@
 """The flash forward's launch plan (``repro_torch.kernels.flash_plan``), on
-the CPU: the route of each (dtype, head dim), the shared bytes of every
-route and stage count, the heaviest-first order of the blocks, and the
-tensor maps of the views ``ops.flash_attention`` hands over, at
-granite-3-2b's shape and at ragged ones. The kernels themselves are held
-against their plain version on the card (``tests/test_torch_cuda.py``)."""
+the CPU: the route of each (dtype, head dim), the wgmma kernel's shared
+bytes and persistent grid, and the tensor maps of the views
+``ops.flash_attention`` hands over, at granite-3-2b's shape and at ragged
+ones. The kernels themselves, and their coverage of every work tile, are
+held against their plain version on the card (``tests/test_torch_cuda.py``)."""
 import ctypes
 
 import pytest
@@ -41,68 +41,36 @@ def test_route_refuses_what_no_kernel_takes():
         flash_plan.route(torch.bfloat16, 96)
     with pytest.raises(TypeError, match="dtype"):
         flash_plan.route(torch.float16, 64)
-    q, k, v, out = _views(1, 64, 64, 2, 2, 32)
-    with pytest.raises(ValueError, match="one tiling"):
-        flash_plan.plan(q, k, v, out, 64, variant=(128, 2, 1, 1))
-    q, k, v, out = _views(1, 64, 64, 2, 2, 64)
-    with pytest.raises(ValueError, match="no wgmma kernel"):
-        flash_plan.plan(q, k, v, out, 64, variant=(64, 5, 1, 1))
 
 
 def test_shared_bytes_stay_under_the_limit_for_every_route_and_stage_count():
-    for d, bk, stages, _ in flash_plan.WGMMA_BUILT:
-        assert flash_plan.smem_bytes("wgmma", d, bk, stages) <= SMEM_LIMIT
-    # The q and out tiles, the ring and the barriers, 1024-aligned: 2
-    # stages of 128 keys is the deepest ring d 128 can hold, 3 do not fit.
-    assert flash_plan.smem_bytes("wgmma", 128, 128, 2) == 197712 <= SMEM_LIMIT
-    assert flash_plan.smem_bytes("wgmma", 128, 128, 3) > SMEM_LIMIT
-    assert flash_plan.smem_bytes("wgmma", 64, 128, 2) == 99408
-    for route in ("mma_sync", "scalar"):
-        for d in flash_plan.HEAD_DIMS:
-            kb = flash_plan.SMALL_BK[route]
-            assert flash_plan.smem_bytes(route, d, kb, 1) <= SMEM_LIMIT
-    assert flash_plan.smem_bytes("mma_sync", 80, 64, 1) == 2 * 2 * 64 * 88  # padded rows
+    """The wgmma kernel's dynamic shared bytes (the other routes' are
+    static): the q and out tiles, two stages of 128-key K and V tiles and
+    the barriers, 1024-aligned. A third stage would not fit at d 128."""
+    assert flash_plan.smem_bytes(64) == 99408
+    assert flash_plan.smem_bytes(128) == 197712 <= SMEM_LIMIT
+    assert flash_plan.smem_bytes(128) + 2 * 2 * 128 * 128 > SMEM_LIMIT
 
 
-@pytest.mark.parametrize("sq,b,h,dtype,persistent", [
-    (1, 2, 4, torch.bfloat16, 1), (100, 1, 8, torch.bfloat16, 0),
-    (128, 2, 2, torch.bfloat16, 1), (200, 1, 4, torch.bfloat16, 0),
-    (2048, 4, 32, torch.bfloat16, 1), (2048, 4, 32, torch.bfloat16, 0),
-    (200, 2, 3, torch.float32, 0),
+@pytest.mark.parametrize("b,sq,h,d,blocks", [
+    (2, 1, 4, 64, 8), (1, 200, 8, 128, 16), (4, 2048, 32, 64, 132), (2, 1000, 16, 128, 132),
 ])
-def test_heaviest_first_order_covers_each_tile_once(sq, b, h, dtype, persistent):
-    q, k, v, out = _views(b, sq, sq, h, 1, 64, dtype)
-    variant = (128, 2, 1, persistent) if dtype == torch.bfloat16 else None
-    p = flash_plan.plan(q, k, v, out, sq, variant=variant, sms=132)
-    order = flash_plan.order(p)
-    work = p.n_qtiles * b * h
-    assert len(order) == p.blocks == (min(132, work) if persistent else work)
-    assert sorted(x for block in order for x in block) == \
-        [(t, bh) for t in range(p.n_qtiles) for bh in range(b * h)]
-    if p.route == "wgmma":
-        # Work tile i + k * blocks is block i's k-th: in that order, every
-        # (batch, head) of a q tile comes before any lighter q tile.
-        flat = [order[w % p.blocks][w // p.blocks] for w in range(work)]
-        tiles = [t for t, _ in flat]
-        assert tiles == sorted(tiles, reverse=True)
-        for block in order:  # and each block does its heaviest tile first
-            assert [t for t, _ in block] == sorted((t for t, _ in block), reverse=True)
-    else:  # each (batch, head)'s q tiles heaviest first
-        for bh in range(b * h):
-            tiles = [t for block in order for t, x in block if x == bh]
-            assert tiles == sorted(tiles, reverse=True)
+def test_persistent_grid_is_a_block_a_multiprocessor_while_the_tiles_last(b, sq, h, d, blocks):
+    q, k, v, out = _views(b, sq, sq, h, h, d)
+    p = flash_plan.plan(q, k, v, out, sq, sms=132)
+    assert p.blocks == blocks == min(132, -(-sq // 128) * b * h)
+    assert p.fields()[:4] == [128, 128, flash_plan.smem_bytes(d), blocks]
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,seq_k", [
-    GRANITE + (2048,),
+    GRANITE + (2048,), (2, 1000, 1100, 16, 4, 128, 1050),
     (1, 1, 129, 4, 1, 64, 129), (1, 100, 100, 2, 2, 128, 100), (1, 200, 200, 8, 2, 64, 200),
     (1, 130, 300, 4, 4, 128, 300), (2, 64, 192, 4, 4, 64, 150), (1, 80, 128, 4, 2, 64, 77),
 ])
 def test_tensor_maps_are_the_model_layout_views(b, sq, sk, h, kv, d, seq_k):
     q, k, v, out = _views(b, sq, sk, h, kv, d)
     p = flash_plan.plan(q, k, v, out, seq_k, sms=132)
-    assert (p.route, p.bq, p.bk, p.stages) == ("wgmma", 128, 128, 2)
-    assert (p.pingpong, p.persistent) == flash_plan.WGMMA_TILES[d][2:]
+    assert (p.route, p.d) == ("wgmma", d)
     # (B, S, H, d) storage: rows H d apart, heads d apart, batches S H d apart.
     want = {"q": ((d, sq, h, b), (2 * h * d, 2 * d, 2 * sq * h * d), (64, 128)),
             "k": ((d, seq_k, kv, b), (2 * kv * d, 2 * d, 2 * sk * kv * d), (64, 128)),
@@ -114,8 +82,8 @@ def test_tensor_maps_are_the_model_layout_views(b, sq, sk, h, kv, d, seq_k):
         assert all(s > 0 and s % 16 == 0 for s in m.strides), name
     fields = dict(zip(flash_plan.PLAN_FIELDS, p.fields(), strict=True))
     work = -(-sq // 128) * b * h
-    assert fields["blocks"] == (min(132, work) if p.persistent else work)
-    assert fields["smem_bytes"] == flash_plan.smem_bytes("wgmma", d, 128, 2)
+    assert fields["blocks"] == min(132, work)
+    assert fields["smem_bytes"] == flash_plan.smem_bytes(d)
     assert (fields["k_dim1"], fields["out_stride1"], fields["out_box1"]) == \
         (seq_k, 2 * h * d, 64)
 

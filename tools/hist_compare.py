@@ -19,10 +19,7 @@ efficiency-realsim width, each against its plain version:
   (4 x 2048, 32 q and 8 kv heads, d 64, bf16, causal, the model's (B, S,
   H, d) layout) through ``flash_attention.flash_attention``, the entry
   point every commit has, against its plain version and beside SDPA on
-  the same inputs made contiguous; where the checkout builds several wgmma
-  kernels (``flash_plan.WGMMA_BUILT``), each of them at its head dim (d
-  128 on the same shape otherwise), with a persistent grid and with a
-  block a work tile.
+  the same inputs made contiguous.
 
 Each time is a CUDA-event mean of 20 back-to-back calls and the device time
 alone of another 20 by ``torch.profiler``. Writes
@@ -33,7 +30,6 @@ change, change, parent. Needs one GPU.
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import pathlib
 import subprocess
@@ -65,7 +61,7 @@ def traversal(cs, data, report: dict) -> None:
 
 
 def flash(cs, report: dict) -> None:
-    """The flash forward at the prefill shape, and each built wgmma variant."""
+    """The flash forward at the prefill shape, beside SDPA."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -73,18 +69,13 @@ def flash(cs, report: dict) -> None:
     dev = torch.device("cuda")
     b, s, h, kv = 4, 2048, 32, 8
     g = torch.Generator(device="cpu").manual_seed(0)
-
-    def inputs(d):
-        return [torch.randn(shape, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
-                for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
-
-    def checked(tag, q, k, v, got):
-        want = fa.flash_attention_plain(q, k, v, True)[0]
-        cs.close(f"flash_attention {tag}", got.float(), want.float(), 2e-2, 2e-2)
-
+    q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+               for shape in ((b, s, h, 64), (b, s, kv, 64), (b, s, kv, 64)))
+    want = fa.flash_attention_plain(q, k, v, True)[0]
+    cs.close("flash_attention prefill", fa.flash_attention(q, k, v, True)[0].float(),
+             want.float(), 2e-2, 2e-2)
+    del want
     shapes = report["flash_attention_shapes"] = {}
-    q, k, v = inputs(64)
-    checked("prefill", q, k, v, fa.flash_attention(q, k, v, True)[0])
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     pairs = b * h * s * (s + 1) // 2
     bms, by = cs.bound(2 * (2 * b * h * s * 64 + 2 * b * kv * s * 64) + 4 * b * h * s,
@@ -93,25 +84,6 @@ def flash(cs, report: dict) -> None:
     shapes["prefill"].update(bound_ms=bms, bound_by=by)
     cs.event_times(lambda: torch.nn.functional.scaled_dot_product_attention(
         qc, kc, vc, is_causal=True, enable_gqa=True), into=shapes["prefill"], key="library_")
-    plan = getattr(fa, "flash_plan", None)  # absent before the wgmma kernel
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for d in (64, 128):
-        if plan is None:
-            break
-        qd, kd, vd = (q, k, v) if d == 64 else inputs(d)
-        o = torch.empty((b, s, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
-        lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-        for (dd, bk, stages, pp), persistent in itertools.product(plan.WGMMA_BUILT, (1, 0)):
-            if dd != d:
-                continue
-            p = plan.plan(qd, kd, vd, o, s, variant=(bk, stages, pp, persistent), sms=sms)
-
-            def run(p=p, qd=qd, kd=kd, vd=vd, o=o, lse=lse):
-                fa._launch_fwd(p, qd, kd, vd, o, lse, True, s)
-            tag = f"d{d} bk{bk} stages{stages} pingpong{pp} persistent{persistent}"
-            run()
-            checked(tag, qd, kd, vd, o)
-            shapes[tag] = cs.event_times(run)
     cs.fill_device_times()
 
 
