@@ -47,15 +47,17 @@ four requests (2048- and 1024-token prompts, 32 new tokens each), twice,
 every forward launch on the wgmma route; the flash prefill's logits are
 held against the chunked path's.
 
-Then the LM zoo's training path: the flash-attention backward kernels (dq
-and dk/dv) against their plain version at the training shape and the
-ragged shapes, and granite-3-2b at full width trained on batches of
+Then the LM zoo's training path: the flash-attention backward kernels
+(delta, dq and dk/dv) against their plain version at the training shape
+and the ragged shapes (each shape's route, as the forward's), each kernel
+timed alone beside its own bound and the whole beside SDPA's backward, and
+granite-3-2b at full width trained on batches of
 4 x 2048 tokens from ``synthetic_batches`` through ``make_train_step``
 (flash attention, per-layer remat): the reference recipe (AdamW, cosine
 schedule, clipping, decay) at accum 2 for 6 steps, twice (bitwise equal),
 then the delayed-gradient wrapper (tau = 2, Proposition 1's step scale)
-with Bernoulli sampling (R = 0.8) for 6 steps, every forward launch on
-the wgmma route; one more step is profiled, and one microbatch's loss and
+with Bernoulli sampling (R = 0.8) for 6 steps, every forward and backward
+launch on the wgmma route; one more step is profiled, and one microbatch's loss and
 gradients are held against the chunked attention path's.
 
 It prints the card's name and power limit, a ``kernels`` JSON line (per
@@ -208,7 +210,9 @@ TRAIN_KERNELS = {
 # (b, sq, sk, h, kv, d, causal, dtype, seq_k): the ragged edges of each
 # route (the wgmma kernel off its 128-row q tiles and 128-key tiles last;
 # the 1000-row shapes give its persistent grid of 132 blocks 256 work
-# tiles, so blocks run a second tile, with keys past seq_k masked).
+# tiles, so blocks run a second tile, with keys past seq_k masked; the
+# 600-row shape gives the backward's dk/dv grid 576 key tiles, those past
+# Sq without a q tile).
 FLASH_RAGGED = [
     (1, 100, 100, 4, 2, 32, True, torch.bfloat16, None),
     (1, 96, 96, 2, 2, 128, False, torch.bfloat16, None),
@@ -219,6 +223,7 @@ FLASH_RAGGED = [
     (2, 1000, 1100, 16, 4, 128, True, torch.bfloat16, 950),
     (2, 1000, 1100, 16, 4, 128, False, torch.bfloat16, 1050),
     (2, 1000, 1100, 16, 4, 64, False, torch.bfloat16, 1050),
+    (4, 600, 1100, 16, 16, 64, True, torch.bfloat16, 1000),
 ]
 # A bf16 flash out's relative L2 error limit, over the whole tensor and
 # over its later half of rows: above every sound reading and below every
@@ -237,6 +242,8 @@ def reset_counts() -> None:
     forest_traversal.form_launches.update(dict.fromkeys(forest_traversal.form_launches, 0))
     flash_attention.route_launches.update(dict.fromkeys(flash_attention.route_launches, 0))
     flash_attention.bwd_launches = 0
+    flash_attention.bwd_route_launches.update(
+        dict.fromkeys(flash_attention.bwd_route_launches, 0))
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -1679,12 +1686,15 @@ def bwd_close(tag: str, got, want, mag, dtype, one_key: bool = False) -> dict:
 def check_flash_bwd(dev, report: dict) -> dict:
     """The backward kernels (delta, dq, dk/dv) against their plain version
     (the f32 formulas) at the training shape and the ragged shapes, held by
-    ``bwd_close``; two launches bitwise; the gradient reaching wq through
-    ``ops.flash_attention`` on the card. Times at the training shape: the
-    whole backward (what the plain version and the backward alone of
+    ``bwd_close``; two launches bitwise; each shape's route
+    (``flash_plan.route``) reported; the gradient reaching wq through
+    ``ops.flash_attention`` on the card. Times at the training shape, each
+    as a CUDA-event mean and as device time: the whole backward (what the
+    plain version and the backward alone of
     ``scaled_dot_product_attention``, on the same inputs made contiguous,
     compute), and each kernel alone beside a bound from its own products
-    and bytes. Returns each kernel's stats for the kernels line."""
+    and bytes and beside the ``ex2`` floor of its p. Returns each kernel's
+    stats for the kernels line."""
     cfg = lm_configs.get(LM_ARCH)
     b, s = LM_SLOTS, LM_PROMPTS[0]
     cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
@@ -1707,6 +1717,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
         errs = bwd_close(tag, g1, want, mag, dtype, one_key=causal and sq == 1)
         shapes[tag] = {key: {n: e[key] for n, e in errs.items()}
                        for key in ("max_abs_err", "rel_l2_err", "err_over_limit")}
+        shapes[tag]["route"] = flash_plan.route(dtype, d)
         del want, mag, g1, g2
         if out is None:  # the training shape: times and bounds
             el = q.element_size()
@@ -1717,15 +1728,18 @@ def check_flash_bwd(dev, report: dict) -> dict:
             # whole backward needs five products (s, dp, dq, dk, dv); the dq
             # kernel (with the delta pre-pass, which reads out) three (s, dp,
             # ds . k) and the dk/dv kernel four (s^T, dp^T, p^T . do,
-            # ds^T . q), taking delta as an input.
+            # ds^T . q), taking delta as an input. The delta kernel alone
+            # reads out, do and lse and writes delta and lse2 (B H Sq f32
+            # each): bound by bytes. Each of dq and dk/dv also recomputes p,
+            # one ex2 a kept pair (``ex2_bound_ms``).
             pairs = bq * h * (sq * (sq + 1) // 2 if causal else sq * sk)
             qb, kb, rb = el * bq * h * sq * d, el * bq * kv * sk * d, 4 * bq * h * sq
             work = {"whole": (4 * qb + 4 * kb + rb, 5), "dq": (4 * qb + 2 * kb + rb, 3),
-                    "dkv": (2 * qb + 4 * kb + 2 * rb, 4)}
+                    "dkv": (2 * qb + 4 * kb + 2 * rb, 4), "delta": (2 * qb + 3 * rb, 0)}
             bounds = {kern: bound(nb, n * 2.0 * d * pairs, PEAK_BF16_S)
                       for kern, (nb, n) in work.items()}
             operands = flash_attention._bwd_operands(q, k, v, o, lse, do, causal, None)
-            alone = {kern: cuda_ms(lambda k=kern: flash_attention._launch_bwd(k, operands))
+            alone = {kern: event_times(lambda k=kern: flash_attention._launch_bwd(k, operands))
                      for kern in flash_attention.BWD_KERNELS}
             qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
             lib_out = torch.nn.functional.scaled_dot_product_attention(
@@ -1741,11 +1755,13 @@ def check_flash_bwd(dev, report: dict) -> dict:
                 "plain_ms": cuda_ms(lambda: flash_attention.flash_attention_bwd_plain(*args),
                                     reps=3, warmup=1),
                 "bound_ms": whole_ms, "bound_by": whole_by, **lib,
-                # Each kernel alone; the dq entry carries the delta pre-pass.
-                "kernel_ms": {"dq": alone["delta"] + alone["dq"], "dkv": alone["dkv"],
-                              "delta": alone["delta"]},
-                "kernel_bound_ms": {kern: bounds[kern][0] for kern in ("dq", "dkv")},
-                "kernel_bound_by": {kern: bounds[kern][1] for kern in ("dq", "dkv")},
+                # Each kernel alone (event and device ms, filled above by
+                # ``kernel_times``), beside its own bound.
+                "kernel_ms": {kern: t["ms"] for kern, t in alone.items()},
+                "kernel_device_ms": {kern: t["device_ms"] for kern, t in alone.items()},
+                "kernel_bound_ms": {kern: bounds[kern][0] for kern in alone},
+                "kernel_bound_by": {kern: bounds[kern][1] for kern in alone},
+                "ex2_bound_ms": pairs / PEAK_EX2_S * 1e3,
             }
             shapes[tag].update(out, bytes=work["whole"][0], flops=5 * 2.0 * d * pairs)
             del operands, lib_out, qc, kc, vc
@@ -1772,15 +1788,22 @@ def check_flash_bwd(dev, report: dict) -> dict:
 
     # The kernels line: each entry is the whole backward (delta, dq and
     # dk/dv, launched together by every call), so ms, bound, plain and
-    # library are one function's; each kernel alone is in the report.
+    # library are one function's; each entry adds its kernel alone (the dq
+    # entry's with the delta pre-pass) beside its own bound.
     stats = {}
     outputs = {"dq": ("dq",), "dkv": ("dk", "dv")}
     for name, (kern, _, _) in TRAIN_KERNELS.items():
+        pre = ("delta",) if kern == "dq" else ()
         stats[name] = {
             "max_abs_err": max(v["max_abs_err"][o] for v in shapes.values()
                                for o in outputs[kern]),
             **{key: out[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "library_device_ms")}}
+                                         "library_ms", "library_device_ms")},
+            "kernel_ms": sum(out["kernel_ms"][k] for k in pre + (kern,)),
+            "kernel_device_ms": sum(out["kernel_device_ms"][k] for k in pre + (kern,)),
+            "kernel_bound_ms": out["kernel_bound_ms"][kern],
+            "kernel_bound_by": out["kernel_bound_by"][kern],
+            "ex2_bound_ms": out["ex2_bound_ms"]}
     report["flash_attention_bwd"] = out
     return stats
 
@@ -1923,13 +1946,18 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
         {k: {n: [v["max_abs_err"][n], v["rel_l2_err"][n]] for n in v["max_abs_err"]}
          for k, v in report["flash_attention_bwd_shapes"].items()}), flush=True)
     bw = report["flash_attention_bwd"]
-    print(f"flash_attention_bwd at {LM_SLOTS} x {LM_PROMPTS[0]}: whole {bw['ms']:.3f} ms "
-          f"(bound {bw['bound_ms']:.3f}, plain {bw['plain_ms']:.1f}, SDPA backward "
-          f"{bw['library_ms']:.3f}, device {bw['library_device_ms']:.3f}); alone: " + ", ".join(
-              f"{kern} {bw['kernel_ms'][kern]:.3f} ms (bound "
-              f"{bw['kernel_bound_ms'][kern]:.3f}, {bw['kernel_bound_by'][kern]})"
-              for kern in ("dq", "dkv")) + f", of which delta {bw['kernel_ms']['delta']:.3f} "
-          f"[{report.get('nvidia_smi', 'card not queried')}]", flush=True)
+    print(f"flash_attention_bwd at {LM_SLOTS} x {LM_PROMPTS[0]}: whole {bw['ms']:.4f} ms, "
+          f"device {bw['device_ms']:.4f} (bound {bw['bound_ms']:.4f}, plain "
+          f"{bw['plain_ms']:.1f}, SDPA backward {bw['library_ms']:.4f}, device "
+          f"{bw['library_device_ms']:.4f}); alone (event / device ms): " + ", ".join(
+              f"{kern} {bw['kernel_ms'][kern]:.4f} / {bw['kernel_device_ms'][kern]:.4f} "
+              f"(bound "
+              f"{bw['kernel_bound_ms'][kern]:.4f}, {bw['kernel_bound_by'][kern]})"
+              for kern in flash_attention.BWD_KERNELS)
+          + f"; ex2 {bw['ex2_bound_ms']:.4f} a kernel; routes "
+          + json.dumps({tag: v["route"]
+                        for tag, v in report["flash_attention_bwd_shapes"].items()})
+          + f" [{report.get('nvidia_smi', 'card not queried')}]", flush=True)
     cfg = dataclasses.replace(lm_configs.get(LM_ARCH), attn_impl="flash")
     if not (cfg.remat and cfg.remat_policy == "full"):
         raise AssertionError("the training path runs with per-layer remat")
@@ -1963,9 +1991,14 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches}
     routes = dict(flash_attention.route_launches)
+    bwd_routes = dict(flash_attention.bwd_route_launches)
     if routes["wgmma"] != counts["flash_attention_fwd"]:
         raise AssertionError(f"flash forward launches by route {routes}: the training steps' "
                              f"{counts['flash_attention_fwd']} must all be the wgmma kernel's")
+    if bwd_routes["wgmma"] != counts["flash_attention_bwd"]:
+        raise AssertionError(f"flash backward launches by route {bwd_routes}: the training "
+                             f"steps' {counts['flash_attention_bwd']} must all be the wgmma "
+                             "kernels'")
     del params, state
     torch.cuda.empty_cache()
     # Flash against chunked at full width (after the counts are read): one
@@ -2011,7 +2044,8 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
           f"parameter); run B's parameters after its {TRAIN_DELAY} warm-up steps bitwise the "
           "initial ones; "
           f"flash launches a step: {2 * cfg.n_layers} forward and {cfg.n_layers} backward a "
-          f"microbatch; forward launches by route {routes}", flush=True)
+          f"microbatch; launches by route: forward {routes}, backward {bwd_routes}",
+          flush=True)
     worst = max(grads["leaves"].items(), key=lambda kv: kv[1]["flash_vs_chunked"]
                 / kv[1]["tolerance"])
     print(f"train {LM_ARCH}: flash vs chunked on one {b // TRAIN_ACCUM} x {s} microbatch: "
@@ -2031,7 +2065,8 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
                    "accum_run_a": TRAIN_ACCUM, "delay_run_b": TRAIN_DELAY,
                    "lr_run_b": lr_b, "sample_run_b": TRAIN_SAMPLE},
         "run_a": a1, "run_a_again": a2, "run_b": res_b, "summary": summary,
-        "launches": counts, "launches_by_route": routes, "profile": profile,
+        "launches": counts, "launches_by_route": routes, "bwd_launches_by_route": bwd_routes,
+        "profile": profile,
         "flash_vs_chunked": grads,
     }
     line = []
@@ -2092,15 +2127,20 @@ def main() -> None:
         report[f"ptxas_{name}"] = [ln for ln in log.splitlines() if "registers" in ln
                                    or "spill" in ln or "wgmma" in ln
                                    or "Function properties" in ln]
-    wgmma = [k for k in ptxas_kernels(report["ptxas_flash_attention"])
-             if "flash_fwd_wgmma" in k["function"]]
-    print("ptxas, flash_fwd_wgmma<D>: " + "; ".join(
-        "<" + ", ".join(re.findall(r"L[ib](\d+)E", k["function"])) + f"> {k['registers']} "
-        f"registers, spills {k['spill_stores']}/{k['spill_loads']} bytes" for k in wgmma),
-        flush=True)
-    bad = [k for k in wgmma if k["spill_stores"] or k["spill_loads"] or k["serialized"]]
-    if not wgmma or bad:
-        raise AssertionError(f"flash_fwd_wgmma: ptxas spilled or serialized the wgmma: {bad}")
+    for lib, names in (("flash_attention", ("flash_fwd_wgmma",)),
+                       ("flash_attention_bwd", ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))):
+        for kname in names:
+            wgmma = [k for k in ptxas_kernels(report[f"ptxas_{lib}"])
+                     if kname in k["function"]]
+            print(f"ptxas, {kname}<D>: " + "; ".join(
+                "<" + ", ".join(re.findall(r"L[ib](\d+)E", k["function"])) + f"> "
+                f"{k['registers']} registers, spills {k['spill_stores']}/{k['spill_loads']} "
+                "bytes" for k in wgmma), flush=True)
+            bad = [k for k in wgmma
+                   if k["spill_stores"] or k["spill_loads"] or k["serialized"]]
+            if len(wgmma) != 2 or bad:
+                raise AssertionError(f"{kname}: two instances expected (d 64, 128); ptxas "
+                                     f"spilled or serialized the wgmma: {bad or wgmma}")
     # Both GBDT main paths run before any kernel check (see ``drive``); the
     # realsim checks take every pending device time, the multiclass
     # checks' too.

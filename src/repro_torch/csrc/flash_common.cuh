@@ -1,9 +1,9 @@
 // Device code shared by the flash-attention forward (flash_attention.cu) and
 // backward (flash_attention_bwd.cu): the mma.sync / ldmatrix fragment
 // helpers, the shared-tile load and the warp reductions; then Hopper's
-// machinery (mbarriers, TMA over 4-D tensor maps, wgmma descriptors and
-// products, register hand-over between warpgroups) and the host-side
-// encoding of a tensor map.
+// machinery (mbarriers, TMA over 4-D tensor maps and bulk copies, wgmma
+// descriptors and products, register hand-over between warpgroups) and the
+// host-side encoding of a tensor map.
 //
 // mma.m16n8k16 fragments, with g = lane / 4 and t = lane % 4:
 //   A (16 x 16, row-major): a[0] = (row g, cols 2t, 2t+1), a[1] = (row g+8,
@@ -200,6 +200,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at src into shared memory at
+// dst (both 16-byte aligned, bytes a multiple of 16); they complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -4,7 +4,8 @@ versions and the autograd ``FlashAttention`` that joins them.
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` (the
 forward, ``csrc/flash_attention.cu``, one kernel a route of
 ``kernels/flash_plan.py``) and ``flash_attention_bwd_pallas`` (dq and
-dk/dv, ``csrc/flash_attention_bwd.cu``). Each kernel source says what
+dk/dv, ``csrc/flash_attention_bwd.cu``, two kernels a route of the same
+plan module, after a delta pre-pass). Each kernel source says what
 bounds it and how its design answers that. The functions here take
 head-major views: q (B, H, Sq, d)
 and k, v (B, KV, Sk, d), where q head h reads kv head h // (H // KV). The
@@ -30,6 +31,7 @@ launches = 0  # forward kernel launches, counted where the kernel is launched
 # The same launches by route (flash_plan.ROUTES): which kernel served them.
 route_launches = dict.fromkeys(flash_plan.ROUTES, 0)
 bwd_launches = 0  # backward launches: one each of the delta, dq and dk/dv kernels
+bwd_route_launches = dict.fromkeys(flash_plan.ROUTES, 0)  # the same by route
 
 
 def flash_attention_plain(
@@ -213,11 +215,15 @@ def flash_attention_bwd_magnitudes(
     return _bwd_products(p, ds.abs(), qf.abs(), kf.abs(), dof.abs(), k.shape[1])
 
 
-def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None) -> dict:
-    """Check the backward's operands (``_check_operands``, then out and do)
-    and allocate its outputs: dq (B, H, Sq, d) laid out as (B, Sq, H, d), dk and
-    dv (B, KV, Sk, d) laid out as (B, Sk, KV, d), delta (B, H, Sq) f32.
-    ``do`` is made contiguous only where its last dimension is strided."""
+def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None,
+                  sms: int | None = None) -> dict:
+    """Check the backward's operands (``_check_operands``, then out and do),
+    allocate its outputs and plan its launch (``flash_plan.bwd_plan``, on
+    a card of ``sms`` multiprocessors, by default q's): dq (B, H, Sq, d)
+    laid out as (B, Sq, H, d), dk and dv (B, KV, Sk, d) laid out as (B, Sk,
+    KV, d), delta (B, H, ld) f32 and, on the wgmma route, lse2 = lse log2 e
+    (B, H, ld) f32, where ld is the plan's row length. ``do`` is made
+    contiguous only where its last dimension is strided."""
     dev = q.device
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
@@ -227,13 +233,18 @@ def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None) -> dic
     for t, name in ((out, "out"), (do, "do")):
         _check_view(t, name, (b, h, sq, d), q.dtype, dev)
     _build.require(lse, "lse", torch.float32, (b, h, sq), dev)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, sk, kv, d), dtype=k.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((b, sk, kv, d), dtype=v.dtype, device=dev).transpose(1, 2)
+    plan = flash_plan.bwd_plan(q, k, v, do, dq, dk, dv, seq_k,
+                               sms=_multiprocessors(dev) if sms is None else sms)
+    rows = (b, h, plan.ld)
     return {
-        "q": q, "k": k, "v": v, "out": out, "lse": lse, "do": do,
-        "dq": torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2),
-        "dk": torch.empty((b, sk, kv, d), dtype=k.dtype, device=dev).transpose(1, 2),
-        "dv": torch.empty((b, sk, kv, d), dtype=v.dtype, device=dev).transpose(1, 2),
-        "delta": torch.empty((b, h, sq), dtype=torch.float32, device=dev),
-        "causal": bool(causal), "seq_k": seq_k,
+        "q": q, "k": k, "v": v, "out": out, "lse": lse, "do": do, "dq": dq, "dk": dk, "dv": dv,
+        "delta": torch.empty(rows, dtype=torch.float32, device=dev),
+        "lse2": torch.empty(rows, dtype=torch.float32, device=dev)
+        if plan.route == "wgmma" else None,
+        "causal": bool(causal), "seq_k": seq_k, "plan": plan,
     }
 
 
@@ -242,22 +253,40 @@ BWD_KERNELS = ("delta", "dq", "dkv")  # in launch order: dq and dk/dv read delta
 
 def _launch_bwd(kernel: str, o: dict) -> None:
     """Launch one of the backward's kernels on operands from
-    ``_bwd_operands`` (no count: ``flash_attention_bwd`` counts)."""
-    fn = _build.function(
-        "flash_attention_bwd", "flash_attention_bwd_launch",
-        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
-    )
+    ``_bwd_operands``, by the plan's route (no count:
+    ``flash_attention_bwd`` counts)."""
     q, k = o["q"], o["k"]
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
+    plan, stream = o["plan"], _build.stream_of(q.device)
+    lse2 = o["lse2"].data_ptr() if o["lse2"] is not None else None
+    if kernel != "delta" and plan.route == "wgmma":
+        fn = _build.function(
+            "flash_attention_bwd", "flash_attention_bwd_wgmma_launch",
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
+        )
+        fields = plan.kernels[kernel].fields()
+        err = fn(
+            BWD_KERNELS.index(kernel), *(o[n].data_ptr() for n in ("q", "k", "v", "do")), lse2,
+            o["delta"].data_ptr(), *(o[n].data_ptr() for n in ("dq", "dk", "dv")), d, b, h, kv,
+            sq, sk, o["seq_k"], int(o["causal"]), (ctypes.c_longlong * len(fields))(*fields),
+            stream,
+        )
+        _build.check(err, f"flash_attention_bwd {kernel} wgmma kernel")
+        return
+    fn = _build.function(
+        "flash_attention_bwd", "flash_attention_bwd_launch",
+        [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
+    )
     names = ("q", "k", "v", "out", "do", "dq", "dk", "dv")
     strides = (ctypes.c_longlong * 24)(*(s for n in names for s in o[n].stride()[:3]))
     err = fn(
         BWD_KERNELS.index(kernel), *(o[n].data_ptr() for n in names[:5]),
-        o["lse"].data_ptr(), o["delta"].data_ptr(), o["dq"].data_ptr(), o["dk"].data_ptr(),
-        o["dv"].data_ptr(), int(q.dtype == torch.bfloat16), d, b, h, kv, sq, sk, o["seq_k"],
-        int(o["causal"]), strides, _build.stream_of(q.device),
+        o["lse"].data_ptr(), o["delta"].data_ptr(), lse2, o["dq"].data_ptr(),
+        o["dk"].data_ptr(), o["dv"].data_ptr(), int(q.dtype == torch.bfloat16), d, b, h, kv,
+        sq, sk, o["seq_k"], int(o["causal"]), plan.ld, strides, stream,
     )
     _build.check(err, f"flash_attention_bwd {kernel} kernel")
 
@@ -274,8 +303,10 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention backward -> (dq, dk, dv) in q's, k's and v's dtypes.
 
-    On the card: the delta, dq and dk/dv kernels, in that order on the
-    current stream. dq comes back laid out as (B, Sq, H, d) and dk, dv as
+    On the card: the delta, dq and dk/dv kernels of the route
+    ``flash_plan.route`` picks (bf16 at d 64 and 128: the wgmma kernels),
+    in that order on the current stream. dq comes back laid out as (B, Sq,
+    H, d) and dk, dv as
     (B, Sk, KV, d), so ``.transpose(1, 2)`` is the model layout without a
     copy. Keys at or past ``seq_k`` get zero gradients.
     """
@@ -290,6 +321,7 @@ def flash_attention_bwd(
     for kernel in BWD_KERNELS:
         _launch_bwd(kernel, o)
     bwd_launches += 1
+    bwd_route_launches[o["plan"].route] += 1
     return o["dq"], o["dk"], o["dv"]
 
 

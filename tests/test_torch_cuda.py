@@ -648,7 +648,12 @@ def test_flash_attention_kernel_rejects_other_head_dims(dev):
 
 
 # (b, sq, sk, h, kv, d, causal): tests/test_kernels.py's FLASH_SWEEP, then
-# the ragged cases above.
+# the ragged cases above, then more edges of the backward's wgmma kernels
+# (bf16 at d 64 and 128): Sq 130 (lse rows not 16-byte aligned) with
+# groups of 4 and keys past seq_k under causal; 256 dq work tiles at d 64
+# causal with seq_k < Sk; dk/dv grids of 576 and 288 work tiles on 132
+# blocks, the first with key tiles past Sq that have no q tile (zero
+# gradients), the second at d 128 with groups of 2.
 FLASH_BWD_CASES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (2, 128, 128, 4, 4, 64, False, None),
@@ -656,7 +661,14 @@ FLASH_BWD_CASES = [
     (2, 100, 100, 4, 2, 32, True, None),
     (1, 96, 96, 2, 2, 128, False, None),
     (2, 64, 192, 4, 4, 64, False, None),
-] + FLASH_CASES + [(1, 160, 160, 4, 1, 80, False, None)]
+] + FLASH_CASES + [
+    (1, 160, 160, 4, 1, 80, False, None),
+    (1, 130, 130, 4, 1, 64, True, None),
+    (1, 130, 250, 8, 2, 128, True, 200),
+    (2, 1000, 1100, 16, 4, 64, True, 950),
+    (4, 600, 1100, 16, 16, 64, True, 1000),
+    (2, 1000, 2200, 16, 8, 128, False, 2100),
+]
 
 
 def _bwd_close(got, args, causal, dtype, seq_k=None, one_key=False):
@@ -695,10 +707,13 @@ def _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, seed, seq_k=None):
 def test_flash_bwd_kernels_match_plain(dev, b, sq, sk, h, kv, d, causal, seq_k, dtype):
     args = _bwd_case(dev, b, sq, sk, h, kv, d, causal, dtype, sq + sk + d, seq_k)
     before = flash_attention.bwd_launches
+    route = flash_plan.route(dtype, d)
+    before_route = flash_attention.bwd_route_launches[route]
     got = flash_attention.flash_attention_bwd(*args, causal, seq_k)
     again = flash_attention.flash_attention_bwd(*args, causal, seq_k)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == before + 2
+    assert flash_attention.bwd_route_launches[route] == before_route + 2
     for name, g1, g2, t in zip(("dq", "dk", "dv"), got, again, args[:3]):
         assert g1.shape == t.shape and g1.dtype == dtype, name
         assert torch.equal(g1, g2), f"{name}: two launches differ"
@@ -709,9 +724,12 @@ def test_flash_bwd_tolerance_rejects_wrong_gradients(dev):
     """``_bwd_close`` at the training shape (B 4, S 2048, H 32/8, d 64,
     causal): the kernels pass, and each of these wrong results fails: dq
     zeroed past query 300, dq scaled by 0.97, dk zeroed past key 1024, and
-    dq without the keys more than 1024 behind each query."""
+    dq without the keys more than 1024 behind each query. The gradients
+    come from the wgmma kernels, the route of bf16 at d 64."""
     args = _bwd_case(dev, 4, 2048, 2048, 32, 8, 64, True, torch.bfloat16, 0)
+    before = flash_attention.bwd_route_launches["wgmma"]
     dq, dk, dv = flash_attention.flash_attention_bwd(*args, True)
+    assert flash_attention.bwd_route_launches["wgmma"] == before + 1
     _bwd_close((dq, dk, dv), args, True, torch.bfloat16)
     q, k, v, out, lse, do = args
     scale = 64 ** -0.5
@@ -742,6 +760,19 @@ def test_flash_bwd_kernels_mask_keys_past_seq_k(dev):
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert not dk[:, :, 77:].any() and not dv[:, :, 77:].any()
     _bwd_close((dq, dk, dv), (q, k, v, out, lse, do), False, torch.bfloat16, seq_k=77)
+
+
+def test_flash_bwd_rejects_what_no_kernel_takes(dev):
+    """A CUDA tensor of a head dim or dtype that no backward kernel takes
+    raises; nothing is launched or counted."""
+    before = flash_attention.bwd_launches
+    for d, dtype, err in ((48, torch.bfloat16, ValueError), (64, torch.float16, TypeError)):
+        q, k, v = _flash_inputs(dev, 1, 16, 16, 2, 2, d, dtype, 1)
+        out, do = torch.zeros_like(q), torch.zeros_like(q)
+        lse = torch.zeros((1, 2, 16), device=dev)
+        with pytest.raises(err):
+            flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+    assert flash_attention.bwd_launches == before
 
 
 def test_flash_bwd_takes_a_strided_do(dev):

@@ -1,7 +1,7 @@
 """Time the kernels of one checkout of the PyTorch/CUDA port.
 
     python3 tools/hist_compare.py --src SRC_DIR --tag NAME \
-        [--kernels histogram|traversal|flash]
+        [--kernels histogram|traversal|flash|flash_bwd]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (this repository's ``src``, or the
 ``src`` of another commit unpacked with ``git archive``) and the
@@ -19,7 +19,14 @@ efficiency-realsim width, each against its plain version:
   (4 x 2048, 32 q and 8 kv heads, d 64, bf16, causal, the model's (B, S,
   H, d) layout) through ``flash_attention.flash_attention``, the entry
   point every commit has, against its plain version and beside SDPA on
-  the same inputs made contiguous.
+  the same inputs made contiguous;
+- ``flash_bwd``: the flash-attention backward at granite-3-2b's training
+  shape (4 x 2048, and the step's 2 x 2048 microbatch; 32 q and 8 kv heads,
+  d 64, bf16, causal, the model layout) through
+  ``flash_attention.flash_attention_bwd``, the entry point every commit
+  has, held to the smoke test's ``bwd_close`` against its plain version,
+  beside the backward alone of SDPA on the same inputs made contiguous; the
+  device time is also split by kernel name.
 
 Each time is a CUDA-event mean of 20 back-to-back calls and the device time
 alone of another 20 by ``torch.profiler``. Writes
@@ -87,11 +94,47 @@ def flash(cs, report: dict) -> None:
     cs.fill_device_times()
 
 
+def flash_bwd(cs, report: dict) -> None:
+    """The flash backward at the training shape and its microbatch, beside
+    SDPA's backward."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    s, h, kv, d = 2048, 32, 8, 64
+    g = torch.Generator(device="cpu").manual_seed(0)
+    shapes = report["flash_attention_bwd_shapes"] = {}
+    for b in (4, 2):
+        q, k, v, do = (torch.randn(shape, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+                       for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)))
+        out, lse = fa.flash_attention(q, k, v, True)
+        args = (q, k, v, out, lse, do, True, None)
+        tag = f"{b}x{s}"
+        errs = cs.bwd_close(tag, fa.flash_attention_bwd(*args),
+                            fa.flash_attention_bwd_plain(*args),
+                            fa.flash_attention_bwd_magnitudes(*args), torch.bfloat16)
+        pairs = b * h * s * (s + 1) // 2
+        bms, by = cs.bound(2 * (4 * b * h * s * d + 4 * b * kv * s * d) + 4 * b * h * s,
+                           5 * 2.0 * d * pairs, cs.PEAK_BF16_S)
+        shapes[tag] = cs.event_times(lambda args=args: fa.flash_attention_bwd(*args))
+        shapes[tag].update(bound_ms=bms, bound_by=by,
+                           rel_l2_err={n: e["rel_l2_err"] for n, e in errs.items()})
+        qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True)
+        doc = do.contiguous()
+        def sdpa_bwd(lib_out=lib_out, qc=qc, kc=kc, vc=vc, doc=doc):
+            return torch.autograd.grad(lib_out, (qc, kc, vc), doc, retain_graph=True)
+        cs.event_times(sdpa_bwd, into=shapes[tag], key="library_")
+    cs.fill_device_times()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the src directory of a checkout")
     ap.add_argument("--tag", required=True)
-    ap.add_argument("--kernels", choices=("histogram", "traversal", "flash"),
+    ap.add_argument("--kernels", choices=("histogram", "traversal", "flash", "flash_bwd"),
                     default="histogram")
     args = ap.parse_args()
     src = pathlib.Path(args.src).resolve()
@@ -117,12 +160,15 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     report: dict = {"src": str(src), "nvidia_smi": smi}
     dev = torch.device("cuda")
-    if args.kernels != "flash":
+    if args.kernels not in ("flash", "flash_bwd"):
         x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
         data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
     if args.kernels == "flash":
         flash(cs, report)
         kernels = ("flash_attention",)
+    elif args.kernels == "flash_bwd":
+        flash_bwd(cs, report)
+        kernels = ("flash_attention_bwd",)
     elif args.kernels == "traversal":
         traversal(cs, data, report)
         kernels = ("forest_traverse",)
