@@ -649,23 +649,19 @@ constexpr int kMaxDevices = 64;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
 
 // The tiling of each instance (kernels/flash_plan.py::BWD_TILING holds the
-// same): q rows a tile, keys a tile, ring stages, whether (dq) key tile j +
-// 1's products are issued before tile j's ds . K (the overlapped loop holds
-// two stages at once, so three keep one load in flight), and whether the
-// two consumer warpgroups take turns to issue their products (ping-pong),
-// so one's exponentials run under the other's products. dk/dv takes no
-// such overlap: its s^T, dp^T, dk and dv fill the registers (BQ 128 at d
-// 64, BQ 64 at d 128). Each was the fastest of the tilings timed at the
-// training shape (tools/flash_bwd_variants.py, PERF.md).
+// same): q rows a tile, keys a tile, ring stages. dq issues key tile j +
+// 1's products before tile j's ds . K, so it holds two stages at once and
+// three keep one load in flight; dk/dv has no room for that overlap (its
+// s^T, dp^T, dk and dv fill the registers at BQ 128, d 64 and at BQ 64, d
+// 128). Each was the fastest of the tilings timed at the training shape
+// (tools/flash_bwd_variants.py, PERF.md).
 template <int D>
 struct DqTiling {
   static constexpr int kBQ = 128, kBK = D == 64 ? 128 : 64, kStages = 3;
-  static constexpr bool kOverlap = true, kPingPong = true;
 };
 template <int D>
 struct DkvTiling {
   static constexpr int kBQ = D == 64 ? 128 : 64, kBK = 128, kStages = D == 64 ? 2 : 3;
-  static constexpr bool kPingPong = true;
 };
 
 // Shared memory of the dq kernel, in bytes from a 1024-aligned base: the q,
@@ -733,27 +729,21 @@ __device__ __forceinline__ void reg_undef(float (&x)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "=f"(x[i]));
 }
 
-// The two consumer warpgroups' turns to issue products (PP: ping-pong;
-// otherwise nothing): named barrier 3 + cw is warpgroup cw's turn, which
-// the other warpgroup's pass opens. Warpgroup 0's first turn is open;
-// every pass is matched, the last of warpgroup 1 by finish().
-template <bool PP>
+// The two consumer warpgroups take turns to issue their products
+// (ping-pong), so one's exponentials run under the other's products: named
+// barrier 3 + cw is warpgroup cw's turn, which the other warpgroup's pass
+// opens. Warpgroup 0's first turn is open; every pass is matched, the last
+// of warpgroup 1 by finish().
 struct Turns {
   int cw;
   bool started = false;
   __device__ __forceinline__ void turn() {
-    if constexpr (PP) {
-      if (cw == 1 || started) named_barrier(3 + cw, 256);
-      started = true;
-    }
+    if (cw == 1 || started) named_barrier(3 + cw, 256);
+    started = true;
   }
-  __device__ __forceinline__ void pass() {
-    if constexpr (PP) named_barrier_arrive(4 - cw, 256);
-  }
+  __device__ __forceinline__ void pass() { named_barrier_arrive(4 - cw, 256); }
   __device__ __forceinline__ void finish() {
-    if constexpr (PP) {
-      if (cw == 0 && started) named_barrier(3, 256);
-    }
+    if (cw == 0 && started) named_barrier(3, 256);
   }
 };
 
@@ -933,7 +923,7 @@ __device__ __forceinline__ void dq_consumer(const CUtensorMap* tdq, const WArgs&
 
   float s[BK / 2], dp[BK / 2], acc[D / 2];
   uint32_t ds[BK / 16][4];
-  Turns<T::kPingPong> turns{cw};
+  Turns turns{cw};
   int r = 0;  // K/V tiles consumed so far
   for (int n = 0;; ++n) {
     const int w = block_tile(n, a.n_tiles * a.units);
@@ -995,47 +985,31 @@ __device__ __forceinline__ void dq_consumer(const CUtensorMap* tdq, const WArgs&
       release(empty + (r + j) % S);
     };
 
+    // Key tile j's products and tile j - 1's ds . K go to the tensor cores,
+    // then tile j's ds is computed while they run.
     mbar_wait(full_q, n & 1);
-    if constexpr (T::kOverlap) {
-      // Key tile j's products and tile j - 1's ds . K go to the tensor
-      // cores, then tile j's ds is computed while they run.
+    turns.turn();
+    products(0);
+    turns.pass();
+    wgmma_wait<0>();
+    terms(0);
+    pack_a<BK>(ds, s);
+    for (int j = 1; j < wt.n_tiles; ++j) {
       turns.turn();
-      products(0);
+      products(j);
+      accumulate(j - 1);
       turns.pass();
+      wgmma_wait<1>();
+      terms(j);
       wgmma_wait<0>();
-      terms(0);
+      retire(j - 1);
       pack_a<BK>(ds, s);
-      for (int j = 1; j < wt.n_tiles; ++j) {
-        turns.turn();
-        products(j);
-        accumulate(j - 1);
-        turns.pass();
-        wgmma_wait<1>();
-        terms(j);
-        wgmma_wait<0>();
-        retire(j - 1);
-        pack_a<BK>(ds, s);
-      }
-      turns.turn();
-      accumulate(wt.n_tiles - 1);
-      turns.pass();
-      wgmma_wait<0>();
-      retire(wt.n_tiles - 1);
-    } else {
-      for (int j = 0; j < wt.n_tiles; ++j) {
-        turns.turn();
-        products(j);
-        turns.pass();
-        wgmma_wait<0>();
-        terms(j);
-        pack_a<BK>(ds, s);
-        turns.turn();
-        accumulate(j);
-        turns.pass();
-        wgmma_wait<0>();
-        retire(j);
-      }
     }
+    turns.turn();
+    accumulate(wt.n_tiles - 1);
+    turns.pass();
+    wgmma_wait<0>();
+    retire(wt.n_tiles - 1);
     // Every product reading q and do is done: the producer may load the next.
     release(empty_q);
     r += wt.n_tiles;
@@ -1207,7 +1181,7 @@ __device__ __forceinline__ void dkv_consumer(const CUtensorMap* tdk, const CUten
 
   float s[BQ / 2], dp[BQ / 2], dk[D / 2], dv[D / 2];
   uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-  Turns<T::kPingPong> turns{cw};
+  Turns turns{cw};
   int r = 0, nk = 0;  // steps and K/V loads consumed so far
   for (int n = 0;; ++n) {
     const int w = block_tile(n, a.n_tiles * a.units);

@@ -215,11 +215,10 @@ def flash_attention_bwd_magnitudes(
     return _bwd_products(p, ds.abs(), qf.abs(), kf.abs(), dof.abs(), k.shape[1])
 
 
-def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None,
-                  sms: int | None = None) -> dict:
+def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None) -> dict:
     """Check the backward's operands (``_check_operands``, then out and do),
-    allocate its outputs and plan its launch (``flash_plan.bwd_plan``, on
-    a card of ``sms`` multiprocessors, by default q's): dq (B, H, Sq, d)
+    allocate its outputs and plan its launch (``flash_plan.bwd_plan`` on
+    q's card): dq (B, H, Sq, d)
     laid out as (B, Sq, H, d), dk and dv (B, KV, Sk, d) laid out as (B, Sk,
     KV, d), delta (B, H, ld) f32 and, on the wgmma route, lse2 = lse log2 e
     (B, H, ld) f32, where ld is the plan's row length. ``do`` is made
@@ -236,8 +235,7 @@ def _bwd_operands(q, k, v, out, lse, do, causal: bool, seq_k: int | None,
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     dk = torch.empty((b, sk, kv, d), dtype=k.dtype, device=dev).transpose(1, 2)
     dv = torch.empty((b, sk, kv, d), dtype=v.dtype, device=dev).transpose(1, 2)
-    plan = flash_plan.bwd_plan(q, k, v, do, dq, dk, dv, seq_k,
-                               sms=_multiprocessors(dev) if sms is None else sms)
+    plan = flash_plan.bwd_plan(q, k, v, do, dq, dk, dv, seq_k, sms=_multiprocessors(dev))
     rows = (b, h, plan.ld)
     return {
         "q": q, "k": k, "v": v, "out": out, "lse": lse, "do": do, "dq": dq, "dk": dk, "dv": dv,

@@ -16,6 +16,12 @@ SMEM_LIMIT = 232448  # bytes a block may use on the H100
 GRANITE = (4, 2048, 2048, 32, 8, 64)  # b, sq, sk, h, kv, d: the training shape
 
 
+@pytest.fixture(autouse=True)
+def _h100(monkeypatch):
+    """Plan for an H100's 132 multiprocessors (the CPU has none to ask)."""
+    monkeypatch.setattr(flash_attention, "_multiprocessors", lambda dev: 132)
+
+
 def _operands(b, sq, sk, h, kv, d, dtype=torch.bfloat16, seq_k=None, causal=True,
               strided_do=False):
     """q, k, v, out, do as ``FlashAttention.backward`` passes them (the (B, S,
@@ -28,7 +34,7 @@ def _operands(b, sq, sk, h, kv, d, dtype=torch.bfloat16, seq_k=None, causal=True
     else:
         do = torch.zeros((b, sq, h, d), dtype=dtype).transpose(1, 2)
     lse = torch.zeros((b, h, sq))
-    return flash_attention._bwd_operands(q, k, v, out, lse, do, causal, seq_k, sms=132)
+    return flash_attention._bwd_operands(q, k, v, out, lse, do, causal, seq_k)
 
 
 @pytest.mark.parametrize("dtype,d,route", [
@@ -143,7 +149,6 @@ def test_bwd_launch_passes_the_plan_to_the_entry_points(monkeypatch):
 
     monkeypatch.setattr(_build, "function", fake_function)
     monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
-    monkeypatch.setattr(flash_attention, "_multiprocessors", lambda dev: 132)
     monkeypatch.setattr(flash_attention, "_check_view", lambda *a: None)
     fake = torch.device("meta")
     b, sq, sk, h, kv, d = 1, 200, 300, 8, 2, 128

@@ -7,12 +7,12 @@ Each variant is a scratch copy of ``src/repro_torch/csrc`` built into
 ``csrc/flash_attention_bwd.cu``, then loaded in place of the built library
 (the plan's tiling patched to match). Two kinds:
 
-- tilings (``tile_*``): the d-64 instances' q rows, keys, stages, dq's
-  overlap of a key tile's first products with the last tile's ds . K, and
-  ping-pong between the consumer warpgroups; each is held to the smoke
-  test's ``bwd_close`` against the plain version;
+- tilings (``tile_*``): the d-64 instances' q rows, keys and stages, and
+  the consumer warpgroups without ping-pong (their turns cut); each is
+  held to the smoke test's ``bwd_close`` against the plain version;
 - cut-outs (``cut_*``): a part of the work removed (the ``ex2``, the whole
-  softmax, the s/dp products, every product), to see where the time goes;
+  softmax, the s/dp products, every product: the softmax then feeds
+  nothing and the compiler drops it too), to see where the time goes;
   their outputs are wrong by construction and are not checked.
 
 Times are CUDA-event means of 50 back-to-back launches of the dq and the
@@ -37,25 +37,21 @@ sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "build" / "flash_bwd_variants"
 SRC = ROOT / "src" / "repro_torch" / "csrc"
-T, F = "true", "false"
 
 
-def tiling(dq_bk, dq_stages, dq_overlap, dq_pp, dkv_bq, dkv_stages, dkv_pp):
+def tiling(dq_bk, dq_stages, dkv_bq, dkv_stages, cut=()):
     """The d-64 tiling of both kernels (d 128 keeps the built one): the C
     struct bodies and the plan's ``BWD_TILING``."""
     from repro_torch.kernels import flash_plan
 
     dq = (f"  static constexpr int kBQ = 128, kBK = D == 64 ? {dq_bk} : 64, "
-          f"kStages = D == 64 ? {dq_stages} : 3;\n"
-          f"  static constexpr bool kOverlap = D == 64 ? {dq_overlap} : true, "
-          f"kPingPong = D == 64 ? {dq_pp} : true;\n")
+          f"kStages = D == 64 ? {dq_stages} : 3;\n")
     dkv = (f"  static constexpr int kBQ = D == 64 ? {dkv_bq} : 64, kBK = 128, "
-           f"kStages = D == 64 ? {dkv_stages} : 3;\n"
-           f"  static constexpr bool kPingPong = D == 64 ? {dkv_pp} : true;\n")
+           f"kStages = D == 64 ? {dkv_stages} : 3;\n")
     plan = dict(flash_plan.BWD_TILING)
     plan["dq", 64] = flash_plan.BwdTiling(128, dq_bk, dq_stages)
     plan["dkv", 64] = flash_plan.BwdTiling(dkv_bq, 128, dkv_stages)
-    return {"structs": (dq, dkv), "plan": plan}
+    return {"structs": (dq, dkv), "plan": plan, "cut": list(cut)}
 
 
 SS = ["issue_ss<D, BK, T::kBQ>(s, qd, kdesc(r + j));",
@@ -69,21 +65,21 @@ SOFTMAX = ["dq_terms<BK, true>(s, dp, nl, dl, a, last);",
            "dq_terms<BK, false>(s, dp, nl, dl, a, none);",
            "dkv_terms<BQ, true>(s, dp, rows(r + i), a, t4, lo, hi);",
            "dkv_terms<BQ, false>(s, dp, rows(r + i), a, t4, none, none);"]
+TURNS = ["named_barrier(3 + cw, 256);", "named_barrier_arrive(4 - cw, 256);",
+         "named_barrier(3, 256);"]
 VARIANTS = {
-    "tile_built": tiling(128, 3, T, T, 128, 2, T),
-    "tile_stages2": tiling(128, 2, T, T, 128, 2, T),
-    "tile_stages4": tiling(128, 4, T, T, 128, 4, T),
-    "tile_dkv_stages3": tiling(128, 3, T, T, 128, 3, T),
-    "tile_dkv_bq64": tiling(128, 3, T, T, 64, 3, T),
-    "tile_dkv_bq64_stages4": tiling(128, 3, T, T, 64, 4, T),
-    "tile_no_pingpong": tiling(128, 3, T, F, 128, 2, F),
-    "tile_dq_no_overlap": tiling(128, 3, F, T, 128, 2, T),
-    "tile_dq_bk64": tiling(64, 4, T, T, 128, 2, T),
+    "tile_built": tiling(128, 3, 128, 2),
+    "tile_stages2": tiling(128, 2, 128, 2),
+    "tile_stages4": tiling(128, 4, 128, 4),
+    "tile_dkv_stages3": tiling(128, 3, 128, 3),
+    "tile_dkv_bq64": tiling(128, 3, 64, 3),
+    "tile_dkv_bq64_stages4": tiling(128, 3, 64, 4),
+    "tile_dq_bk64": tiling(64, 4, 128, 2),
+    "tile_no_pingpong": tiling(128, 3, 128, 2, cut=[(c, ";") for c in TURNS]),
     "cut_ex2": {"cut": [("float p = ex2(__fmaf_rn(", "float p = (__fmaf_rn(")]},
     "cut_softmax": {"cut": [(c, "") for c in SOFTMAX]},
     "cut_ss": {"cut": [(c, "") for c in SS]},
     "cut_products": {"cut": [(c, "") for c in SS + RS]},
-    "cut_products_softmax": {"cut": [(c, "") for c in SS + RS + SOFTMAX]},
 }
 
 
