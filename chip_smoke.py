@@ -101,6 +101,7 @@ from repro_torch.kernels import (  # noqa: E402
     level_build,
     ref,
     split_scan,
+    traversal_plan,
 )
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
@@ -174,10 +175,17 @@ MC_CFG = SGBDTConfig(
 )
 MC_CFG_FUSED = MC_CFG._replace(learner=MC_CFG.learner._replace(backend="fused"))
 QUANT_MODES = (None, "int8", "fp16")  # each forest is served f32 and packed both ways
+# ForestServer's max_rows: every serving wave runs the traversal on this
+# many rows, padded.
+WAVE_ROWS = 256
 # The traversal forms' ragged case: rows (not a multiple of the kernel's
 # 16-sample block) and live slots of each forest (not a multiple of the
 # 16-tree pass, nor of K).
 RAGGED_ROWS, RAGGED_LIVE = 1001, {"realsim": 237, "multiclass": 1233}
+# The traversal's instances in ``csrc/forest_traversal.cu``: the narrowing
+# pre-pass, the walk per layout with staged rows (one or two chunks in
+# flight) and with device-memory rows, the sum.
+TRAV_INSTANCES = 1 + 3 * 3 + 1
 # The traversal kernel's forms beside the f32 one-output entry, by their key
 # in ``forest_traversal.form_launches``.
 TRAV_FORMS = {
@@ -723,33 +731,33 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     if torch.argmax(tie, dim=-1).tolist() != [7, 5, 7, 7]:
         raise AssertionError("torch.argmax on the card does not pick the first maximum")
 
-    # Traversal: 4000 rows x 400 slots, n_trees = 400 and 16.
+    # Traversal: 4000 rows x 400 slots, n_trees = 400 and 16, and the
+    # serving wave (``WAVE_ROWS`` rows, every slot live); bitwise.
     forest = seeded_forest(rng, f, 0.0, dev)
     depth = forest.depth
     trav_shapes = {}
-    for live in (400, 16):
+    for tag, rows, live in (("n_trees=400", n, 400), ("n_trees=16", n, 16),
+                            (f"wave{WAVE_ROWS}", WAVE_ROWS, 400)):
+        b = data.bins[:rows].contiguous()
         nt = torch.tensor(live, dtype=torch.int32, device=dev)
+        args = (forest.feature, forest.threshold, forest.leaf_value, nt, depth)
 
-        def run(nt=nt):
-            return forest_traversal.forest_traverse(
-                data.bins, forest.feature, forest.threshold, forest.leaf_value, nt, depth)
+        def run(b=b, args=args):
+            return forest_traversal.forest_traverse(b, *args)
         got = run()
-        want = forest_traversal.forest_traverse_plain(
-            data.bins, forest.feature, forest.threshold, forest.leaf_value, nt, depth)
-        err = close(f"forest_traverse n_trees={live}", got, want, 1e-6, 1e-6)
+        torch.cuda.synchronize()
+        if not torch.equal(got, forest_traversal.forest_traverse_plain(b, *args)):
+            raise AssertionError(f"forest_traverse {tag}: differs from the plain version")
         # Bytes the function needs: the bin cells the walks read, the live
         # trees' arrays, n_trees and the output.
-        cells = touched_bins(data.bins, forest, live)
-        nbytes = 4 * (cells + live * (3 * (1 << depth) - 2) + 1 + n)
-        bms, by = bound(nbytes, n * live * (3 * depth + 1))
-        tag = f"n_trees={live}"
+        bms, by, cells = traversal_bound(b, forest, live)
         trav_shapes[tag] = event_times(run)
         trav_shapes[tag].update({
-            "max_abs_err": err,
-            "plain_ms": cuda_ms(lambda nt=nt: forest_traversal.forest_traverse_plain(
-                data.bins, forest.feature, forest.threshold, forest.leaf_value, nt, depth),
-                reps=2, warmup=1),
+            "max_abs_err": 0.0,
+            "plain_ms": cuda_ms(lambda b=b, args=args: forest_traversal.forest_traverse_plain(
+                b, *args), reps=2, warmup=1),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "plan": traversal_plan_of(b, forest),
         })
         report.setdefault("forest_traverse_bin_cells_read", {})[tag] = cells
     report["forest_traverse_shapes"] = trav_shapes
@@ -761,7 +769,7 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     return {
         "histogram": line_stats(hist_shapes, "level8_subset"),
         "split_gain": line_stats(gain_shapes, "L=256"),
-        "forest_traverse": line_stats(trav_shapes, "n_trees=400"),
+        "forest_traverse": line_stats(trav_shapes, "n_trees=400", drop=("plan",)),
         "level_build": line_stats(lb_shapes, deep, drop=("staged_ms", "samples_hit")),
         "histogram_sparse": line_stats(sp_shapes, "level8_subset", drop=("entries_hit",)),
     }
@@ -795,7 +803,7 @@ def serve(forest, x: np.ndarray, edges, rng, objective="logistic", quantize=None
     """Phase 3: 8 raw-float requests of 1..600 rows, one of them oversized,
     through ``ForestServer`` (``quantize`` packs the forest); returns
     (server, requests, results)."""
-    server = ForestServer(forest, edges, max_rows=256, objective=objective,
+    server = ForestServer(forest, edges, max_rows=WAVE_ROWS, objective=objective,
                           quantize=quantize, device=edges.device)
     sizes = [600] + [int(s) for s in rng.integers(1, 257, 7)]
     reqs = []
@@ -956,6 +964,12 @@ def check_drive(run: dict, report: dict) -> list:
          for k, v in kstats.items()}), flush=True)
     print("level_build bitwise equal to the staged level at levels "
           + ", ".join(report["level_build_shapes"]), flush=True)
+    card = report.get("nvidia_smi", "card not queried")
+    phases = report.setdefault("level_build_phases", {})
+    for tag, st in report["level_build_shapes"].items():
+        phases[f"realsim {tag}"] = level_phases(st.get("device_kernels") or {})
+    print("forest_traverse f32 bitwise equal to the plain version (event / device / bound ms): "
+          + traversal_times(report["forest_traverse_shapes"]) + f" [{card}]", flush=True)
     sweep = "; ".join(
         f"L{r['level']} R{r['rows']} {r['histogram_device_us']:.1f} / "
         f"{r['histogram_sparse_device_us']:.1f} ({r['output_write_us']:.1f})"
@@ -1076,6 +1090,35 @@ def traversal_bound(bins: torch.Tensor, fo, live: int) -> tuple[float, str, int]
     return ms, by, cells
 
 
+def traversal_plan_of(bins: torch.Tensor, fo) -> dict:
+    """The launch plan the traversal takes for ``bins`` and forest ``fo``
+    (``kernels/traversal_plan.py``), with its walk grid."""
+    n, f = bins.shape
+    slots = fo.feature.shape[0]
+    sms = forest_traversal._sms(bins.device) if bins.is_cuda else 132
+    p = traversal_plan.plan(n, f, slots, fo.depth, fo.leaf_value.element_size(), sms)
+    return {**p._asdict(), "grid": p.grid(min(n, p.slab), slots)}
+
+
+def traversal_times(shapes: dict) -> str:
+    """Each timed traversal shape: event / device / bound ms and its plan
+    (S rows a block, t threads, g slots a group, the walk grid)."""
+    return "; ".join(
+        f"{tag} {st['ms']:.4f} / {st['device_ms']:.4f} / {st['bound_ms']:.4f} (S{pl['samples']} "
+        f"t{pl['threads']} g{pl['group']} grid {pl['grid'][0]}x{pl['grid'][1]})"
+        for tag, st in shapes.items() if "ms" in st for pl in (st["plan"],))
+
+
+def level_phases(device_kernels: dict) -> dict:
+    """A fused level's device ms by phase: A the histogram's launches, B
+    ``level_decide_kernel``, C ``level_route_kernel``."""
+    out = {"A": 0.0, "B": 0.0, "C": 0.0}
+    for name, ms in device_kernels.items():
+        out["B" if "level_decide_kernel" in name else "C" if "level_route_kernel" in name
+            else "A"] += ms
+    return out
+
+
 def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
     """Each new traversal form against its plain version, every output bit
     equal: int8 and fp16 on a seeded full realsim forest (4000 x 400, depth
@@ -1083,8 +1126,10 @@ def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
     forest (4000 x 2000, depth 6, F 60); then a ragged case for every form
     (the first 1001 rows, live slots 237 of 400 and 1233 of 2000, not a
     multiple of 16 or of K, dead slots holding stale trees with huge
-    leaves). Event ms, device ms, plain ms and the bound at the full shapes.
-    Returns each kernels-line entry's stats (device times pending)."""
+    leaves), and the serving wave (the first ``WAVE_ROWS`` rows, every slot
+    live). Event ms, device ms, plain ms and the bound at the full shapes
+    and the wave; each shape's launch plan. Returns each kernels-line
+    entry's stats (device times pending)."""
     dev = realsim_bins.device
     base = {"realsim": (realsim_bins, seeded_forest(rng, realsim_bins.shape[1], 0.0, dev)),
             "multiclass": (mc_bins, seeded_multiclass_forest(rng, dev))}
@@ -1098,7 +1143,7 @@ def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
         fo = f32.quantize(mode) if mode else f32
         slots = fo.feature.shape[0]
         per = {}
-        for tag, rows, live in (("full", bins.shape[0], slots),
+        for tag, rows, live in (("full", bins.shape[0], slots), ("wave", WAVE_ROWS, slots),
                                 ("ragged", RAGGED_ROWS, RAGGED_LIVE[which])):
             b = bins[:rows].contiguous()
             if tag == "ragged":  # stale trees past the live count
@@ -1111,8 +1156,9 @@ def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
             if got.shape != want.shape or not torch.equal(got, want):
                 bad = int((got != want).sum()) if got.shape == want.shape else -1
                 raise AssertionError(f"{name} {tag}: {bad} outputs differ from the plain version")
-            per[tag] = {"rows": rows, "live": live, "max_abs_err": 0.0}
-            if tag == "full":
+            per[tag] = {"rows": b.shape[0], "live": live, "max_abs_err": 0.0,
+                        "plan": traversal_plan_of(b, fo)}
+            if tag != "ragged":
                 bms, by, cells = traversal_bound(b, fo, live)
                 event_times(lambda b=b, args=args: forest_traversal.forest_traverse(b, *args),
                             per[tag])
@@ -1277,6 +1323,16 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
     kstats = {**forms, **{f"{name}_multiclass": line_stats(per, deep,
                                                           drop=("staged_ms", "samples_hit"))
                           for name, per in levels.items()}}
+    for name, per in report["forest_traverse_form_shapes"].items():
+        print(f"{name} bitwise equal to the plain version, full, wave and ragged (event / "
+              f"device / bound ms): {traversal_times(per)} [{card}]", flush=True)
+    phases = report.setdefault("level_build_phases", {})
+    for tag in ("level0", deep):
+        phases[f"multiclass {tag}"] = level_phases(levels["level_build"][tag].get(
+            "device_kernels") or {})
+    print("level_build device ms by phase (A histogram, B decide, C route): " + "; ".join(
+        f"{tag} A {ph['A']:.4f} B {ph['B']:.4f} C {ph['C']:.4f}" for tag, ph in phases.items())
+        + f" [{card}]", flush=True)
     print("multiclass path kernels (traversal forms bitwise equal to the plain version, full "
           "and ragged; the rest at levels 0-5): " + json.dumps(
               {k: {"ms": v["ms"], "device_ms": v["device_ms"], "bound_ms": v["bound_ms"],
@@ -1305,7 +1361,8 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
             raise AssertionError(f"{name}: no launch on the multiclass and quantized path")
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": counts[key],
-                     **{k: v for k, v in kstats[name].items() if k not in ("rows", "live")}})
+                     **{k: v for k, v in kstats[name].items()
+                        if k not in ("rows", "live", "plan")}})
     return line
 
 
@@ -2101,6 +2158,14 @@ def ptxas_kernels(lines: list) -> list:
     return out
 
 
+def trav_label(fn: str) -> str:
+    """A traversal kernel's name with its mangled template arguments, as
+    ``walk_staged<ifLi2>``."""
+    name = re.search(r"narrow_kernel|walk_staged|walk_global|sum_kernel", fn).group(0)
+    args = re.search(name + r"I(\w+?)E+v", fn)
+    return name + (f"<{args.group(1)}>" if args else "")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2141,6 +2206,15 @@ def main() -> None:
             if len(wgmma) != 2 or bad:
                 raise AssertionError(f"{kname}: two instances expected (d 64, 128); ptxas "
                                      f"spilled or serialized the wgmma: {bad or wgmma}")
+    trav = ptxas_kernels(report["ptxas_forest_traversal"])
+    print("ptxas, forest_traversal (template arguments mangled): " + "; ".join(
+        f"{trav_label(k['function'])} {k['registers']} registers, spills "
+        f"{k['spill_stores']}/{k['spill_loads']} bytes"
+        for k in trav), flush=True)
+    bad = [k for k in trav if k["spill_stores"] or k["spill_loads"]]
+    if len(trav) != TRAV_INSTANCES or bad:
+        raise AssertionError(f"forest_traversal: {TRAV_INSTANCES} instances expected, none "
+                             f"spilling: {bad or trav}")
     # Both GBDT main paths run before any kernel check (see ``drive``); the
     # realsim checks take every pending device time, the multiclass
     # checks' too.

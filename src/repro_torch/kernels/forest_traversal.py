@@ -4,25 +4,27 @@ Replaces ``repro.kernels.forest_traversal.forest_traverse_pallas`` in each
 of its forms: the f32 layout, the quantized layouts of ``Forest.quantize``
 (int8 thresholds with int8 leaves times a per-tree scale; int16 thresholds
 with fp16 leaves) and K > 1 outputs (slot t adds into column t % K). The
-kernel (``csrc/forest_traversal.cu``) says what bounds it and how its
-design answers that. A CPU tensor runs ``forest_traverse_plain``; a CUDA tensor
-launches the kernel or raises.
+kernels (``csrc/forest_traversal.cu``) say what bounds them and how their
+design answers that; their launch plan is ``kernels/traversal_plan.py``. A
+CPU tensor runs ``forest_traverse_plain``; a CUDA tensor launches the
+kernels or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, traversal_plan
 
 # Kernel launches by form, counted where the kernel is launched: the
 # layout's name ("f32", "int8", "fp16") with one output, "k_" and the name
 # with K > 1.
 form_launches = {f"{k}{q}": 0 for k in ("", "k_") for q in ("f32", "int8", "fp16")}
 
-MAX_DEPTH = 10  # the kernel stages 16 trees at a time in shared memory
-MAX_OUTPUTS = 64  # the kernel's (16 samples x K) accumulator tile, 4 KB at most
+MAX_DEPTH = 10  # the deepest tree the kernel walks
+MAX_OUTPUTS = 64  # the most columns the sum kernel takes
 
 # (threshold dtype, leaf dtype) -> the kernel's layout code and name.
 _LAYOUTS = {
@@ -68,7 +70,7 @@ def forest_traverse(
     leaf_scale: torch.Tensor | None = None,  # (T,) f32, int8 leaves only
 ) -> torch.Tensor:
     """Masked forest sum (N,) f32, or (N, K) with ``n_outputs`` = K > 1."""
-    layout, name = _layout(threshold, leaf_value)
+    _layout(threshold, leaf_value)  # raises on a pairing no kernel takes
     if bins.device.type == "cpu":
         return forest_traverse_plain(bins, feature, threshold, leaf_value, n_trees, depth,
                                      n_outputs, leaf_scale)
@@ -88,26 +90,43 @@ def forest_traverse(
     _build.require(feature, "feature", torch.int32, (t, n_int), dev)
     _build.require(threshold, "threshold", threshold.dtype, (t, n_int), dev)
     _build.require(leaf_value, "leaf_value", leaf_value.dtype, (t, n_leaf), dev)
-    scale_ptr = None
     if leaf_value.dtype == torch.int8:
         if leaf_scale is None:
             raise ValueError("int8 leaf_value needs a per-tree leaf_scale")
         _build.require(leaf_scale, "leaf_scale", torch.float32, (t,), dev)
-        scale_ptr = leaf_scale.data_ptr()
     shape = (n,) if n_outputs == 1 else (n, n_outputs)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    p = traversal_plan.plan(n, f, t, depth, leaf_value.element_size(), _sms(dev))
+    launch(p, bins, feature, threshold, leaf_value, n_trees, depth, n_outputs, leaf_scale, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def launch(p: traversal_plan.TraversalPlan, bins, feature, threshold, leaf_value,
+           n_trees: torch.Tensor, depth: int, n_outputs: int, leaf_scale, out) -> None:
+    """Launch the kernels under plan ``p`` on validated CUDA tensors (the
+    wrapper's checks above) into ``out``; the C entry point checks the plan
+    again. Counts one launch of the form."""
+    layout, name = _layout(threshold, leaf_value)
+    n, f = bins.shape
+    t = feature.shape[0]
+    scratch = torch.empty(p.scratch_bytes, dtype=torch.uint8, device=bins.device)
     fn = _build.function(
         "forest_traversal", "forest_traverse_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_longlong, ctypes.c_void_p],
     )
     err = fn(
         bins.data_ptr(), feature.data_ptr(), threshold.data_ptr(), leaf_value.data_ptr(),
-        scale_ptr, n_trees.data_ptr(), out.data_ptr(), n, f, t, depth, n_outputs, layout,
-        _build.stream_of(dev),
+        None if leaf_scale is None else leaf_scale.data_ptr(), n_trees.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), n, f, t, depth, n_outputs, layout, p.samples,
+        p.threads, p.group, p.chunk, p.ahead, p.slab, p.row_bytes, p.scratch_bytes,
+        _build.stream_of(bins.device),
     )
     _build.check(err, "forest_traverse kernel")
     form_launches[("k_" if n_outputs > 1 else "") + name] += 1
-    return out
-

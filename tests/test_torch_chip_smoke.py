@@ -97,7 +97,8 @@ def test_traversal_bound_counts_each_layout_s_bytes(mode):
 
 def test_traversal_form_checks_run_on_the_cpu(timed_calls, monkeypatch):
     """The new forms' checks at a few rows and 40 rounds' slots: every
-    form's stats with the contract's keys, and the ragged case."""
+    form's stats with the contract's keys, the serving wave's shape timed
+    beside the full one, each shape's launch plan, and the ragged case."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     for name in ("CFG", "MC_CFG"):
         monkeypatch.setattr(chip_smoke, name, getattr(chip_smoke, name)._replace(n_trees=40))
@@ -113,7 +114,41 @@ def test_traversal_form_checks_run_on_the_cpu(timed_calls, monkeypatch):
         assert {"ms", "device_ms", "plain_ms", "bound_ms", "bound_by"} <= set(st)
         shapes = report["forest_traverse_form_shapes"][name]
         assert shapes["ragged"]["live"] % (5 if "k5" in name else 16) != 0
-    assert len(chip_smoke._PENDING) == len(stats)  # device times taken later
+        assert {"ms", "device_ms", "plain_ms", "bound_ms"} <= set(shapes["wave"])
+        assert "ms" not in shapes["ragged"]
+        for st in shapes.values():
+            plan = st["plan"]
+            assert plan["slab"] >= st["rows"] and plan["samples"] % 32 == 0
+            assert plan["grid"][1] == -(-st["rows"] // plan["samples"])
+    # Two timed shapes a form (full and wave); device times taken later.
+    assert len(chip_smoke._PENDING) == 2 * len(stats)
+    line = chip_smoke.traversal_times({k: {**v, "device_ms": 0.0} for k, v in
+                                       report["forest_traverse_form_shapes"][name].items()})
+    assert line.startswith("full ") and "; wave " in line and "ragged" not in line
+
+
+@pytest.mark.parametrize("fn,label", [
+    ("_ZN52_GLOBAL__N__9310e880_19_forest_traversal_cu_951f366911walk_stagedIifLi2EEEvPKiPKhS3_"
+     "S3_PKT_PKT0_PKfS3_Pfiiiiiiii", "walk_staged<ifLi2>"),
+    ("_ZN52_GLOBAL__N__9310e880_19_forest_traversal_cu_951f366911walk_globalIs6__halfEEvPKiS3_"
+     "PKT_PKT0_PKfS3_Pfiiiiii", "walk_global<s6__half>"),
+    ("_ZN52_GLOBAL__N__9310e880_19_forest_traversal_cu_951f366913narrow_kernelEPKiPjPiiiii",
+     "narrow_kernel"),
+    ("_ZN52_GLOBAL__N__9310e880_19_forest_traversal_cu_951f366910sum_kernelEPKfPKiPfiii",
+     "sum_kernel"),
+])
+def test_ptxas_traversal_labels(fn, label):
+    assert chip_smoke.trav_label(fn) == label
+
+
+def test_level_phases_split_a_fused_level_by_kernel():
+    """Phase A is every histogram launch, B the decide kernel, C the route
+    kernel, by the profiler's kernel names."""
+    by_name = {"(anonymous namespace)::row_place_kernel(int const*, int)": 0.002,
+               "void (anonymous namespace)::hist_kernel<8>(int const*, float)": 0.03,
+               "(anonymous namespace)::level_decide_kernel(float*, float const*)": 0.01,
+               "(anonymous namespace)::level_route_kernel(int const*, int const*)": 0.004}
+    assert chip_smoke.level_phases(by_name) == pytest.approx({"A": 0.032, "B": 0.01, "C": 0.004})
 
 
 def test_multiclass_kernel_checks_run_on_the_cpu(timed_calls, monkeypatch):

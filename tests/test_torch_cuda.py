@@ -7,8 +7,9 @@ card (no JAX needed, hence ``--noconftest``):
 
 Tolerances: histograms and gains rtol 1e-5, atol 1e-5 * max|cell| (the
 plain histogram adds with atomics in another order); -inf masks exact;
-traversal bitwise in every form, f32 or quantized, one output or K
-(kernel and plain version both dequantize, then sum tree by tree); the
+traversal bitwise in every form, f32 or quantized, one output or K, under
+every launch plan (kernel and plain version both dequantize, then sum
+tree by tree in slot order); the
 fused level bitwise against the staged chain of kernels (they share the
 device code that fixes every sum's order), and its integer outputs exact
 against its plain version. Flash attention against its f32-softmax plain
@@ -185,11 +186,14 @@ def _traverse_both(bins, fo):
     return got, forest_traversal.forest_traverse_plain(*args)
 
 
-# Ragged N (not a multiple of the 16-sample block), live slots not a
-# multiple of K or of the 16-tree pass, stale trees in the dead slots, the
-# depth limit.
+# Ragged N (not a multiple of any sample tile of kernels/traversal_plan.py),
+# live slots not a multiple of K or of a group, stale trees in the dead
+# slots, the depth limit; one row; the serving wave's 256 rows at depths 6
+# and 9; depth 0 (every tree a single leaf).
 @pytest.mark.parametrize("n,t,live,depth", [(301, 37, 20, 4), (17, 45, 44, 9),
-                                            (100, 18, 17, 10)])
+                                            (100, 18, 17, 10), (1, 9, 9, 6),
+                                            (256, 400, 400, 9), (256, 130, 128, 6),
+                                            (1001, 40, 37, 0), (300, 33, 30, 10)])
 @pytest.mark.parametrize("k", [1, 2, 3, 5])
 @pytest.mark.parametrize("mode", ["f32", "int8", "fp16"])
 def test_forest_traverse_forms_are_bitwise_plain(dev, mode, k, n, t, live, depth):
@@ -202,6 +206,102 @@ def test_forest_traverse_forms_are_bitwise_plain(dev, mode, k, n, t, live, depth
     assert forest_traversal.form_launches[key] == before + 1
     assert got.shape == ((n,) if k == 1 else (n, k))
     assert torch.equal(got, want)
+
+
+def _plans(bins, fo, variant):
+    """The plan the wrapper picks, or one variant of it: the tree split off
+    (one group), slabs of 64 rows, unstaged rows read from device memory,
+    or two chunks' loads in flight. A variant's scratch is at least what it
+    needs."""
+    from repro_torch.kernels import traversal_plan as tp
+
+    n, f = bins.shape
+    slots, lb = fo.feature.shape[0], fo.leaf_value.element_size()
+    p = tp.plan(n, f, slots, fo.depth, lb,
+                forest_traversal._sms(bins.device))
+    if variant == "one_group":
+        return tp.shaped(n, f, slots, fo.depth, lb, p.samples, p.threads, 1)
+    if variant == "slabs":  # 32-row tiles, two a slab
+        return tp.shaped(n, f, slots, fo.depth, lb, 32, 256, 3)._replace(slab=64)
+    if variant == "unstaged":
+        return p._replace(row_bytes=0)
+    if variant == "ahead2":  # two chunks' loads in flight
+        return p._replace(ahead=2)
+    return p
+
+
+@pytest.mark.parametrize("variant", ["picked", "one_group", "slabs", "unstaged", "ahead2"])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("mode", ["f32", "int8", "fp16"])
+def test_forest_traverse_plans_are_bitwise_plain(dev, mode, k, variant):
+    """The tree split on and off, rows in several slabs, rows unstaged, one
+    or two chunks in flight: each plan's sums equal the plain version's bit
+    for bit, two launches alike."""
+    bins, fo = _stale_forest(dev, 7 + k, 300, 90, 83, 6, k)
+    if mode != "f32":
+        fo = fo.quantize(mode)
+    p = _plans(bins, fo, variant)
+    shape = (300,) if k == 1 else (300, k)
+    outs = []
+    for _ in range(2):
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        forest_traversal.launch(p, bins, fo.feature, fo.threshold, fo.leaf_value, fo.n_trees,
+                                fo.depth, k, getattr(fo, "leaf_scale", None), out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    want = _traverse_both(bins, fo)[1]
+    assert torch.equal(outs[0], outs[1]), "two launches differ"
+    assert torch.equal(outs[0], want)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "fp16"])
+def test_forest_traverse_bins_past_the_narrow_type(dev, mode):
+    """Bins at u8's largest staged value (254), at the sentinel (255), just
+    past it (256), negative and huge: each compares as its int32 value."""
+    bins, fo = _stale_forest(dev, 11, 257, 50, 50, 6, 1)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    edge = torch.tensor([0, 1, 126, 127, 128, 253, 254, 255, 256, 300, -1, -300, 2**30],
+                        dtype=torch.int32)
+    bins = edge[torch.randint(0, len(edge), bins.shape, generator=g)].to(dev)
+    top = 127 if mode == "int8" else 300
+    thr = torch.randint(-2 if mode == "int8" else 250, top + 1, fo.threshold.shape, generator=g)
+    fo = fo._replace(threshold=thr.to(torch.int32).to(dev))
+    if mode != "f32":
+        fo = fo.quantize(mode)
+    got, want = _traverse_both(bins, fo)
+    assert torch.equal(got, want)
+    assert torch.equal(got, forest_traversal.forest_traverse(bins.clone(), *(
+        fo.feature, fo.threshold, fo.leaf_value, fo.n_trees, fo.depth, 1,
+        getattr(fo, "leaf_scale", None))))
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "fp16"])
+@pytest.mark.parametrize("live", [0, 150])
+def test_forest_traverse_k64_and_no_live_tree(dev, mode, live):
+    """K = 64 (the limit) over 150 slots, and n_trees 0: every output the
+    plain version's, zeros when no slot is live."""
+    bins, fo = _stale_forest(dev, 5, 333, 150, 150, 5, 64)
+    fo = fo._replace(n_trees=torch.tensor(live, dtype=torch.int32, device=dev))
+    if mode != "f32":
+        fo = fo.quantize(mode)
+    got, want = _traverse_both(bins, fo)
+    assert got.shape == (333, 64) and torch.equal(got, want)
+    if live == 0:
+        assert not got.any()
+
+
+def test_forest_traverse_kernel_rejects_a_broken_plan(dev):
+    """The C entry point checks the plan again: a sample tile that is not a
+    multiple of 32, or a scratch too small, launches nothing."""
+    bins, fo = _stale_forest(dev, 2, 100, 20, 20, 4, 1)
+    p = _plans(bins, fo, "picked")
+    out = torch.empty(100, dtype=torch.float32, device=dev)
+    before = _traversal_launches()
+    for bad in (p._replace(samples=48, threads=96), p._replace(scratch_bytes=16)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            forest_traversal.launch(bad, bins, fo.feature, fo.threshold, fo.leaf_value,
+                                    fo.n_trees, fo.depth, 1, None, out)
+    assert _traversal_launches() == before
 
 
 def test_forest_traverse_kernel_rejects_outputs_past_its_limit(dev):

@@ -12,9 +12,12 @@ efficiency-realsim width, each against its plain version:
 - ``histogram`` (the default): the dense histogram (level 0 and the
   level-8 subset), the fused level (level 0 and the deepest fused level),
   the sparse histogram (both shapes) and the nine-level sweep;
-- ``traversal``: the f32 one-output traversal on the realsim-like bins
-  (4000 x 1500, 64 bins) and a seeded full 400-slot forest of depth 9,
-  with 400 and 16 live slots, through the entry point every commit has;
+- ``traversal``: every traversal form, bitwise against its plain version,
+  through the entry point every commit has: f32, int8 and fp16 with one
+  output on the realsim-like bins (4000 x 1500, 64 bins) and a seeded full
+  400-slot forest of depth 9, and K = 5 in each on the multiclass bins
+  (4000 x 60) and a seeded full 2000-slot forest of depth 6, each at its
+  4000 rows and at the serving wave's 256;
 - ``flash``: the flash-attention forward at granite-3-2b's prefill shape
   (4 x 2048, 32 q and 8 kv heads, d 64, bf16, causal, the model's (B, S,
   H, d) layout) through ``flash_attention.flash_attention``, the entry
@@ -47,23 +50,56 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def traversal(cs, data, report: dict) -> None:
-    """The f32 one-output traversal at 400 and 16 live slots, bitwise
-    against its plain version."""
+# The traversal's shapes: each forest at its main path's rows and at the
+# serving wave's 256 rows (``ForestServer(max_rows=256)`` pads every wave
+# to 256 rows), all slots live.
+TRAVERSAL_ROWS = (None, 256)
+
+
+def traversal_forests(cs, dev) -> dict:
+    """The realsim-like bins (4000 x 1500, 64 bins) with a seeded full
+    400-slot depth-9 forest and the multiclass bins (4000 x 60, 64 bins)
+    with a seeded full 2000-slot depth-6 K-5 forest, as ``chip_smoke.py``
+    seeds them."""
+    from repro_torch.data import synthetic
+    from repro_torch.trees.binning import bin_dataset
+
+    x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
+    realsim = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev).bins
+    xm, ym = synthetic.multiclass_xy(*cs.MC_SHAPE, seed=0)
+    multi = bin_dataset(xm, ym, n_bins=64, device=dev).bins
+    rng = np.random.default_rng(0)
+    return {"realsim": (realsim, cs.seeded_forest(rng, realsim.shape[1], 0.0, dev)),
+            "multiclass": (multi, cs.seeded_multiclass_forest(rng, dev))}
+
+
+def traversal(cs, report: dict) -> None:
+    """Every traversal form (f32, int8, fp16; one output on the realsim
+    forest, K = 5 on the multiclass one) at its main path's rows and at the
+    256-row serving wave, bitwise against its plain version, through the
+    entry point every commit has."""
     import torch
 
     from repro_torch.kernels import forest_traversal
 
-    forest = cs.seeded_forest(np.random.default_rng(0), data.n_features, 0.0, data.bins.device)
     shapes = report["forest_traverse_shapes"] = {}
-    for live in (400, 16):
-        nt = torch.tensor(live, dtype=torch.int32, device=data.bins.device)
-        args = (data.bins, forest.feature, forest.threshold, forest.leaf_value, nt, forest.depth)
-        got = forest_traversal.forest_traverse(*args)
-        if not torch.equal(got, forest_traversal.forest_traverse_plain(*args)):
-            raise AssertionError(f"forest_traverse n_trees={live}: differs from the plain version")
-        shapes[f"n_trees={live}"] = cs.event_times(
-            lambda args=args: forest_traversal.forest_traverse(*args))
+    for which, (bins, f32) in traversal_forests(cs, torch.device("cuda")).items():
+        for mode in (None, "int8", "fp16"):
+            fo = f32.quantize(mode) if mode else f32
+            slots = fo.feature.shape[0]
+            args = (fo.feature, fo.threshold, fo.leaf_value, fo.n_trees, fo.depth,
+                    fo.n_outputs, getattr(fo, "leaf_scale", None))
+            form = ("k5_" if fo.n_outputs > 1 else "") + (mode or "f32")
+            for rows in TRAVERSAL_ROWS:
+                b = bins[:rows].contiguous()
+                got = forest_traversal.forest_traverse(b, *args)
+                if not torch.equal(got, forest_traversal.forest_traverse_plain(b, *args)):
+                    raise AssertionError(f"forest_traverse {form} {b.shape[0]} rows: differs "
+                                         "from the plain version")
+                tag = f"{form} {b.shape[0]}x{slots}"
+                shapes[tag] = cs.event_times(
+                    lambda b=b, args=args: forest_traversal.forest_traverse(b, *args))
+                shapes[tag]["bound_ms"] = cs.traversal_bound(b, fo, slots)[0]
     cs.fill_device_times()
 
 
@@ -160,7 +196,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     report: dict = {"src": str(src), "nvidia_smi": smi}
     dev = torch.device("cuda")
-    if args.kernels not in ("flash", "flash_bwd"):
+    if args.kernels == "histogram":
         x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
         data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
     if args.kernels == "flash":
@@ -170,7 +206,7 @@ def main() -> None:
         flash_bwd(cs, report)
         kernels = ("flash_attention_bwd",)
     elif args.kernels == "traversal":
-        traversal(cs, data, report)
+        traversal(cs, report)
         kernels = ("forest_traverse",)
     else:
         sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True).bins
