@@ -282,7 +282,8 @@ def event_times(fn, into: dict | None = None, key: str = "", reps: int = 20,
     the kernels), now; ``{key}device_ms``: the device time alone of the
     kernels another ``reps`` calls launch, by ``torch.profiler`` (CUDA
     activity), when ``fill_device_times`` runs (and, without a key,
-    ``device_kernels``: the same by kernel name). Returns ``into``."""
+    ``device_kernels``: the same by kernel name, and ``device_launches``:
+    each kernel's launches a call). Returns ``into``."""
     d = {} if into is None else into
     d[key + "ms"] = cuda_ms(fn, reps, warmup)
     d[key + "device_ms"] = None
@@ -301,10 +302,10 @@ def fill_device_times() -> None:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            by = {e.key[:80]: e.self_device_time_total / 1e3 / reps
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0}
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0]
+            by = {e.key[:80]: e.self_device_time_total / 1e3 / reps for e in kernels}
             if by:
                 break
         else:
@@ -312,6 +313,7 @@ def fill_device_times() -> None:
         d[key + "device_ms"] = sum(by.values())
         if not key:
             d["device_kernels"] = by
+            d["device_launches"] = {e.key[:80]: e.count / reps for e in kernels}
     _PENDING.clear()
 
 
@@ -474,16 +476,15 @@ def level_build_case(lc, bins, node, g, h, mask, level: int, parent, tag: str,
 
 
 def check_level_build(data, g, h, gen, report: dict) -> dict:
-    """The fused level at realsim level 0 (full) and at the deepest level
-    that fuses (subtract mode), on seeded node ids (``level_build_case``).
+    """The fused level at every realsim level that fuses: level 0 (full) and
+    the subtract levels below it, on seeded node ids (``level_build_case``).
     Returns the stats by shape (device times pending)."""
     dev = data.bins.device
     n, f = data.bins.shape
     b, lc = CFG.learner.n_bins, CFG.learner
     mask = torch.rand(f, generator=gen, device=dev) < lc.feature_fraction
-    deep = fused_levels(n, f)[-1]
     shapes = {}
-    for level in (0, deep):
+    for level in fused_levels(n, f):
         n_nodes = 1 << level
         node = torch.randint(0, n_nodes, (n,), generator=gen, device=dev, dtype=torch.int32)
         parent = (histogram.histogram(data.bins, node >> 1, g, h, n_nodes // 2, b)
@@ -1109,14 +1110,29 @@ def traversal_times(shapes: dict) -> str:
         for tag, st in shapes.items() if "ms" in st for pl in (st["plan"],))
 
 
+# A fused level's kernels by the phases they run, by the profiler's names:
+# the earlier chain of launches (A the histogram's row_count / row_place /
+# hist_kernel, B level_decide_kernel, C level_route_kernel) and the one
+# launch that replaced it (level_kernel: all three phases, which
+# tools/level_build_variants.py's cut-out builds split).
+LEVEL_PHASES = (("row_count_kernel", "A"), ("row_place_kernel", "A"), ("hist_kernel", "A"),
+                ("level_decide_kernel", "B"), ("level_route_kernel", "C"),
+                ("level_kernel", "A+B+C"))
+
+
 def level_phases(device_kernels: dict) -> dict:
-    """A fused level's device ms by phase: A the histogram's launches, B
-    ``level_decide_kernel``, C ``level_route_kernel``."""
-    out = {"A": 0.0, "B": 0.0, "C": 0.0}
+    """A fused level's device ms by phase (``LEVEL_PHASES``; a kernel of no
+    phase under "other")."""
+    out: dict = {}
     for name, ms in device_kernels.items():
-        out["B" if "level_decide_kernel" in name else "C" if "level_route_kernel" in name
-            else "A"] += ms
+        phase = next((p for k, p in LEVEL_PHASES if k in name), "other")
+        out[phase] = out.get(phase, 0.0) + ms
     return out
+
+
+def level_launches(stats: dict) -> float:
+    """A fused level's kernel launches a call, by the profiler's count."""
+    return sum((stats.get("device_launches") or {}).values())
 
 
 def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
@@ -1330,9 +1346,16 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
     for tag in ("level0", deep):
         phases[f"multiclass {tag}"] = level_phases(levels["level_build"][tag].get(
             "device_kernels") or {})
-    print("level_build device ms by phase (A histogram, B decide, C route): " + "; ".join(
-        f"{tag} A {ph['A']:.4f} B {ph['B']:.4f} C {ph['C']:.4f}" for tag, ph in phases.items())
-        + f" [{card}]", flush=True)
+    print("level_build device ms by phase (one launch: A+B+C): " + "; ".join(
+        f"{tag} " + " ".join(f"{k} {v:.4f}" for k, v in ph.items())
+        for tag, ph in phases.items()) + f" [{card}]", flush=True)
+    per_level = {**{f"realsim {t}": st for t, st in report["level_build_shapes"].items()},
+                 **{f"multiclass {t}": st for t, st in levels["level_build"].items()}}
+    report["level_build_launches_per_call"] = {t: level_launches(st)
+                                               for t, st in per_level.items()}
+    print("level_build launches a fused level (profiler): " + "; ".join(
+        f"{t} {n:g}" for t, n in report["level_build_launches_per_call"].items())
+        + " (the earlier chain: 4 at one row, 5 above)", flush=True)
     print("multiclass path kernels (traversal forms bitwise equal to the plain version, full "
           "and ragged; the rest at levels 0-5): " + json.dumps(
               {k: {"ms": v["ms"], "device_ms": v["device_ms"], "bound_ms": v["bound_ms"],
@@ -1348,6 +1371,11 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
             print(f"profile (multiclass:5 {tag}): device {prof['device_ms_per_round']:.2f} ms "
                   f"per round, busy {100 * prof['device_busy_share']:.0f}% of a round's wall "
                   f"time [{card}]", flush=True)
+        fused_ms = {"realsim": report["profile"]["fused"]["device_ms_per_round"],
+                    "multiclass": info["profile"]["fused"]["device_ms_per_round"]}
+        report["fused_round_device_ms"] = fused_ms
+        print("fused round device ms (torch.profiler, a round after a warm-up): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in fused_ms.items()) + f" [{card}]", flush=True)
     counts = mc["counts"]
     entries = [(name, "src/repro_torch/csrc/forest_traversal.cu",
                 "src/repro/kernels/forest_traversal.py:107", key)
@@ -2206,6 +2234,19 @@ def main() -> None:
             if len(wgmma) != 2 or bad:
                 raise AssertionError(f"{kname}: two instances expected (d 64, 128); ptxas "
                                      f"spilled or serialized the wgmma: {bad or wgmma}")
+    # The fused level's one kernel and the staged histogram's chain.
+    for lib, names in (("level_build", ("level_kernel",)),
+                       ("histogram", ("count_kernel", "place_kernel", "tile_kernel"))):
+        every = ptxas_kernels(report[f"ptxas_{lib}"])  # kernels and device functions
+        ks = [k for k in every if k["registers"] is not None]
+        print(f"ptxas, {lib}: " + "; ".join(
+            f"{next((n for n in names if n in k['function']), k['function'][:40])} "
+            f"{k['registers']} registers, spills {k['spill_stores']}/{k['spill_loads']} bytes"
+            for k in ks), flush=True)
+        bad = [k for k in every if k["spill_stores"] or k["spill_loads"]]
+        if sorted(n for k in ks for n in names if n in k["function"]) != sorted(names) or bad:
+            raise AssertionError(f"{lib}: kernels {names} expected, none spilling: "
+                                 f"{bad or ks}")
     trav = ptxas_kernels(report["ptxas_forest_traversal"])
     print("ptxas, forest_traversal (template arguments mangled): " + "; ".join(
         f"{trav_label(k['function'])} {k['registers']} registers, spills "

@@ -5,221 +5,183 @@
 // Replaces the TPU kernel repro/kernels/level_build.py::level_build_pallas
 // (_level_kernel), one Pallas program whose grid runs the phases in order
 // and keeps the level in VMEM. Hopper's blocks run in no order and share no
-// scratch, so the level is a fixed chain of kernels (phase A two or three,
-// B and C one each) that level_build_launch enqueues on the caller's
-// stream, with no host synchronisation and no torch op between them:
+// scratch, so the level is one cooperative launch of a persistent grid,
+// level_common::level_kernel, whose blocks meet at grid barriers:
 //
-//  A the built rows' histograms, row r = node active[r], written into the
-//    level histogram at row active[r]: level_common::hist_enqueue, the
-//    staged histogram's own code and plan (kernels/hist_plan.py), so the
-//    rows carry its bits;
-//  B (level_decide_kernel) one block per (32-feature slice, node): each warp
-//    takes a feature row, in derive mode writes the sibling row
-//    parent[p] - hist[active[p]] (p = n >> 1; the built row is already in
-//    place), scans it with level_common::warp_scan_gain (the split-gain
-//    kernel's code) when the feature is in the mask, and keeps its (max
-//    gain, smallest flat index f*B+b among the maxima); the block reduces
-//    its warps and writes one partial per (node, slice). The gain surface
-//    is never stored: that is the fusion;
-//  C (level_route_kernel) every block reduces the partials of every node
-//    by (max, then smallest index), which is exact in any order and so is
-//    torch.argmax's first maximum, applies the pass-left fix (feature 0,
-//    threshold B-1 unless the best gain is finite and > 0) into a shared
-//    table (block 0 also writes feat / thr / best_gain), then routes one
-//    sample per thread: new = 2*node + (bins[s, feat[node]] > thr[node]),
-//    and -1 -> -2.
+//  0 the row-sorted sample list of the built rows (one barrier after the
+//    counts where the level has more than one row, one after the list);
+//  A+B every (built row, feature tile, block of the row's samples) item
+//    sums its chunks in shared memory (build_tile: the staged histogram's
+//    own code, plan and merge order, kernels/hist_plan.py), and the block
+//    that merges the row's tile keeps it in shared memory and decides on
+//    it at once (decide_tile): in derive mode it reads parent row r's tile,
+//    forms the sibling parent - built, writes both rows to the level
+//    histogram (the next level's parent cache), scans both nodes' masked
+//    features with level_common::warp_scan_gain (the split-gain kernel's
+//    code) and writes one (max gain, smallest flat index f*B+b) partial per
+//    (node, tile). The built rows never go back through global memory to be
+//    scanned, as the TPU program kept them in VMEM; the gain surface is
+//    never stored;
+//  C after the last barrier every block reduces the partials, applies the
+//    pass-left fix into a shared table (block 0 writes feat / thr /
+//    best_gain) and routes one sample per thread.
 //
 // So a fused level gives the staged chain's bits exactly: the histogram
 // kernel, parent - built, the split-gain kernel, the masked first-max
-// argmax and the partition.
+// argmax and the partition. The grid holds as many blocks as the card runs
+// at once (at most one per item); a grid the card cannot hold is refused at
+// launch, and the C entry point returns the error.
 //
 // Bound: bytes. The level reads the node ids, the bin rows and grad/hess
 // of samples on built nodes, the parent cache, one bin per sample, and
 // writes the level histogram, the split vectors and the new node ids; the
-// scan is about a dozen flops per cell. Phase A spreads a level of one row
-// over the card as the staged histogram does (csrc/histogram.cu).
+// scan is about a dozen flops per cell.
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <climits>
 
 #include "level_common.cuh"
 
+namespace level_common {
 namespace {
 
-constexpr int kDecideWarps = 8;      // phase B: warps per block
-constexpr int kSliceFeatures = 32;   // phase B: features per block
-constexpr int kRouteThreads = 256;   // phase C: samples per block
-constexpr int kMaxNodes = 4096;      // phase C: the split table lives in shared memory
+// One launch: phase 0 (the row-sorted list: the counts, where the level has
+// more than one row, then the placement), phase 1 (every (row, feature tile,
+// block) item: build_tile, and decide_tile in the block that holds the
+// merged row) and the route phase; a grid barrier after each phase. A block
+// has kMaxWarps warps whatever the plan's warps (the lane columns, so the
+// bits): the others join the list, the decide step and the route. The grid
+// is persistent: block i takes items i, i + grid, ... of each phase, so the
+// items, and the bits, do not depend on the grid's size.
+__global__ void __launch_bounds__(32 * kMaxWarps, 2) level_kernel(const LevelArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s32[32];
+  __shared__ int s_mask[32];
+  cg::grid_group grid = cg::this_grid();
+  const int tiles = tiles_of(a);
+  const Work w = work_of(a, true);
 
-__device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
-
-// (g, i) beats (best, best_i): a larger gain, or the same gain at a smaller
-// flat index. Associative and commutative, so any reduction order gives the
-// first maximum.
-__device__ __forceinline__ void take_better(float g, int i, float& best, int& best_i) {
-  if (g > best || (g == best && i < best_i)) {
-    best = g;
-    best_i = i;
+  if (a.splits > 1) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < (long long)a.rows * tiles; i += (long long)gridDim.x * blockDim.x)
+      a.work[w.tickets + i] = 0;
   }
+  if (a.rows > 1) {
+    for (int r = blockIdx.x; r < a.rows; r += gridDim.x) count_row(a, r, a.work + w.cnt, s32);
+    grid.sync();
+  }
+  for (int r = blockIdx.x; r < a.rows; r += gridDim.x) place_row(a, r, w, s32);
+  grid.sync();
+
+  float* M = smem + (size_t)a.warps * 2 * a.n_bins * 32;
+  const long long items = (long long)a.rows * tiles * a.splits;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int k = (int)(it % a.splits);
+    const long long rt = it / a.splits;
+    const int t = (int)(rt % tiles), r = (int)(rt / tiles);
+    if (build_tile<true>(a, t, r, k, tiles, w, smem, M, s_mask))
+      decide_tile(a, t, r, tiles, w, M, smem, s_mask);
+    __syncthreads();  // the shared tiles are the next item's
+  }
+  grid.sync();
+  route(a, tiles, w, reinterpret_cast<int*>(smem));
 }
 
-__global__ void __launch_bounds__(32 * kDecideWarps)
-level_decide_kernel(float* __restrict__ hist, const float* __restrict__ parent,
-                    const int* __restrict__ active, const int* __restrict__ mask,
-                    int n_feat, int n_bins, int n_nodes, int derive, float lam, float min_h,
-                    float* __restrict__ part_gain, int* __restrict__ part_idx) {
-  __shared__ float s_gain[kDecideWarps];
-  __shared__ int s_idx[kDecideWarps];
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nd = blockIdx.y;
-  const size_t fb = (size_t)n_feat * n_bins;
-
-  float* row_g = hist + (size_t)nd * fb;
-  float* row_h = hist + ((size_t)n_nodes + nd) * fb;
-  const float* par_g = nullptr;
-  const float* par_h = nullptr;
-  const float* blt_g = row_g;
-  const float* blt_h = row_h;
-  bool sibling = false;
-  if (derive) {
-    const int p = nd >> 1;
-    const int built = active[p];
-    sibling = nd != built;
-    blt_g = hist + (size_t)built * fb;
-    blt_h = hist + ((size_t)n_nodes + built) * fb;
-    par_g = parent + (size_t)p * fb;
-    par_h = parent + ((size_t)(n_nodes >> 1) + p) * fb;
-  }
-
-  float best = neg_inf();
-  int best_i = INT_MAX;
-  const int f_end = min(n_feat, (int)(blockIdx.x + 1) * kSliceFeatures);
-  for (int f = blockIdx.x * kSliceFeatures + warp; f < f_end; f += kDecideWarps) {
-    const size_t off = (size_t)f * n_bins;
-    // Node nd's row: the built row in place, or the sibling parent - built,
-    // written into the level histogram as it is read.
-    auto load = [&](int, int b, float& gv, float& hv) {
-      if (sibling) {
-        gv = par_g[off + b] - blt_g[off + b];
-        hv = par_h[off + b] - blt_h[off + b];
-        row_g[off + b] = gv;
-        row_h[off + b] = hv;
-      } else {
-        gv = blt_g[off + b];
-        hv = blt_h[off + b];
-      }
-    };
-    if (mask[f] != 0) {  // warp-uniform
-      level_common::warp_scan_gain(n_bins, lam, min_h, load, [&](int, int b, float v) {
-        take_better(v, f * n_bins + b, best, best_i);
-      });
-    } else if (sibling) {  // a masked feature's sibling row is only written
-      for (int b = lane; b < n_bins; b += 32) {
-        float gv, hv;
-        load(0, b, gv, hv);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float g = __shfl_down_sync(full, best, o);
-    const int i = __shfl_down_sync(full, best_i, o);
-    take_better(g, i, best, best_i);
-  }
-  if (lane == 0) {
-    s_gain[warp] = best;
-    s_idx[warp] = best_i;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kDecideWarps; ++w) take_better(s_gain[w], s_idx[w], best, best_i);
-    const size_t at = (size_t)nd * gridDim.x + blockIdx.x;
-    part_gain[at] = best;
-    part_idx[at] = best_i;
-  }
-}
-
-__global__ void __launch_bounds__(kRouteThreads)
-level_route_kernel(const int* __restrict__ bins, const int* __restrict__ node,
-                   const float* __restrict__ part_gain, const int* __restrict__ part_idx,
-                   int slices, int n, int n_feat, int n_bins, int n_nodes,
-                   int* __restrict__ feat_out, int* __restrict__ thr_out,
-                   float* __restrict__ best_out, int* __restrict__ new_node) {
-  extern __shared__ int table[];  // feat[n_nodes], then thr[n_nodes]
-  for (int nd = threadIdx.x; nd < n_nodes; nd += blockDim.x) {
-    float best = neg_inf();
-    int idx = INT_MAX;
-    for (int s = 0; s < slices; ++s) {
-      const size_t at = (size_t)nd * slices + s;
-      take_better(part_gain[at], part_idx[at], best, idx);
-    }
-    const bool ok = best > 0.f && best < -neg_inf();  // finite and > 0
-    const int f = ok ? idx / n_bins : 0;
-    const int t = ok ? idx % n_bins : n_bins - 1;
-    table[nd] = f;
-    table[n_nodes + nd] = t;
-    if (blockIdx.x == 0) {
-      feat_out[nd] = f;
-      thr_out[nd] = t;
-      best_out[nd] = best;
-    }
-  }
-  __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  const int nd = node[s];
-  int out = 2 * nd;
-  if (nd >= 0) {
-    const int c = min(nd, n_nodes - 1);
-    out += bins[(size_t)s * n_feat + table[c]] > table[n_nodes + c];
-  }
-  new_node[s] = out;
+// Launch the fused level on st: a cooperative grid as many blocks as the
+// items of its largest phase, at most as many as the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at most grid_cap where
+// grid_cap > 0. A grid the card cannot hold at once is refused by the
+// launch, never split. Returns a cudaError_t.
+int level_launch(const LevelArgs& a, int grid_cap, cudaStream_t st) {
+  int code = check_args(a);
+  if (code) return code;
+  if (a.n_bins > 32 * kMaxPer || a.n_nodes < 1 || a.n_nodes > kMaxNodes ||
+      (a.derive && (2 * a.rows != a.n_nodes || !a.parent)) ||
+      (!a.derive && a.rows != a.n_nodes) || !a.mask || !a.active || grid_cap < 0)
+    return (int)cudaErrorInvalidValue;
+  // The plan's warps' tiles and the merged tile M (the route's split table
+  // reuses them).
+  long long smem = (long long)a.warps * 2 * a.n_bins * 32 * 4 +
+                   2LL * (1 << a.tile_log2) * a.n_bins * 4;
+  if (8LL * a.n_nodes > smem) smem = 8LL * a.n_nodes;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const void* kernel = (const void*)level_kernel;
+  const int threads = 32 * kMaxWarps;
+  static int granted[kMaxDevices] = {};
+  cudaError_t err = ensure_smem(kernel, (int)smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                           (size_t)smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  long long want = (long long)a.rows * tiles_of(a) * a.splits;
+  const long long route_blocks = (a.n + threads - 1) / threads;
+  if (route_blocks > want) want = route_blocks;
+  long long grid = want < (long long)per_sm * sms ? want : (long long)per_sm * sms;
+  if (grid_cap > 0 && grid > grid_cap) grid = grid_cap;
+  if (grid < 1) grid = 1;
+  LevelArgs args = a;
+  void* params[] = {&args};
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid), dim3(threads), params,
+                                          (size_t)smem, st);
 }
 
 }  // namespace
+}  // namespace level_common
 
-// hist (2, n_nodes, F, B), part (2 * n_nodes * ceil(F/32) words of scratch),
-// work (N + 2 n_sub ints of scratch for phase A; feat_tile, warps and
-// min_per_column its plan),
-// feat / thr / best (n_nodes,), new_node (N,). In derive mode (derive != 0)
-// n_sub = n_nodes / 2, active[p] is the built child of parent p and parent
-// is the (2, n_sub, F, B) cache; otherwise active enumerates 0 .. n_nodes-1
-// and parent is not read.
+// hist (2, n_nodes, F, B); work work_len ints of scratch
+// (level_common::work_layout); feat / thr / best (n_nodes,), new_node (N,).
+// In derive mode (derive != 0) n_sub = n_nodes / 2, active[p] is the built
+// child of parent p and parent is the (2, n_sub, F, B) cache; otherwise
+// active enumerates 0 .. n_nodes-1 and parent is not read. feat_tile,
+// warps, splits and min_per_column are the plan of kernels/hist_plan.py;
+// grid_cap > 0 caps the persistent grid (the bits do not depend on it).
 extern "C" int level_build_launch(const void* bins, const void* node, const void* grad,
                                   const void* hess, const void* active, const void* parent,
-                                  const void* mask, void* hist, void* part, long long part_len,
-                                  void* work, void* feat, void* thr, void* best,
+                                  const void* mask, void* hist, void* work,
+                                  long long work_len, void* feat, void* thr, void* best,
                                   void* new_node, int n, int n_feat, int n_bins, int n_nodes,
-                                  int n_sub, int derive, int feat_tile, int warps,
-                                  int min_per_column, float lam,
-                                  float min_h, void* stream) {
-  const int slices = (n_feat + kSliceFeatures - 1) / kSliceFeatures;
-  if (n_bins < 1 || n_bins > 32 * level_common::kMaxPer || n_nodes < 1 ||
-      n_nodes > kMaxNodes || n_sub < 1 || (derive && 2 * n_sub != n_nodes) ||
-      (!derive && n_sub != n_nodes) || slices < 1 || part_len < 2LL * n_nodes * slices)
+                                  int n_sub, int derive, int feat_tile, int warps, int splits,
+                                  int min_per_column, int grid_cap, float lam, float min_h,
+                                  void* stream) {
+  const int tile_log2 = feat_tile == 32 ? 5 : feat_tile == 16 ? 4 : feat_tile == 8 ? 3 : -1;
+  if (tile_log2 < 0 || n_sub < 1 || (derive && 2 * n_sub != n_nodes) ||
+      (!derive && n_sub != n_nodes) || n_feat < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-
-  int code = level_common::hist_enqueue(
-      (const int*)bins, (const int*)node, (const float*)grad, (const float*)hess,
-      (const int*)active, (float*)hist, (int*)work, n, n_feat, n_bins, n_sub, n_nodes, true,
-      feat_tile, warps, min_per_column, st);
-  if (code != 0) return code;
-  cudaError_t err;
-
-  float* part_gain = (float*)part;
-  int* part_idx = (int*)part + (size_t)n_nodes * slices;
-  level_decide_kernel<<<dim3(slices, n_nodes), 32 * kDecideWarps, 0, st>>>(
-      (float*)hist, (const float*)parent, (const int*)active, (const int*)mask, n_feat,
-      n_bins, n_nodes, derive, lam, min_h, part_gain, part_idx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int grid_c = std::max(1, (n + kRouteThreads - 1) / kRouteThreads);
-  level_route_kernel<<<grid_c, kRouteThreads, 2 * n_nodes * (int)sizeof(int), st>>>(
-      (const int*)bins, (const int*)node, part_gain, part_idx, slices, n, n_feat, n_bins,
-      n_nodes, (int*)feat, (int*)thr, (float*)best, (int*)new_node);
-  return (int)cudaGetLastError();
+  const int tiles = (n_feat + feat_tile - 1) / feat_tile;
+  if (work_len < level_common::work_layout(n, n_sub, tiles, splits, feat_tile, n_bins,
+                                           n_nodes, true).total)
+    return (int)cudaErrorInvalidValue;
+  level_common::LevelArgs a = {};
+  a.bins = (const int*)bins;
+  a.node = (const int*)node;
+  a.grad = (const float*)grad;
+  a.hess = (const float*)hess;
+  a.active = (const int*)active;
+  a.parent = derive ? (const float*)parent : nullptr;
+  a.mask = (const int*)mask;
+  a.out = (float*)hist;
+  a.work = (int*)work;
+  a.feat = (int*)feat;
+  a.thr = (int*)thr;
+  a.best = (float*)best;
+  a.new_node = (int*)new_node;
+  a.n = n;
+  a.n_feat = n_feat;
+  a.n_bins = n_bins;
+  a.rows = n_sub;
+  a.out_rows = n_nodes;
+  a.n_nodes = n_nodes;
+  a.derive = derive != 0;
+  a.warps = warps;
+  a.tile_log2 = tile_log2;
+  a.splits = splits;
+  a.min_per_column = min_per_column;
+  a.lam = lam;
+  a.min_h = min_h;
+  return level_common::level_launch(a, grid_cap, (cudaStream_t)stream);
 }

@@ -71,16 +71,16 @@ def histogram(
     if out.numel() == 0:
         return out
     plan = launch_plan(bins, n_nodes, n_bins, active_nodes)
-    work = torch.empty(n + 2 * rows, dtype=torch.int32, device=dev)
+    work = torch.empty(hist_plan.work_ints(plan, n, n_bins), dtype=torch.int32, device=dev)
     fn = _build.function(
         "histogram", "histogram_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     )
     err = fn(
         bins.data_ptr(), node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
         None if active_nodes is None else active_nodes.data_ptr(), out.data_ptr(),
-        work.data_ptr(), n, f, n_bins, rows, plan.feat_tile, plan.warps,
-        plan.min_per_column, _build.stream_of(dev),
+        work.data_ptr(), work.numel(), n, f, n_bins, rows, plan.feat_tile, plan.warps,
+        plan.splits, plan.min_per_column, _build.stream_of(dev),
     )
     _build.check(err, "histogram kernel")
     launches += 1

@@ -2,10 +2,10 @@
 Hopper budget model that decides which levels fuse.
 
 Replaces ``repro.kernels.level_build.level_build_pallas``. The kernel
-(``csrc/level_build.cu``) is a fixed chain of kernels enqueued by one C
-call; its source says what bounds it and how it gives the staged chain's
-bits. A CPU tensor runs ``level_build_plain``; a CUDA tensor launches the
-kernel or raises.
+(``csrc/level_build.cu``) is one cooperative launch of a persistent grid
+whose phases meet at grid barriers; its source says what bounds it and how
+it gives the staged chain's bits. A CPU tensor runs ``level_build_plain``; a
+CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,37 +16,40 @@ import torch
 from repro_torch.kernels import _build, hist_plan, ref
 
 launches = 0  # kernel launches, counted where the kernel is launched
+max_grid = 0  # blocks of the persistent grid at most; 0: as many as the card holds at once
 
 level_build_plain = ref.level_build_ref  # the plain PyTorch version
 
-SLICE_FEATURES = 32  # features per block of the decide phase (csrc/level_build.cu)
 MAX_NODES = 4096  # the route phase keeps the (L,) split table in shared memory
 
 # The budget model. The TPU program held the level in 12 MiB of VMEM
-# (``repro.kernels.level_build.fused_level_vmem_bytes``). On Hopper the three
-# phases hand the level to each other through global memory, so what must
-# stay on chip between them is what they read back: the level histogram
-# (phase A writes the built rows into it, phase B reads them and writes the
-# siblings, which the next level reads as its parent cache), the parent
-# cache, and the (N, F) bin matrix that phases A and C stream. A level fuses
-# when that set fits the H100's 50 MB L2 (50 MiB, as the card reports it):
+# (``repro.kernels.level_build.fused_level_vmem_bytes``). On Hopper the
+# level is one launch: the built rows stay in shared memory from the
+# histogram to the scan, and its phases hand each other only the launch's
+# scratch (the row-sorted list, the split tickets and partials, the (node,
+# tile) gain partials: ``hist_plan.work_ints``). What the level wants
+# resident in the H100's 50 MB L2 (50 MiB, as the card reports it) is what
+# it shares with the levels around it: the (N, F) bin matrix, which every
+# level's histogram reads again (and the route one cell a sample), the
+# parent cache the level above wrote, and the level histogram it writes
+# for the level below:
 #
-#     bytes = 4 * (N * F + 2 * F * B * (L + L_sub))
+#     bytes = 4 * (N * F + 2 * F * B * (L + L_sub)) + 4 * scratch
 #
-# (the parent term is charged at full levels too, as the TPU model does, so
-# the price is monotone in every axis). At realsim width (N = 4000,
-# F = 1500, B = 64; 384 000 B per (grad or hess, node) row) that is 24 MB +
-# 3 * 2^l * 384 KB at a subtract level l >= 1: levels 0-4 fuse (42.4 MB at
-# level 4) and levels 5-8 fall back to the staged kernels (60.9 MB at 5).
-# Phase A merges its chunks in shared memory, so it keeps no partials in
-# global memory; its row-sorted sample list (4 (N + 2 L_sub) bytes, 16 KB at
-# realsim) is left out of the price.
+# (the parent term is charged at full levels too, as the TPU model does).
+# At realsim width (N = 4000, F = 1500, B = 64; 384 000 B per (grad or
+# hess, node) row) that is 24 MB + 3 * 2^l * 384 KB (+ under 0.1 MB of
+# scratch) at a subtract level l >= 1: levels 0-4 fuse (42.4 MB at level 4)
+# and levels 5-8 run staged (60.9 MB at 5). At the multiclass width (N =
+# 4000, F = 60) every level fuses.
 FUSED_L2_BUDGET = 50 * 2**20
 
 
 def fused_level_bytes(n: int, n_nodes: int, n_sub: int, n_feat: int, n_bins: int) -> int:
     """Bytes the fused level keeps resident in L2 (see the module's model)."""
-    return 4 * (n * n_feat + 2 * n_feat * n_bins * (n_nodes + n_sub))
+    scratch = hist_plan.work_ints(hist_plan.plan(n, n_feat, n_bins, n_sub), n, n_bins,
+                                  n_nodes, fused=True)
+    return 4 * (n * n_feat + 2 * n_feat * n_bins * (n_nodes + n_sub)) + 4 * scratch
 
 
 def fused_level_fits(
@@ -114,27 +117,25 @@ def level_build(
     if derive_sibling:
         _build.require(parent_hist, "parent_hist", torch.float32, (2, n_sub, f, n_bins), dev)
     hist = torch.empty((2, n_nodes, f, n_bins), dtype=torch.float32, device=dev)
-    part = torch.empty(2 * n_nodes * (-(-f // SLICE_FEATURES)), dtype=torch.int32,
-                       device=dev)
     feat = torch.empty(n_nodes, dtype=torch.int32, device=dev)
     thr = torch.empty(n_nodes, dtype=torch.int32, device=dev)
     best = torch.empty(n_nodes, dtype=torch.float32, device=dev)
     new_node = torch.empty(n, dtype=torch.int32, device=dev)
     plan = launch_plan(bins, active_nodes, n_bins)
-    work = torch.empty(n + 2 * n_sub, dtype=torch.int32, device=dev)
+    work = torch.empty(hist_plan.work_ints(plan, n, n_bins, n_nodes, fused=True),
+                       dtype=torch.int32, device=dev)
     fn = _build.function(
         "level_build", "level_build_launch",
-        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 11 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     )
     err = fn(
         bins.data_ptr(), node_ids.data_ptr(), grad.data_ptr(), hess.data_ptr(),
         active_nodes.data_ptr(), parent_hist.data_ptr() if derive_sibling else None,
-        feat_mask.data_ptr(), hist.data_ptr(), part.data_ptr(), part.numel(),
-        work.data_ptr(), feat.data_ptr(), thr.data_ptr(), best.data_ptr(),
-        new_node.data_ptr(), n, f, n_bins, n_nodes, n_sub, int(derive_sibling),
-        plan.feat_tile, plan.warps, plan.min_per_column, lam, min_child_hess,
-        _build.stream_of(dev),
+        feat_mask.data_ptr(), hist.data_ptr(), work.data_ptr(), work.numel(),
+        feat.data_ptr(), thr.data_ptr(), best.data_ptr(), new_node.data_ptr(), n, f, n_bins,
+        n_nodes, n_sub, int(derive_sibling), plan.feat_tile, plan.warps, plan.splits,
+        plan.min_per_column, max_grid, lam, min_child_hess, _build.stream_of(dev),
     )
     _build.check(err, "level_build kernel")
     launches += 1

@@ -43,6 +43,7 @@ from repro_torch.kernels import (
     flash_attention,
     flash_plan,
     forest_traversal,
+    hist_plan,
     histogram,
     histogram_sparse,
     level_build,
@@ -474,14 +475,26 @@ def test_fused_learner_is_bitwise_staged_across_a_budget_switch(dev, monkeypatch
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("level", [0, 4])
+@pytest.mark.parametrize("level", range(5))
 def test_fused_level_is_bitwise_staged_at_realsim_width(dev, level):
     """The fused level at efficiency-realsim width (N 4000, F 1500, B 64) at
-    level 0 (one row: the narrow-tile plan) and at level 4, the deepest
-    that fuses (eight built rows): every output bitwise the staged level's,
+    every level that fuses: level 0 and 1 (one row: cut over two blocks) to
+    level 4 (eight built rows): every output bitwise the staged level's,
     two launches bitwise."""
+    _fused_level_is_staged(dev, level, 4000, 1500)
+
+
+@pytest.mark.parametrize("level", range(6))
+def test_fused_level_is_bitwise_staged_at_multiclass_width(dev, level):
+    """The same at the multiclass width (N 4000, F 60, B 64, depth 6): every
+    level fuses, and the rows of levels 0-3 are cut over blocks."""
+    assert level_build.fused_level_fits(4000, 1 << level, max(1, (1 << level) // 2), 60, 64)
+    _fused_level_is_staged(dev, level, 4000, 60)
+
+
+def _fused_level_is_staged(dev, level, n, f):
     rng = np.random.default_rng(level)
-    n, f, n_bins = 4000, 1500, 64
+    n_bins = 64
     bins = torch.from_numpy(rng.integers(0, n_bins, (n, f)).astype(np.int32)).to(dev)
     h = torch.from_numpy((1.25 * rng.binomial(1, 0.8, n)).astype(np.float32)).to(dev)
     g = h * torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
@@ -506,6 +519,99 @@ def test_fused_level_is_bitwise_staged_at_realsim_width(dev, level):
     for name, a, b in zip(("hist", "feat", "thr", "new_node"),
                           (fused[0], fused[1], fused[2], fused[4]), staged):
         assert torch.equal(a, b), f"fused {name} differs from the staged level"
+
+
+def _level_args(dev, seed, n, f, n_bins, level, empty=(), single=()):
+    """A subtract level (level 0: the full level) of a seeded case as the
+    learner hands it to the fused level; nodes in ``empty`` hold no sample,
+    nodes in ``single`` one."""
+    n_nodes = 1 << level
+    bins, node, grad, hess, mask = _level_case(dev, seed, n, f, n_bins, n_nodes + 1)
+    for i, nd in enumerate(single):
+        node[node == nd] = (nd + 1) % n_nodes
+        node[i] = nd
+    for nd in empty:
+        node[node == nd] = -1
+    parent, active = None, torch.arange(n_nodes, dtype=torch.int32, device=dev)
+    if level:
+        parent = histogram.histogram(bins, torch.where(node >= 0, node >> 1, -1), grad, hess,
+                                     n_nodes // 2, n_bins)
+        active = _smaller_children(node, hess, n_nodes)
+    return (bins, node, grad, hess, active, parent, mask, 1.0, 1e-3, n_nodes, n_bins,
+            level > 0)
+
+
+@pytest.mark.parametrize("case", ["f61", "f1", "b63", "b256", "empty_and_single"])
+@pytest.mark.parametrize("level", [0, 1, 3])
+def test_level_build_ragged_shapes(dev, case, level):
+    """F 61 (a ragged last feature tile), F 1, B 63 (no 16-byte stores) and
+    B 256 (one warp's tile is 64 KB), and nodes with no sample and with one:
+    the fused level bitwise the staged chain, two launches bitwise, its
+    integer outputs the plain version's."""
+    n, f, n_bins = 1500, 20, 64
+    empty, single = (), ()
+    if case == "f61":
+        f = 61
+    elif case == "f1":
+        f = 1
+    elif case == "b63":
+        n_bins = 63
+    elif case == "b256":
+        n_bins = 256
+    else:
+        empty, single = (0,), ((1 << level) - 1,)
+    args = _level_args(dev, level + f + n_bins, n, f, n_bins, level, empty, single)
+    got = level_build.level_build(*args)
+    again = level_build.level_build(*args)
+    bins, node, grad, hess, active, parent, mask, _, _, n_nodes, _, derive = args
+    staged = _staged_chain(bins, node, grad, hess, active, parent, mask, n_nodes, n_bins,
+                           derive)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("hist", "feat", "thr", "best", "new_node"), got, again, staged):
+        assert torch.equal(a, b), f"two launches differ in {name}"
+        assert torch.equal(a, c), f"fused {name} differs from the staged chain"
+    plain = level_build.level_build_plain(*args)
+    _close(got[0], plain[0])
+    assert torch.equal(got[4][node < 0], plain[4][node < 0])
+
+
+@pytest.mark.parametrize("cap", [1, 3, 37])
+@pytest.mark.parametrize("shape", ["realsim0", "multiclass0", "multiclass3"])
+def test_fused_level_is_bitwise_on_a_capped_grid(dev, monkeypatch, cap, shape):
+    """The fused level's persistent grid capped at 1, 3 and 37 blocks (every
+    block then takes many items of every phase) gives the bits of the grid
+    the card holds at once, and of the staged histogram's chain."""
+    f, level = (1500, 0) if shape == "realsim0" else (60, int(shape[-1]))
+    args = _level_args(dev, 7, 4000, f, 64, level)
+    bins, node, grad, hess, active, _, _, _, _, n_nodes, n_bins, derive = args
+    want = level_build.level_build(*args)
+    monkeypatch.setattr(level_build, "max_grid", cap)
+    got = level_build.level_build(*args)
+    staged = histogram.histogram(bins, node, grad, hess, n_nodes, n_bins,
+                                 active if derive else None)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    built = active.long() if derive else torch.arange(n_nodes, device=dev)
+    assert torch.equal(got[0][:, built], staged)
+
+
+@pytest.mark.parametrize("n,f,n_bins,n_nodes,subset", [
+    (4000, 60, 64, 1, False), (4000, 1500, 64, 1, False), (4000, 60, 64, 8, True),
+    (1001, 61, 63, 4, True), (700, 1, 256, 2, False), (4001, 70, 64, 1, False)])
+def test_histogram_kernel_sums_in_plan_order(dev, n, f, n_bins, n_nodes, subset):
+    """The histogram kernel's bits are the plan's order of adds
+    (``hist_plan.plan_order_histogram``): each chunk in ascending sample
+    order, the chunks merged in column order, a split row's blocks in
+    block order."""
+    bins, node, grad, hess = _case(dev, n * f, n, f, n_bins, n_nodes)
+    active = (torch.arange(n_nodes - 1, -1, -2, dtype=torch.int32, device=dev)
+              if subset else None)
+    got = histogram.histogram(bins, node, grad, hess, n_nodes, n_bins, active)
+    plan = histogram.launch_plan(bins, n_nodes, n_bins, active)
+    want = hist_plan.plan_order_histogram(bins, node, grad, hess, active, n_nodes, n_bins, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _sparse_case(dev, seed, n=600, f=50, n_bins=64, n_nodes=8):

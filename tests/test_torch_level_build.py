@@ -29,7 +29,7 @@ from repro.kernels import ref as jref
 from repro.trees.learner import LearnerConfig as JLearnerConfig
 from repro.trees.learner import build_tree as jbuild_tree
 from repro.trees.tree import apply_tree as japply_tree
-from repro_torch.kernels import level_build, ops, ref
+from repro_torch.kernels import hist_plan, level_build, ops, ref
 from repro_torch.trees.learner import LearnerConfig, build_tree
 from repro_torch.trees.tree import apply_tree
 
@@ -145,9 +145,12 @@ def test_budget_model_fuses_realsim_levels_0_to_4():
     fits = [level_build.fused_level_fits(n_nodes=1 << lv, n_sub=max(1, (1 << lv) // 2),
                                          **REALSIM) for lv in range(9)]
     assert fits == [True] * 5 + [False] * 4
-    # 24 MB of bins + 3 * 2^l rows of 384 000 B at a subtract level l >= 1.
+    # 24 MB of bins + 3 * 2^l rows of 384 000 B at a subtract level l >= 1,
+    # and the launch's scratch (the row list, the (node, tile) partials).
+    scratch = hist_plan.work_ints(hist_plan.plan(REALSIM["n"], 1500, 64, 8), REALSIM["n"], 64,
+                                  16, fused=True)
     assert level_build.fused_level_bytes(REALSIM["n"], 16, 8, 1500, 64) == \
-        24_000_000 + 3 * 16 * 384_000
+        24_000_000 + 3 * 16 * 384_000 + 4 * scratch
 
 
 @pytest.mark.parametrize("axis", ["n", "n_nodes", "n_sub", "n_feat", "n_bins"])

@@ -1,7 +1,7 @@
 """Time the kernels of one checkout of the PyTorch/CUDA port.
 
     python3 tools/hist_compare.py --src SRC_DIR --tag NAME \
-        [--kernels histogram|traversal|flash|flash_bwd]
+        [--kernels histogram|level_build|traversal|flash|flash_bwd]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (this repository's ``src``, or the
 ``src`` of another commit unpacked with ``git archive``) and the
@@ -12,6 +12,13 @@ efficiency-realsim width, each against its plain version:
 - ``histogram`` (the default): the dense histogram (level 0 and the
   level-8 subset), the fused level (level 0 and the deepest fused level),
   the sparse histogram (both shapes) and the nine-level sweep;
+- ``level_build``: one tree's levels on the staged learner's nodes
+  (subtract mode, round 0's gradients and draws): the fused level at
+  realsim levels 0-5 (levels 0-4 fuse on the main path; level 5 is timed
+  beside them) and at multiclass levels 0-5 (N 4000, F 60), each bitwise
+  against the staged level and within tolerance of its plain version, and
+  the staged histogram at multiclass levels 0-5 beside ``index_add_``;
+  each call's kernel launches by the profiler's count;
 - ``traversal``: every traversal form, bitwise against its plain version,
   through the entry point every commit has: f32, int8 and fp16 with one
   output on the realsim-like bins (4000 x 1500, 64 bins) and a seeded full
@@ -103,6 +110,90 @@ def traversal(cs, report: dict) -> None:
     cs.fill_device_times()
 
 
+def level_walk(cs, dev, realsim_levels: int = 6):
+    """The levels ``--kernels level_build`` times, one tree each on the
+    staged learner's nodes (subtract mode): yields (config, level, bins, g,
+    h, node, feature mask, parent cache, learner config) at realsim levels
+    0 .. realsim_levels - 1 (round 0's gradients under R = 0.8,
+    ``kernel_inputs``) and multiclass levels 0-5 (class 0's round-0
+    gradient under a seeded Bernoulli draw)."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.trees.binning import bin_dataset
+    from repro_torch.trees.learner import _staged_level
+
+    x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
+    realsim = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
+    g, h, _, _, gen = cs.kernel_inputs(realsim)
+    xm, ym = synthetic.multiclass_xy(*cs.MC_SHAPE, seed=0)
+    multi = bin_dataset(xm, ym, n_bins=64, device=dev)
+    g0, _ = cs.MC_CFG.obj.grad_hess(multi.labels, cs.init_state(cs.MC_CFG, multi).f)
+    m = torch.binomial(torch.ones(multi.n_samples, device=dev),
+                       torch.full((multi.n_samples,), 0.8, device=dev), generator=gen) / 0.8
+    gm, hm = (m * g0[:, 0]).contiguous(), m.contiguous()
+    for which, data, g, h, lc in (("realsim", realsim, g, h, cs.CFG.learner),
+                                  ("multiclass", multi, gm, hm, cs.MC_CFG.learner)):
+        mask = torch.rand(data.n_features, generator=gen, device=dev) < lc.feature_fraction
+        node = torch.zeros(data.n_samples, dtype=torch.int32, device=dev)
+        parent = None
+        for level in range(realsim_levels if which == "realsim" else 6):
+            yield which, level, data.bins, g, h, node, mask, parent, lc
+            parent, _, _, node = _staged_level(lc, data.bins, node, g, h, mask, level, parent)
+
+
+def launches_a_call(fn) -> float:
+    """Kernel launches one call of ``fn`` makes, by the profiler's count
+    (the mean over five calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 5
+
+
+def level_build(cs, report: dict, dev=None) -> None:
+    """The fused level at realsim and multiclass levels 0-5 and the staged
+    histogram at multiclass levels 0-5 (``level_walk``), each through the
+    entry point every commit has and the checks of that commit's
+    ``chip_smoke.py`` (``level_build_case``, ``histogram_case``)."""
+    import torch
+
+    from repro_torch.kernels import histogram
+    from repro_torch.kernels import level_build as lb
+    from repro_torch.trees.learner import _smaller_children
+
+    dev = dev or torch.device("cuda")
+    fused = report["level_build_shapes"] = {}
+    staged = report["histogram_shapes"] = {}
+    calls = {}
+    for which, level, bins, g, h, node, mask, parent, lc in level_walk(cs, dev):
+        tag = f"{which} level{level}"
+        fused[tag] = cs.level_build_case(lc, bins, node, g, h, mask, level, parent, tag, report)
+        n_nodes = 1 << level
+        act = None if level == 0 else _smaller_children(node, h, n_nodes)
+        active = (act if level else torch.zeros(1, dtype=torch.int32, device=dev))
+        args = (bins, node, g, h, active, parent, mask.to(torch.int32), lc.lam,
+                lc.min_child_hess, n_nodes, lc.n_bins, level > 0)
+        calls[f"level_build {tag}"] = lambda args=args: lb.level_build(*args)
+        if which == "multiclass":
+            staged[tag] = cs.histogram_case(bins, g, h, node, n_nodes, act, lc.n_bins, tag,
+                                            report)
+            calls[f"histogram {tag}"] = lambda a=(bins, node, g, h, n_nodes, lc.n_bins, act): \
+                histogram.histogram(*a)
+    cs.fill_device_times()
+    report["launches_a_call"] = {k: launches_a_call(fn) for k, fn in calls.items()}
+    for kern, shapes in (("level_build", fused), ("histogram", staged)):
+        for tag, st in shapes.items():
+            st["launches"] = report["launches_a_call"][f"{kern} {tag}"]
+
+
 def flash(cs, report: dict) -> None:
     """The flash forward at the prefill shape, beside SDPA."""
     import torch
@@ -170,8 +261,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the src directory of a checkout")
     ap.add_argument("--tag", required=True)
-    ap.add_argument("--kernels", choices=("histogram", "traversal", "flash", "flash_bwd"),
-                    default="histogram")
+    ap.add_argument("--kernels", default="histogram",
+                    choices=("histogram", "level_build", "traversal", "flash", "flash_bwd"))
     args = ap.parse_args()
     src = pathlib.Path(args.src).resolve()
     # The package comes from --src and the measurements from the
@@ -208,6 +299,9 @@ def main() -> None:
     elif args.kernels == "traversal":
         traversal(cs, report)
         kernels = ("forest_traverse",)
+    elif args.kernels == "level_build":
+        level_build(cs, report)
+        kernels = ("level_build", "histogram")
     else:
         sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True).bins
         g, h, node8, active, gen = cs.kernel_inputs(data)
@@ -219,7 +313,7 @@ def main() -> None:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"hist_compare_{args.tag}.json").write_text(json.dumps(report, indent=1))
-    keys = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "launches")
     summary = {f"{kern} {tag}": {k: round(v[k], 5) for k in keys if v.get(k) is not None}
                for kern in kernels for tag, v in report[f"{kern}_shapes"].items()}
     print(f"{args.tag} [{smi}]: " + json.dumps(summary), flush=True)
