@@ -33,8 +33,13 @@ The traversal kernel's int8, fp16 and K = 5 forms are held bit for bit
 against the plain version at those forests' full shapes and at a ragged
 shape; the histogram, split gain and fused level against theirs on the
 multiclass data at each of a tree's six levels; every kernel against its
-plain version at realsim's shapes. Both histogram kernels are also timed
-at each level of one realsim tree.
+plain version at realsim's shapes. Both histogram kernels and the split
+gain are also timed at each level of one realsim tree. The split gain runs
+in its decision form on the main path (``split_gain_decide``: the surface
+and each node's masked first maximum in one launch); at every level
+checked its decision must be bitwise the plain chain's (``masked_fill``,
+``argmax``, ``gather``) on the kernel's own surface, and a profiled round
+must hold no argmax or masked_fill launch.
 
 Then the LM zoo's serving path: the flash-attention kernel against its
 plain version at the serving prefill's shape and at ragged shapes (each
@@ -63,8 +68,8 @@ gradients are held against the chunked attention path's.
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel, and per form of the traversal kernel: launches on its path, error
 against the plain version, time as a CUDA-event mean and as device time
-alone, the plain version's time, the bound, a library call's time), a sweep of both histogram kernels over
-one realsim tree's nine levels and, last,
+alone, the plain version's time, the bound, a library call's time), a sweep of both histogram
+kernels and the split gain over one realsim tree's nine levels and, last,
 ``{"ok": true, "device": {...}}``. Every failure raises: the exit code is
 then non-zero and the last line is not printed. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -186,6 +191,9 @@ RAGGED_ROWS, RAGGED_LIVE = 1001, {"realsim": 237, "multiclass": 1233}
 # pre-pass, the walk per layout with staged rows (one or two chunks in
 # flight) and with device-memory rows, the sum.
 TRAV_INSTANCES = 1 + 3 * 3 + 1
+# The split gain's instances in ``csrc/split_scan.cu``: bins a lane 1-8,
+# each with and without the decision.
+SPLIT_INSTANCES = 8 * 2
 # The traversal kernel's forms beside the f32 one-output entry, by their key
 # in ``forest_traversal.form_launches``.
 TRAV_FORMS = {
@@ -642,12 +650,15 @@ def check_histogram(data, g, h, node8, active, report: dict) -> dict:
 
 
 def sweep_levels(data, sp, g, h, gen, report: dict) -> list:
-    """Both histogram kernels at each of one realsim tree's nine levels (the
-    staged learner's nodes, subtract mode: the full level 0, then each
-    level's smaller children): device time, rows, output bytes and the time
-    the output write alone takes at 3.35 TB/s, so the per-launch floor and
-    the output-write share can be read off. Takes every pending device
-    time (``fill_device_times``) once its own event timings are done."""
+    """Both histogram kernels and the split gain's decision form at each of
+    one realsim tree's nine levels (the staged learner's nodes, subtract
+    mode: the full level 0, then each level's smaller children; the split
+    gain on the level's whole histogram, its decision checked as
+    ``split_gain_case`` checks it): device time, rows, output bytes and the
+    time the output write alone takes at 3.35 TB/s, so the per-launch floor
+    and the output-write share can be read off; the split gain's bytes
+    bound. Takes every pending device time (``fill_device_times``) once its
+    own event timings are done."""
     lc = CFG.learner
     n, f = data.bins.shape
     b = lc.n_bins
@@ -664,32 +675,47 @@ def sweep_levels(data, sp, g, h, gen, report: dict) -> list:
                              histogram_sparse.histogram_sparse(
                                  sp.feat_rows, sp.feat_codes, node, g, h, n_nodes, b, act)))
         out_bytes = 4 * 2 * rows * f * b
-        rows_out.append(({
+        row = {
             "level": level, "rows": rows, "output_bytes": out_bytes,
             "output_write_us": 1e6 * out_bytes / PEAK_BYTES_S,
             "samples_hit": int((node >= 0).sum()) if act is None
             else int(torch.isin(node, act).sum()),
-        }, times))
+        }
         parent, _, _, node = _staged_level(lc, data.bins, node, g, h, mask, level, parent)
+        split = split_gain_case(parent, lc.lam, lc.min_child_hess, scale_by="terms", mask=mask)
+        rows_out.append((row, times, split))
     fill_device_times()
     sweep = [{**row, "histogram_device_us": 1e3 * dense["device_ms"],
               "histogram_us": 1e3 * dense["ms"],
               "histogram_sparse_device_us": 1e3 * sparse["device_ms"],
-              "histogram_sparse_us": 1e3 * sparse["ms"]} for row, (dense, sparse) in rows_out]
+              "histogram_sparse_us": 1e3 * sparse["ms"],
+              "split_gain_device_us": 1e3 * split["device_ms"], "split_gain_us": 1e3 * split["ms"],
+              "split_gain_surface_us": 1e3 * split["surface_ms"],
+              "split_gain_plain_us": 1e3 * split["plain_ms"],
+              "split_gain_bound_us": 1e3 * split["bound_ms"]}
+             for row, (dense, sparse), split in rows_out]
     report["histogram_level_sweep"] = sweep
     return sweep
 
 
 def split_gain_case(hist: torch.Tensor, lam: float, min_h: float,
-                    scale_by: str = "gain") -> dict:
+                    scale_by: str = "gain", mask: torch.Tensor | None = None) -> dict:
     """The split gain of ``hist`` within rtol 1e-5 and atol 1e-5 x scale of
-    its plain version, -inf cells exact; times and bound (device time
-    pending). The scale is the largest finite gain, or with ``scale_by=
-    "terms"`` the largest sum of a finite cell's three terms' magnitudes,
+    its plain version, -inf cells exact; its decision form under ``mask``
+    ((F,) bool or int32; every feature where None): the surface within the
+    same tolerance, each node's (best, idx) bitwise the plain chain's
+    (``masked_fill``, ``argmax``, ``gather``) on the kernel's own surface.
+    Times (the decision form, the main path's launch: event and device,
+    pending; the surface alone and the plain chain: event) and bound. The
+    scale is the largest finite gain, or with ``scale_by="terms"`` the
+    largest sum of a finite cell's three terms' magnitudes,
     |G_L^2 / (H_L + lam)| + |G_R^2 / (H_R + lam)| + |G^2 / (H + lam)|: the
     size the f32 prefix sums round at. Below a tree's root, where a node's
     best gain is a small difference of large terms (the multiclass data),
     the two versions' scans differ by ulps of the terms, not of the gain."""
+    l, f = hist.shape[1], hist.shape[2]
+    mask = (torch.ones(f, dtype=torch.int32, device=hist.device) if mask is None
+            else mask.to(torch.int32))
     gain = split_scan.split_gain(hist, lam, min_h)
     plain = split_scan.split_gain_plain(hist, lam, min_h)
     fin = torch.isfinite(plain)
@@ -701,15 +727,50 @@ def split_gain_case(hist: torch.Tensor, lam: float, min_h: float,
     else:
         finite = plain[fin]
     scale = float(finite.abs().max()) if finite.numel() else 1.0
+    err = close(f"split_gain L={l}", gain, plain, 1e-5, 1e-5 * scale)
+    dgain, best, idx = split_scan.split_gain_decide(hist, lam, min_h, mask)
+    err = max(err, close(f"split_gain_decide L={l}", dgain, plain, 1e-5, 1e-5 * scale))
+    flat = dgain.masked_fill((mask == 0)[None, :, None], float("-inf")).reshape(l, -1)
+    want = torch.argmax(flat, dim=-1)
+    if not (torch.equal(idx, want) and torch.equal(best, flat.gather(1, want[:, None])[:, 0])):
+        raise AssertionError(f"split_gain_decide L={l}: the decision differs from the plain "
+                             "chain on the kernel's surface")
     cells = hist[0].numel()
-    bms, by = bound(4 * 3 * cells, 12 * cells)
-    stats = event_times(lambda: split_scan.split_gain(hist, lam, min_h))
+    # Bytes: the histogram read, the surface written, the mask, (best, idx).
+    bms, by = bound(4 * 3 * cells + 4 * f + 12 * l, 12 * cells)
+    stats = event_times(lambda: split_scan.split_gain_decide(hist, lam, min_h, mask))
     stats.update({
-        "max_abs_err": close(f"split_gain L={hist.shape[1]}", gain, plain, 1e-5, 1e-5 * scale),
-        "plain_ms": cuda_ms(lambda: split_scan.split_gain_plain(hist, lam, min_h), reps=5),
+        "max_abs_err": err,
+        "surface_ms": cuda_ms(lambda: split_scan.split_gain(hist, lam, min_h)),
+        "plain_ms": cuda_ms(lambda: split_scan.split_gain_decide_plain(hist, lam, min_h, mask),
+                            reps=5),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
     })
     return stats
+
+
+def split_decide_ties(f: int, b: int, dev) -> None:
+    """The decision form's tie-break is the first maximum: four nodes of F
+    features with bitwise-equal maxima (identical rows) at features 7, F/2
+    and F-2 (node 1 also at 5; rows in different blocks), every other row
+    without hessian mass (all -inf); then feature 7 masked."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    row = torch.randn(b, generator=gen)
+    hist = torch.zeros((2, 4, f, b))
+    for node, feats in ((0, (7, f // 2, f - 2)), (1, (5, 7, f // 2, f - 2)),
+                        (2, (7, f // 2, f - 2)), (3, (7, f // 2, f - 2))):
+        for feat in feats:
+            hist[0, node, feat], hist[1, node, feat] = row, 1.25
+    hist = hist.to(dev)
+    lc = CFG.learner
+    top = int(split_scan.split_gain_plain(hist, lc.lam, lc.min_child_hess)[0, 7].argmax())
+    mask = torch.ones(f, dtype=torch.int32, device=dev)
+    for want in ([7, 5, 7, 7], [f // 2, 5, f // 2, f // 2]):
+        _, _, idx = split_scan.split_gain_decide(hist, lc.lam, lc.min_child_hess, mask)
+        if idx.tolist() != [w * b + top for w in want]:
+            raise AssertionError("split_gain_decide on the card does not pick the first "
+                                 f"maximum: {idx.tolist()}, want features {want}")
+        mask[7] = 0
 
 
 def check_kernels(data, sp, rng, report: dict) -> dict:
@@ -724,13 +785,12 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
 
     # Split gain at L = 256, on a real level-8 histogram.
     hist = histogram.histogram(data.bins, node8, g, h, 256, b)
-    gain_shapes = {"L=256": split_gain_case(hist, CFG.learner.lam, CFG.learner.min_child_hess)}
-    # The argmax stays in torch: its tie-break must be the first maximum.
-    tie = torch.full((4, f * b), float("-inf"), device=dev)
-    tie[:, [7, f * b // 2, f * b - 2]] = 3.5
-    tie[1, 5] = 3.5
-    if torch.argmax(tie, dim=-1).tolist() != [7, 5, 7, 7]:
-        raise AssertionError("torch.argmax on the card does not pick the first maximum")
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(SEED + 1)
+    mask = torch.rand(f, generator=mgen, device=dev) < CFG.learner.feature_fraction
+    gain_shapes = {"L=256": split_gain_case(hist, CFG.learner.lam, CFG.learner.min_child_hess,
+                                            mask=mask)}
+    split_decide_ties(f, b, dev)
 
     # Traversal: 4000 rows x 400 slots, n_trees = 400 and 16, and the
     # serving wave (``WAVE_ROWS`` rows, every slot live); bitwise.
@@ -769,7 +829,7 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     deep = max(report["level_build_shapes"], key=lambda t: int(t[len("level"):]))
     return {
         "histogram": line_stats(hist_shapes, "level8_subset"),
-        "split_gain": line_stats(gain_shapes, "L=256"),
+        "split_gain": line_stats(gain_shapes, "L=256", drop=("surface_ms",)),
         "forest_traverse": line_stats(trav_shapes, "n_trees=400", drop=("plan",)),
         "level_build": line_stats(lb_shapes, deep, drop=("staged_ms", "samples_hit")),
         "histogram_sparse": line_stats(sp_shapes, "level8_subset", drop=("entries_hit",)),
@@ -858,7 +918,20 @@ def profile_rounds(data, cfg, rounds: int = 2) -> dict:
     rows.sort(key=lambda r: -r[1])
     return {"rounds": rounds, "device_ms_per_round": sum(r[1] for r in rows) / rounds,
             "top": [{"name": k[:80], "device_ms_per_round": ms / rounds, "calls": c}
-                    for k, ms, c in rows[:12]]}
+                    for k, ms, c in rows[:12]],
+            # The split-gain kernel's launches a round, and those of the
+            # torch chain its decision form replaced (mask, argmax).
+            "split_kernel_calls": sum(c for k, _, c in rows if "split_kernel" in k) / rounds,
+            "argmax_or_masked_fill_calls":
+                sum(c for k, _, c in rows if re.search("ArgMax|masked_fill", k)) / rounds}
+
+
+def check_no_chain(tag: str, prof: dict) -> None:
+    """A profiled round's staged levels run the decision in the split-gain
+    kernel: no argmax or masked_fill over the surface."""
+    if prof["argmax_or_masked_fill_calls"]:
+        raise AssertionError(f"profile ({tag}): {prof['argmax_or_masked_fill_calls']} argmax "
+                             "or masked_fill launches a round")
 
 
 def first_tree_ties(data, dense, sparse) -> int:
@@ -977,6 +1050,12 @@ def check_drive(run: dict, report: dict) -> list:
         for r in report["histogram_level_sweep"])
     print("histogram sweep, device us per level (dense / sparse; output-write us): "
           f"{sweep} [{report.get('nvidia_smi', '')}]", flush=True)
+    split = "; ".join(
+        f"L{r['level']} {r['split_gain_device_us']:.1f} ({r['split_gain_bound_us']:.1f})"
+        for r in report["histogram_level_sweep"])
+    print("split_gain_decide sweep, device us per level (bytes bound us), the decision bitwise "
+          f"the plain chain's on the kernel's surface at every level: {split} [{card}]",
+          flush=True)
 
     # The checks of phases 2 and 3.
     round_ms = {k: [1e3 * (b - a) for a, b in zip(v, v[1:])] for k, v in run["stamps"].items()}
@@ -1037,9 +1116,11 @@ def check_drive(run: dict, report: dict) -> list:
             # Busy share: profiled device time per round over the median wall
             # time of an unprofiled round (the first round is warm-up).
             prof["device_busy_share"] = prof["device_ms_per_round"] / median_ms[tag]
-            print(f"profile ({tag}): device {prof['device_ms_per_round']:.2f} ms per round, "
-                  f"busy {100 * prof['device_busy_share']:.0f}% of a round's wall time",
-                  flush=True)
+            check_no_chain(tag, prof)
+            print(f"profile ({tag}): device {prof['device_ms_per_round']:.4f} ms per round, "
+                  f"busy {100 * prof['device_busy_share']:.0f}% of a round's wall time; "
+                  f"split kernel {prof['split_kernel_calls']:g} launches a round, argmax or "
+                  f"masked_fill {prof['argmax_or_masked_fill_calls']:g} [{card}]", flush=True)
 
     # The kernels line; every kernel of the path must have run.
     line = []
@@ -1221,7 +1302,9 @@ def check_multiclass_kernels(data, state, report: dict) -> dict:
     of the round after the run (its draws from a seeded generator, the
     gradient at the trained F, h = m'), the level's smaller children in
     subtract mode. Tolerances as at realsim, but the split gain's atol
-    scales with its terms (``split_gain_case``). Returns the stats by
+    scales with its terms (``split_gain_case``, which also holds its
+    decision form bitwise to the plain chain under the tree's mask).
+    Returns the stats by
     kernel and level (device times pending)."""
     dev = data.bins.device
     lc = MC_CFG.learner
@@ -1245,7 +1328,7 @@ def check_multiclass_kernels(data, state, report: dict) -> dict:
             key="multiclass_level_build")
         parent, _, _, node = _staged_level(lc, data.bins, node, g, h, mask, level, parent)
         shapes["split_gain"][tag] = split_gain_case(parent, lc.lam, lc.min_child_hess,
-                                                    scale_by="terms")
+                                                    scale_by="terms", mask=mask)
     report["multiclass_kernel_shapes"] = shapes
     return shapes
 
@@ -1337,7 +1420,8 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
     forms, levels = checked
     deep = f"level{MC_CFG.learner.depth - 1}"
     kstats = {**forms, **{f"{name}_multiclass": line_stats(per, deep,
-                                                          drop=("staged_ms", "samples_hit"))
+                                                          drop=("staged_ms", "samples_hit",
+                                                                "surface_ms"))
                           for name, per in levels.items()}}
     for name, per in report["forest_traverse_form_shapes"].items():
         print(f"{name} bitwise equal to the plain version, full, wave and ragged (event / "
@@ -1356,6 +1440,10 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
     print("level_build launches a fused level (profiler): " + "; ".join(
         f"{t} {n:g}" for t, n in report["level_build_launches_per_call"].items())
         + " (the earlier chain: 4 at one row, 5 above)", flush=True)
+    print("split_gain_decide multiclass, device ms per level (bound ms), the decision bitwise "
+          "the plain chain's on the kernel's surface at every level: " + "; ".join(
+              f"{t} {st['device_ms']:.4f} ({st['bound_ms']:.5f})"
+              for t, st in levels["split_gain"].items()) + f" [{card}]", flush=True)
     print("multiclass path kernels (traversal forms bitwise equal to the plain version, full "
           "and ragged; the rest at levels 0-5): " + json.dumps(
               {k: {"ms": v["ms"], "device_ms": v["device_ms"], "bound_ms": v["bound_ms"],
@@ -1368,9 +1456,11 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
             prof = info["profile"][tag] = profile_rounds(mc["data"], cfg)
             prof["device_busy_share"] = (prof["device_ms_per_round"]
                                          / float(np.median(info["round_ms"][tag][1:])))
-            print(f"profile (multiclass:5 {tag}): device {prof['device_ms_per_round']:.2f} ms "
+            check_no_chain(f"multiclass:5 {tag}", prof)
+            print(f"profile (multiclass:5 {tag}): device {prof['device_ms_per_round']:.4f} ms "
                   f"per round, busy {100 * prof['device_busy_share']:.0f}% of a round's wall "
-                  f"time [{card}]", flush=True)
+                  f"time; split kernel {prof['split_kernel_calls']:g} launches a round [{card}]",
+                  flush=True)
         fused_ms = {"realsim": report["profile"]["fused"]["device_ms_per_round"],
                     "multiclass": info["profile"]["fused"]["device_ms_per_round"]}
         report["fused_round_device_ms"] = fused_ms
@@ -2194,6 +2284,14 @@ def trav_label(fn: str) -> str:
     return name + (f"<{args.group(1)}>" if args else "")
 
 
+def split_label(fn: str) -> str:
+    """A split-gain kernel's name with its template arguments, as
+    ``split_kernel<2, decide>``."""
+    m = re.search(r"split_kernelILi(\d+)ELb([01])E", fn)
+    return (f"split_kernel<{m.group(1)}, {'decide' if m.group(2) == '1' else 'surface'}>"
+            if m else fn[:40])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2247,6 +2345,14 @@ def main() -> None:
         if sorted(n for k in ks for n in names if n in k["function"]) != sorted(names) or bad:
             raise AssertionError(f"{lib}: kernels {names} expected, none spilling: "
                                  f"{bad or ks}")
+    split = ptxas_kernels(report["ptxas_split_scan"])
+    print("ptxas, split_scan <bins a lane, form>: " + "; ".join(
+        f"{split_label(k['function'])} {k['registers']} registers, spills "
+        f"{k['spill_stores']}/{k['spill_loads']} bytes" for k in split), flush=True)
+    bad = [k for k in split if k["spill_stores"] or k["spill_loads"]]
+    if len(split) != SPLIT_INSTANCES or bad:
+        raise AssertionError(f"split_scan: {SPLIT_INSTANCES} instances expected, none "
+                             f"spilling: {bad or split}")
     trav = ptxas_kernels(report["ptxas_forest_traversal"])
     print("ptxas, forest_traversal (template arguments mangled): " + "; ".join(
         f"{trav_label(k['function'])} {k['registers']} registers, spills "

@@ -17,8 +17,8 @@
 //    it at once (decide_tile): in derive mode it reads parent row r's tile,
 //    forms the sibling parent - built, writes both rows to the level
 //    histogram (the next level's parent cache), scans both nodes' masked
-//    features with level_common::warp_scan_gain (the split-gain kernel's
-//    code) and writes one (max gain, smallest flat index f*B+b) partial per
+//    features with level_common::warp_scan_gain_rows (scan_rows, the
+//    split-gain kernel's code) and writes one (max gain, smallest flat index f*B+b) partial per
 //    (node, tile). The built rows never go back through global memory to be
 //    scanned, as the TPU program kept them in VMEM; the gain surface is
 //    never stored;

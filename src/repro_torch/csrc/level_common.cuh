@@ -6,7 +6,7 @@
 // a level's rows (level_kernel's phases 0 and 1: the row-sorted sample list,
 // the accumulation of its chunks and the merge of the chunks, first inside a
 // block, then across a row's blocks) and one (node, feature) row's scan and
-// gain (warp_scan_gain). Each .cu file includes this header; every file is
+// gain (scan_rows, with div_rn's divisions). Each .cu file includes this header; every file is
 // compiled with --fmad=false, so no multiply is contracted into an add.
 //
 // The fused level (level_build.cu) is one launch of level_kernel, a
@@ -32,6 +32,21 @@ constexpr int kMaxPer = 8;          // bins per lane in the scan: B <= 256
 constexpr int kMaxDevices = 64;
 constexpr int kMaxSplits = 64;      // blocks a (feature tile, row) is cut into
 constexpr int kMaxNodes = 4096;     // the fused level's split table lives in shared memory
+
+// n / d with IEEE division's bits. Where n is 0 and d a nonzero number the
+// quotient is 0 with the sign of n x d, taken without dividing 0: the
+// division's range check (FCHK) sends a zero dividend down its slow path,
+// and a sparse row's left or right sums are 0 over most of its bins. The
+// dividend is then +-1, set by its bits in an asm statement (through a
+// select the compiler sees that the quotient is dropped and divides n all
+// the same).
+__device__ __forceinline__ float div_rn(float n, float d) {
+  const bool zero = n == 0.f && d == d && d != 0.f;
+  unsigned bits = __float_as_uint(n);
+  asm("or.b32 %0, %0, %1;" : "+r"(bits) : "r"(zero ? 0x3f800000u : 0u));
+  const float q = __uint_as_float(bits) / d;
+  return zero ? __int_as_float((__float_as_int(n) ^ __float_as_int(d)) & 0x80000000) : q;
+}
 
 // One warp scans R (node, feature) rows of B bins at once and computes the
 // gain of every split point of each; the rows' operations interleave but
@@ -116,7 +131,7 @@ __device__ __forceinline__ void scan_rows(int n_bins, float lam, float min_h, Lo
     }
     gt[q] = __shfl_sync(full, lg, (n_bins - 1) / per);
     ht[q] = __shfl_sync(full, lh, (n_bins - 1) / per);
-    parent[q] = gt[q] * gt[q] / (ht[q] + lam);
+    parent[q] = div_rn(gt[q] * gt[q], ht[q] + lam);
   }
 
 #pragma unroll
@@ -127,8 +142,8 @@ __device__ __forceinline__ void scan_rows(int n_bins, float lam, float min_h, Lo
       if (b < n_bins) {
         const float gr = gt[q] - gl[q][k];
         const float hr = ht[q] - hl[q][k];
-        const float v =
-            gl[q][k] * gl[q][k] / (hl[q][k] + lam) + gr * gr / (hr + lam) - parent[q];
+        const float v = div_rn(gl[q][k] * gl[q][k], hl[q][k] + lam) + div_rn(gr * gr, hr + lam) -
+                        parent[q];
         const bool ok = hl[q][k] >= min_h && hr >= min_h && b < n_bins - 1;
         store(q, k, b, ok ? v : -__int_as_float(0x7f800000));
       }
@@ -152,16 +167,6 @@ template <int R, int MAXPER = kMaxPer, class Load, class Store>
 __device__ __forceinline__ void warp_scan_gain_rows(int n_bins, float lam, float min_h,
                                                     Load load, Store store) {
   scan_per<R, MAXPER>((n_bins + 31) / 32, n_bins, lam, min_h, load, store);
-}
-
-// One row at a time: load(k, b, g, h), store(k, b, gain).
-template <class Load, class Store>
-__device__ __forceinline__ void warp_scan_gain(int n_bins, float lam, float min_h,
-                                               Load load, Store store) {
-  warp_scan_gain_rows<1>(
-      n_bins, lam, min_h,
-      [&](int, int k, int b, float& g, float& h) { load(k, b, g, h); },
-      [&](int, int k, int b, float v) { store(k, b, v); });
 }
 
 // The arguments of one level_kernel launch.

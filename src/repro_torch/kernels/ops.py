@@ -23,6 +23,8 @@ from repro_torch.kernels import (
 from repro_torch.trees.binning import SparseBins
 
 split_gain = split_scan.split_gain  # gain surface (L, F, B), -inf where invalid
+# The surface and each node's masked first maximum (best, idx), one launch.
+split_gain_decide = split_scan.split_gain_decide
 # Masked forest sum (N,), or (N, K) with ``n_outputs``; quantized layouts
 # pass their packed arrays and ``leaf_scale``.
 forest_traverse = forest_traversal.forest_traverse

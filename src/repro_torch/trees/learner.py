@@ -11,8 +11,10 @@ Histogram modes (``LearnerConfig.hist_mode``):
   * ``'rebuild'`` — every node of every level is histogrammed.
 
 Backends (``LearnerConfig.backend``):
-  * ``'staged'`` (default) — histogram kernel, sibling derivation, split-gain
-    kernel, argmax and partition, each a step of its own (``kernels.ops``);
+  * ``'staged'`` (default) — histogram kernel, sibling derivation, the
+    split-gain kernel with each node's masked first maximum
+    (``split_gain_decide``) and partition, each a step of its own
+    (``kernels.ops``);
   * ``'fused'`` — each level whose resident set fits the budget
     (``kernels.level_build.fused_level_fits``) is one fused level
     (``kernels.level_build``); the other levels run staged. The fused level
@@ -86,18 +88,16 @@ def _staged_level(
     node: torch.Tensor,
     g: torch.Tensor,
     h: torch.Tensor,
-    feat_mask: torch.Tensor,  # (F,) bool
+    feat_mask: torch.Tensor,  # (F,) bool, or its int32 form (1 = may split)
     level: int,
     parent_hist: torch.Tensor | None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One level as separate steps: (hist, feat, thr, new_node)."""
-    n_nodes, n_bins = 1 << level, cfg.n_bins
+    n_bins = cfg.n_bins
     hist = _level_histogram(cfg, bins, node, g, h, level, parent_hist)
-    gain = ops.split_gain(hist, cfg.lam, cfg.min_child_hess)
-    gain = gain.masked_fill(~feat_mask[None, :, None], float("-inf"))
-    flat = gain.reshape(n_nodes, -1)
-    idx = torch.argmax(flat, dim=-1)  # the first maximum, as jnp.argmax
-    best = flat.gather(1, idx[:, None])[:, 0]
+    mask_i32 = feat_mask if feat_mask.dtype == torch.int32 else feat_mask.to(torch.int32)
+    # The surface and each node's first maximum under the mask, one launch.
+    _, best, idx = ops.split_gain_decide(hist, cfg.lam, cfg.min_child_hess, mask_i32)
     # Unsplittable node -> pass-through: all samples go left.
     ok = torch.isfinite(best) & (best > 0.0)
     feat = torch.where(ok, idx // n_bins, 0).to(torch.int32)
@@ -145,7 +145,7 @@ def build_tree(
         raise ValueError(f"unknown backend {cfg.backend!r} (want one of {BACKENDS})")
     n, n_feat = bins.shape
     use_fused = cfg.backend == "fused" and not isinstance(bins, SparseBins)
-    mask_i32 = feat_mask.to(torch.int32) if use_fused else None
+    mask_i32 = feat_mask.to(torch.int32)  # the kernels' form, once a tree
     node = torch.zeros(n, dtype=torch.int32, device=g.device)  # level-local ids
     features, thresholds = [], []
     hist = None  # the previous level's histograms (the subtraction cache)
@@ -155,7 +155,7 @@ def build_tree(
         if use_fused and _level_build.fused_level_fits(n, n_nodes, n_sub, n_feat, cfg.n_bins):
             hist, feat, thr, node = _fused_level(cfg, bins, node, g, h, mask_i32, level, hist)
         else:
-            hist, feat, thr, node = _staged_level(cfg, bins, node, g, h, feat_mask, level,
+            hist, feat, thr, node = _staged_level(cfg, bins, node, g, h, mask_i32, level,
                                                   hist)
         features.append(feat)
         thresholds.append(thr)

@@ -225,3 +225,39 @@ def test_ptxas_kernels_reads_registers_spills_and_serialized_wgmma():
                                  "spill_stores": 0, "spill_loads": 0, "serialized": False}
     assert got["_Z7k_slowv"] == {"function": "_Z7k_slowv", "registers": 255,
                                  "spill_stores": 12, "spill_loads": 20, "serialized": True}
+
+
+@pytest.mark.parametrize("fn,label", [
+    ("_ZN12_GLOBAL__N_112split_kernelILi2ELb1EEEvN12_GLOBAL__N_19SplitArgsE",
+     "split_kernel<2, decide>"),
+    ("_ZN12_GLOBAL__N_112split_kernelILi8ELb0EEEvN12_GLOBAL__N_19SplitArgsE",
+     "split_kernel<8, surface>"),
+])
+def test_ptxas_split_labels(fn, label):
+    assert chip_smoke.split_label(fn) == label
+
+
+@pytest.mark.parametrize("f,b", [(40, 64), (1500, 16)])
+def test_split_decide_ties_run_on_the_cpu(f, b):
+    """The smoke test's tie check through the decision form: the first of
+    the planted maxima, then the next once it is masked."""
+    chip_smoke.split_decide_ties(f, b, torch.device("cpu"))
+
+
+def test_split_gain_case_rejects_a_wrong_decision(timed_calls, monkeypatch):
+    """The decision must be the plain chain's on the kernel's own surface:
+    a decision one cell off fails the check."""
+    rng = np.random.default_rng(5)
+    g = rng.standard_normal((3, 4, 16)).astype(np.float32)
+    hist = torch.stack([torch.from_numpy(g), torch.full((3, 4, 16), 1.25)])
+    mask = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+    stats = chip_smoke.split_gain_case(hist, 1.0, 1e-3, mask=mask)
+    assert stats["device_ms"] is None and stats["bound_by"] == "bytes"
+    right = chip_smoke.split_scan.split_gain_decide
+
+    def off_by_one(*a):
+        gain, best, idx = right(*a)
+        return gain, best, idx + 1
+    monkeypatch.setattr(chip_smoke.split_scan, "split_gain_decide", off_by_one)
+    with pytest.raises(AssertionError, match="decision differs"):
+        chip_smoke.split_gain_case(hist, 1.0, 1e-3, mask=mask)

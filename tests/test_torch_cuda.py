@@ -7,6 +7,8 @@ card (no JAX needed, hence ``--noconftest``):
 
 Tolerances: histograms and gains rtol 1e-5, atol 1e-5 * max|cell| (the
 plain histogram adds with atomics in another order); -inf masks exact;
+the split gain's decision (best, idx) bitwise the plain chain's
+(masked_fill, argmax, gather) on the kernel's own surface;
 traversal bitwise in every form, f32 or quantized, one output or K, under
 every launch plan (kernel and plain version both dequantize, then sum
 tree by tree in slot order); the
@@ -128,6 +130,81 @@ def test_split_gain_kernel_matches_plain(dev, l, f, b):
     torch.cuda.synchronize()
     _close(got, split_scan.split_gain_plain(hist, 1.0, 1e-3))
     assert torch.isneginf(got[..., -1]).all()
+
+
+def _decide_ok(hist, mask):
+    """The decision form twice: two launches bitwise equal, the surface
+    within ``_close`` of the plain version and bitwise ``split_gain``'s,
+    (best, idx) bitwise the plain chain's on the kernel's own surface.
+    Returns (gain, best, idx)."""
+    before = split_scan.launches
+    a = split_scan.split_gain_decide(hist, 1.0, 1e-3, mask)
+    b = split_scan.split_gain_decide(hist, 1.0, 1e-3, mask)
+    torch.cuda.synchronize()
+    assert split_scan.launches == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), "two launches differ"
+    gain, best, idx = a
+    assert best.dtype == torch.float32 and idx.dtype == torch.int64
+    assert torch.equal(gain, split_scan.split_gain(hist, 1.0, 1e-3))
+    _close(gain, split_scan.split_gain_plain(hist, 1.0, 1e-3))
+    flat = gain.masked_fill((mask == 0)[None, :, None], float("-inf")).reshape(gain.shape[0], -1)
+    want = torch.argmax(flat, dim=-1)
+    assert torch.equal(idx, want)
+    assert torch.equal(best, flat.gather(1, want[:, None])[:, 0])
+    return a
+
+
+# The surface test's shapes; F not a multiple of a block's 16 rows (a
+# node's rows straddle blocks); realsim's level 8; one feature a node, so a
+# block's rows span more nodes than its shared table holds.
+@pytest.mark.parametrize("l,f,b", [
+    (1, 5, 16), (8, 40, 64), (3, 7, 100), (2, 9, 256), (1, 1500, 64), (37, 301, 64),
+    (256, 1500, 64), (65536, 1, 16), (5, 33, 33),
+])
+def test_split_gain_decide_kernel_matches_plain(dev, l, f, b):
+    bins, node, grad, hess = _case(dev, l + f + b, 4000, f, b, l)
+    hist = histogram.histogram_plain(bins, node, grad, hess, l, b)
+    mask = (torch.arange(f, device=dev) % 3 != 1).to(torch.int32)
+    _, best, _ = _decide_ok(hist, mask)
+    assert torch.isfinite(best).any()
+
+
+@pytest.mark.parametrize("l,f,feats", [
+    (4, 700, (3, 350, 699)),  # in different blocks of each node
+    (6, 5, (1, 4)),           # in different nodes of one block
+])
+def test_split_gain_decide_ties_pick_the_first_cell(dev, l, f, feats):
+    """Bitwise-equal maxima (identical rows) at the features ``feats`` of
+    every node, every other row without hessian mass (all -inf): the first
+    planted feature wins, and the second once the first is masked."""
+    b = 64
+    gen = torch.Generator(device="cpu").manual_seed(f)
+    hist = torch.zeros((2, l, f, b))
+    row = torch.randn(b, generator=gen)
+    for feat in feats:
+        hist[0, :, feat], hist[1, :, feat] = row, 1.25
+    hist = hist.to(dev)
+    bin_ = int(split_scan.split_gain_plain(hist, 1.0, 1e-3)[0, feats[0]].argmax())
+    mask = torch.ones(f, dtype=torch.int32, device=dev)
+    _, best, idx = _decide_ok(hist, mask)
+    assert idx.tolist() == [feats[0] * b + bin_] * l and torch.isfinite(best).all()
+    mask[feats[0]] = 0
+    _, _, idx = _decide_ok(hist, mask)
+    assert idx.tolist() == [feats[1] * b + bin_] * l
+
+
+def test_split_gain_decide_masked_and_empty_nodes(dev):
+    """Every feature masked: each node idx 0 and -inf. A node without
+    hessian mass (no valid cell) beside nodes that split: idx 0 and -inf."""
+    bins, node, grad, hess = _case(dev, 5, 800, 40, 64, 6)
+    hist = histogram.histogram(bins, node, grad, hess, 6, 64)
+    _, best, idx = _decide_ok(hist, torch.zeros(40, dtype=torch.int32, device=dev))
+    assert (idx == 0).all() and torch.isneginf(best).all()
+    hist[:, 2] = 0.0
+    _, best, idx = _decide_ok(hist, torch.ones(40, dtype=torch.int32, device=dev))
+    assert int(idx[2]) == 0 and torch.isneginf(best[2])
+    assert torch.isfinite(best[[0, 1, 3, 4, 5]]).all()
 
 
 @pytest.mark.parametrize("t,live,depth", [

@@ -1,7 +1,7 @@
 """Time the kernels of one checkout of the PyTorch/CUDA port.
 
     python3 tools/hist_compare.py --src SRC_DIR --tag NAME \
-        [--kernels histogram|level_build|traversal|flash|flash_bwd]
+        [--kernels histogram|level_build|split_gain|traversal|flash|flash_bwd]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (this repository's ``src``, or the
 ``src`` of another commit unpacked with ``git archive``) and the
@@ -19,6 +19,14 @@ efficiency-realsim width, each against its plain version:
   against the staged level and within tolerance of its plain version, and
   the staged histogram at multiclass levels 0-5 beside ``index_add_``;
   each call's kernel launches by the profiler's count;
+- ``split_gain``: the staged level (``learner._staged_level``, the same
+  signature in every commit: its histogram, split gain and decision,
+  partition) at realsim levels 0-8 and multiclass levels 0-5 of
+  ``level_walk``, with its device time by kernel name and its launches a
+  call; and the split gain alone at the smoke's L = 256 (level-8 nodes,
+  F 1500, B 64): the surface, and the decision as the commit's staged level
+  takes it (``split_gain_decide`` where the commit has it, else the
+  surface followed by ``masked_fill``, ``argmax`` and ``gather``);
 - ``traversal``: every traversal form, bitwise against its plain version,
   through the entry point every commit has: f32, int8 and fp16 with one
   output on the realsim-like bins (4000 x 1500, 64 bins) and a seeded full
@@ -194,6 +202,61 @@ def level_build(cs, report: dict, dev=None) -> None:
             st["launches"] = report["launches_a_call"][f"{kern} {tag}"]
 
 
+def split_gain(cs, report: dict, dev=None) -> None:
+    """The staged level at realsim levels 0-8 and multiclass levels 0-5,
+    and the split gain with its decision alone at L = 256, each as this
+    commit runs it."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import histogram, split_scan
+    from repro_torch.trees.binning import bin_dataset
+    from repro_torch.trees.learner import _staged_level
+
+    dev = dev or torch.device("cuda")
+    decide = hasattr(split_scan, "split_gain_decide")
+    shapes = report["split_gain_shapes"] = {}
+    calls = {}
+    for which, level, bins, g, h, node, mask, parent, lc in level_walk(cs, dev, 9):
+        # The mask in the form the commit's build_tree hands the level.
+        args = (lc, bins, node, g, h, mask.to(torch.int32) if decide else mask, level, parent)
+        tag = f"staged_level {which} level{level}"
+        calls[tag] = lambda args=args: _staged_level(*args)
+        shapes[tag] = cs.event_times(calls[tag])
+    x, y, mult = synthetic.raw(synthetic.PAPER_DATASETS["realsim-like"])
+    data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
+    g, h, node8, _, _ = cs.kernel_inputs(data)
+    lc = cs.CFG.learner
+    hist = histogram.histogram(data.bins, node8, g, h, 256, lc.n_bins)
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(cs.SEED + 1)
+    mask = torch.rand(data.n_features, generator=mgen, device=dev) < lc.feature_fraction
+    mask_i32 = mask.to(torch.int32)
+
+    def chain():
+        gain = split_scan.split_gain(hist, lc.lam, lc.min_child_hess)
+        flat = gain.masked_fill(~mask[None, :, None], float("-inf")).reshape(256, -1)
+        idx = torch.argmax(flat, dim=-1)
+        return gain, flat.gather(1, idx[:, None])[:, 0], idx
+
+    def decision():
+        return split_scan.split_gain_decide(hist, lc.lam, lc.min_child_hess, mask_i32)
+    run = decision if decide else chain
+    got, want = run(), chain()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("split gain L=256: the decision differs from the chain")
+    calls["decision L=256"] = run
+    calls["surface L=256"] = lambda: split_scan.split_gain(hist, lc.lam, lc.min_child_hess)
+    bms, _ = cs.bound(4 * 3 * hist[0].numel() + 4 * data.n_features + 12 * 256,
+                      12 * hist[0].numel())
+    for tag in ("decision L=256", "surface L=256"):
+        shapes[tag] = cs.event_times(calls[tag])
+        shapes[tag]["bound_ms"] = bms
+    cs.fill_device_times()
+    for tag, fn in calls.items():
+        shapes[tag]["launches"] = launches_a_call(fn)
+
+
 def flash(cs, report: dict) -> None:
     """The flash forward at the prefill shape, beside SDPA."""
     import torch
@@ -262,7 +325,8 @@ def main() -> None:
     ap.add_argument("--src", required=True, help="the src directory of a checkout")
     ap.add_argument("--tag", required=True)
     ap.add_argument("--kernels", default="histogram",
-                    choices=("histogram", "level_build", "traversal", "flash", "flash_bwd"))
+                    choices=("histogram", "level_build", "split_gain", "traversal", "flash",
+                             "flash_bwd"))
     args = ap.parse_args()
     src = pathlib.Path(args.src).resolve()
     # The package comes from --src and the measurements from the
@@ -299,6 +363,9 @@ def main() -> None:
     elif args.kernels == "traversal":
         traversal(cs, report)
         kernels = ("forest_traverse",)
+    elif args.kernels == "split_gain":
+        split_gain(cs, report)
+        kernels = ("split_gain",)
     elif args.kernels == "level_build":
         level_build(cs, report)
         kernels = ("level_build", "histogram")

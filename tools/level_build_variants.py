@@ -78,9 +78,8 @@ SOURCES = {
     "no_sibling": [("  if (a.derive) {\n    const float* pg", "  if (false) {\n    const float* pg")],
     "rows4": [("scan_tile<2, kMaxPer>(", "scan_tile<4, 2>(")],  # B <= 64 only
     "rows8": [("scan_tile<2, kMaxPer>(", "scan_tile<8, 2>(")],  # B <= 64 only
-    "no_div": [("gl[q][k] * gl[q][k] / (hl[q][k] + lam) + gr * gr / (hr + lam)",
-                "gl[q][k] * gl[q][k] * (hl[q][k] + lam) + gr * gr * (hr + lam)"),
-               ("parent[q] = gt[q] * gt[q] / (ht[q] + lam);", "parent[q] = gt[q] * gt[q] * (ht[q] + lam);")],
+    "no_div": [("const float q = __uint_as_float(bits) / d;",
+                "const float q = __uint_as_float(bits) * d;")],
 }
 
 
