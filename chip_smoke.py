@@ -77,6 +77,7 @@ then non-zero and the last line is not printed. Details go to
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -299,29 +300,74 @@ def event_times(fn, into: dict | None = None, key: str = "", reps: int = 20,
     return d
 
 
-def fill_device_times() -> None:
-    """Profile every pending function and fill its device time."""
+def device_rows(prof) -> list:
+    """(kernel name, device ms, launches) of each kernel in a finished
+    ``torch.profiler`` trace that took device time."""
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def device_trace(fn, reps: int) -> list:
+    """``device_rows`` of ``reps`` calls of ``fn``: a trace that caught no
+    kernel is taken again, three times in all; empty if none caught one."""
     from torch.profiler import ProfilerActivity, profile
 
-    for fn, reps, d, key in _PENDING:
-        for _ in range(3):  # a trace that caught no kernel is taken again
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.self_device_time_total > 0]
-            by = {e.key[:80]: e.self_device_time_total / 1e3 / reps for e in kernels}
-            if by:
-                break
-        else:
-            raise AssertionError("torch.profiler recorded no device time in three traces")
-        d[key + "device_ms"] = sum(by.values())
+        rows = device_rows(prof)
+        if rows:
+            return rows
+    return []
+
+
+# Whether torch.profiler records device time in this process: a trace of
+# one known kernel, taken once (``profiler_sees_device``). Where it does not
+# (CUPTI's activity tracing unavailable), every device time is a CUDA-event
+# time instead and says so (``device_ms_by``).
+_PROFILER: dict = {}
+
+
+def profiler_sees_device() -> bool:
+    if "sees_device" not in _PROFILER:
+        x = torch.ones(1 << 20, device="cuda")
+        _PROFILER["sees_device"] = bool(device_trace(lambda: x.add_(1), 4))
+        if not _PROFILER["sees_device"]:
+            env = sorted(k for k in os.environ
+                         if re.search("CUPTI|KINETO|INJECTION|NSYS|DCGM", k))
+            print("torch.profiler records no device time here (environment: "
+                  f"{env or 'none of CUPTI/KINETO/INJECTION/NSYS/DCGM'}): every device "
+                  "time below is a CUDA-event time", flush=True)
+    return _PROFILER["sees_device"]
+
+
+def busy(prof: dict, device_ms: float, wall_ms: float) -> float | None:
+    """The device's busy share: a profiled device time over a wall time;
+    None where the device time is a CUDA-event span (``device_ms_by``
+    "events"), which holds the device's idle gaps."""
+    return device_ms / wall_ms if prof["device_ms_by"] == "profiler" else None
+
+
+def pct(share: float | None) -> str:
+    return "not measured" if share is None else f"{100 * share:.0f}%"
+
+
+def fill_device_times() -> None:
+    """Take the device time of every pending function: by ``torch.profiler``
+    where its traces hold the function's kernels, else by CUDA events over
+    as many calls (``{key}device_ms_by`` "events"; no per-kernel split)."""
+    for fn, reps, d, key in _PENDING:
+        rows = device_trace(fn, reps) if profiler_sees_device() else []
+        d[key + "device_ms_by"] = "profiler" if rows else "events"
+        d[key + "device_ms"] = (sum(ms for _, ms, _ in rows) / reps if rows
+                                else cuda_ms(fn, reps, warmup=0))
         if not key:
-            d["device_kernels"] = by
-            d["device_launches"] = {e.key[:80]: e.count / reps for e in kernels}
+            d["device_kernels"] = {k[:80]: ms / reps for k, ms, _ in rows}
+            d["device_launches"] = {k[:80]: c / reps for k, _, c in rows}
     _PENDING.clear()
 
 
@@ -904,34 +950,73 @@ def check_served(tag: str, server, reqs, results) -> dict:
 
 def profile_rounds(data, cfg, rounds: int = 2) -> dict:
     """Where a training round's device time goes: ``torch.profiler`` over a
-    short run (after a warm-up round), device time by kernel name."""
+    short run (after a warm-up round), device time by kernel name; the
+    run's span by CUDA events a round, idle gaps included, where the
+    profiler records no device time (``device_ms_by``); the argmax and
+    masked_fill calls a profiled round (``chain_calls``) and in the warm-up
+    round (``ChainCalls``); the split kernel's launches a round, by its
+    wrapper's count."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer = Trainer(cfg, device=data.bins.device)
-    trainer.train(data, ("round_robin", WORKERS), seed=SEED, rounds=1)
+    with ChainCalls() as warm_up:
+        trainer.train(data, ("round_robin", WORKERS), seed=SEED, rounds=1)
     torch.cuda.synchronize()
+    split0 = split_scan.launches
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
         trainer.train(data, ("round_robin", WORKERS), seed=SEED, rounds=rounds)
+        stop.record()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof) if profiler_sees_device() else []
     rows.sort(key=lambda r: -r[1])
-    return {"rounds": rounds, "device_ms_per_round": sum(r[1] for r in rows) / rounds,
+    return {"rounds": rounds, "device_ms_by": "profiler" if rows else "events",
+            "device_ms_per_round": (sum(r[1] for r in rows) if rows
+                                    else start.elapsed_time(stop)) / rounds,
             "top": [{"name": k[:80], "device_ms_per_round": ms / rounds, "calls": c}
                     for k, ms, c in rows[:12]],
             # The split-gain kernel's launches a round, and those of the
             # torch chain its decision form replaced (mask, argmax).
-            "split_kernel_calls": sum(c for k, _, c in rows if "split_kernel" in k) / rounds,
-            "argmax_or_masked_fill_calls":
-                sum(c for k, _, c in rows if re.search("ArgMax|masked_fill", k)) / rounds}
+            "split_kernel_calls": (split_scan.launches - split0) / rounds,
+            "argmax_or_masked_fill_calls": chain_calls(prof, rows) / rounds,
+            "argmax_or_masked_fill_calls_warm_up": warm_up.calls}
+
+
+class ChainCalls(torch.overrides.TorchFunctionMode):
+    """Counts the argmax and masked_fill calls made under it (``torch`` and
+    tensor-method forms, in place too), with no profiler."""
+
+    NAMES = ("argmax", "masked_fill", "masked_fill_")
+
+    def __init__(self):
+        super().__init__()
+        self.calls = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.calls += getattr(func, "__name__", "") in self.NAMES
+        return func(*args, **(kwargs or {}))
+
+
+def chain_calls(prof, rows: list) -> int:
+    """The argmax and masked_fill calls in a finished trace: its host-side
+    ops (``aten::argmax``, ``aten::masked_fill``, ``aten::masked_fill_``),
+    recorded with or without device tracing, and its kernels of those names
+    among ``rows`` (``device_rows``)."""
+    host = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and re.fullmatch(r"aten::(argmax|masked_fill_?)", e.key))
+    return host + sum(c for k, _, c in rows if re.search("ArgMax|masked_fill", k))
 
 
 def check_no_chain(tag: str, prof: dict) -> None:
     """A profiled round's staged levels run the decision in the split-gain
     kernel: no argmax or masked_fill over the surface."""
-    if prof["argmax_or_masked_fill_calls"]:
+    if prof["argmax_or_masked_fill_calls"] or prof["argmax_or_masked_fill_calls_warm_up"]:
         raise AssertionError(f"profile ({tag}): {prof['argmax_or_masked_fill_calls']} argmax "
-                             "or masked_fill launches a round")
+                             "or masked_fill ops and launches a profiled round, "
+                             f"{prof['argmax_or_masked_fill_calls_warm_up']} calls in the "
+                             "warm-up round")
 
 
 def first_tree_ties(data, dense, sparse) -> int:
@@ -1115,10 +1200,11 @@ def check_drive(run: dict, report: dict) -> list:
             prof = report["profile"][tag] = profile_rounds(d, cfg)
             # Busy share: profiled device time per round over the median wall
             # time of an unprofiled round (the first round is warm-up).
-            prof["device_busy_share"] = prof["device_ms_per_round"] / median_ms[tag]
+            prof["device_busy_share"] = busy(prof, prof["device_ms_per_round"], median_ms[tag])
             check_no_chain(tag, prof)
-            print(f"profile ({tag}): device {prof['device_ms_per_round']:.4f} ms per round, "
-                  f"busy {100 * prof['device_busy_share']:.0f}% of a round's wall time; "
+            print(f"profile ({tag}): device {prof['device_ms_per_round']:.4f} ms per round "
+                  f"({prof['device_ms_by']}), "
+                  f"busy {pct(prof['device_busy_share'])} of a round's wall time; "
                   f"split kernel {prof['split_kernel_calls']:g} launches a round, argmax or "
                   f"masked_fill {prof['argmax_or_masked_fill_calls']:g} [{card}]", flush=True)
 
@@ -1454,18 +1540,20 @@ def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
     if mc["data"].bins.device.type == "cuda":
         for tag, cfg in (("staged", MC_CFG), ("fused", MC_CFG_FUSED)):
             prof = info["profile"][tag] = profile_rounds(mc["data"], cfg)
-            prof["device_busy_share"] = (prof["device_ms_per_round"]
-                                         / float(np.median(info["round_ms"][tag][1:])))
+            prof["device_busy_share"] = busy(prof, prof["device_ms_per_round"],
+                                             float(np.median(info["round_ms"][tag][1:])))
             check_no_chain(f"multiclass:5 {tag}", prof)
             print(f"profile (multiclass:5 {tag}): device {prof['device_ms_per_round']:.4f} ms "
-                  f"per round, busy {100 * prof['device_busy_share']:.0f}% of a round's wall "
-                  f"time; split kernel {prof['split_kernel_calls']:g} launches a round [{card}]",
+                  f"per round ({prof['device_ms_by']}), busy "
+                  f"{pct(prof['device_busy_share'])} of a round's wall time; split kernel "
+                  f"{prof['split_kernel_calls']:g} launches a round [{card}]",
                   flush=True)
         fused_ms = {"realsim": report["profile"]["fused"]["device_ms_per_round"],
                     "multiclass": info["profile"]["fused"]["device_ms_per_round"]}
         report["fused_round_device_ms"] = fused_ms
-        print("fused round device ms (torch.profiler, a round after a warm-up): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in fused_ms.items()) + f" [{card}]", flush=True)
+        print(f"fused round device ms ({report['profile']['fused']['device_ms_by']}, a round "
+              "after a warm-up): " + ", ".join(f"{k} {v:.4f}" for k, v in fused_ms.items())
+              + f" [{card}]", flush=True)
     counts = mc["counts"]
     entries = [(name, "src/repro_torch/csrc/forest_traversal.cu",
                 "src/repro/kernels/forest_traversal.py:107", key)
@@ -1489,13 +1577,13 @@ def sdpa_backend(fn) -> dict:
     kernels it launched (``torch.profiler``) matched to ``SDPA_BACKENDS``."""
     from torch.profiler import ProfilerActivity, profile
 
+    if not profiler_sees_device():
+        return {"backend": "not traced", "kernels": []}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = sorted({e.key[:120] for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0})
+    names = sorted({k[:120] for k, _, _ in device_rows(prof)})
     backend = next((b for key, b in SDPA_BACKENDS if any(key in n.lower() for n in names)),
                    "math or other")
     return {"backend": backend, "kernels": names}
@@ -1659,24 +1747,29 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
     for phase in ("prefill", "decode"):
         tok, _, cache = prefill_step(engine.params, batch)
         torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
+            start.record()
             if phase == "prefill":
                 tok, _, cache = prefill_step(engine.params, batch)
             else:
                 for _ in range(steps):
                     tok, cache = decode(engine.params, tok[:, None], cache)
+            stop.record()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         n = 1 if phase == "prefill" else steps
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows = device_rows(prof) if profiler_sees_device() else []
         rows.sort(key=lambda r: -r[1])
-        dev_ms = sum(r[1] for r in rows) / n
-        res[phase] = {"calls": n, "device_ms": dev_ms, "wall_ms_profiled": wall / n,
-                      "device_busy_share": dev_ms / (wall / n),
-                      "top": [{"name": k[:80], "device_ms": ms / n, "calls": c}
-                              for k, ms, c in rows[:12]]}
+        dev_ms = (sum(r[1] for r in rows) if rows else start.elapsed_time(stop)) / n
+        res[phase] = {"calls": n, "device_ms": dev_ms,
+                      "device_ms_by": "profiler" if rows else "events",
+                      "wall_ms_profiled": wall / n}
+        res[phase].update({"device_busy_share": busy(res[phase], dev_ms, wall / n),
+                           "top": [{"name": k[:80], "device_ms": ms / n, "calls": c}
+                                   for k, ms, c in rows[:12]]})
     return res
 
 
@@ -1810,8 +1903,8 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
           f"memory {peak_gb:.2f} GB [{card}]", flush=True)
     for phase, prof in lm["profile"].items():
         print(f"profile ({LM_ARCH} {phase}): device {prof['device_ms']:.2f} ms a "
-              f"{'wave' if phase == 'prefill' else 'step'}, busy "
-              f"{100 * prof['device_busy_share']:.0f}% [{card}]", flush=True)
+              f"{'wave' if phase == 'prefill' else 'step'} ({prof['device_ms_by']}), busy "
+              f"{pct(prof['device_busy_share'])} [{card}]", flush=True)
 
     name, (_, source, replaces) = next(iter(LM_KERNELS.items()))
     if counts[name] <= 0:
@@ -2031,15 +2124,17 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         step(params, state, batch, gen)
+        stop.record()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof) if profiler_sees_device() else []
     rows.sort(key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
+    dev_ms = sum(r[1] for r in rows) if rows else start.elapsed_time(stop)
 
     def group(key: str) -> str:
         if "flash_bwd_dq" in key:
@@ -2056,7 +2151,8 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
     groups: dict = {}
     for k, ms, _ in rows:
         groups[group(k)] = groups.get(group(k), 0.0) + ms
-    return {"device_ms": dev_ms, "wall_ms_profiled": wall, "by_group_ms": groups,
+    return {"device_ms": dev_ms, "device_ms_by": "profiler" if rows else "events",
+            "wall_ms_profiled": wall, "by_group_ms": groups,
             "top": [{"name": k[:80], "device_ms": ms, "calls": c} for k, ms, c in rows[:15]]}
 
 
@@ -2157,8 +2253,8 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
     profile = profile_train_step(step, params, state, batches[-1], gen)
     # Busy share: profiled device time over the median wall time of an
     # unprofiled step (the profiler's own host cost inflates the profiled one).
-    profile["device_busy_share"] = (profile["device_ms"]
-                                    / float(np.median(runs[1]["step_ms"][1:])))
+    profile["device_busy_share"] = busy(profile, profile["device_ms"],
+                                        float(np.median(runs[1]["step_ms"][1:])))
     del params, state, step, gen
     res_b, params, state, _, _ = train_lm(cfg, delayed, batches, 1, TRAIN_SAMPLE, dev,
                                           warm_up=TRAIN_DELAY)
@@ -2229,8 +2325,9 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
           f"within twice the chunked path's own error, closest {worst[0]}: relative L2 "
           f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}",
           flush=True)
-    print(f"profile ({LM_ARCH} train step, run A): device {profile['device_ms']:.1f} ms, busy "
-          f"{100 * profile['device_busy_share']:.0f}% of an unprofiled step's wall time;"
+    print(f"profile ({LM_ARCH} train step, run A): device {profile['device_ms']:.1f} ms "
+          f"({profile['device_ms_by']}), busy "
+          f"{pct(profile['device_busy_share'])} of an unprofiled step's wall time;"
           " " + ", ".join(f"{k} {v:.1f}" for k, v in profile["by_group_ms"].items())
           + f" [{card}]", flush=True)
     report["lm_train"] = {
@@ -2373,6 +2470,7 @@ def main() -> None:
     del gbdt, multi
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)
+    report["profiler_sees_device"] = _PROFILER.get("sees_device")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -261,3 +261,72 @@ def test_split_gain_case_rejects_a_wrong_decision(timed_calls, monkeypatch):
     monkeypatch.setattr(chip_smoke.split_scan, "split_gain_decide", off_by_one)
     with pytest.raises(AssertionError, match="decision differs"):
         chip_smoke.split_gain_case(hist, 1.0, 1e-3, mask=mask)
+
+
+@pytest.mark.parametrize("sees_device,rows,by", [
+    (True, [("split_kernel<2, true>", 0.4, 2), ("other", 0.2, 2)], "profiler"),
+    (True, [], "events"),
+    (False, [("split_kernel<2, true>", 0.4, 2)], "events"),
+])
+def test_device_times_fall_back_to_events_without_a_device_trace(
+        timed_calls, monkeypatch, sees_device, rows, by):
+    """A pending device time comes from the profiler's kernels where its
+    trace holds them; where the profiler records no device time in this
+    process, or no trace of the function holds a kernel, it is the
+    CUDA-event time of as many calls, and says so."""
+    monkeypatch.setattr(chip_smoke, "profiler_sees_device", lambda: sees_device)
+    monkeypatch.setattr(chip_smoke, "device_trace", lambda fn, reps: list(rows))
+    d = chip_smoke.event_times(lambda: 1, reps=2)
+    assert d["device_ms"] is None
+    chip_smoke.fill_device_times()
+    assert d["device_ms_by"] == by and chip_smoke._PENDING == []
+    if by == "profiler":
+        assert d["device_ms"] == pytest.approx(0.3)
+        assert d["device_launches"] == {"split_kernel<2, true>": 1.0, "other": 1.0}
+    else:
+        assert d["device_ms"] == 0.0 and d["device_kernels"] == {}
+        assert len(timed_calls) == 2  # the event timing, then the fallback's
+
+
+def test_chain_calls_count_host_ops_without_a_device_trace():
+    """The argmax and masked_fill count reads the trace's host-side ops, so
+    a trace with no device activity still sees the plain decision chain,
+    and sees none in the surface alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    hist = torch.stack([torch.randn(3, 4, 16), torch.full((3, 4, 16), 1.25)])
+    mask = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        chip_smoke.split_scan.split_gain(hist, 1.0, 1e-3)
+    assert chip_smoke.chain_calls(prof, []) == 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        chip_smoke.split_scan.split_gain_decide(hist, 1.0, 1e-3, mask)
+    assert chip_smoke.chain_calls(prof, []) >= 2
+    host = chip_smoke.chain_calls(prof, [])
+    assert chip_smoke.chain_calls(prof, [("reduce_kernel<ArgMaxOps>", 0.1, 3)]) == host + 3
+
+
+def test_chain_calls_mode_sees_the_plain_chain_in_a_round():
+    """The warm-up round's argmax and masked_fill count needs no profiler:
+    on the CPU the staged level decides by the plain chain, which the mode
+    counts at every level of every tree; outside the mode nothing counts."""
+    x, y = chip_smoke.synthetic.multiclass_xy(200, 8, 2, seed=3)
+    data = chip_smoke.bin_dataset(x, y, n_bins=16, device="cpu")
+    cfg = chip_smoke.CFG._replace(
+        n_trees=4, learner=chip_smoke.CFG.learner._replace(depth=3, n_bins=16))
+    with chip_smoke.ChainCalls() as chain:
+        chip_smoke.Trainer(cfg, device="cpu").train(data, ("round_robin", 2), seed=0,
+                                                      rounds=1)
+        counted = chain.calls
+    assert counted >= 2 * 3  # a masked_fill and an argmax a level, at least one tree
+    torch.argmax(torch.zeros(3))
+    assert chain.calls == counted
+
+
+@pytest.mark.parametrize("by,share,text", [("profiler", 0.5, "50%"),
+                                           ("events", None, "not measured")])
+def test_busy_share_only_from_a_profiled_device_time(by, share, text):
+    """A CUDA-event span holds the device's idle gaps, so no busy share is
+    read from it."""
+    got = chip_smoke.busy({"device_ms_by": by}, 2.0, 4.0)
+    assert got == share and chip_smoke.pct(got) == text
