@@ -13,10 +13,29 @@ with the fused level (``backend="fused"``: levels 0-4 as one fused level
 each, 5-8 staged; its forest must be the staged one bit for bit) and on
 the sparse layout (``bin_dataset(..., sparse=True)``, twice); then a
 ``ForestServer`` answering raw float requests with the staged forest and
-with a seeded full 400-slot forest.
+with a seeded full 400-slot forest. The configuration comes from
+``configs.gbdt.get("efficiency-realsim")``.
 
-The second main path follows at once, the multiclass path and quantized
-serving: the JAX package's K-output configuration (``multiclass:5``,
+The handoff phase follows, with its own launch counts: the second staged
+run checkpoints its ``TrainState`` at rounds 8 and 16; both restore on the
+card bitwise (CRCs checked; the manifest in the JAX package's layout),
+and ``load_forest_checkpoint`` gives the trained forest bitwise. A
+``ForestServer`` on the round-8 forest answers 8 requests (each labelled
+8), reloads round 16 from the checkpoint root and answers them again,
+every answer bitwise a fresh round-16 server's; the reload (``latest_step``
+to install) is timed f32, int8 and fp16; an idle server's reload poller
+must pick up a newly written step within 2 s. ``ForestEngine`` then serves
+64 requests from its background thread with two versions, "half" (round
+8, f32) and "full" (round 16, int8, weight 3): each request by the version
+``route_hash`` picks, labelled with its step, int8 answers within
+``quantization_atol`` + 1e-6 of the f32 forest's; p50/p99 of queue,
+compute and end-to-end latency are printed. Last the train CLI (staged,
+fused, multiclass:5, sparse) and the serve CLI (wave, continuous, int8)
+run as a user runs them, each exiting clean with its own asserts.
+
+The second main path follows, the multiclass path and quantized
+serving: the driver's K-output configuration (``launch.train.gbdt_config``,
+``multiclass:5``,
 depth 6, v = 0.15, 64 bins, 2000-slot forest;
 ``make_multiclass_classification(4000, 60, 5, seed=0)``) trained 16 rounds
 at W = 4 staged (twice, bitwise equal) and fused (bitwise the staged
@@ -76,10 +95,13 @@ then non-zero and the last line is not printed. Details go to
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -93,8 +115,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import dataclasses  # noqa: E402
 
 import repro_torch.configs as lm_configs  # noqa: E402
+from repro_torch import checkpoint  # noqa: E402
+from repro_torch.configs import gbdt as gbdt_configs  # noqa: E402
 from repro_torch.convert import forest_from_numpy  # noqa: E402
-from repro_torch.core.sgbdt import SGBDTConfig, init_state, train_metrics  # noqa: E402
+from repro_torch.core.sgbdt import init_state, train_metrics  # noqa: E402
 from repro_torch.data.sampling import bernoulli_weights  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -115,7 +139,9 @@ from repro_torch.launch.steps import (  # noqa: E402
     make_prefill_step,
     make_train_step,
 )
-from repro_torch.launch.train import synthetic_batches  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.train import gbdt_config, synthetic_batches  # noqa: E402
 from repro_torch.models import forward_train, init_params  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     adamw,
@@ -125,16 +151,23 @@ from repro_torch.optim import (  # noqa: E402
 )
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.ps.engine import Trainer  # noqa: E402
-from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ForestEngine,
+    Request,
+    ServingEngine,
+    load_forest_checkpoint,
+    percentile_latencies,
+    route_hash,
+)
 from repro_torch.serving.forest_server import ForestServer, PredictRequest  # noqa: E402
 from repro_torch.trees.binning import apply_bins, bin_dataset, gather_feature_bins  # noqa: E402
 from repro_torch.trees.forest import (  # noqa: E402
     QuantizedForest,
+    empty_forest,
     forest_predict,
     quantization_atol,
 )
 from repro_torch.trees.learner import (  # noqa: E402
-    LearnerConfig,
     _smaller_children,
     _staged_level,
     build_tree,
@@ -150,11 +183,10 @@ PEAK_EX2_S = 132 * 16 * 1.83e9
 SEED = 0
 ROUNDS = 16
 WORKERS = 4
-# configs/gbdt.py "efficiency-realsim" of the JAX package (paper VI.C).
-CFG = SGBDTConfig(
-    n_trees=400, step_length=0.01, sampling_rate=0.8, loss="logistic",
-    learner=LearnerConfig(depth=9, n_bins=64, feature_fraction=0.8, hist_mode="subtract"),
-)
+# configs.gbdt "efficiency-realsim" (paper VI.C): depth 9, 64 bins, feature
+# fraction 0.8, R = 0.8, v = 0.01, 400 slots; realsim-like data.
+REALSIM = "efficiency-realsim"
+CFG = gbdt_configs.EXPERIMENTS[REALSIM].config
 CFG_FUSED = CFG._replace(learner=CFG.learner._replace(backend="fused"))
 KERNELS = {
     "histogram": (histogram, "src/repro_torch/csrc/histogram.cu",
@@ -169,21 +201,46 @@ KERNELS = {
                          "src/repro/kernels/histogram_sparse.py:87"),
 }
 
-# The multiclass path: the JAX package's own K-output configuration
+# The multiclass path: the driver's K-output configuration
 # (launch/train.py --arch gbdt --objective multiclass:5 on
 # gbdt_dataset_for("multiclass:5")): make_multiclass_classification(4000,
 # 60, 5, seed=0) at 64 bins, a 2000-slot forest (400 rounds x 5), 16 rounds
 # at W = 4 as the logistic phase runs.
 MC_SHAPE = (4000, 60, 5)  # rows, features, classes
-MC_CFG = SGBDTConfig(
-    n_trees=400, step_length=0.15, sampling_rate=0.8, objective="multiclass:5",
-    learner=LearnerConfig(depth=6, n_bins=64, feature_fraction=0.8, hist_mode="subtract"),
-)
+MC_CFG = gbdt_config("multiclass:5", 400)
 MC_CFG_FUSED = MC_CFG._replace(learner=MC_CFG.learner._replace(backend="fused"))
 QUANT_MODES = (None, "int8", "fp16")  # each forest is served f32 and packed both ways
 # ForestServer's max_rows: every serving wave runs the traversal on this
 # many rows, padded.
 WAVE_ROWS = 256
+# The handoff phase: the realsim run's TrainState checkpointed at rounds 8
+# and 16 (under build/, beside the kernels), restored, served and
+# hot-swapped; the reload timed RELOAD_REPS times a form; an idle server's
+# poller (every POLL_S) must pick up a new step within POLL_BOUND_S; the
+# continuous engine takes ENGINE_REQUESTS requests ENGINE_GAP_S apart.
+HANDOFF_DIR = ROOT / "build" / "handoff"
+HANDOFF_HALF = ROUNDS // 2
+RELOAD_REPS = 5
+POLL_S, POLL_BOUND_S = 0.05, 2.0
+ENGINE_REQUESTS, ENGINE_GAP_S, ENGINE_SLO_S = 64, 0.002, 0.05
+# The reference's TrainState layout (tests/golden/ckpt of the JAX package):
+# leaf paths and dtypes in manifest order.
+REF_LAYOUT = [(".forest/.feature", "int32"), (".forest/.threshold", "int32"),
+              (".forest/.leaf_value", "float32"), (".forest/.n_trees", "int32"),
+              (".forest/.base_score", "float32"), (".f", "float32"), (".step", "int32")]
+# The CLIs the handoff phase runs, as a user would (on the card).
+TRAIN_CLIS = {
+    "staged": ["--arch", "gbdt", "--steps", "16", "--workers", "4"],
+    "fused": ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--backend", "fused"],
+    "multiclass:5": ["--arch", "gbdt", "--steps", "16", "--workers", "4",
+                     "--objective", "multiclass:5"],
+    "sparse": ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--sparse"],
+}
+SERVE_CLIS = {
+    "wave": ["--arch", "gbdt"],
+    "continuous": ["--arch", "gbdt", "--engine", "continuous"],
+    "wave int8": ["--arch", "gbdt", "--quantize", "int8"],
+}
 # The traversal forms' ragged case: rows (not a multiple of the kernel's
 # 16-sample block) and live slots of each forest (not a multiple of the
 # 16-tree pass, nor of K).
@@ -882,28 +939,45 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
     }
 
 
-def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | None = None):
+def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | None = None,
+          ckpt=None):
     """Phase 2: 16 rounds of efficiency-realsim (``cfg``: staged or fused)
     under round-robin W = 4. ``round_s`` collects a host time stamp after
     each round (and one before the first); ``fused_per_round`` the fused
-    levels each round's tree ran."""
+    levels each round's tree ran; ``ckpt`` (a ``CheckpointManager``) saves
+    the ``TrainState`` through the trainer's eval hook at each round its
+    ``save_every`` divides."""
     marks = [level_build.launches]
 
     def tick(state, j):
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter())
-        marks.append(level_build.launches)
+        if ckpt is not None:
+            ckpt.maybe_save(j, state)
+        if round_s is not None:
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter())
+            marks.append(level_build.launches)
 
     if round_s is not None:
         torch.cuda.synchronize()
         round_s.append(time.perf_counter())
     state = Trainer(cfg, device=data.bins.device).train(
         data, ("round_robin", WORKERS), seed=SEED, rounds=ROUNDS,
-        eval_every=1 if round_s is not None else 0, eval_fn=tick,
+        eval_every=1 if round_s is not None or ckpt is not None else 0, eval_fn=tick,
     )
     if fused_per_round is not None:
         fused_per_round.extend(b - a for a, b in zip(marks, marks[1:]))
     return state
+
+
+def draw_requests(x: np.ndarray, rng, n: int) -> list:
+    """``n`` raw-float requests of 1-600 rows (the first one 600, oversized
+    for a 256-row wave), each a random slice of ``x``."""
+    sizes = [600] + [int(s) for s in rng.integers(1, 257, n - 1)]
+    reqs = []
+    for uid, size in enumerate(sizes):
+        lo = int(rng.integers(0, x.shape[0] - size + 1))
+        reqs.append(PredictRequest(uid, x[lo:lo + size]))
+    return reqs
 
 
 def serve(forest, x: np.ndarray, edges, rng, objective="logistic", quantize=None) -> tuple:
@@ -912,11 +986,7 @@ def serve(forest, x: np.ndarray, edges, rng, objective="logistic", quantize=None
     (server, requests, results)."""
     server = ForestServer(forest, edges, max_rows=WAVE_ROWS, objective=objective,
                           quantize=quantize, device=edges.device)
-    sizes = [600] + [int(s) for s in rng.integers(1, 257, 7)]
-    reqs = []
-    for uid, size in enumerate(sizes):
-        lo = int(rng.integers(0, x.shape[0] - size + 1))
-        reqs.append(PredictRequest(uid, x[lo:lo + size]))
+    reqs = draw_requests(x, rng, 8)
     return server, reqs, server.run(reqs)
 
 
@@ -1087,16 +1157,22 @@ def drive(dev: torch.device) -> dict:
     checks' device times would slow the host side of every later op (see
     ``_PENDING``), and the rounds are host-bound. Returns what the checks
     need."""
-    spec = synthetic.PAPER_DATASETS["realsim-like"]
-    x, y, mult = synthetic.raw(spec)
-    data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
+    cfg, data = gbdt_configs.get(REALSIM, device=dev)
+    if cfg != CFG:
+        raise AssertionError(f"configs.gbdt.get({REALSIM!r}) returned another config")
+    x, y, mult = synthetic.raw(gbdt_configs.EXPERIMENTS[REALSIM].dataset)
     sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True)
     rng = np.random.default_rng(SEED)
+    ckpt_root = HANDOFF_DIR / "realsim"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt = checkpoint.CheckpointManager(ckpt_root, save_every=HANDOFF_HALF, keep=4)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     stamps: dict = {"staged": [], "fused": [], "sparse": []}
     fused_per_round: list = []
-    runs = {"staged": train(data, CFG, stamps["staged"]), "again": train(data, CFG),
+    # The second staged run (untimed) checkpoints at rounds 8 and 16 for the
+    # handoff phase.
+    runs = {"staged": train(data, CFG, stamps["staged"]), "again": train(data, CFG, ckpt=ckpt),
             "fused": train(data, CFG_FUSED, stamps["fused"], fused_per_round),
             "sparse": train(sparse, CFG, stamps["sparse"]), "sparse_again": train(sparse, CFG)}
     served = serve(runs["staged"].forest, x, data.bin_edges, rng)
@@ -1106,7 +1182,7 @@ def drive(dev: torch.device) -> dict:
     return {"data": data, "sparse": sparse, "x": x, "rng": rng, "runs": runs,
             "stamps": stamps, "fused_per_round": fused_per_round, "served": (served, full),
             "counts": gbdt_counts(), "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "forest": runs["staged"].forest}
+            "forest": runs["staged"].forest, "ckpt_root": ckpt_root}
 
 
 def check_drive(run: dict, report: dict) -> list:
@@ -1216,6 +1292,269 @@ def check_drive(run: dict, report: dict) -> list:
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": counts[name], **kstats[name]})
     return line
+
+
+def same_tensors(tag: str, a, b) -> None:
+    """Require two NamedTuples of tensors (forests, states) to be bitwise
+    equal and on one device."""
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if isinstance(x, torch.Tensor):
+            if x.device != y.device or x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{tag}: {name} differs")
+        elif isinstance(x, tuple):
+            same_tensors(f"{tag}.{name}", x, y)
+        elif x != y:
+            raise AssertionError(f"{tag}: {name} {x} != {y}")
+
+
+def check_restore(run: dict) -> dict:
+    """The checkpoints of ``drive``'s second staged run: restored on the card
+    with the CRC checked, bitwise the trained state (round 16) and its
+    first 8 slots (round 8); the manifest in the reference's layout;
+    ``load_forest_checkpoint`` bitwise the trained forest."""
+    root, state = run["ckpt_root"], run["runs"]["again"]
+    if checkpoint.steps(root) != [HANDOFF_HALF, ROUNDS]:
+        raise AssertionError(f"checkpoints {checkpoint.steps(root)}, expected "
+                             f"{[HANDOFF_HALF, ROUNDS]}")
+    restore_ms = []
+    for _ in range(RELOAD_REPS):
+        t0 = time.perf_counter()
+        back = checkpoint.restore_pytree(root, ROUNDS, state, check_crc=True)
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+        same_tensors("restored round-16 state", back, state)
+    if type(back.step) is not int or back.step != ROUNDS:
+        raise AssertionError(f"restored step {back.step!r}")
+    half = checkpoint.restore_pytree(root, HANDOFF_HALF, state, check_crc=True)
+    empty = empty_forest(CFG.n_trees, CFG.learner.depth, device=state.f.device)
+    k = HANDOFF_HALF
+    for name in ("feature", "threshold", "leaf_value"):
+        got, done, rest = (getattr(half.forest, name), getattr(state.forest, name),
+                           getattr(empty, name))
+        if not (torch.equal(got[:k], done[:k]) and torch.equal(got[k:], rest[k:])):
+            raise AssertionError(f"round-{k} checkpoint: forest.{name} is not the run's "
+                                 f"first {k} slots")
+    if int(half.forest.n_trees) != k or half.step != k:
+        raise AssertionError(f"round-{k} checkpoint holds {int(half.forest.n_trees)} trees")
+    manifest = checkpoint.leaf_manifest(root, ROUNDS)
+    layout = [(p, e["dtype"]) for p, e in manifest.items()]
+    if layout != REF_LAYOUT:
+        raise AssertionError(f"manifest layout {layout} is not the reference's {REF_LAYOUT}")
+    shapes = {p: e["shape"] for p, e in manifest.items()}
+    forest = load_forest_checkpoint(root, ROUNDS, like=state.forest, device=state.f.device)
+    same_tensors("load_forest_checkpoint", forest, state.forest)
+    return {"steps": checkpoint.steps(root), "restore_ms": restore_ms, "shapes": shapes,
+            "bytes": sum((p.stat().st_size for p in checkpoint.step_dir(root, ROUNDS).iterdir()))}
+
+
+def check_swap(run: dict, forest8, reqs: list) -> dict:
+    """Hot swap: a server on the round-8 forest answers ``reqs`` (each
+    result labelled 8), gets the checkpoint root, reloads round 16 (timed,
+    ``latest_step`` to install) and answers them again, every result
+    bitwise a fresh round-16 server's. Then each form (f32, int8, fp16)
+    reloads RELOAD_REPS times on fresh round-8 servers, timed, the last
+    one's answers bitwise a fresh server's of that form."""
+    root, state, edges = run["ckpt_root"], run["runs"]["again"], run["data"].bin_edges
+    dev = edges.device
+
+    def server(forest, step, quantize=None, ckpt_root=None):
+        return ForestServer(forest, edges, ckpt_root=ckpt_root, max_rows=WAVE_ROWS,
+                            model_step=step, objective="logistic", quantize=quantize,
+                            device=dev)
+
+    def same_answers(tag, got, want):
+        for a, b in zip(got, want):
+            if a.uid != b.uid or {a.model_step, b.model_step} != {ROUNDS} \
+                    or not np.array_equal(a.scores, b.scores):
+                raise AssertionError(f"{tag}: request {a.uid} differs from a fresh "
+                                     "round-16 server's answer")
+
+    live = server(forest8, HANDOFF_HALF)
+    before = live.run(reqs)
+    if {r.model_step for r in before} != {HANDOFF_HALF}:
+        raise AssertionError("a request before the swap was not labelled "
+                             f"{HANDOFF_HALF}")
+    live.ckpt_root = root
+    t0 = time.perf_counter()
+    swapped = live.maybe_reload()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    if not swapped or live.model_step != ROUNDS:
+        raise AssertionError(f"maybe_reload left the server at step {live.model_step}")
+    after = live.run(reqs)
+    same_answers("hot swap", after, server(state.forest, ROUNDS).run(reqs))
+    changed = sum(not np.array_equal(a.scores, b.scores) for a, b in zip(before, after))
+    reload_ms = {}
+    for mode in (None, "int8", "fp16"):
+        times = []
+        for _ in range(RELOAD_REPS):
+            fresh = server(forest8, HANDOFF_HALF, mode, root)
+            t0 = time.perf_counter()
+            fresh.maybe_reload()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if fresh.model_step != ROUNDS:
+                raise AssertionError(f"{mode or 'f32'} reload left step {fresh.model_step}")
+        same_answers(f"{mode or 'f32'} reload", fresh.run(reqs),
+                     server(state.forest, ROUNDS, mode).run(reqs))
+        reload_ms[mode or "f32"] = times
+    return {"live": live, "first_reload_ms": first_ms, "reload_ms": reload_ms,
+            "requests_changed_by_the_swap": changed, "waves": live.waves_served}
+
+
+def check_poller(run: dict, live) -> dict:
+    """An idle server (the swapped one) with its poller running picks up a
+    newly written step (the round-16 state saved as step 17) within
+    POLL_BOUND_S, serving no wave meanwhile."""
+    root, state = run["ckpt_root"], run["runs"]["again"]
+    waves = live.waves_served
+    live.start_reload_poller(interval_s=POLL_S)
+    try:
+        checkpoint.save_pytree(root, ROUNDS + 1, state)
+        saved = time.perf_counter()
+        while time.perf_counter() - saved < POLL_BOUND_S:
+            with live._lock:
+                step = live.model_step
+            if step == ROUNDS + 1:
+                break
+            time.sleep(0.005)
+        lag_ms = 1e3 * (time.perf_counter() - saved)
+    finally:
+        live.stop_reload_poller()
+    if step != ROUNDS + 1 or live.waves_served != waves:
+        raise AssertionError(f"idle poller: step {step} after {lag_ms:.0f} ms "
+                             f"(bound {POLL_BOUND_S} s)")
+    return {"pickup_ms": lag_ms, "interval_s": POLL_S, "bound_s": POLL_BOUND_S}
+
+
+def check_engine(run: dict, forest8, forest16, reqs: list) -> dict:
+    """``ForestEngine`` on the card, run by its background thread: "half"
+    (the round-8 forest, f32) and "full" (round 16, int8, weight 3).
+    Requests arrive ENGINE_GAP_S apart. Each is served by the version
+    ``route_hash`` picks and labelled with its step; "half" answers are
+    link(forest_predict) within 1e-6, "full" answers within
+    ``quantization_atol`` + 1e-6 of the f32 round-16 forest's (the logistic
+    link, sigmoid(2F), moves less than its margin does)."""
+    edges = run["data"].bin_edges
+    steps = {"half": HANDOFF_HALF, "full": ROUNDS}
+    eng = ForestEngine(edges, max_rows=WAVE_ROWS, slo_s=ENGINE_SLO_S, device=edges.device)
+    eng.add_version("half", forest8, model_step=steps["half"], objective="logistic")
+    eng.add_version("full", forest16, model_step=steps["full"], objective="logistic",
+                    quantize="int8", weight=3.0)
+    eng.start(interval_s=0.001)
+    got = []
+    try:
+        for r in reqs:
+            eng.submit(r)
+            time.sleep(ENGINE_GAP_S)
+        deadline = time.perf_counter() + 30.0
+        while len(got) < len(reqs) and time.perf_counter() < deadline:
+            got.extend(eng.poll())
+            time.sleep(0.002)
+    finally:
+        eng.stop()
+    got = sorted(got + eng.poll(), key=lambda r: r.uid)
+    if [r.uid for r in got] != [r.uid for r in reqs]:
+        raise AssertionError("continuous engine: not every request answered once")
+    q8 = forest16.quantize("int8")
+    atol = quantization_atol(forest16, q8)
+    bins = [apply_bins(torch.from_numpy(r.x).to(edges.device), edges) for r in reqs]
+    err = {"half": 0.0, "full": 0.0}
+    for r, b in zip(got, bins):
+        want = "half" if route_hash(r.uid) < 0.25 else "full"
+        if r.version != want or r.model_step != steps[want]:
+            raise AssertionError(f"request {r.uid}: version {r.version} step {r.model_step}, "
+                                 f"route_hash picks {want} (step {steps[want]})")
+        ref = CFG.obj.link(forest_predict(forest8 if want == "half" else forest16, b))
+        diff = float(np.abs(r.scores - ref.cpu().numpy()).max())
+        err[want] = max(err[want], diff)
+        if diff > (1e-6 if want == "half" else atol + 1e-6):
+            raise AssertionError(f"request {r.uid} ({want}): off by {diff} (int8 bound {atol})")
+    split = {v: sum(r.version == v for r in got) for v in steps}
+    return {"latency": percentile_latencies(got), "split": split, "max_abs_err": err,
+            "quantization_atol": atol, "requests": len(got), "slo_s": ENGINE_SLO_S,
+            "gap_s": ENGINE_GAP_S}
+
+
+def run_clis() -> dict:
+    """The train and serve CLIs as a user runs them (on the card): each
+    must exit clean with its own asserts; their output is kept, not printed."""
+    out = {}
+    for tag, argv in TRAIN_CLIS.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state = train_cli.main(argv)
+        k = int(argv[argv.index("--objective") + 1].split(":")[1]) if "--objective" in argv else 1
+        steps = int(argv[argv.index("--steps") + 1])
+        if int(state.forest.n_trees) != steps * k or not torch.isfinite(state.f).all():
+            raise AssertionError(f"train CLI ({tag}): {int(state.forest.n_trees)} trees")
+        out[f"train {tag}"] = {"s": time.perf_counter() - t0,
+                               "tail": buf.getvalue().splitlines()[-2:]}
+    for tag, argv in SERVE_CLIS.items():
+        root = HANDOFF_DIR / f"serve_{tag.replace(' ', '_')}"
+        shutil.rmtree(root, ignore_errors=True)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            results = serve_cli.main(argv + ["--ckpt-dir", str(root)])
+        if not results or not all(np.isfinite(r.scores).all() for r in results):
+            raise AssertionError(f"serve CLI ({tag}) returned no finite results")
+        out[f"serve {tag}"] = {"s": time.perf_counter() - t0,
+                               "lines": buf.getvalue().splitlines()[1:3]}
+    return out
+
+
+def drive_handoff(run: dict, report: dict) -> None:
+    """The handoff phase, after the realsim drive, with its own launch
+    counts (reset just before, read just after): checkpoint restore, hot
+    swap with the reload timed in every form, the idle poller, the
+    continuous engine and the train and serve CLIs. Every gate raises."""
+    state, x = run["runs"]["again"], run["x"]
+    dev = state.f.device
+    card = report.get("nvidia_smi", "card not queried")
+    rng = np.random.default_rng(SEED + 7)
+    reset_counts()
+    t0 = time.perf_counter()
+    restored = check_restore(run)
+    forest8 = load_forest_checkpoint(run["ckpt_root"], HANDOFF_HALF, like=state.forest,
+                                     device=dev)
+    forest16 = load_forest_checkpoint(run["ckpt_root"], ROUNDS, like=state.forest, device=dev)
+    swap = check_swap(run, forest8, draw_requests(x, rng, 8))
+    poller = check_poller(run, swap.pop("live"))
+    engine = check_engine(run, forest8, forest16, draw_requests(x, rng, ENGINE_REQUESTS))
+    clis = run_clis()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = gbdt_counts()
+    wall_s = time.perf_counter() - t0
+    need = ("histogram", "split_gain", "level_build", "histogram_sparse", "f32", "int8", "fp16")
+    if any(counts[k] <= 0 for k in need):
+        raise AssertionError(f"handoff: a kernel of the path never launched: {counts}")
+    report["handoff"] = {"restore": restored, "swap": swap, "poller": poller,
+                         "engine": engine, "cli": clis, "launches": counts, "wall_s": wall_s}
+    med = {k: float(np.median(v)) for k, v in swap["reload_ms"].items()}
+    lat = engine["latency"]
+    print(f"handoff: round-{ROUNDS} TrainState restored bitwise on the card (CRC checked; "
+          f"first {restored['restore_ms'][0]:.1f} ms, median of {RELOAD_REPS} "
+          f"{float(np.median(restored['restore_ms'])):.1f}), round {HANDOFF_HALF} its first "
+          "slots, manifest in "
+          "the reference's layout, load_forest_checkpoint bitwise; hot swap "
+          f"{HANDOFF_HALF} -> {ROUNDS}, every answer bitwise a fresh round-{ROUNDS} server's "
+          f"({swap['requests_changed_by_the_swap']} of 8 requests changed)", flush=True)
+    print("handoff reload ms (latest_step to install, median of "
+          f"{RELOAD_REPS}; first swap {swap['first_reload_ms']:.2f}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + f"; idle poller picked up step {ROUNDS + 1} in {poller['pickup_ms']:.1f} ms "
+          f"(every {POLL_S} s, bound {POLL_BOUND_S} s) [{card}]", flush=True)
+    print(f"handoff engine ({engine['requests']} requests {ENGINE_GAP_S * 1e3:g} ms apart, "
+          f"split {engine['split']}, int8 within {engine['max_abs_err']['full']:.3g} of "
+          f"f32, bound {engine['quantization_atol']:.3g}): p50/p99 ms queue "
+          f"{lat['queue_p50_ms']:.3f}/{lat['queue_p99_ms']:.3f}, compute "
+          f"{lat['compute_p50_ms']:.3f}/{lat['compute_p99_ms']:.3f}, end-to-end "
+          f"{lat['latency_p50_ms']:.3f}/{lat['latency_p99_ms']:.3f} [{card}]", flush=True)
+    print("handoff CLIs exit clean: " + "; ".join(f"{k} {v['s']:.1f} s"
+                                                  for k, v in clis.items()), flush=True)
+    print("handoff launches: " + json.dumps({k: counts[k] for k in need})
+          + f"; phase wall {wall_s:.1f} s", flush=True)
 
 
 def seeded_multiclass_forest(rng: np.random.Generator, dev) -> object:
@@ -2463,6 +2802,7 @@ def main() -> None:
     # realsim checks take every pending device time, the multiclass
     # checks' too.
     gbdt = drive(torch.device("cuda"))
+    drive_handoff(gbdt, report)
     multi = drive_multiclass(torch.device("cuda"), gbdt)
     checked = check_multiclass(multi, gbdt, report)
     line = check_drive(gbdt, report)

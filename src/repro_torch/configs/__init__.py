@@ -2,7 +2,7 @@
 
 Each module pins the exact dims from the assignment (source in brackets in
 its docstring). GBDT configs for the paper's own experiments live in
-``repro.configs.gbdt``.
+``repro_torch.configs.gbdt``.
 """
 from __future__ import annotations
 

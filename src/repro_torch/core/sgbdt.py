@@ -6,7 +6,7 @@ set; one boosting round is one projected SGD step on E[L_random(F; Q)].
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -49,6 +49,22 @@ def init_state(cfg: SGBDTConfig, data: BinnedData) -> TrainState:
                           n_outputs=obj.n_outputs, device=data.bins.device)
     f = base.expand((data.n_samples,) + tuple(base.shape)).clone()
     return TrainState(forest=forest, f=f, step=0)
+
+
+def train_serial(
+    cfg: SGBDTConfig,
+    data: BinnedData,
+    seed: int = 0,
+    eval_every: int = 0,
+    eval_fn: Callable[[TrainState, int], None] | None = None,
+) -> TrainState:
+    """The paper's serial stochastic GBDT (Fig. 3): the PS engine under the
+    zero-staleness schedule ``("round_robin", 1)`` (k(j) = j), on the
+    data's device; no loop of its own."""
+    from repro_torch.ps.engine import train  # the engine imports this module
+
+    return train(cfg, data, ("round_robin", 1), seed=seed, eval_every=eval_every,
+                 eval_fn=eval_fn)
 
 
 def train_loss(cfg: SGBDTConfig, data: BinnedData, state: TrainState) -> torch.Tensor:

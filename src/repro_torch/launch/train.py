@@ -1,5 +1,5 @@
-"""Training driver of the port's LM zoo (twin of the LM part of
-``repro.launch.train``), on the card unless ``--device cpu``:
+"""Training driver (twin of ``repro.launch.train``), on the card unless
+``--device cpu``. The LM zoo:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --steps 200 --batch 8 --seq 128 [--full] [--delay 4] [--sample 0.8]
@@ -8,6 +8,16 @@
 mechanism with Proposition 1's step scale; ``--sample`` draws Bernoulli
 importance weights per microbatch: the two halves of asynch-SGBDT applied
 to NN training. Configs are reduced unless ``--full``.
+
+``--arch gbdt`` drives the paper's own model through the parameter-server
+engine (``repro_torch.ps``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gbdt \
+        --steps 200 --workers 16 [--sample 0.8] [--sparse] \
+        [--backend staged|fused] [--objective logistic|multiclass:5]
+
+The reference's other objectives (ROADMAP.md A4), ``--runtime threads``
+(A5), ``--mesh`` (A8) and ``--scan`` raise until they are ported.
 """
 from __future__ import annotations
 
@@ -52,7 +62,82 @@ def synthetic_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
         }
 
 
-def main(argv: list[str] | None = None) -> list[float]:
+def gbdt_dataset_for(objective, seed: int, n: int = 4_000,
+                     device: str | torch.device | None = None):
+    """The objective's matched synthetic workload on ``device`` (the card
+    unless one is given) -> (objective, data): K-class blobs over 60
+    features for ``multiclass:K``, sparse classification (1000 features, 20
+    nonzeros a row) for logistic. The regression and ranking objectives
+    raise in ``get_objective`` (ROADMAP.md A4)."""
+    from repro_torch.data import synthetic as D
+    from repro_torch.objectives import get_objective
+
+    obj = get_objective(objective)
+    if obj.n_outputs > 1:
+        return obj, D.make_multiclass_classification(n, 60, obj.n_outputs, seed=seed,
+                                                     device=device)
+    return obj, D.make_sparse_classification(n, 1_000, 20, seed=seed, device=device)
+
+
+def gbdt_config(objective: str, n_trees: int, sample: float = 0.8,
+                hist_mode: str = "subtract", backend: str = "staged"):
+    """The driver's GBDT configuration: depth 6, 64 bins, feature fraction
+    0.8, v = 0.15, Bernoulli rate ``sample``."""
+    from repro_torch.core.sgbdt import SGBDTConfig
+    from repro_torch.trees.learner import LearnerConfig
+
+    return SGBDTConfig(
+        n_trees=n_trees, step_length=0.15, sampling_rate=sample, objective=objective,
+        learner=LearnerConfig(depth=6, n_bins=64, feature_fraction=0.8,
+                              hist_mode=hist_mode, backend=backend),
+    )
+
+
+def run_gbdt(args):
+    """Asynch-SGBDT on the PS engine under round-robin W workers (the loop
+    form); returns the final ``TrainState``."""
+    from repro_torch.core.sgbdt import train_loss, train_metrics
+    from repro_torch.ps import Trainer
+    from repro_torch.trees import binning
+
+    if args.runtime == "threads":
+        raise NotImplementedError("--runtime threads: the host-async runtime is not "
+                                  "ported yet (ROADMAP.md A5)")
+    if args.mesh != "none":
+        raise NotImplementedError("--mesh: the sharded GBDT build is not ported yet "
+                                  "(ROADMAP.md A8)")
+    if args.scan:
+        raise NotImplementedError("--scan: the trainer's lax.scan form has no torch twin "
+                                  "yet (queued in ROADMAP.md A)")
+    dev = resolve_device(args.device)
+    obj, data = gbdt_dataset_for(args.objective, args.seed, device=dev)
+    if args.sparse:
+        data = data._replace(bins=binning.to_sparse(data.bins))
+        print(f"sparse bins: {data.bins.indices.shape[1]} nnz/row ELL "
+              "(dense round-trip exact)")
+    cfg = gbdt_config(args.objective, args.steps, args.sample or 0.8, args.hist_mode,
+                      args.backend)
+    schedule = ("round_robin", args.workers)
+    print(f"gbdt[{obj.name}, K={obj.n_outputs}]: {args.steps} rounds, {args.workers} PS "
+          f"workers (loop form, {args.backend} levels), device={dev}")
+    t0 = time.time()
+
+    def on_eval(st, j):
+        print(f"  round {j:4d}: train loss {float(train_loss(cfg, data, st)):.4f}")
+
+    state = Trainer(cfg, device=dev).train(
+        data, schedule, seed=args.seed,
+        eval_every=max(args.log_every, 1) * 5, eval_fn=on_eval,
+    )
+    metrics = {k: f"{float(v):.4f}" for k, v in train_metrics(cfg, data, state).items()}
+    print(f"final {metrics}")
+    print(f"trained in {time.time() - t0:.1f}s")
+    if not np.isfinite(float(train_loss(cfg, data, state))):
+        raise RuntimeError("training diverged")
+    return state
+
+
+def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -72,11 +157,30 @@ def main(argv: list[str] | None = None) -> list[float]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain versions)")
+    ap.add_argument("--workers", type=int, default=8,
+                    help="parameter-server worker count (--arch gbdt)")
+    ap.add_argument("--objective", default="logistic",
+                    help="GBDT objective registry spec: logistic | multiclass:K")
+    ap.add_argument("--sparse", action="store_true",
+                    help="train on the SparseBins layout (exact round trip; the "
+                         "histogram's cost scales with the stored entries)")
+    ap.add_argument("--hist-mode", choices=("subtract", "rebuild"), default="subtract",
+                    dest="hist_mode",
+                    help="GBDT level histograms: 'subtract' derives each split's sibling "
+                         "from the parent; 'rebuild' histograms every node")
+    ap.add_argument("--backend", choices=("staged", "fused"), default="staged",
+                    help="GBDT tree levels: 'staged' (histogram, split gain and "
+                         "routing kernels) or 'fused' (one level kernel where it fits)")
+    ap.add_argument("--runtime", choices=("simulated", "threads"), default="simulated",
+                    help="PS execution; 'threads' is not ported yet (ROADMAP.md A5)")
+    ap.add_argument("--mesh", choices=("none", "1d", "2d"), default="none",
+                    help="GBDT build sharding; not ported yet (ROADMAP.md A8)")
+    ap.add_argument("--scan", action="store_true",
+                    help="the trainer's scan form; not ported yet")
     args = ap.parse_args(argv)
 
     if args.arch == "gbdt":
-        raise NotImplementedError("--arch gbdt: the GBDT driver is not ported yet "
-                                  "(ROADMAP.md, A12: drivers and benchmarks)")
+        return run_gbdt(args)
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:

@@ -19,6 +19,7 @@ hand them in.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, Sequence
 
 import torch
@@ -151,3 +152,42 @@ class Trainer:
             if eval_fn is not None and eval_every and (j + 1) % eval_every == 0:
                 eval_fn(TrainState(forest, f, j + 1), j + 1)
         return TrainState(forest=forest, f=f, step=rounds)
+
+
+# One cached Trainer per (config, device), LRU-bounded: a sweep over many
+# configs keeps at most _TRAINERS_MAX of them.
+_TRAINERS: "OrderedDict[tuple[SGBDTConfig, torch.device], Trainer]" = OrderedDict()
+_TRAINERS_MAX = 8
+
+
+def get_trainer(cfg: SGBDTConfig, device: str | torch.device | None = None) -> Trainer:
+    """The cached ``Trainer`` of ``cfg`` on ``device`` (the card unless one
+    is given)."""
+    key = (cfg, resolve_device(device))
+    trainer = _TRAINERS.get(key)
+    if trainer is None:
+        trainer = _TRAINERS[key] = Trainer(cfg, device=key[1])
+        while len(_TRAINERS) > _TRAINERS_MAX:
+            _TRAINERS.popitem(last=False)
+    else:
+        _TRAINERS.move_to_end(key)
+    return trainer
+
+
+def clear_trainers() -> None:
+    """Drop every cached Trainer."""
+    _TRAINERS.clear()
+
+
+def train(
+    cfg: SGBDTConfig,
+    data: BinnedData,
+    schedule=("round_robin", 1),
+    seed: int = 0,
+    eval_every: int = 0,
+    eval_fn: Callable[[TrainState, int], None] | None = None,
+) -> TrainState:
+    """Functional convenience over the cached Trainer of ``cfg`` on the
+    data's device."""
+    return get_trainer(cfg, data.bins.device).train(
+        data, schedule, seed=seed, eval_every=eval_every, eval_fn=eval_fn)

@@ -330,3 +330,82 @@ def test_busy_share_only_from_a_profiled_device_time(by, share, text):
     read from it."""
     got = chip_smoke.busy({"device_ms_by": by}, 2.0, 4.0)
     assert got == share and chip_smoke.pct(got) == text
+
+
+@pytest.fixture
+def handoff_run(tmp_path, monkeypatch):
+    """The handoff phase's input at a small size on the CPU: ``drive``'s
+    second staged run checkpointed at rounds 2 and 4 (``train(ckpt=)``)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    cfg = chip_smoke.CFG._replace(
+        n_trees=12, learner=chip_smoke.CFG.learner._replace(depth=3))
+    for name, value in (("CFG", cfg), ("ROUNDS", 4), ("HANDOFF_HALF", 2), ("RELOAD_REPS", 2),
+                        ("ENGINE_GAP_S", 0.0), ("ENGINE_SLO_S", 0.01)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    x, y = chip_smoke.synthetic.sparse_classification_xy(700, 30, 6, seed=2)
+    data = chip_smoke.bin_dataset(x, y, n_bins=64, device="cpu")
+    ckpt = chip_smoke.checkpoint.CheckpointManager(tmp_path, save_every=2, keep=4)
+    state = chip_smoke.train(data, cfg, ckpt=ckpt)
+    return {"data": data, "x": x, "runs": {"again": state}, "ckpt_root": tmp_path}
+
+
+def test_draw_requests_sizes_and_slices():
+    x = np.arange(5000, dtype=np.float32)[:, None].repeat(3, 1)
+    reqs = chip_smoke.draw_requests(x, np.random.default_rng(1), 30)
+    again = chip_smoke.draw_requests(x, np.random.default_rng(1), 30)
+    assert [r.uid for r in reqs] == list(range(30)) and len(reqs[0].x) == 600
+    assert all(1 <= len(r.x) <= 256 for r in reqs[1:])
+    assert all(np.array_equal(a.x, b.x) for a, b in zip(reqs, again))
+    assert all(np.array_equal(r.x[:, 0], np.arange(r.x[0, 0], r.x[0, 0] + len(r.x)))
+               for r in reqs)
+
+
+def test_handoff_checks_pass_on_a_small_cpu_run(handoff_run):
+    run = handoff_run
+    state = run["runs"]["again"]
+    restored = chip_smoke.check_restore(run)
+    assert restored["steps"] == [2, 4] and list(restored["shapes"]) == [
+        p for p, _ in chip_smoke.REF_LAYOUT]
+    f2 = chip_smoke.load_forest_checkpoint(run["ckpt_root"], 2, like=state.forest, device="cpu")
+    f4 = chip_smoke.load_forest_checkpoint(run["ckpt_root"], 4, like=state.forest, device="cpu")
+    reqs = chip_smoke.draw_requests(run["x"], np.random.default_rng(3), 8)
+    swap = chip_smoke.check_swap(run, f2, reqs)
+    assert set(swap["reload_ms"]) == {"f32", "int8", "fp16"} and swap["live"].model_step == 4
+    poller = chip_smoke.check_poller(run, swap["live"])
+    assert poller["pickup_ms"] < 1e3 * chip_smoke.POLL_BOUND_S
+    engine = chip_smoke.check_engine(run, f2, f4, chip_smoke.draw_requests(
+        run["x"], np.random.default_rng(4), 24))
+    assert engine["requests"] == 24 and sum(engine["split"].values()) == 24
+    assert engine["max_abs_err"]["full"] <= engine["quantization_atol"] + 1e-6
+
+
+def test_handoff_checks_fail_a_planted_fault(handoff_run, monkeypatch):
+    """A corrupt leaf, a server that never swaps and a misrouted request
+    each fail their gate."""
+    run = handoff_run
+    state = run["runs"]["again"]
+    f2 = chip_smoke.load_forest_checkpoint(run["ckpt_root"], 2, like=state.forest, device="cpu")
+    reqs = chip_smoke.draw_requests(run["x"], np.random.default_rng(3), 4)
+    with monkeypatch.context() as m:
+        m.setattr(chip_smoke.ForestServer, "maybe_reload", lambda self: False)
+        with pytest.raises(AssertionError, match="maybe_reload left"):
+            chip_smoke.check_swap(run, f2, reqs)
+    with monkeypatch.context() as m:
+        m.setattr(chip_smoke, "route_hash", lambda uid: 0.99)
+        with pytest.raises(AssertionError, match="route_hash picks"):
+            chip_smoke.check_engine(run, f2, state.forest, reqs)
+    leaf = chip_smoke.checkpoint.step_dir(run["ckpt_root"], 4) / "leaf_00002.npy"
+    raw = bytearray(leaf.read_bytes())
+    raw[-1] ^= 0x01
+    leaf.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="CRC"):
+        chip_smoke.check_restore(run)
+
+
+def test_configs_come_from_the_ported_modules():
+    from repro_torch.configs import gbdt
+    from repro_torch.launch.train import gbdt_config
+
+    assert chip_smoke.CFG == gbdt.EXPERIMENTS["efficiency-realsim"].config
+    assert chip_smoke.MC_CFG == gbdt_config("multiclass:5", 400)
+    assert chip_smoke.MC_CFG.learner.depth == 6 and chip_smoke.MC_CFG.step_length == 0.15

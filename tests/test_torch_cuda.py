@@ -39,6 +39,7 @@ import torch
 
 import repro_torch.configs as lm_configs
 import repro_torch.optim as O
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import binned_from_numpy
 from repro_torch.core.sgbdt import SGBDTConfig
 from repro_torch.kernels import (
@@ -58,9 +59,14 @@ from repro_torch.models import layers as LM
 from repro_torch.models import transformer as TT
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.ps.engine import Trainer
-from repro_torch.serving.forest_server import ForestServer, PredictRequest
+from repro_torch.serving import ForestEngine, route_hash
+from repro_torch.serving.forest_server import (
+    ForestServer,
+    PredictRequest,
+    load_forest_checkpoint,
+)
 from repro_torch.trees.binning import bin_dataset, to_dense
-from repro_torch.trees.forest import Forest
+from repro_torch.trees.forest import Forest, forest_predict, quantization_atol
 from repro_torch.trees.learner import (
     LearnerConfig,
     _smaller_children,
@@ -1150,3 +1156,57 @@ def test_train_step_accum_2_on_the_card(dev):
         diff = (a - b).abs()
         assert float((diff > 5e-5).float().mean()) <= 1e-3
         assert float(diff.max()) <= 2 * 5e-3
+
+
+def _swap_setup(dev, root):
+    """A depth-5 forest trained 8 rounds on the card, checkpointed (as a
+    TrainState) at rounds 4 and 8, with its raw rows and edges."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((1500, 30)).astype(np.float32)
+    y = (x[:, :5].sum(1) > 0).astype(np.float32)
+    data = bin_dataset(x, y, n_bins=64, device=dev)
+    cfg = SGBDTConfig(n_trees=8, step_length=0.2, learner=LearnerConfig(depth=5, n_bins=64))
+    mgr = CheckpointManager(root, save_every=4, keep=4)
+    state = Trainer(cfg, device=dev).train(data, ("round_robin", 2), seed=0, eval_every=1,
+                                           eval_fn=lambda st, j: mgr.maybe_save(j, st))
+    return x, data, state
+
+
+@pytest.mark.parametrize("quantize", [None, "int8", "fp16"])
+def test_hot_swap_reload_on_the_card(dev, tmp_path, quantize):
+    """A server on the round-4 checkpoint reloads round 8 onto the card:
+    the installed forest is the trained one (packed when quantized), and
+    its answers are bitwise a fresh server's on that forest."""
+    x, data, state = _swap_setup(dev, tmp_path)
+    half = load_forest_checkpoint(tmp_path, 4, like=state.forest, device=dev)
+    assert half.feature.device.type == "cuda" and int(half.n_trees) == 4
+    server = ForestServer(half, data.bin_edges, ckpt_root=tmp_path, max_rows=256,
+                          model_step=4, quantize=quantize, device=dev)
+    reqs = [PredictRequest(uid=i, x=x[100 * i: 100 * i + 37 * (i + 1)]) for i in range(6)]
+    first = server.run(reqs[:3])  # run polls first: the swap lands before wave one
+    assert {r.model_step for r in first} == {8}
+    want = state.forest.quantize(quantize) if quantize else state.forest
+    for name in want._fields:
+        assert torch.equal(getattr(server.forest, name), getattr(want, name)), name
+    fresh = ForestServer(state.forest, data.bin_edges, max_rows=256, model_step=8,
+                         quantize=quantize, device=dev)
+    for a, b in zip(server.run(reqs), fresh.run(reqs)):
+        assert a.model_step == b.model_step == 8 and np.array_equal(a.scores, b.scores)
+
+
+def test_engine_int8_version_on_the_card(dev, tmp_path):
+    """ForestEngine with an f32 and an int8 version of the same forest:
+    routed by route_hash, int8 scores within quantization_atol + 1e-6."""
+    x, data, state = _swap_setup(dev, tmp_path)
+    eng = ForestEngine(data.bin_edges, max_rows=256, slo_s=10.0, device=dev)
+    eng.add_version("f32", state.forest, model_step=8)
+    eng.add_version("q8", state.forest, model_step=8, quantize="int8", weight=3.0)
+    reqs = [PredictRequest(uid=i, x=x[50 * i: 50 * i + 50]) for i in range(24)]
+    routed = {r.uid: eng.submit(r) for r in reqs}
+    outs = sorted(eng.flush(), key=lambda r: r.uid)
+    assert [r.uid for r in outs] == list(range(24))
+    atol = quantization_atol(state.forest, state.forest.quantize("int8"))
+    for r in outs:
+        assert r.version == routed[r.uid] == ("f32" if route_hash(r.uid) < 0.25 else "q8")
+        want = forest_predict(state.forest, data.bins[50 * r.uid: 50 * r.uid + 50])
+        np.testing.assert_allclose(r.scores, want.cpu().numpy(), rtol=0, atol=atol + 1e-6)

@@ -26,16 +26,20 @@ from repro_torch.convert import (
 )
 from repro_torch.core.sgbdt import SGBDTConfig
 from repro_torch.data.synthetic import make_multiclass_classification
+from repro_torch import checkpoint
+from repro_torch.configs import gbdt as gbdt_configs
+from repro_torch.launch import serve as gbdt_serve
 from repro_torch.launch import train as lm_train
 from repro_torch.models import init_cache, init_params
 from repro_torch.ps.engine import Trainer
-from repro_torch.serving import ServingEngine
-from repro_torch.serving.forest_server import ForestServer
+from repro_torch.serving import ForestEngine, ServingEngine
+from repro_torch.serving.forest_server import ForestServer, load_forest_checkpoint
 from repro_torch.trees.binning import bin_dataset, to_sparse
 from repro_torch.trees.forest import empty_forest
 from repro_torch.trees.tree import empty_tree
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+GOLDEN_CKPT = ROOT / "tests" / "golden" / "ckpt"
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -63,7 +67,7 @@ def test_port_files_were_found():
     assert {"chip_smoke.py", "engine.py", "histogram.py", "forest_server.py",
             "level_build.py", "histogram_sparse.py", "flash_attention.py", "transformer.py",
             "layers.py", "granite_3_2b.py", "steps.py", "train.py", "optimizers.py",
-            "delayed.py"} <= names
+            "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -72,6 +76,8 @@ def test_port_files_were_found():
     "repro_torch.kernels.level_build", "repro_torch.kernels.histogram_sparse",
     "repro_torch.kernels.flash_attention", "repro_torch.models.transformer",
     "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.optimizers",
+    "repro_torch.launch.serve", "repro_torch.serving.continuous",
+    "repro_torch.checkpoint.store", "repro_torch.configs.gbdt",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -141,6 +147,12 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     lambda: quantized_forest_from_numpy(np.zeros((1, 1)), np.zeros((1, 1), np.int8),
                                         np.zeros((1, 2), np.int8), np.ones(1), 1, 0.0),
     lambda: lm_train.main(["--steps", "1"]),
+    lambda: lm_train.main(["--arch", "gbdt", "--steps", "1"]),
+    lambda: gbdt_serve.main(["--arch", "gbdt", "--trees", "2"]),
+    lambda: ForestEngine(torch.zeros((3, 7))),
+    lambda: load_forest_checkpoint(GOLDEN_CKPT, 8),
+    lambda: checkpoint.restore_pytree(GOLDEN_CKPT, 8, {"f": np.zeros(320, np.float32)}),
+    lambda: gbdt_configs.get("validity-higgs"),
 ])
 def test_data_entry_points_without_device_raise_without_gpu(no_cuda, make):
     with pytest.raises(RuntimeError, match="no CUDA device"):
