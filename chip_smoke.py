@@ -33,6 +33,24 @@ compute and end-to-end latency are printed. Last the train CLI (staged,
 fused, multiclass:5, sparse) and the serve CLI (wave, continuous, int8)
 run as a user runs them, each exiting clean with its own asserts.
 
+The e2006 and step-rules phase follows the handoff phase, with its own
+launch counts: the paper's ``efficiency-e2006`` configuration (squared
+error, depth 9, 64 bins, feature fraction 0.8, R = 0.8, v = 0.01,
+histogram subtraction, 400-slot forest; dataset e2006-like, N = 3000, F =
+2000) trained 16 rounds at W = 4 staged (twice, bitwise equal), fused
+(bitwise the staged forest) and on the sparse layout (twice, bitwise
+equal, the loss within 1e-3 of the dense run's), the loss falling, and
+served f32, int8 and fp16 with the identity link; then, on realsim's
+data, Newton leaves staged and fused (bitwise equal; round 0's tree
+bitwise the build on the hessian weights m' h) and the staleness-adaptive
+step at rho = 0.1, under W = 1 bitwise the fixed step and under W = 4 with
+the scales applied bitwise ``staleness_scales`` and rounds 0-3 the fixed
+run's trees times their scale; then the train CLI with mse, quantile:0.9,
+huber and lambdarank and the serve CLI with mse and lambdarank. Every
+GBDT kernel is held against its plain version at e2006's shapes and with
+the Newton run's hessians (``check_e2006_kernels``); its ``*_e2006``
+entries in the kernels line carry the launches of the e2006 part.
+
 The second main path follows, the multiclass path and quantized
 serving: the driver's K-output configuration (``launch.train.gbdt_config``,
 ``multiclass:5``,
@@ -118,7 +136,7 @@ import repro_torch.configs as lm_configs  # noqa: E402
 from repro_torch import checkpoint  # noqa: E402
 from repro_torch.configs import gbdt as gbdt_configs  # noqa: E402
 from repro_torch.convert import forest_from_numpy  # noqa: E402
-from repro_torch.core.sgbdt import init_state, train_metrics  # noqa: E402
+from repro_torch.core.sgbdt import init_state, train_loss, train_metrics  # noqa: E402
 from repro_torch.data.sampling import bernoulli_weights  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -143,6 +161,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import gbdt_config, synthetic_batches  # noqa: E402
 from repro_torch.models import forward_train, init_params  # noqa: E402
+from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     adamw,
     cosine_schedule,
@@ -150,7 +169,9 @@ from repro_torch.optim import (  # noqa: E402
     staleness_step_scale,
 )
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
+from repro_torch.ps import engine as ps_engine  # noqa: E402
 from repro_torch.ps.engine import Trainer  # noqa: E402
+from repro_torch.ps.schedules import resolve_schedule, staleness_scales  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ForestEngine,
     Request,
@@ -240,6 +261,35 @@ SERVE_CLIS = {
     "wave": ["--arch", "gbdt"],
     "continuous": ["--arch", "gbdt", "--engine", "continuous"],
     "wave int8": ["--arch", "gbdt", "--quantize", "int8"],
+}
+# The e2006 and step-rules phase (ROADMAP A4): configs.gbdt
+# "efficiency-e2006" (paper VI.C, Fig. 10): squared error, depth 9, 64
+# bins, feature fraction 0.8, R = 0.8, v = 0.01, 400 slots; e2006-like
+# data (N 3000, F 2000, 40 nonzeros a row); 16 rounds at W = 4, as the
+# realsim path runs. Then the step rules on the realsim configuration:
+# Newton leaves (staged and fused) and the staleness-adaptive step at rho =
+# STEP_RHO, under W = 1 and W = 4.
+E2006 = "efficiency-e2006"
+E2006_CFG = gbdt_configs.EXPERIMENTS[E2006].config
+E2006_CFG_FUSED = E2006_CFG._replace(learner=E2006_CFG.learner._replace(backend="fused"))
+STEP_RHO = 0.1
+NEWTON_CFG = CFG._replace(step_kind="newton")
+NEWTON_CFG_FUSED = CFG_FUSED._replace(step_kind="newton")
+ADAPTIVE_CFG = CFG._replace(adaptive_step=STEP_RHO)
+# The CLIs of the regression and ranking objectives, run in that phase.
+OBJECTIVE_TRAIN_CLIS = {obj: ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--objective", obj]
+                 for obj in ("mse", "quantile:0.9", "huber", "lambdarank")}
+OBJECTIVE_SERVE_CLIS = {obj: ["--arch", "gbdt", "--objective", obj] for obj in ("mse", "lambdarank")}
+# That phase's entries in the kernels line: name -> (KERNELS key, launch
+# count key).
+E2006_LINE = {
+    "histogram_e2006": ("histogram", "histogram"),
+    "split_gain_e2006": ("split_gain", "split_gain"),
+    "level_build_e2006": ("level_build", "level_build"),
+    "histogram_sparse_e2006": ("histogram_sparse", "histogram_sparse"),
+    "forest_traverse_e2006": ("forest_traverse", "f32"),
+    "forest_traverse_int8_e2006": ("forest_traverse", "int8"),
+    "forest_traverse_fp16_e2006": ("forest_traverse", "fp16"),
 }
 # The traversal forms' ragged case: rows (not a multiple of the kernel's
 # 16-sample block) and live slots of each forest (not a multiple of the
@@ -586,10 +636,11 @@ def level_build_case(lc, bins, node, g, h, mask, level: int, parent, tag: str,
     return stats
 
 
-def check_level_build(data, g, h, gen, report: dict) -> dict:
-    """The fused level at every realsim level that fuses: level 0 (full) and
-    the subtract levels below it, on seeded node ids (``level_build_case``).
-    Returns the stats by shape (device times pending)."""
+def check_level_build(data, g, h, gen, report: dict, key: str = "level_build") -> dict:
+    """The fused level at every realsim level that fuses (every level of
+    ``data``'s shape that fuses): level 0 (full) and the subtract levels
+    below it, on seeded node ids (``level_build_case``). Returns the stats
+    by shape (device times pending), also ``report[key + "_shapes"]``."""
     dev = data.bins.device
     n, f = data.bins.shape
     b, lc = CFG.learner.n_bins, CFG.learner
@@ -602,16 +653,18 @@ def check_level_build(data, g, h, gen, report: dict) -> dict:
                   if level else None)
         tag = f"level{level}"
         shapes[tag] = level_build_case(lc, data.bins, node, g, h, mask, level, parent, tag,
-                                       report)
-    report["level_build_shapes"] = shapes
-    report["level_build_bitwise_vs_staged"] = True
+                                       report, key=key)
+    report[f"{key}_shapes"] = shapes
+    report[f"{key}_bitwise_vs_staged"] = True
     return shapes
 
 
-def check_histogram_sparse(sp, node8, active, g, h, report: dict) -> dict:
+def check_histogram_sparse(sp, node8, active, g, h, report: dict,
+                           key: str = "histogram_sparse") -> dict:
     """The stored-entry sparse histogram at level 0 and at the level-8
     smaller-child subset: within 1e-5 x max|cell| of its plain version, two
-    launches bitwise. Returns the stats by shape (device times pending)."""
+    launches bitwise. Returns the stats by shape (device times pending),
+    also ``report[key + "_shapes"]``."""
     dev = sp.feat_rows.device
     f, c = sp.feat_rows.shape
     b = CFG.learner.n_bins
@@ -628,10 +681,10 @@ def check_histogram_sparse(sp, node8, active, g, h, report: dict) -> dict:
         k1, k2 = run(), run()
         torch.cuda.synchronize()
         if not torch.equal(k1, k2):
-            raise AssertionError(f"histogram_sparse {tag}: two launches differ")
+            raise AssertionError(f"{key} {tag}: two launches differ")
         plain = histogram_sparse.histogram_sparse_plain(*args)
         scale = float(plain.abs().max())
-        err = close(f"histogram_sparse {tag}", k1, plain, 1e-5, 1e-5 * scale)
+        err = close(f"{key} {tag}", k1, plain, 1e-5, 1e-5 * scale)
         rows = k1.shape[1]
         # The library yardstick (``library_times``) over the cells of the
         # stored entries that land on a built row.
@@ -654,8 +707,8 @@ def check_histogram_sparse(sp, node8, active, g, h, report: dict) -> dict:
             "bound_ms": bms, "bound_by": by, "entries_hit": int(keep.sum()),
         })
         library_times(seg, vals, 2 * rows * f * b, shapes[tag])
-    report["histogram_sparse_shapes"] = shapes
-    report["sparse_store"] = {"F": f, "C": c, "E": sp.indices.shape[1], "nnz": nnz}
+    report[f"{key}_shapes"] = shapes
+    report[f"{key}_store"] = {"F": f, "C": c, "E": sp.indices.shape[1], "nnz": nnz}
     return shapes
 
 
@@ -739,16 +792,16 @@ def histogram_case(bins, g, h, node, n_nodes: int, act, n_bins: int, tag: str,
     return library_times(seg, vals, 2 * rows * f * b, stats)
 
 
-def check_histogram(data, g, h, node8, active, report: dict) -> dict:
+def check_histogram(data, g, h, node8, active, report: dict, key: str = "histogram") -> dict:
     """The histogram at the full level 0 and at the level-8 smaller-child
     subset (``histogram_case``). Returns the stats by shape (device times
-    pending)."""
+    pending), also ``report[key + "_shapes"]``."""
     node0 = torch.zeros(data.n_samples, dtype=torch.int32, device=data.bins.device)
     shapes = {tag: histogram_case(data.bins, g, h, node, n_nodes, act, CFG.learner.n_bins,
-                                  tag, report)
+                                  tag, report, key=key)
               for tag, node, n_nodes, act in (("level0", node0, 1, None),
                                               ("level8_subset", node8, 256, active))}
-    report["histogram_shapes"] = shapes
+    report[f"{key}_shapes"] = shapes
     return shapes
 
 
@@ -940,9 +993,9 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
 
 
 def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | None = None,
-          ckpt=None):
+          ckpt=None, workers: int = WORKERS):
     """Phase 2: 16 rounds of efficiency-realsim (``cfg``: staged or fused)
-    under round-robin W = 4. ``round_s`` collects a host time stamp after
+    under round-robin W = ``workers`` (4). ``round_s`` collects a host time stamp after
     each round (and one before the first); ``fused_per_round`` the fused
     levels each round's tree ran; ``ckpt`` (a ``CheckpointManager``) saves
     the ``TrainState`` through the trainer's eval hook at each round its
@@ -961,7 +1014,7 @@ def train(data, cfg=CFG, round_s: list | None = None, fused_per_round: list | No
         torch.cuda.synchronize()
         round_s.append(time.perf_counter())
     state = Trainer(cfg, device=data.bins.device).train(
-        data, ("round_robin", WORKERS), seed=SEED, rounds=ROUNDS,
+        data, ("round_robin", workers), seed=SEED, rounds=ROUNDS,
         eval_every=1 if round_s is not None or ckpt is not None else 0, eval_fn=tick,
     )
     if fused_per_round is not None:
@@ -1474,22 +1527,27 @@ def check_engine(run: dict, forest8, forest16, reqs: list) -> dict:
             "gap_s": ENGINE_GAP_S}
 
 
-def run_clis() -> dict:
-    """The train and serve CLIs as a user runs them (on the card): each
-    must exit clean with its own asserts; their output is kept, not printed."""
+def run_clis(train_clis: dict | None = None, serve_clis: dict | None = None) -> dict:
+    """The train and serve CLIs as a user runs them (on the card; by default
+    ``TRAIN_CLIS`` and ``SERVE_CLIS``): each must exit clean with its own
+    asserts, a train run with the objective's K trees a round; their output
+    is kept, not printed."""
+    train_clis = TRAIN_CLIS if train_clis is None else train_clis
+    serve_clis = SERVE_CLIS if serve_clis is None else serve_clis
     out = {}
-    for tag, argv in TRAIN_CLIS.items():
+    for tag, argv in train_clis.items():
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             state = train_cli.main(argv)
-        k = int(argv[argv.index("--objective") + 1].split(":")[1]) if "--objective" in argv else 1
+        k = (get_objective(argv[argv.index("--objective") + 1]).n_outputs
+             if "--objective" in argv else 1)
         steps = int(argv[argv.index("--steps") + 1])
         if int(state.forest.n_trees) != steps * k or not torch.isfinite(state.f).all():
             raise AssertionError(f"train CLI ({tag}): {int(state.forest.n_trees)} trees")
         out[f"train {tag}"] = {"s": time.perf_counter() - t0,
                                "tail": buf.getvalue().splitlines()[-2:]}
-    for tag, argv in SERVE_CLIS.items():
+    for tag, argv in serve_clis.items():
         root = HANDOFF_DIR / f"serve_{tag.replace(' ', '_')}"
         shutil.rmtree(root, ignore_errors=True)
         buf = io.StringIO()
@@ -1555,6 +1613,341 @@ def drive_handoff(run: dict, report: dict) -> None:
                                                   for k, v in clis.items()), flush=True)
     print("handoff launches: " + json.dumps({k: counts[k] for k in need})
           + f"; phase wall {wall_s:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def recorded_scales():
+    """The scale of every server-side deflation (``engine.scale_push``) made
+    under it, in fold order (0-d f32 tensors)."""
+    seen: list = []
+    push = ps_engine.scale_push
+
+    def record(cfg, data, tree, scale):
+        seen.append(scale)
+        return push(cfg, data, tree, scale)
+
+    ps_engine.scale_push = record
+    try:
+        yield seen
+    finally:
+        ps_engine.scale_push = push
+
+
+def drive_e2006(dev: torch.device, realsim: dict) -> dict:
+    """The e2006 and step-rules phase, after the handoff phase, with its own
+    launch counts (set to 0 just before, read just after; its e2006 part's
+    read on their own too): efficiency-e2006 trained 16 rounds at W = 4
+    staged (twice), fused and on the sparse layout (twice), its forest
+    served f32, int8 and fp16 with the identity link; then, on realsim's
+    data, Newton leaves staged and fused, the adaptive step beside the fixed
+    one under W = 1, and under W = 4 (beside ``drive``'s staged run), each
+    fold's scale recorded; then the train and serve CLIs of the regression
+    and ranking objectives. Every run comes before any kernel check (see
+    ``drive``). Returns what the checks need."""
+    cfg, data = gbdt_configs.get(E2006, device=dev)
+    if cfg != E2006_CFG:
+        raise AssertionError(f"configs.gbdt.get({E2006!r}) returned another config")
+    x, y, mult = synthetic.raw(gbdt_configs.EXPERIMENTS[E2006].dataset)
+    sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True)
+    rs = realsim["data"]
+    rng = np.random.default_rng(SEED + 11)
+    stamps: dict = {"staged": [], "fused": [], "sparse": [], "newton": [], "newton_fused": []}
+    fused_per_round: dict = {"e2006": [], "newton": []}
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = {"staged": train(data, E2006_CFG, stamps["staged"]), "again": train(data, E2006_CFG),
+            "fused": train(data, E2006_CFG_FUSED, stamps["fused"], fused_per_round["e2006"]),
+            "sparse": train(sparse, E2006_CFG, stamps["sparse"]),
+            "sparse_again": train(sparse, E2006_CFG)}
+    served = {mode: serve(runs["staged"].forest, x, data.bin_edges, rng, objective="mse",
+                          quantize=mode) for mode in QUANT_MODES}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    e2006_counts, e2006_s = gbdt_counts(), time.perf_counter() - t0
+    with recorded_scales() as scales:
+        runs["newton"] = train(rs, NEWTON_CFG, stamps["newton"])
+        runs["newton_fused"] = train(rs, NEWTON_CFG_FUSED, stamps["newton_fused"],
+                                     fused_per_round["newton"])
+        runs["fixed_w1"] = train(rs, CFG, workers=1)
+        runs["adaptive_w1"] = train(rs, ADAPTIVE_CFG, workers=1)
+        runs["adaptive_w4"] = train(rs, ADAPTIVE_CFG)
+    clis = run_clis(OBJECTIVE_TRAIN_CLIS, OBJECTIVE_SERVE_CLIS)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"data": data, "sparse": sparse, "x": x, "runs": runs, "stamps": stamps,
+            "fused_per_round": fused_per_round, "served": served, "scales": scales,
+            "fixed_w4": realsim["runs"]["staged"], "realsim": rs,
+            "realsim_sparse": realsim["sparse"], "clis": clis, "e2006_counts": e2006_counts,
+            "counts": gbdt_counts(), "e2006_s": e2006_s, "wall_s": time.perf_counter() - t0}
+
+
+def first_tree(data, cfg):
+    """Round 0's tree of a run of ``cfg`` on ``data``, rebuilt outside the
+    engine: its draws in ``propose_tree``'s order (Bernoulli weights, then
+    the feature mask), the gradient at the initial F, the hessian weights of
+    ``cfg.step_kind`` (m' h for Newton, m' for the gradient step), the
+    leaves scaled by v."""
+    dev, lc = data.bins.device, cfg.learner
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    m, _ = bernoulli_weights(gen, cfg.sampling_rate, data.multiplicity)
+    mask = torch.rand(data.n_features, generator=gen, device=dev) < lc.feature_fraction
+    g, h = cfg.obj.grad_hess(data.labels, init_state(cfg, data).f, qid=data.qid)
+    tree = build_tree(lc, data.bins, m * g, m * h if cfg.step_kind == "newton" else m, mask)
+    v = torch.tensor(cfg.step_length, dtype=torch.float32, device=dev)
+    return tree._replace(leaf_value=v * tree.leaf_value)
+
+
+def loss_fell(tag: str, cfg, data, state) -> tuple[float, float]:
+    """(start, end) train loss; the end must be finite and below the start;
+    the forest must predict the trained F (1e-5)."""
+    loss0 = float(train_loss(cfg, data, init_state(cfg, data)))
+    loss = float(train_loss(cfg, data, state))
+    if not (np.isfinite(loss) and loss < loss0):
+        raise AssertionError(f"{tag}: training loss did not fall ({loss0} -> {loss})")
+    torch.testing.assert_close(forest_predict(state.forest, data.bins), state.f,
+                               rtol=1e-5, atol=1e-6)
+    return loss0, loss
+
+
+def check_newton(data, newton, fused, fused_per_round: list, gradient) -> dict:
+    """Newton leaves on realsim's data: the fused run bitwise the staged one
+    (levels that fuse as a fused level in every tree), the loss falling,
+    round 0's tree bitwise the one rebuilt with the hessian weights m' h,
+    and the forest not the gradient step's."""
+    want = fused_levels(*data.bins.shape)
+    if fused_per_round != [len(want)] * ROUNDS:
+        raise AssertionError(f"newton: fused levels per tree {fused_per_round}, expected "
+                             f"{len(want)}")
+    same_forest("newton: fused run vs staged run", fused, newton)
+    loss0, loss = loss_fell("newton", NEWTON_CFG, data, newton)
+    tree = first_tree(data, NEWTON_CFG)
+    for name in ("feature", "threshold", "leaf_value"):
+        if not torch.equal(getattr(tree, name), getattr(newton.forest, name)[0]):
+            raise AssertionError(f"newton: round 0's {name} is not the build on the hessian "
+                                 "weights m' h")
+    if torch.equal(newton.forest.leaf_value, gradient.forest.leaf_value):
+        raise AssertionError("newton: the forest is the gradient step's")
+    return {"loss": {"start": loss0, "newton": loss}, "fused_levels": want}
+
+
+def check_adaptive(data, runs: dict, fixed_w4, scales: list) -> dict:
+    """The staleness-adaptive step (rho ``STEP_RHO``) on realsim's data:
+    under W = 1 every scale is 1.0 and the forest and F are the fixed
+    step's bit for bit; under W = 4 the scales applied are
+    ``schedules.staleness_scales`` bit for bit, the forest is not the fixed
+    step's, rounds 0-3 (built from F^0 in both runs) are the fixed run's
+    trees with their leaf tables times the fold's scale, bit for bit, and
+    the forest predicts F."""
+    dev = data.bins.device
+    same_forest("adaptive step under W = 1 vs the fixed step", runs["adaptive_w1"],
+                runs["fixed_w1"])
+    want = {w: staleness_scales(resolve_schedule(("round_robin", w), CFG.n_trees)[:ROUNDS],
+                                STEP_RHO) for w in (1, WORKERS)}
+    got = np.array([s.item() for s in scales], np.float32)
+    expect = np.concatenate([want[1], want[WORKERS]])
+    if got.shape != expect.shape or not np.array_equal(got.view(np.int32),
+                                                       expect.view(np.int32)):
+        raise AssertionError(f"adaptive step: scales applied {got.tolist()}, "
+                             f"staleness_scales {expect.tolist()}")
+    ada = runs["adaptive_w4"]
+    if torch.equal(ada.forest.leaf_value, fixed_w4.forest.leaf_value):
+        raise AssertionError("adaptive step under W = 4: the forest is the fixed step's")
+    for j in range(WORKERS):
+        s = torch.tensor(want[WORKERS][j], device=dev)
+        for name in ("feature", "threshold"):
+            if not torch.equal(getattr(ada.forest, name)[j], getattr(fixed_w4.forest, name)[j]):
+                raise AssertionError(f"adaptive step: round {j}'s {name} is not the fixed "
+                                     "run's")
+        if not torch.equal(ada.forest.leaf_value[j], s * fixed_w4.forest.leaf_value[j]):
+            raise AssertionError(f"adaptive step: round {j}'s leaves are not the fixed run's "
+                                 f"times its scale {float(s)}")
+    loss0, loss = loss_fell("adaptive step under W = 4", ADAPTIVE_CFG, data, ada)
+    return {"scales_w4": want[WORKERS].tolist(), "loss": {"start": loss0, "adaptive_w4": loss,
+            "fixed_w4": float(train_loss(CFG, data, fixed_w4))}}
+
+
+def check_e2006(run: dict, report: dict) -> None:
+    """The gates of ``drive_e2006``'s runs: e2006 staged twice bitwise, the
+    fused run bitwise the staged one (the levels that fuse at F 2000 fused in
+    every tree), the sparse run twice bitwise and its loss within 1e-3 of
+    the dense run's, the loss falling; the served answers and quantized
+    margins (``check_serving_modes``); the step rules (``check_newton``,
+    ``check_adaptive``); the CLIs ran in ``drive_e2006``. Prints the phase."""
+    data, runs = run["data"], run["runs"]
+    card = report.get("nvidia_smi", "card not queried")
+    state = runs["staged"]
+    same_forest("e2006: second staged run", state, runs["again"])
+    loss0, loss = loss_fell("e2006", E2006_CFG, data, state)
+    want = fused_levels(*data.bins.shape)
+    if run["fused_per_round"]["e2006"] != [len(want)] * ROUNDS:
+        raise AssertionError(f"e2006: fused levels per tree {run['fused_per_round']['e2006']}, "
+                             f"expected {len(want)}")
+    same_forest("e2006: fused run vs staged run", runs["fused"], state)
+    same_forest("e2006: second sparse run", runs["sparse"], runs["sparse_again"])
+    _, loss_sp = loss_fell("e2006 sparse", E2006_CFG, data, runs["sparse"])
+    if abs(loss_sp - loss) > 1e-3:
+        raise AssertionError(f"e2006: sparse loss {loss_sp} vs dense {loss}")
+    serve_stats = check_serving_modes("e2006", state.forest, run["x"], data.bin_edges,
+                                      run["served"], card)
+    newton = check_newton(run["realsim"], runs["newton"], runs["newton_fused"],
+                          run["fused_per_round"]["newton"], run["fixed_w4"])
+    adaptive = check_adaptive(run["realsim"], runs, run["fixed_w4"], run["scales"])
+    round_ms = {k: [1e3 * (b - a) for a, b in zip(v, v[1:])] for k, v in run["stamps"].items()}
+    median_ms = {k: float(np.median(v[1:])) for k, v in round_ms.items()}
+    counts = run["counts"]
+    need = ("histogram", "split_gain", "level_build", "histogram_sparse", "f32", "int8", "fp16")
+    if any(run["e2006_counts"][k] <= 0 for k in need):
+        raise AssertionError(f"e2006: a kernel of the path never launched: {run['e2006_counts']}")
+    report["e2006"] = {
+        "config": {"dataset": vars(gbdt_configs.EXPERIMENTS[E2006].dataset),
+                   "depth": E2006_CFG.learner.depth, "slots": E2006_CFG.n_trees,
+                   "rounds": ROUNDS, "workers": WORKERS},
+        "loss": {"start": loss0, "staged": loss, "sparse": loss_sp}, "fused_levels": want,
+        "round_ms": round_ms, "median_round_ms": median_ms, "serve": serve_stats,
+        "newton": newton, "adaptive": adaptive, "cli": run["clis"],
+        "launches": counts, "e2006_launches": run["e2006_counts"],
+        "e2006_s": run["e2006_s"], "wall_s": run["wall_s"],
+    }
+    for k, v in round_ms.items():
+        print(f"e2006 phase round ms ({k}): " + " ".join(f"{t:.1f}" for t in v), flush=True)
+    print(f"e2006: train loss {loss0:.6f} -> {loss:.6f} after {ROUNDS} rounds (sparse "
+          f"{loss_sp:.6f}, |diff| {abs(loss_sp - loss):.2e}); second staged run, fused run "
+          f"(levels {want} of {E2006_CFG.learner.depth} fused at F {data.n_features}) and "
+          "second sparse run bitwise equal to the first; median round ms (rounds 2-16) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in median_ms.items()) + f" [{card}]", flush=True)
+    print(f"newton (realsim): loss {newton['loss']['start']:.6f} -> "
+          f"{newton['loss']['newton']:.6f} (gradient step "
+          f"{adaptive['loss']['fixed_w4']:.6f}); fused bitwise staged; round 0 bitwise the "
+          "build on m' h", flush=True)
+    print(f"adaptive step rho {STEP_RHO} (realsim): W = 1 bitwise the fixed step; W = 4 scales "
+          f"{[round(v, 6) for v in adaptive['scales_w4'][:WORKERS]]}... bitwise "
+          f"staleness_scales, rounds 0-{WORKERS - 1} the fixed trees times their scale; loss "
+          f"{adaptive['loss']['adaptive_w4']:.6f} (fixed {adaptive['loss']['fixed_w4']:.6f})",
+          flush=True)
+    print("e2006 phase CLIs exit clean: " + "; ".join(f"{k} {v['s']:.1f} s"
+                                            for k, v in run["clis"].items()), flush=True)
+    print("e2006 phase launches (e2006 part / whole phase): " + json.dumps(
+        {k: [run["e2006_counts"][k], counts[k]] for k in need})
+        + f"; phase wall {run['wall_s']:.1f} s (e2006 part {run['e2006_s']:.1f} s)",
+        flush=True)
+
+
+def round_inputs(data, cfg, f: torch.Tensor, seed: int) -> tuple:
+    """A round's (g, h) on ``data`` at F = ``f`` under ``cfg``'s objective
+    and step rule (h = m' h for Newton, m' otherwise; m' from a generator
+    seeded ``seed``), a seeded level-8 node assignment (samples with h = 0
+    on node -1), its smaller children, and the generator."""
+    dev = data.bins.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    m, _ = bernoulli_weights(gen, cfg.sampling_rate, data.multiplicity)
+    g0, h0 = cfg.obj.grad_hess(data.labels, f, qid=data.qid)
+    g = (m * g0).contiguous()
+    h = (m * h0 if cfg.step_kind == "newton" else m).contiguous()
+    node8 = torch.randint(0, 256, (data.n_samples,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    node8 = torch.where(h > 0, node8, torch.full_like(node8, -1))
+    return g, h, node8, _smaller_children(node8, h, 256), gen
+
+
+def check_e2006_kernels(run: dict, report: dict) -> dict:
+    """Every GBDT kernel of the e2006 and step-rules phase against its plain
+    version: at e2006's shapes (N 3000, F 2000) with e2006's gradients at
+    its trained F (h = m'), and at realsim's with the Newton run's (h = m'
+    4p(1 - p) at its trained F). The histogram at level 0 and at the level-8
+    subset and the sparse histogram at both (``histogram_case``,
+    ``check_histogram_sparse``: 1e-5 x max|cell|, two launches bitwise), the
+    split gain's decision form at L = 256 (``split_gain_case``, the atol
+    scaled by the terms; the decision bitwise the plain chain's), the fused
+    level at every level that fuses (``level_build_case``: bitwise the
+    staged level); then the traversal's f32, int8 and fp16 forms on a
+    seeded full 400-slot depth-9 forest over F 2000 at 3000 rows and at the
+    256-row wave, bitwise. Returns the stats by kernel and shape (device
+    times pending)."""
+    lc = CFG.learner
+    shapes: dict = {k: {} for k in ("histogram", "split_gain", "level_build",
+                                    "histogram_sparse")}
+    for tag, data, sp, cfg, f in (
+            ("e2006", run["data"], run["sparse"].bins, E2006_CFG, run["runs"]["staged"].f),
+            ("newton", run["realsim"], run["realsim_sparse"].bins, NEWTON_CFG,
+             run["runs"]["newton"].f)):
+        g, h, node8, active, gen = round_inputs(data, cfg, f, SEED + 12)
+        parts = {"histogram": check_histogram(data, g, h, node8, active, report,
+                                              key=f"histogram_{tag}")}
+        hist = histogram.histogram(data.bins, node8, g, h, 256, lc.n_bins)
+        mask = torch.rand(data.n_features, generator=gen, device=data.bins.device) \
+            < lc.feature_fraction
+        parts["split_gain"] = {"L=256": split_gain_case(hist, lc.lam, lc.min_child_hess,
+                                                        scale_by="terms", mask=mask)}
+        parts["level_build"] = check_level_build(data, g, h, gen, report,
+                                                 key=f"level_build_{tag}")
+        parts["histogram_sparse"] = check_histogram_sparse(sp, node8, active, g, h, report,
+                                                           key=f"histogram_sparse_{tag}")
+        for name, per in parts.items():
+            shapes[name].update({f"{tag} {t}": st for t, st in per.items()})
+    bins = run["data"].bins
+    forest = seeded_forest(np.random.default_rng(SEED + 13), bins.shape[1], 0.0, bins.device)
+    for name, (_, form) in E2006_LINE.items():
+        if not name.startswith("forest_traverse"):
+            continue
+        fo = forest if form == "f32" else forest.quantize(form)
+        shapes[name] = {tag: traversal_case(f"{name} {tag}", bins[:rows].contiguous(), fo,
+                                            fo.feature.shape[0])
+                        for tag, rows in (("full", bins.shape[0]), ("wave", WAVE_ROWS))}
+    report["e2006_phase_kernel_shapes"] = shapes
+    return shapes
+
+
+def e2006_line(run: dict, shapes: dict, report: dict) -> list:
+    """Once every device time is taken: the phase's kernel checks printed
+    (event / device / bound ms), a profiled round of each e2006 run and of
+    the Newton run, and the ``kernels`` line's entries of the e2006 path,
+    each with its launches on that path (each must have run there)."""
+    card = report.get("nvidia_smi", "card not queried")
+    deep = max((t for t in shapes["level_build"] if t.startswith("e2006")),
+               key=lambda t: int(t.rsplit("level", 1)[1]))
+    main = {"histogram": "e2006 level8_subset", "split_gain": "e2006 L=256",
+            "level_build": deep, "histogram_sparse": "e2006 level8_subset"}
+    drop = ("surface_ms", "staged_ms", "samples_hit", "entries_hit", "plan", "rows", "live",
+            "bin_cells_read")
+    kstats = {}
+    for name, (kernel, _) in E2006_LINE.items():
+        per = shapes[name] if kernel == "forest_traverse" else shapes[kernel]
+        kstats[name] = line_stats(per, "full" if kernel == "forest_traverse" else main[kernel],
+                                  drop=drop)
+    for name in ("histogram", "split_gain", "level_build", "histogram_sparse"):
+        print(f"{name} at the e2006 phase's shapes, event / device / bound ms: " + "; ".join(
+            f"{t} {st['ms']:.4f} / {st['device_ms']:.4f} / {st['bound_ms']:.4f}"
+            for t, st in shapes[name].items()) + f" [{card}]", flush=True)
+    for name, per in shapes.items():
+        if name.startswith("forest_traverse"):
+            print(f"{name} bitwise equal to the plain version, 3000 x 400 and the wave (event / "
+                  f"device / bound ms): {traversal_times(per)} [{card}]", flush=True)
+    info = report["e2006"]
+    info["profile"] = {}
+    if run["data"].bins.device.type == "cuda":
+        for tag, data, cfg in (("staged", run["data"], E2006_CFG),
+                               ("fused", run["data"], E2006_CFG_FUSED),
+                               ("sparse", run["sparse"], E2006_CFG),
+                               ("newton", run["realsim"], NEWTON_CFG)):
+            prof = info["profile"][tag] = profile_rounds(data, cfg)
+            prof["device_busy_share"] = busy(prof, prof["device_ms_per_round"],
+                                             info["median_round_ms"][tag])
+            check_no_chain(f"e2006 phase {tag}", prof)
+            print(f"profile (e2006 phase {tag}): device {prof['device_ms_per_round']:.4f} ms per round "
+                  f"({prof['device_ms_by']}), busy {pct(prof['device_busy_share'])} of a "
+                  f"round's wall time; split kernel {prof['split_kernel_calls']:g} launches a "
+                  f"round [{card}]", flush=True)
+    line = []
+    for name, (kernel, count) in E2006_LINE.items():
+        launches = run["e2006_counts"][count]
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch on the e2006 path")
+        _, source, replaces = KERNELS[kernel]
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, **kstats[name]})
+    return line
 
 
 def seeded_multiclass_forest(rng: np.random.Generator, dev) -> object:
@@ -1667,32 +2060,39 @@ def check_traversal_forms(realsim_bins, mc_bins, rng, report: dict) -> dict:
         per = {}
         for tag, rows, live in (("full", bins.shape[0], slots), ("wave", WAVE_ROWS, slots),
                                 ("ragged", RAGGED_ROWS, RAGGED_LIVE[which])):
-            b = bins[:rows].contiguous()
             if tag == "ragged":  # stale trees past the live count
                 fo = fo._replace(leaf_value=fo.leaf_value.clone())
                 fo.leaf_value[live:] = 100 if mode == "int8" else 1e4
-            args = traversal_args(fo, live)
-            got = forest_traversal.forest_traverse(b, *args)
-            want = forest_traversal.forest_traverse_plain(b, *args)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.equal(got, want):
-                bad = int((got != want).sum()) if got.shape == want.shape else -1
-                raise AssertionError(f"{name} {tag}: {bad} outputs differ from the plain version")
-            per[tag] = {"rows": b.shape[0], "live": live, "max_abs_err": 0.0,
-                        "plan": traversal_plan_of(b, fo)}
-            if tag != "ragged":
-                bms, by, cells = traversal_bound(b, fo, live)
-                event_times(lambda b=b, args=args: forest_traversal.forest_traverse(b, *args),
-                            per[tag])
-                per[tag].update({
-                    "plain_ms": cuda_ms(lambda b=b, args=args: forest_traversal.forest_traverse_plain(
-                        b, *args), reps=2, warmup=1),
-                    "bound_ms": bms, "bound_by": by, "library_ms": None, "bin_cells_read": cells,
-                })
+            per[tag] = traversal_case(f"{name} {tag}", bins[:rows].contiguous(), fo, live,
+                                      timed=tag != "ragged")
         shapes[name] = per
         stats[name] = per["full"]
     report["forest_traverse_form_shapes"] = shapes
     return stats
+
+
+def traversal_case(tag: str, b: torch.Tensor, fo, live: int, timed: bool = True) -> dict:
+    """One traversal form (that of forest ``fo``) on bins ``b`` with ``live``
+    slots: every output bit equal to the plain version's; its launch plan;
+    when ``timed``, event ms, device ms (pending), plain ms and the bound."""
+    args = traversal_args(fo, live)
+    got = forest_traversal.forest_traverse(b, *args)
+    want = forest_traversal.forest_traverse_plain(b, *args)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{tag}: {bad} outputs differ from the plain version")
+    out = {"rows": b.shape[0], "live": live, "max_abs_err": 0.0,
+           "plan": traversal_plan_of(b, fo)}
+    if timed:
+        bms, by, cells = traversal_bound(b, fo, live)
+        event_times(lambda: forest_traversal.forest_traverse(b, *args), out)
+        out.update({
+            "plain_ms": cuda_ms(lambda: forest_traversal.forest_traverse_plain(b, *args),
+                                reps=2, warmup=1),
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "bin_cells_read": cells,
+        })
+    return out
 
 
 def drive_multiclass(dev: torch.device, realsim: dict) -> dict:
@@ -1802,29 +2202,8 @@ def check_multiclass(mc: dict, realsim: dict, report: dict) -> dict:
 
     serve_stats = {}
     for tag, f32, xs, edges, obj in mc["servings"]:
-        bins_all = apply_bins(torch.from_numpy(xs).to(data.bins.device), edges)
-        margin32 = forest_predict(f32, bins_all)
-        for mode in QUANT_MODES:
-            server, reqs, results = mc["served"][tag, mode]
-            key = f"{tag} {mode or 'f32'}"
-            st = serve_stats[key] = check_served(key, server, reqs, results)
-            if MC_SHAPE[2] == f32.n_outputs:
-                rows = np.concatenate([r.scores for r in results])
-                st["softmax_row_sum_err"] = float(np.abs(rows.sum(1) - 1.0).max())
-                if st["softmax_row_sum_err"] > 1e-5:
-                    raise AssertionError(f"{key}: a served row is no softmax row")
-            if mode:
-                if not isinstance(server.forest, QuantizedForest) or server.forest.mode != mode:
-                    raise AssertionError(f"{key}: the server did not install a {mode} forest")
-                atol = quantization_atol(f32, server.forest)
-                diff = float((forest_predict(server.forest, bins_all) - margin32).abs().max())
-                st.update(margin_max_abs_diff=diff, quantization_atol=atol)
-                if not diff <= atol + 1e-6:
-                    raise AssertionError(f"{key}: a margin moved {diff}, over the bound {atol}")
-            print(f"serve {key}: {st['requests']} requests over {st['waves']} waves, latency "
-                  f"p50 {st['latency_p50_ms']:.3f} ms p99 {st['latency_p99_ms']:.3f} ms"
-                  + (f"; margins within {st['margin_max_abs_diff']:.3g} of f32 (bound "
-                     f"{st['quantization_atol']:.3g})" if mode else "") + f" [{card}]", flush=True)
+        serve_stats.update(check_serving_modes(
+            tag, f32, xs, edges, {mode: mc["served"][tag, mode] for mode in QUANT_MODES}, card))
     report["multiclass"] = {
         "config": {"shape": MC_SHAPE, "objective": MC_CFG.objective, "depth": MC_CFG.learner.depth,
                    "slots": MC_CFG.n_trees * MC_SHAPE[2], "rounds": ROUNDS, "workers": WORKERS},
@@ -1833,6 +2212,40 @@ def check_multiclass(mc: dict, realsim: dict, report: dict) -> dict:
         "serve": serve_stats, "launches": mc["counts"],
     }
     return forms, levels
+
+
+def check_serving_modes(tag: str, f32, xs: np.ndarray, edges, served: dict, card: str) -> dict:
+    """The f32 forest ``f32`` served in each of ``QUANT_MODES`` (``served``:
+    mode -> ``serve``'s (server, requests, results)): every answer
+    link(forest_predict) on the installed forest (``check_served``); a
+    K = 5 forest's rows softmax rows; a quantized server holds that form,
+    every margin within ``quantization_atol`` + 1e-6 of the f32 forest's.
+    Returns the stats by "tag form"."""
+    bins_all = apply_bins(torch.from_numpy(xs).to(edges.device), edges)
+    margin32 = forest_predict(f32, bins_all)
+    stats = {}
+    for mode in QUANT_MODES:
+        server, reqs, results = served[mode]
+        key = f"{tag} {mode or 'f32'}"
+        st = stats[key] = check_served(key, server, reqs, results)
+        if MC_SHAPE[2] == f32.n_outputs:
+            rows = np.concatenate([r.scores for r in results])
+            st["softmax_row_sum_err"] = float(np.abs(rows.sum(1) - 1.0).max())
+            if st["softmax_row_sum_err"] > 1e-5:
+                raise AssertionError(f"{key}: a served row is no softmax row")
+        if mode:
+            if not isinstance(server.forest, QuantizedForest) or server.forest.mode != mode:
+                raise AssertionError(f"{key}: the server did not install a {mode} forest")
+            atol = quantization_atol(f32, server.forest)
+            diff = float((forest_predict(server.forest, bins_all) - margin32).abs().max())
+            st.update(margin_max_abs_diff=diff, quantization_atol=atol)
+            if not diff <= atol + 1e-6:
+                raise AssertionError(f"{key}: a margin moved {diff}, over the bound {atol}")
+        print(f"serve {key}: {st['requests']} requests over {st['waves']} waves, latency "
+              f"p50 {st['latency_p50_ms']:.3f} ms p99 {st['latency_p99_ms']:.3f} ms"
+              + (f"; margins within {st['margin_max_abs_diff']:.3g} of f32 (bound "
+                 f"{st['quantization_atol']:.3g})" if mode else "") + f" [{card}]", flush=True)
+    return stats
 
 
 def multiclass_line(mc: dict, checked: tuple, report: dict) -> list:
@@ -2803,11 +3216,15 @@ def main() -> None:
     # checks' too.
     gbdt = drive(torch.device("cuda"))
     drive_handoff(gbdt, report)
+    phase = drive_e2006(torch.device("cuda"), gbdt)
+    check_e2006(phase, report)
     multi = drive_multiclass(torch.device("cuda"), gbdt)
     checked = check_multiclass(multi, gbdt, report)
+    phase_shapes = check_e2006_kernels(phase, report)
     line = check_drive(gbdt, report)
     line += multiclass_line(multi, checked, report)
-    del gbdt, multi
+    line += e2006_line(phase, phase_shapes, report)
+    del gbdt, multi, phase
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")

@@ -7,9 +7,8 @@ Efficiency experiments (§VI.C): 400 trees / 400 leaves (depth 9), R = 0.8.
 
 Datasets are the property-matched synthetic stand-ins of
 ``data.synthetic.PAPER_DATASETS``; the ``quick`` variants keep every ratio
-but shrink the tree budget. ``efficiency-e2006`` keeps its ``"mse"`` loss:
-its data loads, and training it raises until the objective is ported
-(ROADMAP.md A4).
+but shrink the tree budget. ``efficiency-e2006`` is the squared-error
+experiment (paper §VI.C, Fig. 10) on the e2006-like regression set.
 """
 from __future__ import annotations
 

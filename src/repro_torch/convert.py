@@ -65,9 +65,10 @@ def quantized_forest_from_numpy(
 
 def binned_from_numpy(
     bins, bin_edges, labels, multiplicity, n_bins: int,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, qid=None,
 ) -> BinnedData:
-    """A dense ``BinnedData`` from numpy arrays."""
+    """A dense ``BinnedData`` from numpy arrays (``qid``: query ids, or
+    None)."""
     dev = resolve_device(device)
 
     return BinnedData(
@@ -76,6 +77,7 @@ def binned_from_numpy(
         labels=_tensor(labels, np.float32, dev),
         multiplicity=_tensor(multiplicity, np.float32, dev),
         n_bins=int(n_bins),
+        qid=None if qid is None else _tensor(qid, np.int32, dev),
     )
 
 

@@ -22,8 +22,18 @@ class SGBDTConfig(NamedTuple):
     sampling_rate: float = 0.8  # uniform R
     loss: str = "logistic"  # a registered objective; ``objective`` wins when set
     learner: LearnerConfig = LearnerConfig()
-    # An Objective instance or a registry spec ("logistic", "multiclass:5").
+    # "gradient": the paper's step (h = m', a leaf is the mean sampled
+    # gradient). "newton": xgboost's leaf -G / (H + lam) with the sampled
+    # hessian m' h, for the paper's conclusion 2 (Newton leaves do not
+    # survive asynchrony).
+    step_kind: str = "gradient"
+    # An Objective instance or a registry spec ("multiclass:5", "quantile:0.9").
     objective: Objective | str | None = None
+    # Staleness-adaptive step (Proposition 1's deflation): > 0 scales each
+    # fold's tree by 1 / (1 + 6 * adaptive_step * tau_j), tau_j = j - k(j)
+    # the staleness seen at fold time, on the server (``engine.scale_push``).
+    # tau = 0 scales by exactly 1.0, so serial training keeps its bits.
+    adaptive_step: float = 0.0
 
     @property
     def obj(self) -> Objective:
@@ -41,8 +51,10 @@ class TrainState(NamedTuple):
 
 
 def init_state(cfg: SGBDTConfig, data: BinnedData) -> TrainState:
-    """Server init: the constant tree is the objective's prior (log-odds for
-    logistic, log class priors (K,) for multiclass)."""
+    """Server init: the constant tree is the objective's prior
+    (``init_score``): log-odds for logistic, the multiplicity-weighted label
+    mean for squared error and Huber, the weighted label quantile for
+    pinball, log class priors (K,) for multiclass, 0 for ranking."""
     obj = cfg.obj
     base = obj.init_score(data.labels, data.multiplicity).float()
     forest = empty_forest(cfg.n_trees, cfg.learner.depth, base_score=base,
@@ -68,9 +80,9 @@ def train_serial(
 
 
 def train_loss(cfg: SGBDTConfig, data: BinnedData, state: TrainState) -> torch.Tensor:
-    return cfg.obj.loss(data.labels, state.f, data.multiplicity)
+    return cfg.obj.loss(data.labels, state.f, data.multiplicity, qid=data.qid)
 
 
 def train_metrics(cfg: SGBDTConfig, data: BinnedData, state: TrainState) -> dict:
     """The objective's scalar diagnostics on the training set."""
-    return cfg.obj.metrics(data.labels, state.f, data.multiplicity)
+    return cfg.obj.metrics(data.labels, state.f, data.multiplicity, qid=data.qid)

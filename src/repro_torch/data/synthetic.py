@@ -123,6 +123,29 @@ def make_multiclass_classification(
     return bin_dataset(x, y, n_bins=64, device=device)
 
 
+def make_ranking(
+    n_queries: int, docs_per_query: int, dim: int, seed: int = 0, n_levels: int = 3,
+    noise: float = 0.25, device: str | torch.device | None = None,
+) -> BinnedData:
+    """Query-grouped ranking set for ``objectives.LambdaRank``: labels are
+    relevance grades 0..n_levels-1, ``qid`` each sample's query id (int32).
+    A grade is the within-query rank of a noisy linear utility, bucketed
+    into ``n_levels``: features predict the order, but no grade is
+    separable across queries."""
+    rng = np.random.default_rng(seed)
+    n = n_queries * docs_per_query
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    w = rng.standard_normal(dim).astype(np.float32)
+    util = (x @ w + noise * rng.standard_normal(n)).astype(np.float32)
+    qid = np.repeat(np.arange(n_queries, dtype=np.int32), docs_per_query)
+    rel = np.empty(n, np.float32)
+    for q in range(n_queries):
+        sl = slice(q * docs_per_query, (q + 1) * docs_per_query)
+        order = np.argsort(np.argsort(util[sl]))  # 0 = worst in the query
+        rel[sl] = order * n_levels // docs_per_query  # grades 0..n_levels-1
+    return bin_dataset(x, rel, n_bins=64, device=device, qid=qid)
+
+
 # Scaled-down stand-ins for the paper's three datasets (same property axes).
 PAPER_DATASETS: dict[str, DatasetSpec] = {
     "realsim-like": DatasetSpec(

@@ -9,7 +9,8 @@ checkpoint between waves:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gbdt \\
         --trees 60 --requests 12 [--rows 64] [--workers 8] \\
-        [--objective logistic|multiclass:3] [--quantize none|int8|fp16]
+        [--objective logistic|mse|quantile:0.9|huber|multiclass:3|lambdarank] \
+        [--quantize none|int8|fp16]
 
 ``--engine continuous`` serves the same traffic through the
 continuous-batching ``ForestEngine``: the mid-training and final
@@ -34,7 +35,8 @@ def run_gbdt(args) -> list:
     the served results (sorted by uid within each half of the traffic).
 
     The server applies ``--objective``'s link, so multiclass serves (rows,
-    K) softmax rows and logistic serves p(y = 1).
+    K) softmax rows, logistic serves p(y = 1), and the regression and
+    ranking objectives serve the raw margin (the identity link).
     """
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.sgbdt import SGBDTConfig
@@ -55,12 +57,14 @@ def run_gbdt(args) -> list:
     obj = get_objective(args.objective)
     rng = np.random.default_rng(args.seed)
     n, dim = 2_000, 40
-    if obj.n_outputs > 1:
-        # Class-id targets: the shared objective -> workload dispatch.
+    if obj.n_outputs > 1 or obj.name == "lambdarank":
+        # Structured targets (class ids, query groups): the shared objective
+        # -> workload dispatch.
         _, data = gbdt_dataset_for(args.objective, args.seed, n=n, device=dev)
         dim = data.n_features
     else:
-        # Scalar targets: the demo's light dense set, as the reference draws it.
+        # Scalar targets (logistic, mse, quantile, huber): the demo's light
+        # dense set, as the reference draws it.
         x = rng.standard_normal((n, dim)).astype(np.float32)
         w = rng.standard_normal(dim).astype(np.float32)
         y = (x @ w + 0.1 * rng.standard_normal(n) > 0).astype(np.float32)
@@ -174,7 +178,8 @@ def main(argv: list[str] | None = None) -> list:
                     help="checkpoint directory (default: a fresh temporary one)")
     ap.add_argument("--objective", default="logistic",
                     help="GBDT objective spec; served outputs go through its link "
-                         "(multiclass:3 -> softmax rows)")
+                         "(multiclass:3 -> softmax rows; mse, quantile, huber and "
+                         "lambdarank -> raw margins)")
     ap.add_argument("--engine", default="wave", choices=["wave", "continuous"],
                     help="wave: the drain-the-queue ForestServer; continuous: the "
                          "multi-version, SLO-cutting ForestEngine")

@@ -14,10 +14,11 @@ engine (``repro_torch.ps``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gbdt \
         --steps 200 --workers 16 [--sample 0.8] [--sparse] \
-        [--backend staged|fused] [--objective logistic|multiclass:5]
+        [--backend staged|fused] [--objective logistic|mse|quantile:0.9|huber|
+                                  multiclass:5|lambdarank]
 
-The reference's other objectives (ROADMAP.md A4), ``--runtime threads``
-(A5), ``--mesh`` (A8) and ``--scan`` raise until they are ported.
+``--runtime threads`` (ROADMAP.md A5; ``--adaptive-step`` comes with it),
+``--mesh`` (A8) and ``--scan`` raise until they are ported.
 """
 from __future__ import annotations
 
@@ -65,17 +66,22 @@ def synthetic_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
 def gbdt_dataset_for(objective, seed: int, n: int = 4_000,
                      device: str | torch.device | None = None):
     """The objective's matched synthetic workload on ``device`` (the card
-    unless one is given) -> (objective, data): K-class blobs over 60
-    features for ``multiclass:K``, sparse classification (1000 features, 20
-    nonzeros a row) for logistic. The regression and ranking objectives
-    raise in ``get_objective`` (ROADMAP.md A4)."""
+    unless one is given) -> (objective, data), as the reference dispatches:
+    query groups of 16 documents over 40 features for ``lambdarank``,
+    K-class blobs over 60 features for ``multiclass:K``, sparse regression
+    (1000 features, 20 nonzeros a row) for mse, quantile and huber, sparse
+    classification (the same widths) for logistic."""
     from repro_torch.data import synthetic as D
     from repro_torch.objectives import get_objective
 
     obj = get_objective(objective)
+    if obj.name == "lambdarank":
+        return obj, D.make_ranking(max(n // 16, 16), 16, 40, seed=seed, device=device)
     if obj.n_outputs > 1:
         return obj, D.make_multiclass_classification(n, 60, obj.n_outputs, seed=seed,
                                                      device=device)
+    if obj.name in ("mse", "quantile", "huber"):
+        return obj, D.make_sparse_regression(n, 1_000, 20, seed=seed, device=device)
     return obj, D.make_sparse_classification(n, 1_000, 20, seed=seed, device=device)
 
 
@@ -95,7 +101,10 @@ def gbdt_config(objective: str, n_trees: int, sample: float = 0.8,
 
 def run_gbdt(args):
     """Asynch-SGBDT on the PS engine under round-robin W workers (the loop
-    form); returns the final ``TrainState``."""
+    form); returns the final ``TrainState``. ``--objective`` picks the
+    objective and its matched workload (``gbdt_dataset_for``); the final
+    metrics are the objective's (rmse, coverage, accuracy, pairwise
+    accuracy), query ids included."""
     from repro_torch.core.sgbdt import train_loss, train_metrics
     from repro_torch.ps import Trainer
     from repro_torch.trees import binning
@@ -160,7 +169,8 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--workers", type=int, default=8,
                     help="parameter-server worker count (--arch gbdt)")
     ap.add_argument("--objective", default="logistic",
-                    help="GBDT objective registry spec: logistic | multiclass:K")
+                    help="GBDT objective registry spec: logistic | mse | quantile[:a] | "
+                         "huber[:delta] | multiclass:K | lambdarank")
     ap.add_argument("--sparse", action="store_true",
                     help="train on the SparseBins layout (exact round trip; the "
                          "histogram's cost scales with the stored entries)")

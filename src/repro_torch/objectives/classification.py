@@ -23,7 +23,7 @@ class BinaryLogistic(Objective):
         ybar = torch.clamp(ybar, 1e-6, 1.0 - 1e-6)
         return 0.5 * torch.log(ybar / (1.0 - ybar))
 
-    def grad_hess(self, y, f):
+    def grad_hess(self, y, f, qid=None):
         return logistic_grad_hess(y, f)
 
     def link(self, f):
@@ -33,10 +33,10 @@ class BinaryLogistic(Objective):
         margin = (2.0 * y - 1.0) * f
         return torch.logaddexp(torch.zeros_like(margin), -2.0 * margin)
 
-    def loss(self, y, f, weight=None):
+    def loss(self, y, f, weight=None, qid=None):
         return logistic_loss(y, f, weight)
 
-    def metrics(self, y, f, weight=None):
+    def metrics(self, y, f, weight=None, qid=None):
         acc = weighted_mean(((f > 0.0) == (y > 0.5)).float(), weight)
         return {"loss": self.loss(y, f, weight), "accuracy": acc}
 
@@ -65,7 +65,7 @@ class MulticlassSoftmax(Objective):
         prior = (weight[:, None] * self._onehot(y)).sum(0) / weight.sum()
         return torch.log(torch.clamp(prior, 1e-6, 1.0))
 
-    def grad_hess(self, y, f):
+    def grad_hess(self, y, f, qid=None):
         p = torch.softmax(f, dim=-1)
         return p - self._onehot(y), p * (1.0 - p)
 
@@ -75,6 +75,6 @@ class MulticlassSoftmax(Objective):
     def per_example(self, y, f):
         return -(self._onehot(y) * torch.log_softmax(f, dim=-1)).sum(-1)
 
-    def metrics(self, y, f, weight=None):
+    def metrics(self, y, f, weight=None, qid=None):
         acc = weighted_mean((torch.argmax(f, dim=-1) == y.long()).float(), weight)
         return {"loss": self.loss(y, f, weight), "accuracy": acc}

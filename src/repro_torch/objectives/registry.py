@@ -3,6 +3,7 @@
 
     get_objective("logistic")          # the paper's symmetric-logit binary
     get_objective("multiclass:5")      # 5-class softmax, K = 5 trees a round
+    get_objective("quantile:0.9")      # 0.9-pinball regression
     get_objective(BinaryLogistic())    # instances pass through
 """
 from __future__ import annotations
@@ -12,8 +13,6 @@ from typing import Callable
 from repro_torch.objectives.base import Objective
 
 _REGISTRY: dict[str, Callable[..., Objective]] = {}
-# The reference's objectives (names and aliases) that the port lacks yet.
-_NOT_PORTED = ("mse", "squared_error", "quantile", "pinball", "huber", "lambdarank", "ranknet")
 
 
 def register(name: str, *aliases: str):
@@ -53,10 +52,6 @@ def get_objective(spec, **kwargs) -> Objective:
     if not isinstance(spec, str):
         raise TypeError(f"objective spec must be Objective or str, got {type(spec)}")
     name, _, arg = spec.partition(":")
-    if name in _NOT_PORTED:
-        raise ValueError(f"unknown objective {name!r} in the port: the JAX package's "
-                         "regression and ranking objectives are not ported yet "
-                         "(ROADMAP.md A4)")
     if name not in _REGISTRY:
         raise ValueError(f"unknown objective {name!r}; registered: {sorted(_REGISTRY)}")
     factory = _REGISTRY[name]

@@ -10,6 +10,8 @@ Algorithm 3 splits a boosting round across the PS roles:
 
 ``round_body`` composes the two. ``Trainer.train`` runs it in a Python
 loop under any delay schedule, keeping a ring of the last F versions.
+With ``cfg.adaptive_step`` the server deflates each pushed tree by its
+observed staleness (``staleness_scale``, ``scale_push``).
 
 Randomness comes from a ``torch.Generator`` seeded from ``seed``. It
 cannot reproduce ``jax.random``'s bits, so ``propose_tree`` and
@@ -54,6 +56,11 @@ def propose_tree(
     before the gather, so the server fold is a pure add (engine.py:73-81
     of the reference). Draws not injected come from ``gen``: Bernoulli
     weights first, then the feature mask.
+
+    The hessian weights: the paper's gradient step takes h_i = m'_i
+    (broadcast over the K outputs), so a leaf is the mean sampled
+    gradient; ``step_kind="newton"`` takes m'_i h_i, the objective's
+    hessian under the sample weights, for xgboost's leaf -G / (H + lam).
     """
     obj = cfg.obj
     if m_prime is None:
@@ -65,27 +72,57 @@ def propose_tree(
             feat_mask = u < cfg.learner.feature_fraction
         else:
             feat_mask = torch.ones(n_feat, dtype=torch.bool, device=data.bins.device)
-    g, _ = obj.grad_hess(data.labels, f_target)
+    g, h = obj.grad_hess(data.labels, f_target, qid=data.qid)
     v = torch.tensor(cfg.step_length, dtype=torch.float32, device=g.device)
-    # The paper's gradient step: h_i = m'_i (broadcast over the K outputs),
-    # so a leaf is the mean sampled gradient.
+    newton = cfg.step_kind == "newton"
     if obj.n_outputs == 1:
-        tree = build_tree(cfg.learner, data.bins, m_prime * g, m_prime, feat_mask.bool())
+        hess_w = m_prime * h if newton else m_prime
+        tree = build_tree(cfg.learner, data.bins, m_prime * g, hess_w, feat_mask.bool())
         tree = tree._replace(leaf_value=v * tree.leaf_value)
         return tree, apply_tree(tree, data.bins)
-    trees = build_tree_multi(cfg.learner, data.bins, m_prime[:, None] * g,
-                             m_prime[:, None].expand_as(g), feat_mask.bool())
+    h_w = m_prime[:, None] * h if newton else m_prime[:, None].expand_as(g)
+    trees = build_tree_multi(cfg.learner, data.bins, m_prime[:, None] * g, h_w,
+                             feat_mask.bool())
     trees = trees._replace(leaf_value=v * trees.leaf_value)
     return trees, apply_tree_stack(trees, data.bins)
 
 
 def server_fold(
-    forest: Forest, f_live: torch.Tensor, tree: Tree, delta: torch.Tensor
+    cfg: SGBDTConfig, forest: Forest, f_live: torch.Tensor, tree: Tree, delta: torch.Tensor
 ) -> tuple[Forest, torch.Tensor]:
     """Server side: F <- F + v * Tree (one tree, or a K-output group into K
     slots). The leaves arrive pre-scaled by v, so this is a slot write plus
-    a pure add."""
+    a pure add, the same for every ``cfg`` (the reference's signature)."""
     return forest_push(forest, tree, 1.0), f_live + delta
+
+
+def staleness_scale(rho: float, staleness, device: str | torch.device | None = None
+                    ) -> torch.Tensor:
+    """Proposition 1's step deflation for a tau-stale push, 1 / (1 + 6 rho
+    tau), as a 0-d f32 tensor on ``device`` (the CPU by default).
+
+    The bits of ``schedules.staleness_scales``: 6 rho is folded in Python
+    f64 and rounded to f32 once; then a multiply, an add and a division,
+    each its own f32 op (nothing fuses the multiply into the add).
+    """
+    tau = torch.as_tensor(staleness, dtype=torch.float32, device=device)
+    coef = torch.tensor(6.0 * rho, dtype=torch.float32, device=tau.device)
+    one = torch.ones_like(tau)
+    return one / (one + coef * tau)
+
+
+def scale_push(cfg: SGBDTConfig, data: BinnedData, tree: Tree, scale: torch.Tensor
+               ) -> tuple[Tree, torch.Tensor]:
+    """The server's staleness-adaptive deflation of a pushed tree: the scale
+    multiplies the LEAF TABLE, and the delta is the scaled tree gathered
+    again on the training bins. A multiply next to the fold's add could be
+    contracted into an FMA; a gathered operand cannot, and
+    ``round(s * leaf)[idx] == round(s * leaf[idx])``. The pushed delta is
+    dropped: the tree alone determines the update."""
+    tree = tree._replace(leaf_value=scale * tree.leaf_value)
+    if cfg.obj.n_outputs == 1:
+        return tree, apply_tree(tree, data.bins)
+    return tree, apply_tree_stack(tree, data.bins)
 
 
 def round_body(
@@ -96,12 +133,18 @@ def round_body(
     f_target: torch.Tensor,
     gen: torch.Generator | None = None,
     draws: Draws | None = None,
+    staleness: int | None = None,
 ) -> tuple[Forest, torch.Tensor]:
     """One boosting round: the tree is built against (possibly stale)
-    ``f_target`` but folded into the live server state."""
+    ``f_target`` but folded into the live server state. ``staleness`` is
+    tau_j = j - k(j), known only at fold time, so the adaptive deflation
+    (``cfg.adaptive_step``) is applied on the server side of the push."""
     m_prime, feat_mask = draws if draws is not None else (None, None)
     tree, delta = propose_tree(cfg, data, f_target, gen, m_prime, feat_mask)
-    return server_fold(forest, f_live, tree, delta)
+    if cfg.adaptive_step and staleness is not None:
+        scale = staleness_scale(cfg.adaptive_step, staleness, device=f_live.device)
+        tree, delta = scale_push(cfg, data, tree, scale)
+    return server_fold(cfg, forest, f_live, tree, delta)
 
 
 class Trainer:
@@ -147,6 +190,7 @@ class Trainer:
             forest, f = round_body(
                 cfg, data, forest, f, f_target, gen,
                 None if draws is None else draws[j],
+                j - int(sched[j]) if cfg.adaptive_step else None,
             )
             ring[(j + 1) % ring_size] = f
             if eval_fn is not None and eval_every and (j + 1) % eval_every == 0:

@@ -28,6 +28,17 @@ def max_staleness(schedule: np.ndarray) -> int:
     return int(np.max(np.arange(len(schedule)) - schedule))
 
 
+def staleness_scales(schedule, rho: float) -> np.ndarray:
+    """Each update's adaptive step scale 1 / (1 + 6 rho tau_j) for a
+    realized k(j), in f32: the host twin of ``engine.staleness_scale``,
+    bit for bit. ``rho = 0`` is the fixed step (all ones)."""
+    schedule = np.asarray(schedule)
+    tau = (np.arange(len(schedule)) - schedule).astype(np.float32)
+    return (
+        np.float32(1.0) / (np.float32(1.0) + np.float32(6.0 * rho) * tau)
+    ).astype(np.float32)
+
+
 def resolve_schedule(spec, n_trees: int) -> np.ndarray:
     """Normalize a schedule to a validated (n_trees,) int32 k(j).
 

@@ -67,6 +67,8 @@ class BinnedData(NamedTuple):
       labels: (N,) float32.
       multiplicity: (N,) float32 — the paper's m_i.
       n_bins: static int.
+      qid: (N,) int32 query ids for ranking objectives, else None; a
+        ``_replace(bins=to_sparse(...))`` keeps it.
     """
 
     bins: torch.Tensor | SparseBins
@@ -74,6 +76,7 @@ class BinnedData(NamedTuple):
     labels: torch.Tensor
     multiplicity: torch.Tensor
     n_bins: int
+    qid: torch.Tensor | None = None
 
     @property
     def n_samples(self) -> int:
@@ -192,12 +195,14 @@ def bin_dataset(
     multiplicity: np.ndarray | None = None,
     device: str | torch.device | None = None,
     sparse: bool | str = False,
+    qid: np.ndarray | None = None,
 ) -> BinnedData:
     """One-shot dataset quantization onto ``device`` (the card by default).
 
     ``sparse``: ``True`` gives the ``SparseBins`` layout, ``"auto"`` gives
     it when the majority-bin complement density is under
-    ``SPARSE_DENSITY_THRESHOLD``; the default stays dense.
+    ``SPARSE_DENSITY_THRESHOLD``; the default stays dense. ``qid``: the
+    per-sample query ids of a ranking set, stored as int32.
     """
     dev = resolve_device(device)
     edges = make_bins(x, n_bins)
@@ -215,4 +220,5 @@ def bin_dataset(
         labels=torch.as_tensor(np.asarray(y, np.float32), device=dev),
         multiplicity=torch.as_tensor(np.asarray(multiplicity, np.float32), device=dev),
         n_bins=n_bins,
+        qid=None if qid is None else torch.as_tensor(np.asarray(qid, np.int32), device=dev),
     )

@@ -409,3 +409,114 @@ def test_configs_come_from_the_ported_modules():
     assert chip_smoke.CFG == gbdt.EXPERIMENTS["efficiency-realsim"].config
     assert chip_smoke.MC_CFG == gbdt_config("multiclass:5", 400)
     assert chip_smoke.MC_CFG.learner.depth == 6 and chip_smoke.MC_CFG.step_length == 0.15
+
+
+@pytest.fixture
+def step_data(monkeypatch):
+    """The e2006 and step-rules phase's configurations at a small size on the
+    CPU: realsim's configuration at depth 3, 4 rounds; the plain fused level
+    counted as a launch (the CPU launches no kernel)."""
+    from repro_torch.kernels import level_build
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    cfg = chip_smoke.CFG._replace(n_trees=12, learner=chip_smoke.CFG.learner._replace(depth=3))
+    fused = cfg._replace(learner=cfg.learner._replace(backend="fused"))
+    for name, value in (("CFG", cfg), ("CFG_FUSED", fused), ("ROUNDS", 4),
+                        ("NEWTON_CFG", cfg._replace(step_kind="newton")),
+                        ("NEWTON_CFG_FUSED", fused._replace(step_kind="newton")),
+                        ("ADAPTIVE_CFG", cfg._replace(adaptive_step=chip_smoke.STEP_RHO))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    plain = level_build.level_build_plain
+
+    def counted(*args, **kw):
+        level_build.launches += 1
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(level_build, "level_build_plain", counted)
+    x, y = chip_smoke.synthetic.sparse_classification_xy(700, 30, 6, seed=2)
+    return chip_smoke.bin_dataset(x, y, n_bins=64, device="cpu")
+
+
+def _step_runs(data):
+    """The phase's realsim runs, as ``drive_e2006`` makes them."""
+    runs = {}
+    with chip_smoke.recorded_scales() as scales:
+        fused: list = []
+        runs["newton"] = chip_smoke.train(data, chip_smoke.NEWTON_CFG)
+        runs["newton_fused"] = chip_smoke.train(data, chip_smoke.NEWTON_CFG_FUSED, [], fused)
+        runs["fixed_w1"] = chip_smoke.train(data, chip_smoke.CFG, workers=1)
+        runs["adaptive_w1"] = chip_smoke.train(data, chip_smoke.ADAPTIVE_CFG, workers=1)
+        runs["adaptive_w4"] = chip_smoke.train(data, chip_smoke.ADAPTIVE_CFG)
+    return runs, fused, scales, chip_smoke.train(data, chip_smoke.CFG)
+
+
+def test_step_rule_checks_pass_on_a_small_cpu_run(step_data):
+    runs, fused, scales, fixed_w4 = _step_runs(step_data)
+    assert len(scales) == 2 * chip_smoke.ROUNDS and fused == [3] * chip_smoke.ROUNDS
+    newton = chip_smoke.check_newton(step_data, runs["newton"], runs["newton_fused"], fused,
+                                     fixed_w4)
+    assert newton["fused_levels"] == [0, 1, 2]
+    adaptive = chip_smoke.check_adaptive(step_data, runs, fixed_w4, scales)
+    assert adaptive["scales_w4"][:4] == pytest.approx([1.0, 1 / 1.6, 1 / 2.2, 1 / 2.8])
+
+
+def test_step_rule_checks_fail_planted_faults(step_data, monkeypatch):
+    """A Newton run that drops the hessian (the gradient step's weights m')
+    and a scale applied to the delta and not to the leaves each fail their
+    gate."""
+    engine = chip_smoke.ps_engine
+    propose = engine.propose_tree
+    with monkeypatch.context() as m:
+        m.setattr(engine, "propose_tree", lambda cfg, *a, **k: propose(
+            cfg._replace(step_kind="gradient"), *a, **k))
+        runs, fused, scales, fixed_w4 = _step_runs(step_data)
+    with pytest.raises(AssertionError, match="hessian weights m' h"):
+        chip_smoke.check_newton(step_data, runs["newton"], runs["newton_fused"], fused,
+                                fixed_w4)
+    with monkeypatch.context() as m:
+        m.setattr(engine, "scale_push", lambda cfg, data, tree, scale: (
+            tree, scale * engine.apply_tree(tree, data.bins)))
+        runs, fused, scales, fixed_w4 = _step_runs(step_data)
+    chip_smoke.check_newton(step_data, runs["newton"], runs["newton_fused"], fused, fixed_w4)
+    # Four rounds at W = 4 all build from F^0: with unscaled leaves the
+    # forest is the fixed step's, which is the first gate to fail.
+    with pytest.raises(AssertionError, match="W = 4: the forest is the fixed step's"):
+        chip_smoke.check_adaptive(step_data, runs, fixed_w4, scales)
+    # Round 3 changed: the forests differ, and round 1's unscaled leaves fail.
+    runs["adaptive_w4"].forest.leaf_value[chip_smoke.ROUNDS - 1] *= 2
+    with pytest.raises(AssertionError, match="round 1's leaves are not the fixed run's"):
+        chip_smoke.check_adaptive(step_data, runs, fixed_w4, scales)
+
+
+def test_e2006_serving_checks_fail_an_answer_off_by_one_leaf(step_data):
+    """The squared-error forest served f32, int8 and fp16 passes; the same
+    answers with one row moved by one leaf of the forest fail."""
+    x, y = chip_smoke.synthetic.sparse_regression_xy(600, 40, 5, seed=4)
+    data = chip_smoke.bin_dataset(x, y, n_bins=64, device="cpu")
+    cfg = chip_smoke.E2006_CFG._replace(n_trees=8, step_length=0.3,
+                                        learner=chip_smoke.E2006_CFG.learner._replace(depth=3))
+    assert cfg.obj.name == "mse"
+    state = chip_smoke.train(data, cfg)
+    rng = np.random.default_rng(5)
+    served = {mode: chip_smoke.serve(state.forest, x, data.bin_edges, rng, objective="mse",
+                                     quantize=mode) for mode in chip_smoke.QUANT_MODES}
+    stats = chip_smoke.check_serving_modes("e2006", state.forest, x, data.bin_edges, served,
+                                           "cpu")
+    assert set(stats) == {"e2006 f32", "e2006 int8", "e2006 fp16"}
+    _, _, results = served[None]
+    leaves = state.forest.leaf_value[2]
+    results[3].scores[0] += float(leaves[leaves.abs().argmax()])  # a nonzero leaf
+    with pytest.raises(AssertionError):
+        chip_smoke.check_serving_modes("e2006", state.forest, x, data.bin_edges, served, "cpu")
+
+
+def test_e2006_phase_configs_come_from_the_ported_modules():
+    from repro_torch.configs import gbdt
+
+    assert chip_smoke.E2006_CFG == gbdt.EXPERIMENTS["efficiency-e2006"].config
+    assert chip_smoke.E2006_CFG.obj.name == "mse" and chip_smoke.E2006_CFG.learner.depth == 9
+    assert chip_smoke.NEWTON_CFG == chip_smoke.CFG._replace(step_kind="newton")
+    assert chip_smoke.ADAPTIVE_CFG.adaptive_step == chip_smoke.STEP_RHO > 0
+    assert set(chip_smoke.OBJECTIVE_TRAIN_CLIS) == {"mse", "quantile:0.9", "huber", "lambdarank"}
+    assert set(chip_smoke.OBJECTIVE_SERVE_CLIS) == {"mse", "lambdarank"}
+    assert {k for k, _ in chip_smoke.E2006_LINE.values()} == set(chip_smoke.KERNELS)

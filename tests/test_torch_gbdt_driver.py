@@ -5,10 +5,11 @@ package's.
 (bins, edges, labels, multiplicities) equal the reference's;
 ``train_serial`` is the engine under ``("round_robin", 1)``, bit for bit;
 the trainer cache is an LRU of 8; ``gbdt_dataset_for`` builds the
-reference's workloads and raises with the ROADMAP pointer for the
-objectives not ported; ``launch.train.main`` and ``launch.serve.main``
-(both engines, int8) run on the CPU, the loss falling and the swap
-happening.
+reference's workloads for every objective (query ids too);
+``efficiency-e2006`` resolves its squared-error objective and trains;
+``launch.train.main`` and ``launch.serve.main`` (both engines, int8; the
+regression and ranking objectives) run on the CPU, the loss falling and
+the swap happening.
 """
 import numpy as np
 import pytest
@@ -64,11 +65,18 @@ def test_get_equals_the_reference(name, monkeypatch):
     assert tdata.n_bins == jdata.n_bins
 
 
-def test_e2006_loads_and_raises_on_training():
+def test_e2006_resolves_its_objective_and_trains():
     cfg, data = tgbdt.get("efficiency-e2006", device="cpu")
     assert cfg.loss == "mse" and data.bins.shape == (3000, 2000)
-    with pytest.raises(ValueError, match="ROADMAP.md A4"):
-        cfg.obj
+    assert cfg.obj.name == "mse" and cfg.obj.n_outputs == 1
+    # Two rounds at depth 3 on a row subset: the CPU runs the plain kernels.
+    small = cfg._replace(n_trees=2, learner=cfg.learner._replace(depth=3))
+    rows = data._replace(bins=data.bins[:500], labels=data.labels[:500],
+                         multiplicity=data.multiplicity[:500])
+    state = Trainer(small, device="cpu").train(rows, ("round_robin", 2), seed=0)
+    assert int(state.forest.n_trees) == 2 and torch.isfinite(state.f).all()
+    assert float(train_loss(small, rows, state)) < float(
+        train_loss(small, rows, init_state(small, rows)))
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +119,8 @@ def test_trainer_cache_is_an_lru_of_eight(small):
     tengine.clear_trainers()
 
 
-@pytest.mark.parametrize("objective", ["logistic", "multiclass:3"])
+@pytest.mark.parametrize("objective", ["logistic", "multiclass:3", "mse", "lambdarank",
+                                       "quantile:0.9", "huber"])
 def test_gbdt_dataset_for_equals_the_reference(objective):
     tobj, tdata = ttrain.gbdt_dataset_for(objective, 4, n=600, device="cpu")
     jobj, jdata = jtrain.gbdt_dataset_for(objective, 4, n=600)
@@ -119,12 +128,9 @@ def test_gbdt_dataset_for_equals_the_reference(objective):
     for field in ("bins", "bin_edges", "labels", "multiplicity"):
         np.testing.assert_array_equal(getattr(tdata, field).numpy(),
                                       np.asarray(getattr(jdata, field)), err_msg=field)
-
-
-@pytest.mark.parametrize("objective", ["mse", "lambdarank", "quantile:0.9", "huber"])
-def test_gbdt_dataset_for_points_at_a4(objective):
-    with pytest.raises(ValueError, match="ROADMAP.md A4"):
-        ttrain.gbdt_dataset_for(objective, 0, device="cpu")
+    assert (tdata.qid is None) == (jdata.qid is None) == (objective != "lambdarank")
+    if jdata.qid is not None:
+        np.testing.assert_array_equal(tdata.qid.numpy(), np.asarray(jdata.qid))
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -141,7 +147,9 @@ def test_serve_cli_lm_arch_points_at_a11():
 
 
 @pytest.mark.parametrize("flags", [[], ["--backend", "fused", "--objective", "multiclass:3"],
-                                   ["--sparse"]], ids=["staged", "fused_multiclass", "sparse"])
+                                   ["--sparse"], ["--objective", "mse"],
+                                   ["--objective", "lambdarank"]],
+                         ids=["staged", "fused_multiclass", "sparse", "mse", "lambdarank"])
 def test_train_cli_runs_on_the_cpu(flags, capsys):
     args = ["--arch", "gbdt", "--device", "cpu", "--steps", "4", "--workers", "2",
             "--log-every", "0", *flags]
@@ -158,12 +166,14 @@ def test_train_cli_runs_on_the_cpu(flags, capsys):
     assert "trained in" in out and ("sparse bins" in out) == ("--sparse" in flags)
 
 
-@pytest.mark.parametrize("engine,quantize", [("wave", "none"), ("continuous", "none"),
-                                             ("wave", "int8"), ("continuous", "int8")])
-def test_serve_cli_runs_on_the_cpu(engine, quantize, tmp_path, capsys):
+@pytest.mark.parametrize("engine,quantize,objective", [
+    ("wave", "none", "logistic"), ("continuous", "none", "logistic"),
+    ("wave", "int8", "logistic"), ("continuous", "int8", "logistic"),
+    ("wave", "none", "mse"), ("wave", "none", "lambdarank")])
+def test_serve_cli_runs_on_the_cpu(engine, quantize, objective, tmp_path, capsys):
     outs = tserve.main(["--arch", "gbdt", "--device", "cpu", "--trees", "6", "--requests", "8",
                         "--rows", "32", "--ckpt-dir", str(tmp_path), "--engine", engine,
-                        "--quantize", quantize])
+                        "--quantize", quantize, "--objective", objective])
     assert sorted(r.uid for r in outs) == list(range(8))
     steps = {r.model_step for r in outs}
     assert steps == {3, 6} or (engine == "continuous" and steps <= {3, 6} and 3 in steps)
@@ -172,5 +182,9 @@ def test_serve_cli_runs_on_the_cpu(engine, quantize, tmp_path, capsys):
         assert [r.model_step for r in outs] == [3] * 4 + [6] * 4
     else:
         assert all(r.version in ("half", "full") for r in outs)
-    assert all(np.isfinite(r.scores).all() and ((r.scores >= 0) & (r.scores <= 1)).all()
-               for r in outs)
+    assert all(np.isfinite(r.scores).all() for r in outs)
+    assert all(r.scores.ndim == 1 for r in outs)
+    if objective == "logistic":  # probabilities
+        assert all(((r.scores >= 0) & (r.scores <= 1)).all() for r in outs)
+    if objective == "lambdarank":  # the identity link: raw margins about 0
+        assert any((r.scores < 0).any() for r in outs)

@@ -117,7 +117,8 @@ def test_get_objective_parses_name_and_argument():
     assert get_objective("softmax:5") == MulticlassSoftmax(5)
     assert isinstance(get_objective("binary_logistic"), BinaryLogistic)
     assert get_objective(obj) is obj
-    assert set(registered_objectives()) == {"logistic", "multiclass"}
+    assert set(registered_objectives()) == {"logistic", "multiclass", "lambdarank", "mse",
+                                            "quantile", "huber"}
     with pytest.raises(ValueError, match="unknown objective 'nope'"):
         get_objective("nope:2")
     with pytest.raises(TypeError):

@@ -58,9 +58,10 @@ def test_registry():
     assert isinstance(get_objective("binary_logistic"), BinaryLogistic)
     obj = BinaryLogistic()
     assert get_objective(obj) is obj
-    # multiclass is ported now; quantile is not yet (ROADMAP A4).
+    # Every reference objective is ported; an unregistered name still raises.
+    assert get_objective("quantile:0.9").alpha == 0.9
     with pytest.raises(ValueError, match="unknown objective"):
-        get_objective("quantile:0.9")
+        get_objective("poisson")
 
 
 @pytest.mark.parametrize("spec", [

@@ -25,7 +25,11 @@ from repro_torch.convert import (
     sparse_from_numpy,
 )
 from repro_torch.core.sgbdt import SGBDTConfig
-from repro_torch.data.synthetic import make_multiclass_classification
+from repro_torch.data.synthetic import (
+    make_multiclass_classification,
+    make_ranking,
+    make_sparse_regression,
+)
 from repro_torch import checkpoint
 from repro_torch.configs import gbdt as gbdt_configs
 from repro_torch.launch import serve as gbdt_serve
@@ -67,7 +71,8 @@ def test_port_files_were_found():
     assert {"chip_smoke.py", "engine.py", "histogram.py", "forest_server.py",
             "level_build.py", "histogram_sparse.py", "flash_attention.py", "transformer.py",
             "layers.py", "granite_3_2b.py", "steps.py", "train.py", "optimizers.py",
-            "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py"} <= names
+            "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py",
+            "regression.py", "ranking.py", "losses.py", "schedules.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -78,6 +83,7 @@ def test_port_files_were_found():
     "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.optimizers",
     "repro_torch.launch.serve", "repro_torch.serving.continuous",
     "repro_torch.checkpoint.store", "repro_torch.configs.gbdt",
+    "repro_torch.trees.losses", "repro_torch.ps.schedules",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -153,6 +159,17 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     lambda: load_forest_checkpoint(GOLDEN_CKPT, 8),
     lambda: checkpoint.restore_pytree(GOLDEN_CKPT, 8, {"f": np.zeros(320, np.float32)}),
     lambda: gbdt_configs.get("validity-higgs"),
+    lambda: gbdt_configs.get("efficiency-e2006"),
+    lambda: make_ranking(4, 4, 3),
+    lambda: make_sparse_regression(20, 10, 2),
+    lambda: bin_dataset(np.zeros((4, 2), np.float32), np.zeros(4, np.float32), 8,
+                        qid=np.zeros(4, np.int32)),
+    lambda: binned_from_numpy(np.zeros((2, 1)), np.zeros((1, 7)), np.zeros(2), np.ones(2), 8,
+                              qid=np.zeros(2)),
+    lambda: lm_train.main(["--arch", "gbdt", "--steps", "1", "--objective", "mse"]),
+    lambda: lm_train.main(["--arch", "gbdt", "--steps", "1", "--objective", "lambdarank"]),
+    lambda: gbdt_serve.main(["--arch", "gbdt", "--trees", "2", "--objective", "lambdarank"]),
+    lambda: Trainer(SGBDTConfig(step_kind="newton", adaptive_step=0.1)),
 ])
 def test_data_entry_points_without_device_raise_without_gpu(no_cuda, make):
     with pytest.raises(RuntimeError, match="no CUDA device"):

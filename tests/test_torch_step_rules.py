@@ -1,0 +1,263 @@
+"""The port's step rules (Newton leaves, the staleness-adaptive step) and the
+squared-error experiment against the JAX package.
+
+The reference draws its randomness with ``jax.random``; the tests
+recompute its draws from its keys (engine.py:83-84, learner.py:324-328)
+and inject them into the port. Tolerances:
+
+  * ``staleness_scale`` / ``staleness_scales``: bitwise, in both packages,
+    for tau 0..64 and several rho;
+  * a Newton ``propose_tree`` on decisive data (hessians 4p(1 - p) and
+    p(1 - p) at a seeded F): every split equal, leaves and delta within
+    1e-5 (sums taken in other orders);
+  * the adaptive trainer: bitwise its fixed-step self under W = 1 (tau = 0
+    scales by exactly 1.0); under ``("constant", 12)`` the reference's
+    training under the repo's cross-backend contract (a bitwise heap
+    prefix, at least 97% of nodes identical, F within 1e-5);
+  * ``efficiency-e2006`` at depth 4 on a 600-row subset, 6 rounds at
+    W = 2: the reference's loss within 1e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import gbdt as jgbdt
+from repro.core.sgbdt import SGBDTConfig as JSGBDTConfig
+from repro.core.sgbdt import init_state as jinit_state
+from repro.core.sgbdt import train_loss as jtrain_loss
+from repro.data.sampling import bernoulli_weights as jbernoulli_weights
+from repro.ps import engine as jengine
+from repro.ps import schedules as jschedules
+from repro.trees.binning import BinnedData as JBinnedData
+from repro.trees.binning import bin_dataset as jbin_dataset
+from repro.trees.learner import LearnerConfig as JLearnerConfig
+from repro_torch.configs import gbdt as tgbdt
+from repro_torch.convert import binned_from_numpy
+from repro_torch.core.sgbdt import SGBDTConfig, init_state, train_loss
+from repro_torch.data import synthetic as tsyn
+from repro_torch.ps import engine as tengine
+from repro_torch.ps import schedules as tschedules
+from repro_torch.trees.binning import bin_dataset
+from repro_torch.trees.forest import forest_predict
+from repro_torch.trees.learner import LearnerConfig
+
+N, DIM, NB, DEPTH = 600, 6, 16, 3
+
+
+def _decisive_data(k: int, seed: int = 0) -> JBinnedData:
+    """Labels driven by thresholded features of falling weight, the rest
+    noise: every split of a depth-3 tree is decisive. Binary for k = 1,
+    three classes by a softmax over two scores for k = 3."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, NB, (N, DIM)).astype(np.int32)
+    side = lambda c, t: 2.0 * (bins[:, c] > t) - 1.0  # noqa: E731
+    if k == 1:
+        z = 3.0 * side(0, 8) + 1.5 * side(1, 4) + 0.75 * side(2, 10)
+        y = (rng.random(N) < 1 / (1 + np.exp(-z))).astype(np.float32)
+    else:
+        z = np.stack([3.0 * side(0, 8) + 1.5 * side(1, 4),
+                      3.0 * side(2, 10) + 0.75 * side(3, 6), np.zeros(N)], axis=1)
+        p = np.exp(z) / np.exp(z).sum(1, keepdims=True)
+        y = (rng.random(N)[:, None] > np.cumsum(p, 1)).sum(1).astype(np.float32)
+    return JBinnedData(
+        bins=jnp.asarray(bins), bin_edges=jnp.zeros((DIM, NB - 1), jnp.float32),
+        labels=jnp.asarray(y), multiplicity=jnp.ones(N, jnp.float32), n_bins=NB,
+    )
+
+
+def _pair(jdata):
+    return jdata, binned_from_numpy(jdata.bins, jdata.bin_edges, jdata.labels,
+                                    jdata.multiplicity, jdata.n_bins, device="cpu",
+                                    qid=jdata.qid)
+
+
+def _cfgs(rounds, objective="logistic", step=0.3, depth=DEPTH, n_bins=NB, **kw):
+    common = dict(n_trees=rounds, step_length=step, sampling_rate=0.8, objective=objective,
+                  **kw)
+    return (JSGBDTConfig(learner=JLearnerConfig(depth=depth, n_bins=n_bins,
+                                                feature_fraction=0.8, backend="ref"),
+                         **common),
+            SGBDTConfig(learner=LearnerConfig(depth=depth, n_bins=n_bins,
+                                              feature_fraction=0.8), **common))
+
+
+def _draw(key, jdata):
+    """One round's reference draws from its key, as torch tensors."""
+    r_sample, r_feat = jax.random.split(key)
+    m, _ = jbernoulli_weights(r_sample, 0.8, jdata.multiplicity)
+    mask = jax.random.uniform(r_feat, (jdata.n_features,)) < 0.8
+    return torch.from_numpy(np.array(m)), torch.from_numpy(np.array(mask))
+
+
+def _reference_draws(jdata, rounds, seed=0):
+    keys = jax.random.split(jax.random.PRNGKey(seed), rounds)
+    return [_draw(keys[j], jdata) for j in range(rounds)]
+
+
+def _contract(tf, jf, prefix):
+    """The cross-backend forest contract's structure checks."""
+    for name in ("feature", "threshold"):
+        a, b = getattr(tf, name).numpy(), np.asarray(getattr(jf, name))
+        np.testing.assert_array_equal(a[..., :prefix], b[..., :prefix], err_msg=name)
+        assert np.mean(a == b) >= 0.97, f"{name}: too many node flips"
+
+
+@pytest.mark.parametrize("rho", [0.0, 0.05, 0.1, 1 / 3, 2.5])
+def test_staleness_scales_are_bitwise_in_both_packages(rho):
+    tau = np.arange(65)
+    sched = np.zeros(65, np.int32)  # k(j) = 0: tau_j = j
+    host = tschedules.staleness_scales(sched, rho)
+    np.testing.assert_array_equal(host.view(np.int32),
+                                  jschedules.staleness_scales(sched, rho).view(np.int32))
+    engine = np.array([tengine.staleness_scale(rho, int(t)).item() for t in tau], np.float32)
+    np.testing.assert_array_equal(engine.view(np.int32), host.view(np.int32))
+    whole = tengine.staleness_scale(rho, torch.from_numpy(tau))
+    assert whole.dtype == torch.float32 and whole.shape == (65,)
+    np.testing.assert_array_equal(whole.numpy().view(np.int32), host.view(np.int32))
+    jeng = np.asarray(jengine.staleness_scale(rho, jnp.asarray(tau)))
+    np.testing.assert_array_equal(jeng.view(np.int32), host.view(np.int32))
+    assert host[0] == 1.0 and (rho > 0) == bool((host[1:] < 1.0).all())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_newton_propose_tree_matches_jax(k):
+    """Newton leaves -G / (H + lam) with H the sampled hessian m' h, on the
+    reference's draws: the tree's splits equal, leaves and delta within
+    1e-5; and not the gradient step's leaves."""
+    jdata, tdata = _pair(_decisive_data(k))
+    objective = "logistic" if k == 1 else "multiclass:3"
+    jcfg, tcfg = _cfgs(1, objective, step_kind="newton")
+    shape = (N,) if k == 1 else (N, k)
+    f = (0.7 * np.random.default_rng(k).standard_normal(shape)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    jtree, jdelta = jengine.propose_tree(jcfg, jdata, jnp.asarray(f), key)
+    m, mask = _draw(key, jdata)
+    ttree, tdelta = tengine.propose_tree(tcfg, tdata, torch.from_numpy(f), m_prime=m,
+                                         feat_mask=mask)
+    for name in ("feature", "threshold"):
+        np.testing.assert_array_equal(getattr(ttree, name).numpy(),
+                                      np.asarray(getattr(jtree, name)), err_msg=name)
+    np.testing.assert_allclose(ttree.leaf_value.numpy(), np.asarray(jtree.leaf_value),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tdelta.numpy(), np.asarray(jdelta), rtol=1e-5, atol=1e-6)
+    grad_tree, _ = tengine.propose_tree(tcfg._replace(step_kind="gradient"), tdata,
+                                        torch.from_numpy(f), m_prime=m, feat_mask=mask)
+    assert not torch.allclose(grad_tree.leaf_value, ttree.leaf_value, rtol=1e-2)
+
+
+def test_newton_is_the_build_on_the_weighted_hessian():
+    """``step_kind="newton"`` hands the learner m' h (K = 1: m' * h; K > 1:
+    m'[:, None] * h), bit for bit."""
+    jdata, tdata = _pair(_decisive_data(1))
+    _, tcfg = _cfgs(1, step_kind="newton")
+    f = torch.linspace(-1.0, 1.0, N)
+    m, mask = _draw(jax.random.PRNGKey(2), jdata)
+    seen = []
+    real = tengine.build_tree
+
+    def spy(cfg, bins, g, h, mask_):
+        seen.append((g, h))
+        return real(cfg, bins, g, h, mask_)
+
+    tengine.build_tree = spy
+    try:
+        tengine.propose_tree(tcfg, tdata, f, m_prime=m, feat_mask=mask)
+    finally:
+        tengine.build_tree = real
+    g, h = tcfg.obj.grad_hess(tdata.labels, f)
+    assert torch.equal(seen[0][0], m * g) and torch.equal(seen[0][1], m * h)
+
+
+@pytest.fixture(scope="module")
+def binary_pair():
+    return _pair(_decisive_data(1))
+
+
+def _same_state(a, b):
+    for name in ("feature", "threshold", "leaf_value", "n_trees"):
+        assert torch.equal(getattr(a.forest, name), getattr(b.forest, name)), name
+    assert torch.equal(a.f, b.f)
+
+
+def test_adaptive_step_under_w1_is_the_fixed_step_bitwise(binary_pair):
+    _, tdata = binary_pair
+    _, tcfg = _cfgs(6)
+    fixed = tengine.Trainer(tcfg, device="cpu").train(tdata, ("round_robin", 1), seed=4)
+    adaptive = tengine.Trainer(tcfg._replace(adaptive_step=0.1), device="cpu").train(
+        tdata, ("round_robin", 1), seed=4)
+    _same_state(adaptive, fixed)
+
+
+def test_adaptive_step_matches_jax_under_constant_delay(binary_pair):
+    """16 rounds under ``("constant", 12)`` with adaptive_step 0.1: every
+    fold deflated by its staleness on the server side; the reference's
+    forest under the cross-backend contract; not the fixed-step forest."""
+    jdata, tdata = binary_pair
+    rounds = 16
+    jcfg, tcfg = _cfgs(rounds, adaptive_step=0.1)
+    js = jengine.Trainer(jcfg).train(jdata, ("constant", 12), seed=0)
+    draws = _reference_draws(jdata, rounds)
+    ts = tengine.Trainer(tcfg, device="cpu").train(tdata, ("constant", 12), seed=0,
+                                                   draws=draws)
+    assert int(ts.forest.n_trees) == int(js.forest.n_trees) == rounds
+    _contract(ts.forest, js.forest, (1 << DEPTH) - 1)
+    np.testing.assert_allclose(ts.f.numpy(), np.asarray(js.f), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(forest_predict(ts.forest, tdata.bins), ts.f, rtol=1e-5,
+                               atol=1e-6)
+    fixed = tengine.Trainer(tcfg._replace(adaptive_step=0.0), device="cpu").train(
+        tdata, ("constant", 12), seed=0, draws=draws)
+    # Rounds 0 and 1 fold at tau 0 and 1: slot 0 is the fixed run's, slot 1
+    # its (rebuilt) leaves times 1 / (1 + 0.6), exactly.
+    assert torch.equal(ts.forest.leaf_value[0], fixed.forest.leaf_value[0])
+    scale = tengine.staleness_scale(0.1, 1)
+    assert torch.equal(ts.forest.leaf_value[1], scale * fixed.forest.leaf_value[1])
+    assert not torch.equal(ts.f, fixed.f)
+
+
+def test_adaptive_step_rescues_aggressive_step_under_staleness():
+    """The port's mirror of the reference's test of the same name, at its
+    size: step 0.9 and tau = 12, where the fixed step diverges toward
+    garbage and the deflated step still converges (the port's own draws)."""
+    data = tsyn.make_sparse_classification(600, 150, 8, seed=3, device="cpu")
+    cfg = SGBDTConfig(n_trees=40, step_length=0.9, sampling_rate=0.8,
+                      learner=LearnerConfig(depth=4, n_bins=64))
+    schedule = ("constant", 12)
+    fixed = tengine.Trainer(cfg, device="cpu").train(data, schedule, seed=0)
+    adaptive = tengine.Trainer(cfg._replace(adaptive_step=0.1), device="cpu").train(
+        data, schedule, seed=0)
+    fixed_loss = float(train_loss(cfg, data, fixed))
+    adaptive_loss = float(train_loss(cfg, data, adaptive))
+    assert adaptive_loss < fixed_loss * 0.75, (fixed_loss, adaptive_loss)
+    assert adaptive_loss < 0.45, adaptive_loss
+
+
+def test_e2006_rounds_match_jax_on_a_row_subset():
+    """``efficiency-e2006`` (squared error, v = 0.01, R = 0.8, feature
+    fraction 0.8, 64 bins, F = 2000) at depth 4 on its first 600 rows:
+    6 rounds under W = 2 on the reference's draws; the init score, the loss
+    and F the reference's."""
+    rows, rounds = 600, 6
+    spec = tgbdt.EXPERIMENTS["efficiency-e2006"].dataset
+    x, y, _ = tsyn.raw(spec)
+    x, y = x[:rows], y[:rows]
+    jdata = jbin_dataset(x, y, n_bins=64)
+    tdata = bin_dataset(x, y, n_bins=64, device="cpu")
+    np.testing.assert_array_equal(tdata.bins.numpy(), np.asarray(jdata.bins))
+    tcfg = tgbdt.EXPERIMENTS["efficiency-e2006"].config
+    jcfg = jgbdt.EXPERIMENTS["efficiency-e2006"].config
+    tcfg = tcfg._replace(n_trees=rounds, learner=tcfg.learner._replace(depth=4))
+    jcfg = jcfg._replace(n_trees=rounds,
+                         learner=jcfg.learner._replace(depth=4, backend="ref"))
+    assert tcfg.obj.name == jcfg.obj.name == "mse"
+    t0, j0 = init_state(tcfg, tdata), jinit_state(jcfg, jdata)
+    np.testing.assert_allclose(float(t0.forest.base_score), float(j0.forest.base_score),
+                               rtol=1e-6, atol=1e-7)
+    js = jengine.Trainer(jcfg).train(jdata, ("round_robin", 2), seed=0)
+    ts = tengine.Trainer(tcfg, device="cpu").train(
+        tdata, ("round_robin", 2), seed=0, draws=_reference_draws(jdata, rounds))
+    l0 = float(train_loss(tcfg, tdata, t0))
+    lt, lj = float(train_loss(tcfg, tdata, ts)), float(jtrain_loss(jcfg, jdata, js))
+    assert abs(lt - lj) <= 1e-5 and lt < l0, (lt, lj, l0)
+    np.testing.assert_allclose(ts.f.numpy(), np.asarray(js.f), rtol=1e-5, atol=1e-5)
