@@ -122,6 +122,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -171,7 +172,9 @@ from repro_torch.optim import (  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.ps import engine as ps_engine  # noqa: E402
 from repro_torch.ps.engine import Trainer  # noqa: E402
+from repro_torch.ps.runtime import AsyncRuntime, FaultPlan, RunTrace, replay_trace  # noqa: E402
 from repro_torch.ps.schedules import resolve_schedule, staleness_scales  # noqa: E402
+from repro_torch.ps.worker import train_worker_parallel  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ForestEngine,
     Request,
@@ -291,6 +294,29 @@ E2006_LINE = {
     "forest_traverse_int8_e2006": ("forest_traverse", "int8"),
     "forest_traverse_fp16_e2006": ("forest_traverse", "fp16"),
 }
+# The threads phase (ROADMAP A5): the host-async runtime on realsim at full
+# width, W = 4 worker threads (a CUDA stream each), all 400 trees; then
+# THREADS_SHORT-tree runs: faults (crash ticket 3, leave ticket 7, worker 4
+# joining at fold 10), a halt at fold THREADS_HALT with a checkpoint every
+# THREADS_CKPT_EVERY folds resumed on THREADS_RESUME_WORKERS workers,
+# THREADS_SHARDS sharded pulls, the adaptive step at STEP_RHO, the fused
+# backend (in a child process, under a time limit) and the train CLI. The
+# kernels then run on THREADS_STREAMS streams at once.
+THREADS_SHORT = 32
+THREADS_CFG = CFG._replace(n_trees=THREADS_SHORT)
+THREADS_FAULTS = {"crash_tickets": {3}, "leave_tickets": {7}, "join_at": {4: 10}}
+THREADS_HALT, THREADS_CKPT_EVERY, THREADS_RESUME_WORKERS = 16, 8, 3
+THREADS_SHARDS = 16
+THREADS_FUSED_TIMEOUT_S = 300
+THREADS_STREAMS, THREADS_SPLIT_REPS, THREADS_REPS = 4, 200, 20
+THREADS_DIR = ROOT / "build" / "threads"
+THREADS_CLI = ["--arch", "gbdt", "--runtime", "threads", "--steps", str(THREADS_SHORT),
+               "--workers", "4", "--verify-replay", "--checkpoint-dir",
+               str(THREADS_DIR / "cli"), "--checkpoint-every", "8", "--verify-resume"]
+# That phase's entries in the kernels line: name -> KERNELS key.
+THREADS_LINE = {"histogram_threads": "histogram", "split_gain_threads": "split_gain",
+                "level_build_threads": "level_build",
+                "forest_traverse_threads": "forest_traverse"}
 # The traversal forms' ragged case: rows (not a multiple of the kernel's
 # 16-sample block) and live slots of each forest (not a multiple of the
 # 16-tree pass, nor of K).
@@ -559,10 +585,11 @@ def level_build_case(lc, bins, node, g, h, mask, level: int, parent, tag: str,
                      report: dict, key: str = "level_build") -> dict:
     """The fused level at ``level`` (``parent``, the level above's histogram,
     from level 1 on; the active rows are the smaller children of ``node``)
-    under learner ``lc``: against its plain version (integer outputs exact;
-    histogram and best gain within 1e-5 x max|cell|), bitwise against the
-    learner's staged level on the same inputs, two launches bitwise. Ties
-    go to ``report[key + "_tied_nodes"]``. Returns the stats (device time
+    under learner ``lc``: against its plain version summed in f64 (see
+    ``histogram_case``; integer outputs exact up to ties; histogram and
+    best gain within 1e-5 x max|cell|), bitwise against the learner's
+    staged level on the same inputs, two launches bitwise. Ties go to
+    ``report[key + "_tied_nodes"]``. Returns the stats (device time
     pending)."""
     n, f = bins.shape
     b = lc.n_bins
@@ -586,18 +613,20 @@ def level_build_case(lc, bins, node, g, h, mask, level: int, parent, tag: str,
                           (k1[0], k1[1], k1[2], k1[4]), staged):
         if not torch.equal(a, c):
             raise AssertionError(f"{key} {tag}: {name} differs from the staged level")
-    plain = level_build.level_build_plain(*args)
+    plain = level_build.level_build_plain(
+        bins, node, g.double(), h.double(), active, None if parent is None else parent.double(),
+        *args[6:])
     scale = float(plain[0].abs().max())
-    err = max(close(f"{key} {tag} hist", k1[0], plain[0], 1e-5, 1e-5 * scale),
-              close(f"{key} {tag} best_gain", k1[3], plain[3], 1e-5, 1e-5 * scale))
+    err = max(close(f"{key} {tag} hist", k1[0].double(), plain[0], 1e-5, 1e-5 * scale),
+              close(f"{key} {tag} best_gain", k1[3].double(), plain[3], 1e-5, 1e-5 * scale))
     # Integer outputs exact, up to ties: at realsim the first tree's
     # gradients take two values (one per label) and most features hold a
     # few stored entries, so many (feature, threshold) pairs tie in exact
-    # arithmetic. The plain version's atomics round the tied gains
-    # differently and may pick another of them. Where the two pick
-    # different splits, the kernel's must tie the plain best within the
-    # gain tolerance under the plain version's own gains; the samples of
-    # every node where they agree must be routed alike.
+    # arithmetic (splits that part a node's samples alike), and the kernel's
+    # f32 sums may pick another of them. Where the two pick different
+    # splits, the kernel's must tie the f64 best within the gain tolerance
+    # under the f64 gains: 1e-5 x the best gain. The samples of every node
+    # where they agree must be routed alike.
     differ = (k1[1] != plain[1]) | (k1[2] != plain[2])
     if bool(differ.any()):
         gain = split_scan.split_gain_plain(plain[0], lc.lam, lc.min_child_hess)
@@ -605,8 +634,11 @@ def level_build_case(lc, bins, node, g, h, mask, level: int, parent, tag: str,
         picked = flat.gather(1, (k1[1].long() * b + k1[2].long())[:, None])[:, 0]
         tie = (picked - plain[3]).abs() <= 1e-5 * plain[3].abs()
         if not bool(tie[differ].all()):
-            raise AssertionError(f"{key} {tag}: feat/thr differ from the plain "
-                                 "version at a node without a tie")
+            bad = (differ & ~tie).nonzero()[:, 0][:4].tolist()
+            raise AssertionError(
+                f"{key} {tag}: feat/thr differ from the plain version at a node without a "
+                f"tie: nodes {bad}, picked f64 gains {picked[bad].tolist()}, best "
+                f"{plain[3][bad].tolist()}, kernel best {k1[3][bad].tolist()}")
     agree = ~differ[node.long()]
     if not torch.equal(k1[4][agree], plain[4][agree]):
         raise AssertionError(f"{key} {tag}: new_node differs from the plain version")
@@ -749,10 +781,13 @@ def kernel_inputs(data) -> tuple:
 def histogram_case(bins, g, h, node, n_nodes: int, act, n_bins: int, tag: str,
                    report: dict, key: str = "histogram") -> dict:
     """The histogram of the rows ``act`` (every node's row where None) of a
-    level of ``n_nodes``: within 1e-5 x max|cell| of its plain version, two
-    launches bitwise; times, bound and the library yardstick. The samples
-    on built rows go to ``report[key + "_samples_hit"]``. Returns the stats
-    (device times pending)."""
+    level of ``n_nodes``: within 1e-5 x max|cell| of its plain version
+    summed in f64 (on the card the f32 plain version adds with atomics, one
+    long chain a cell: at level 0 under Newton hessians it strays 0.106
+    from the f64 sums where the kernel strays 0.0013, the tolerance being
+    0.039), two launches bitwise; times, bound and the library yardstick.
+    The samples on built rows go to ``report[key + "_samples_hit"]``.
+    Returns the stats (device times pending)."""
     dev = bins.device
     n, f = bins.shape
     b = n_bins
@@ -763,9 +798,9 @@ def histogram_case(bins, g, h, node, n_nodes: int, act, n_bins: int, tag: str,
     torch.cuda.synchronize()
     if not torch.equal(k1, k2):
         raise AssertionError(f"{key} {tag}: two launches differ")
-    plain = histogram.histogram_plain(bins, node, g, h, n_nodes, b, act)
+    plain = histogram.histogram_plain(bins, node, g.double(), h.double(), n_nodes, b, act)
     scale = float(plain.abs().max())
-    err = close(f"{key} {tag}", k1, plain, 1e-5, 1e-5 * scale)
+    err = close(f"{key} {tag}", k1.double(), plain, 1e-5, 1e-5 * scale)
     rows = n_nodes if act is None else act.shape[0]
     hit = int((node >= 0).sum()) if act is None else int(torch.isin(node, act).sum())
     # Bytes the function needs: every node id, the bin rows and grad/hess
@@ -1151,10 +1186,7 @@ def first_tree_ties(data, dense, sparse) -> int:
     of each label tie in exact arithmetic, and the two layouts' sums round
     them differently."""
     dev, b, lc = data.bins.device, CFG.learner.n_bins, CFG.learner
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)  # round 0's draws, as ``propose_tree`` takes them
-    m, _ = bernoulli_weights(gen, CFG.sampling_rate, data.multiplicity)
-    mask = torch.rand(data.n_features, generator=gen, device=dev) < lc.feature_fraction
+    m, _, mask = ps_engine.round_draws(CFG, data, SEED, 0)  # round 0's draws
     g0, _ = CFG.obj.grad_hess(data.labels, init_state(CFG, data).f)
     tree = build_tree(lc, data.bins, m * g0, m, mask)
     fd, td = dense.forest.feature[0], dense.forest.threshold[0]
@@ -1683,15 +1715,12 @@ def drive_e2006(dev: torch.device, realsim: dict) -> dict:
 
 def first_tree(data, cfg):
     """Round 0's tree of a run of ``cfg`` on ``data``, rebuilt outside the
-    engine: its draws in ``propose_tree``'s order (Bernoulli weights, then
-    the feature mask), the gradient at the initial F, the hessian weights of
+    engine: ticket 0's draws (``round_draws``: Bernoulli weights, then the
+    feature mask), the gradient at the initial F, the hessian weights of
     ``cfg.step_kind`` (m' h for Newton, m' for the gradient step), the
     leaves scaled by v."""
     dev, lc = data.bins.device, cfg.learner
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    m, _ = bernoulli_weights(gen, cfg.sampling_rate, data.multiplicity)
-    mask = torch.rand(data.n_features, generator=gen, device=dev) < lc.feature_fraction
+    m, _, mask = ps_engine.round_draws(cfg, data, SEED, 0)
     g, h = cfg.obj.grad_hess(data.labels, init_state(cfg, data).f, qid=data.qid)
     tree = build_tree(lc, data.bins, m * g, m * h if cfg.step_kind == "newton" else m, mask)
     v = torch.tensor(cfg.step_length, dtype=torch.float32, device=dev)
@@ -1947,6 +1976,397 @@ def e2006_line(run: dict, shapes: dict, report: dict) -> list:
         _, source, replaces = KERNELS[kernel]
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches, **kstats[name]})
+    return line
+
+
+def drive_threads(dev: torch.device, realsim: dict) -> dict:
+    """The threads phase, after the e2006 and step-rules phase, with its own
+    launch counts (set to 0 just before, read just after): the host-async
+    runtime (``ps.runtime.AsyncRuntime``, W = 4 worker threads, each on a
+    CUDA stream of its own) trains efficiency-realsim uncut (all 400
+    trees) on ``drive``'s data; the same 400 rounds run in the loop form
+    at W = 4 for its wall time; the forest is served for 8 requests. Then the 32-tree runs: faults, halt and resume, sharded
+    pulls, the adaptive step, ``train_worker_parallel`` beside the loop,
+    and the train CLI
+    under ``--runtime threads``. The fused backend under W = 4 runs in a
+    child process under a time limit (``THREADS_FUSED_TIMEOUT_S``): a
+    cooperative launch that could not queue behind another stream's would
+    hang there, not here. Every run comes before any kernel check (see
+    ``drive``). Returns what the checks need."""
+    data, x = realsim["data"], realsim["x"]
+    rng = np.random.default_rng(SEED + 21)
+    shutil.rmtree(THREADS_DIR, ignore_errors=True)
+    short = THREADS_CFG
+    reset_counts()
+    t0 = time.perf_counter()
+    rt = AsyncRuntime(CFG, data, WORKERS)
+    state, trace = rt.run(seed=SEED)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    loop = Trainer(CFG, device=dev).train(data, ("round_robin", WORKERS), seed=SEED)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    served = serve(state.forest, x, data.bin_edges, rng)
+    runs = {}
+    fault_rt = AsyncRuntime(short, data, WORKERS, faults=FaultPlan(**THREADS_FAULTS))
+    runs["faults"] = (fault_rt, *fault_rt.run(seed=SEED))
+    ck, prefix_path = THREADS_DIR / "ck", THREADS_DIR / "prefix.json"
+    _, prefix = AsyncRuntime(short, data, WORKERS).run(
+        seed=SEED, checkpoint_dir=ck, checkpoint_every=THREADS_CKPT_EVERY,
+        halt_at_fold=THREADS_HALT, trace_path=prefix_path)
+    resume_rt = AsyncRuntime(short, data, THREADS_RESUME_WORKERS)
+    runs["resume"] = (resume_rt, *resume_rt.resume(RunTrace.load(prefix_path), ck))
+    shard_rt = AsyncRuntime(short, data, WORKERS, shard_pulls=THREADS_SHARDS)
+    runs["shards"] = (shard_rt, *shard_rt.run(seed=SEED))
+    adaptive_rt = AsyncRuntime(short._replace(adaptive_step=STEP_RHO), data, WORKERS)
+    runs["adaptive"] = (adaptive_rt, *adaptive_rt.run(seed=SEED))
+    parallel = train_worker_parallel(short, data, WORKERS, seed=SEED)
+    parallel_loop = Trainer(short, device=dev).train(data, ("round_robin", WORKERS),
+                                                     seed=SEED)
+    buf = io.StringIO()
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_state, cli_trace = train_cli.main(THREADS_CLI)
+    cli = {"s": time.perf_counter() - t2, "out": buf.getvalue().splitlines(),
+           "trees": int(cli_state.forest.n_trees), "trace_trees": cli_trace.n_trees}
+    torch.cuda.synchronize()
+    counts, wall_s = gbdt_counts(), time.perf_counter() - t0
+    fused = threads_fused()
+    return {"data": data, "rt": rt, "state": state, "trace": trace, "run_s": run_s,
+            "loop": loop, "loop_s": loop_s, "served": served, "runs": runs, "prefix": prefix,
+            "parallel": parallel, "parallel_loop": parallel_loop, "cli": cli,
+            "counts": counts, "fused": fused, "wall_s": wall_s}
+
+
+def threads_fused() -> dict:
+    """The fused backend under W = 4 threads, in a child process
+    (``threads_fused_child``) killed after ``THREADS_FUSED_TIMEOUT_S``;
+    returns its JSON line. No fallback: a timeout or a failed child fails
+    the phase."""
+    cmd = [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+           "import chip_smoke; chip_smoke.threads_fused_child()", str(ROOT)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=THREADS_FUSED_TIMEOUT_S, cwd=ROOT)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"fused backend under {WORKERS} threads: no end within "
+                             f"{THREADS_FUSED_TIMEOUT_S} s (cooperative launches across "
+                             "streams did not queue)") from e
+    if proc.returncode:
+        raise AssertionError(f"fused backend under {WORKERS} threads failed "
+                             f"(exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def threads_fused_child(device: str = "cuda") -> None:
+    """The child of ``threads_fused``: efficiency-realsim 32 trees with the
+    fused level (``backend="fused"``) under W = 4 threads on the card, its
+    launch counts set to 0 just before and read just after; the trace
+    replayed fused and staged (the fused level is the staged chain's bits),
+    each bitwise the threaded forest. Prints one JSON line."""
+    dev = torch.device(device)
+    _, data = gbdt_configs.get(REALSIM, device=dev)
+    cfg = CFG_FUSED._replace(n_trees=THREADS_SHORT)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, trace = AsyncRuntime(cfg, data, WORKERS).run(seed=SEED)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = gbdt_counts()
+    same_forest("fused under threads vs its replay", state, replay_trace(cfg, data, trace)[0])
+    staged = cfg._replace(learner=cfg.learner._replace(backend="staged"))
+    same_forest("fused under threads vs the staged replay", state,
+                replay_trace(staged, data, trace)[0])
+    per_tree = len(fused_levels(*data.bins.shape))
+    if counts["level_build"] != per_tree * (THREADS_SHORT + 1):  # + the warm-up's tree
+        raise AssertionError(f"fused under threads: {counts['level_build']} fused levels, "
+                             f"expected {per_tree} a tree")
+    print(json.dumps({"run_s": run_s, "summary": trace.summary(),
+                      "staleness_histogram": trace.staleness_histogram(),
+                      "launches": counts, "fused_levels_per_tree": per_tree}),
+          flush=True)
+
+
+def check_threads(run: dict, report: dict) -> dict:
+    """The gates of ``drive_threads``' runs. The 400-tree run: the realized
+    k(j) a valid causal schedule and the tickets a permutation (the runtime
+    also checks both), its replay bitwise (``feature``, ``threshold``,
+    ``leaf_value``, ``f``), the loss falling, the 8 served answers
+    link(forest_predict). Each 32-tree run replays bitwise; the faults'
+    events and epochs are the plan's; the resumed trace has its seam and
+    rebuilds from the checkpoint; every pull's bytes are a host recount
+    from its ticket's sample; every step scale is ``staleness_scales``'
+    bits; ``train_worker_parallel`` is the loop's forest; the fused child
+    passed; the CLI printed both identities. Then the kernels under
+    concurrent streams (``check_threads_kernels``). Prints the phase."""
+    data, trace, state = run["data"], run["trace"], run["state"]
+    card = report.get("nvidia_smi", "card not queried")
+    resolve_schedule(trace.schedule, CFG.n_trees)
+    if sorted(trace.key_index.tolist()) != list(range(CFG.n_trees)):
+        raise AssertionError("threads: the tickets are not a permutation")
+    t1 = time.perf_counter()
+    replayed, losses = run["rt"].replay(trace)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t1
+    same_forest("threads: 400-tree run vs its replay", state, replayed)
+    loss0, loss = loss_fell("threads", CFG, data, state)
+    if float(losses[-1]) != float(train_loss(CFG, data, state)):
+        raise AssertionError("threads: the replay's last loss is not the run's")
+    served = check_served("threads forest", *run["served"])
+    s = trace.summary()
+    concurrency = float(trace.t_build.sum()) / trace.makespan
+    short = {}
+    for tag, (rt, st, tr) in run["runs"].items():
+        same_forest(f"threads {tag}: run vs its replay", st, rt.replay(tr)[0])
+        short[tag] = {"summary": tr.summary(), "events": list(tr.events)}
+    _, _, ft = run["runs"]["faults"]
+    kinds = {e["kind"]: e for e in ft.events}
+    (crash,), (leave,) = THREADS_FAULTS["crash_tickets"], THREADS_FAULTS["leave_tickets"]
+    ((joiner, join_fold),) = THREADS_FAULTS["join_at"].items()
+    if (set(kinds) != {"crash", "leave", "join"} or kinds["crash"]["ticket"] != crash
+            or kinds["leave"]["ticket"] != leave or kinds["join"]["worker"] != joiner
+            or kinds["join"]["fold"] < join_fold or ft.n_epochs != 4
+            or joiner not in set(ft.worker.tolist())):
+        raise AssertionError(f"threads faults: events {ft.events}, {ft.n_epochs} epochs")
+    rrt, rst, rtr = run["runs"]["resume"]
+    if (rtr.n_trees != THREADS_SHORT or rtr.events[-1]["kind"] != "resume"
+            or rtr.events[-1]["fold"] != THREADS_HALT
+            or not np.array_equal(rtr.key_index[:THREADS_HALT], run["prefix"].key_index)):
+        raise AssertionError(f"threads resume: {rtr.events}")
+    same_forest("threads resume: live vs checkpoint + suffix", rst,
+                rrt.replay_from_checkpoint(THREADS_DIR / "ck", rtr))
+    srt, _, stra = run["runs"]["shards"]
+    n, parts = data.n_samples, THREADS_SHARDS
+    sizes = np.full(parts, n // parts)
+    sizes[: n % parts] += 1
+    part = np.repeat(np.arange(parts), sizes)
+    for j, i in enumerate(stra.key_index.tolist()):
+        q_any = ps_engine.round_draws(THREADS_CFG, data, SEED, i)[1].cpu().numpy()
+        touched = np.zeros(parts, bool)
+        touched[part[q_any]] = True
+        if stra.pull_bytes[j] != 4 * sizes[touched].sum() + (parts + 7) // 8:
+            raise AssertionError(f"threads shards: fold {j} pulled {stra.pull_bytes[j]} B")
+    _, _, atr = run["runs"]["adaptive"]
+    want = staleness_scales(atr.schedule, STEP_RHO)
+    if not np.array_equal(atr.step_scale.view(np.int32), want.view(np.int32)):
+        raise AssertionError("threads adaptive: step scales are not staleness_scales' bits")
+    same_forest("train_worker_parallel vs the loop", run["parallel"], run["parallel_loop"])
+    cli = run["cli"]
+    for line in ("record-and-replay identical forest: True",
+                 "checkpoint + trace-suffix replay identical: True"):
+        if line not in cli["out"]:
+            raise AssertionError(f"threads CLI: {line!r} not printed")
+    steps = int(THREADS_CLI[THREADS_CLI.index("--steps") + 1])
+    if not cli["trees"] == cli["trace_trees"] == steps:
+        raise AssertionError(f"threads CLI: {cli['trees']} trees")
+    fused = run["fused"]
+    kernels = check_threads_kernels(run, report)
+    hist = {int(k): v for k, v in trace.staleness_histogram().items()}
+    report["threads"] = {
+        "config": {"trees": CFG.n_trees, "workers": WORKERS, "short_trees": THREADS_SHORT},
+        "summary": s, "staleness_histogram": hist, "concurrency": concurrency,
+        "run_s": run["run_s"], "replay_s": replay_s, "loop_s": run["loop_s"],
+        "loss": {"start": loss0, "threads": loss,
+                 "loop": float(train_loss(CFG, data, run["loop"]))},
+        "serve": served, "short": short, "fused": fused,
+        "cli": {"s": cli["s"], "tail": cli["out"][-3:]}, "launches": run["counts"],
+        "kernels_concurrent": kernels, "wall_s": run["wall_s"],
+    }
+    print(f"threads: efficiency-realsim {CFG.n_trees} trees, W = {WORKERS} threads (a stream "
+          f"each): makespan {trace.makespan:.3f} s, mean t_build "
+          f"{1e3 * s['t_build_mean_s']:.2f} ms, t_queue {1e3 * s['t_queue_mean_s']:.3f} ms, "
+          f"t_fold {1e3 * s['t_fold_mean_s']:.3f} ms; concurrency (sum t_build / makespan) "
+          f"{concurrency:.3f}; staleness mean {s['mean_staleness']:.3f} max "
+          f"{s['max_staleness']}, histogram {hist}; loop form {CFG.n_trees} rounds at W = "
+          f"{WORKERS} {run['loop_s']:.3f} s (makespan / loop "
+          f"{trace.makespan / run['loop_s']:.3f}); replay {replay_s:.3f} s [{card}]",
+          flush=True)
+    print(f"threads: replay bitwise (feature, threshold, leaf_value, f); loss {loss0:.6f} -> "
+          f"{loss:.6f} (loop form {report['threads']['loss']['loop']:.6f}); served "
+          f"{served['requests']} requests, p50 {served['latency_p50_ms']:.3f} ms", flush=True)
+    print(f"threads, {THREADS_SHORT} trees: faults "
+          + ", ".join(f"{e['kind']} w{e['worker']}@fold{e['fold']}" for e in ft.events)
+          + f" ({ft.n_epochs} epochs); halt at {THREADS_HALT} + resume on "
+          f"{THREADS_RESUME_WORKERS} workers, checkpoint replay bitwise; shards P={parts} "
+          f"pull reduction {short['shards']['summary']['pull_reduction']:.4f} (bytes "
+          f"recounted); adaptive rho {STEP_RHO} scales bitwise; worker_parallel bitwise the "
+          f"loop; each run's replay bitwise", flush=True)
+    print(f"threads, fused backend under W = {WORKERS} (child process, limit "
+          f"{THREADS_FUSED_TIMEOUT_S} s): {THREADS_SHORT} trees in {fused['run_s']:.3f} s, "
+          f"{fused['launches']['level_build']} cooperative launches, bitwise its fused and "
+          f"staged replays; process {fused['process_s']:.1f} s [{card}]", flush=True)
+    print(f"threads CLI exits clean in {cli['s']:.1f} s: " + "; ".join(cli["out"][-2:]),
+          flush=True)
+    print(f"threads launches: {json.dumps(run['counts'])}; phase wall {run['wall_s']:.1f} s",
+          flush=True)
+    return kernels
+
+
+def concurrent_launches(tag: str, fn, inputs: list, reps: int) -> list:
+    """``fn(*inputs[s])`` launched ``reps`` times from one thread a stream,
+    ``len(inputs)`` streams at once, every result bitwise the one launch of
+    the same inputs on this thread's stream; returns the single-stream
+    results. Its launches are counted apart: the count must rise by exactly
+    the launches made."""
+    want = [fn(*args) for args in inputs]
+    torch.cuda.synchronize()
+    bad: list = []
+    errors: list = []
+
+    def body(s):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(reps):
+                    got = fn(*inputs[s])
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref_ = want[s] if isinstance(want[s], tuple) else (want[s],)
+                    if not all(torch.equal(a, b) for a, b in zip(got, ref_)):
+                        bad.append(s)
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(s,)) for s in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"{tag}: concurrent launches did not finish") from (
+            errors[0] if errors else None)
+    if bad:
+        raise AssertionError(f"{tag}: streams {sorted(set(bad))} differ from one stream")
+    return want
+
+
+def check_threads_kernels(run: dict, report: dict) -> dict:
+    """The phase's kernels under concurrent streams at its shapes, each
+    stream on its own inputs: ``THREADS_STREAMS`` streams each launch
+    ``split_gain_decide`` ``THREADS_SPLIT_REPS`` times at L = 256 (realsim's
+    level 8), the staged histogram (the level-8 subset), the fused level
+    (level 0) and the traversal (4000 rows, the trained 400 trees, 400, 300,
+    200 and 100 live)
+    ``THREADS_REPS`` times; every result bitwise the single-stream one, each
+    count up by exactly the launches made, and the single-stream results
+    against the plain versions (histograms 1e-5 x max|cell| of the plain
+    version's f64 sums, as ``histogram_case``; the decision bitwise the
+    plain chain's on the kernel's surface, the traversal
+    bitwise). Returns each kernel's largest error."""
+    data, dev = run["data"], run["data"].bins.device
+    lc = CFG.learner
+    cases = [round_inputs(data, CFG, run["state"].f, SEED + 30 + s)
+             for s in range(THREADS_STREAMS)]
+    out = {}
+    # The split decision, the satellite gate: L = 256, 200 launches a stream.
+    inputs = []
+    for g, h, node8, _, gen in cases:
+        hist = histogram.histogram(data.bins, node8, g, h, 256, lc.n_bins)
+        mask = (torch.rand(data.n_features, generator=gen, device=dev)
+                < lc.feature_fraction).to(torch.int32)
+        inputs.append((hist, lc.lam, lc.min_child_hess, mask))
+    before = split_scan.launches
+    want = concurrent_launches("split_gain_decide", split_scan.split_gain_decide, inputs,
+                               THREADS_SPLIT_REPS)
+    made = THREADS_STREAMS * (THREADS_SPLIT_REPS + 1)
+    if split_scan.launches - before != made:
+        raise AssertionError(f"split_gain_decide: {split_scan.launches - before} launches "
+                             f"counted, {made} made")
+    err = 0.0
+    for (hist, lam, mch, mask), (gain, best, idx) in zip(inputs, want):
+        scale = float(hist.abs().max())
+        err = max(err, close("split_gain_decide threads", gain,
+                             split_scan.split_gain_plain(hist, lam, mch), 1e-5, 1e-5 * scale))
+        flat = gain.masked_fill((mask == 0)[None, :, None], float("-inf")).reshape(256, -1)
+        chain = torch.argmax(flat, dim=-1)
+        if not (torch.equal(idx, chain) and torch.equal(best, flat.gather(1, chain[:, None])[:, 0])):
+            raise AssertionError("split_gain_decide threads: not the plain chain's decision")
+    out["split_gain"] = {"max_abs_err": err, "streams": THREADS_STREAMS,
+                         "reps": THREADS_SPLIT_REPS}
+    del inputs, want
+    # The staged histogram at the level-8 subset.
+    inputs = [(data.bins, node8, g, h, 256, lc.n_bins, active)
+              for g, h, node8, active, _ in cases]
+    before = histogram.launches
+    want = concurrent_launches("histogram", histogram.histogram, inputs, THREADS_REPS)
+    if histogram.launches - before != THREADS_STREAMS * (THREADS_REPS + 1):
+        raise AssertionError("histogram: launches miscounted under streams")
+    err = 0.0
+    for (bins, node, g, h, *rest), got in zip(inputs, want):
+        plain = histogram.histogram_plain(bins, node, g.double(), h.double(), *rest)
+        err = max(err, close("histogram threads", got.double(), plain, 1e-5,
+                             1e-5 * float(plain.abs().max())))
+    out["histogram"] = {"max_abs_err": err, "streams": THREADS_STREAMS, "reps": THREADS_REPS}
+    del inputs, want
+    # The fused level at level 0.
+    inputs = []
+    for g, h, _, _, gen in cases:
+        node0 = torch.where(h > 0, 0, -1).to(torch.int32)
+        mask = (torch.rand(data.n_features, generator=gen, device=dev)
+                < lc.feature_fraction).to(torch.int32)
+        inputs.append((data.bins, node0, g, h, torch.zeros(1, dtype=torch.int32, device=dev),
+                       None, mask, lc.lam, lc.min_child_hess, 1, lc.n_bins))
+    before = level_build.launches
+    want = concurrent_launches("level_build", level_build.level_build, inputs, THREADS_REPS)
+    if level_build.launches - before != THREADS_STREAMS * (THREADS_REPS + 1):
+        raise AssertionError("level_build: launches miscounted under streams")
+    err = 0.0
+    for (bins, node, g, h, *rest), got in zip(inputs, want):
+        plain = level_build.level_build_plain(bins, node, g.double(), h.double(), *rest)
+        err = max(err, close("level_build threads", got[0].double(), plain[0], 1e-5,
+                             1e-5 * float(plain[0].abs().max())))
+    out["level_build"] = {"max_abs_err": err, "streams": THREADS_STREAMS, "reps": THREADS_REPS}
+    del inputs, want
+    # The traversal of the trained forest.
+    fo = run["state"].forest
+    slots = fo.feature.shape[0]
+    inputs = [(data.bins, fo.feature, fo.threshold, fo.leaf_value,
+               torch.tensor(slots * (THREADS_STREAMS - s) // THREADS_STREAMS,
+                            dtype=torch.int32, device=dev), fo.depth)
+              for s in range(THREADS_STREAMS)]
+    before = forest_traversal.form_launches["f32"]
+    want = concurrent_launches("forest_traverse", forest_traversal.forest_traverse, inputs,
+                               THREADS_REPS)
+    if forest_traversal.form_launches["f32"] - before != THREADS_STREAMS * (THREADS_REPS + 1):
+        raise AssertionError("forest_traverse: launches miscounted under streams")
+    for args, got in zip(inputs, want):
+        if not torch.equal(got, forest_traversal.forest_traverse_plain(*args)):
+            raise AssertionError("forest_traverse threads: differs from the plain version")
+    out["forest_traverse"] = {"max_abs_err": 0.0, "streams": THREADS_STREAMS,
+                              "reps": THREADS_REPS}
+    print(f"threads kernels on {THREADS_STREAMS} streams at once, each on its own inputs, "
+          f"bitwise one stream's with exact launch counts: split_gain_decide x "
+          f"{THREADS_SPLIT_REPS} at L = 256, histogram (level-8 subset), level_build (level "
+          f"0), forest_traverse (4000 x 400) x {THREADS_REPS}; max abs error against the "
+          f"plain versions " + json.dumps({k: v["max_abs_err"] for k, v in out.items()}),
+          flush=True)
+    return out
+
+
+def threads_line(run: dict, checked: dict, report: dict) -> list:
+    """The ``kernels`` line's ``*_threads`` entries, once every device time is
+    taken: each kernel's launches in the threads phase (the fused level's
+    in its child process), its largest error under concurrent streams and
+    at realsim's shapes, and its times at those shapes (``check_kernels``;
+    the fused level's at level 0)."""
+    line = []
+    for name, kernel in THREADS_LINE.items():
+        counts = run["fused"]["launches"] if kernel == "level_build" else run["counts"]
+        launches = counts[kernel]
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch in the threads phase")
+        if kernel == "level_build":
+            st = line_stats(report["level_build_shapes"], "level0",
+                            drop=("staged_ms", "samples_hit"))
+        else:
+            st = dict(report["kernels"][kernel])
+        st["max_abs_err"] = max(st["max_abs_err"], checked[kernel]["max_abs_err"])
+        _, source, replaces = KERNELS[kernel]
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, **st})
     return line
 
 
@@ -3218,13 +3638,16 @@ def main() -> None:
     drive_handoff(gbdt, report)
     phase = drive_e2006(torch.device("cuda"), gbdt)
     check_e2006(phase, report)
+    threads = drive_threads(torch.device("cuda"), gbdt)
+    threads_checked = check_threads(threads, report)
     multi = drive_multiclass(torch.device("cuda"), gbdt)
     checked = check_multiclass(multi, gbdt, report)
     phase_shapes = check_e2006_kernels(phase, report)
     line = check_drive(gbdt, report)
     line += multiclass_line(multi, checked, report)
     line += e2006_line(phase, phase_shapes, report)
-    del gbdt, multi, phase
+    line += threads_line(threads, threads_checked, report)
+    del gbdt, multi, phase, threads
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")

@@ -7,6 +7,9 @@ repository root, keyed by a hash of the sources and flags, so an edited
 source never loads a stale library. Each compile's ``-Xptxas -v`` report
 (registers, shared memory, spills) is kept beside its library as
 ``<name>.log``.
+
+Worker threads launch kernels on their own streams at once, so the build,
+the lookups and the wrappers' launch counts each go under a lock here.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -27,8 +31,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIBS: dict[str, ctypes.CDLL] = {}
-_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}  # guarded-by: _LOAD_LOCK
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}  # guarded-by: _LOAD_LOCK
+# One build at a time: two threads' first uses must not run nvcc twice into
+# the same files. Reentrant, since ``function`` loads.
+_LOAD_LOCK = threading.RLock()
+# Held by every wrapper around its launch count's read-modify-write, so
+# launches from concurrent threads are each counted once.
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -78,10 +88,11 @@ def build_all() -> dict[str, pathlib.Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
+        return lib
 
 
 def function(lib_name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
@@ -89,13 +100,14 @@ def function(lib_name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     declared (``c_void_p`` for pointers and the stream, so none is cut to
     32 bits) and an ``int`` (``cudaError_t``) result. Looked up once: later
     calls return the bound entry point."""
-    fn = _FUNCTIONS.get((lib_name, symbol))
-    if fn is None:
-        fn = getattr(load(lib_name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FUNCTIONS[lib_name, symbol] = fn
-    return fn
+    with _LOAD_LOCK:
+        fn = _FUNCTIONS.get((lib_name, symbol))
+        if fn is None:
+            fn = getattr(load(lib_name), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _FUNCTIONS[lib_name, symbol] = fn
+        return fn
 
 
 def check(err: int, what: str) -> None:

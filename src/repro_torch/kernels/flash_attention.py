@@ -154,8 +154,9 @@ def _launch_fwd(p: flash_plan.FlashPlan, q, k, v, out, lse, causal: bool, seq_k:
             _build.stream_of(dev),
         )
     _build.check(err, f"flash_attention {p.route} kernel")
-    launches += 1
-    route_launches[p.route] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        route_launches[p.route] += 1
 
 
 def _bwd_terms(q, k, v, out, lse, do, causal: bool, seq_k: int | None):
@@ -318,8 +319,9 @@ def flash_attention_bwd(
         return o["dq"], o["dk"].zero_(), o["dv"].zero_()
     for kernel in BWD_KERNELS:
         _launch_bwd(kernel, o)
-    bwd_launches += 1
-    bwd_route_launches[o["plan"].route] += 1
+    with _build.COUNT_LOCK:
+        bwd_launches += 1
+        bwd_route_launches[o["plan"].route] += 1
     return o["dq"], o["dk"], o["dv"]
 
 

@@ -129,4 +129,5 @@ def launch(p: traversal_plan.TraversalPlan, bins, feature, threshold, leaf_value
         _build.stream_of(bins.device),
     )
     _build.check(err, "forest_traverse kernel")
-    form_launches[("k_" if n_outputs > 1 else "") + name] += 1
+    with _build.COUNT_LOCK:
+        form_launches[("k_" if n_outputs > 1 else "") + name] += 1

@@ -83,5 +83,6 @@ def histogram(
         plan.splits, plan.min_per_column, _build.stream_of(dev),
     )
     _build.check(err, "histogram kernel")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

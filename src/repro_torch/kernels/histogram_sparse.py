@@ -68,5 +68,6 @@ def histogram_sparse(
         out.data_ptr(), f, c, n_bins, n_nodes, rows, _build.stream_of(dev),
     )
     _build.check(err, "histogram_sparse kernel")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

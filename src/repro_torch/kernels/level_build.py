@@ -138,5 +138,6 @@ def level_build(
         plan.min_per_column, max_grid, lam, min_child_hess, _build.stream_of(dev),
     )
     _build.check(err, "level_build kernel")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return hist, feat, thr, best, new_node

@@ -14,8 +14,8 @@ def _scatter_hist(
     bins: torch.Tensor, row: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     n_rows: int, n_bins: int,
 ) -> torch.Tensor:
-    """(2, n_rows, F, n_bins) sums of grad/hess per (row, feature, bin);
-    samples with ``row < 0`` add nothing."""
+    """(2, n_rows, F, n_bins) sums of grad/hess per (row, feature, bin), in
+    their dtype; samples with ``row < 0`` add nothing."""
     n, f = bins.shape
     active = row >= 0
     rowc = torch.where(active, row, torch.zeros_like(row)).long()
@@ -26,7 +26,7 @@ def _scatter_hist(
     out = []
     for vals in (torch.where(active, grad, zero), torch.where(active, hess, zero)):
         mat = vals[:, None].expand(n, f).reshape(-1)
-        out.append(torch.zeros(num, dtype=torch.float32, device=bins.device)
+        out.append(torch.zeros(num, dtype=grad.dtype, device=bins.device)
                    .index_add_(0, seg, mat))
     return torch.stack(out).reshape(2, n_rows, f, n_bins)
 

@@ -10,6 +10,7 @@ version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,18 +35,25 @@ def split_gain_decide_plain(
     return gain, best, idx
 
 
-_WORK: dict = {}  # device -> the decision's scratch words, zero between launches
+# (device, stream handle) -> the decision's scratch words on that stream,
+# zero between launches. Two streams' launches must not share the keys and
+# ticket, so each stream keeps its own.
+_WORK: dict = {}  # guarded-by: _WORK_LOCK
+_WORK_LOCK = threading.Lock()
 
 
-def _workspace(device: torch.device, words: int) -> torch.Tensor:
-    """At least ``words`` zeroed 64-bit words of the decision's scratch on
-    ``device``: each node's key, then the ticket. The kernel leaves them
-    zero, so one buffer serves every launch on the device's stream in
-    turn; a larger level zeroes a larger one once."""
-    work = _WORK.get(device)
-    if work is None or work.numel() < words:
-        work = _WORK[device] = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
-    return work
+def _workspace(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """At least ``words`` zeroed 64-bit words of the decision's scratch for
+    launches on ``stream``: each node's key, then the ticket. The kernel
+    leaves them zero, so one buffer serves every launch on that stream in
+    turn with no memset a level; a larger level zeroes a larger one once,
+    allocated on that stream."""
+    with _WORK_LOCK:
+        work = _WORK.get((device, stream))
+        if work is None or work.numel() < words:
+            work = _WORK[device, stream] = torch.zeros(max(words, 1024), dtype=torch.int64,
+                                                      device=device)
+        return work
 
 
 def _launch(hist, lam, min_child_hess, mask_i32):
@@ -56,6 +64,7 @@ def _launch(hist, lam, min_child_hess, mask_i32):
     if not 1 <= b <= 256:
         raise ValueError(f"split_gain kernel takes 1..256 bins, got {b}")
     out = torch.empty((l, f, b), dtype=torch.float32, device=hist.device)
+    stream = _build.stream_of(hist.device)
     best = idx = work = None
     if mask_i32 is not None:
         _build.require(mask_i32, "mask_i32", torch.int32, (f,), hist.device)
@@ -63,7 +72,7 @@ def _launch(hist, lam, min_child_hess, mask_i32):
             raise ValueError(f"split_gain_decide kernel takes F x B <= 2^30, got {f * b}")
         best = torch.empty(l, dtype=torch.float32, device=hist.device)
         idx = torch.empty(l, dtype=torch.int64, device=hist.device)
-        work = _workspace(hist.device, l + 1)
+        work = _workspace(hist.device, stream, l + 1)
     if out.numel() == 0:
         if best is not None:
             best.fill_(float("-inf"))
@@ -74,10 +83,10 @@ def _launch(hist, lam, min_child_hess, mask_i32):
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     )
     ptr = [t.data_ptr() if t is not None else None for t in (mask_i32, work, best, idx)]
-    err = fn(hist.data_ptr(), out.data_ptr(), *ptr, l, f, b, lam, min_child_hess,
-             _build.stream_of(hist.device))
+    err = fn(hist.data_ptr(), out.data_ptr(), *ptr, l, f, b, lam, min_child_hess, stream)
     _build.check(err, "split_gain kernel")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out, best, idx
 
 

@@ -17,8 +17,20 @@ engine (``repro_torch.ps``):
         [--backend staged|fused] [--objective logistic|mse|quantile:0.9|huber|
                                   multiclass:5|lambdarank]
 
-``--runtime threads`` (ROADMAP.md A5; ``--adaptive-step`` comes with it),
-``--mesh`` (A8) and ``--scan`` raise until they are ported.
+``--scan`` runs the trainer's explicit-schedule form and prints the
+per-round loss. ``--runtime threads`` runs the real host-async runtime
+(``repro_torch.ps.runtime``: W worker threads, each on a CUDA stream of
+its own on the card, race the server's fold loop, and the realized k(j) is
+recorded), with ``--trace-out``, ``--verify-replay``, faults
+(``--crash-ticket``, ``--leave-ticket``, ``--join W:J``),
+``--shard-pulls``, ``--adaptive-step`` and crash-resume
+(``--checkpoint-dir``, ``--checkpoint-every``, ``--halt-at-fold``,
+``--resume-from``, ``--verify-resume``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gbdt \
+        --runtime threads --steps 32 --workers 4 --verify-replay [--device cpu]
+
+``--mesh`` (ROADMAP.md A8) raises until it is ported.
 """
 from __future__ import annotations
 
@@ -101,7 +113,8 @@ def gbdt_config(objective: str, n_trees: int, sample: float = 0.8,
 
 def run_gbdt(args):
     """Asynch-SGBDT on the PS engine under round-robin W workers (the loop
-    form); returns the final ``TrainState``. ``--objective`` picks the
+    form, or ``--scan``); returns the final ``TrainState``. ``--runtime
+    threads`` goes to ``run_gbdt_threads``. ``--objective`` picks the
     objective and its matched workload (``gbdt_dataset_for``); the final
     metrics are the objective's (rmse, coverage, accuracy, pairwise
     accuracy), query ids included."""
@@ -109,15 +122,9 @@ def run_gbdt(args):
     from repro_torch.ps import Trainer
     from repro_torch.trees import binning
 
-    if args.runtime == "threads":
-        raise NotImplementedError("--runtime threads: the host-async runtime is not "
-                                  "ported yet (ROADMAP.md A5)")
     if args.mesh != "none":
         raise NotImplementedError("--mesh: the sharded GBDT build is not ported yet "
                                   "(ROADMAP.md A8)")
-    if args.scan:
-        raise NotImplementedError("--scan: the trainer's lax.scan form has no torch twin "
-                                  "yet (queued in ROADMAP.md A)")
     dev = resolve_device(args.device)
     obj, data = gbdt_dataset_for(args.objective, args.seed, device=dev)
     if args.sparse:
@@ -126,24 +133,130 @@ def run_gbdt(args):
               "(dense round-trip exact)")
     cfg = gbdt_config(args.objective, args.steps, args.sample or 0.8, args.hist_mode,
                       args.backend)
+    if args.runtime == "threads":
+        return run_gbdt_threads(args, cfg, data, obj)
     schedule = ("round_robin", args.workers)
     print(f"gbdt[{obj.name}, K={obj.n_outputs}]: {args.steps} rounds, {args.workers} PS "
-          f"workers (loop form, {args.backend} levels), device={dev}")
+          f"workers ({'scan' if args.scan else 'loop'} form, {args.backend} levels), "
+          f"device={dev}")
     t0 = time.time()
+    trainer = Trainer(cfg, device=dev)
+    if args.scan:
+        state, losses = trainer.train_scan(data, schedule, seed=args.seed)
+        print(f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}")
+    else:
+        def on_eval(st, j):
+            print(f"  round {j:4d}: train loss {float(train_loss(cfg, data, st)):.4f}")
 
-    def on_eval(st, j):
-        print(f"  round {j:4d}: train loss {float(train_loss(cfg, data, st)):.4f}")
-
-    state = Trainer(cfg, device=dev).train(
-        data, schedule, seed=args.seed,
-        eval_every=max(args.log_every, 1) * 5, eval_fn=on_eval,
-    )
-    metrics = {k: f"{float(v):.4f}" for k, v in train_metrics(cfg, data, state).items()}
-    print(f"final {metrics}")
+        state = trainer.train(
+            data, schedule, seed=args.seed,
+            eval_every=max(args.log_every, 1) * 5, eval_fn=on_eval,
+        )
+        metrics = {k: f"{float(v):.4f}" for k, v in train_metrics(cfg, data, state).items()}
+        print(f"final {metrics}")
     print(f"trained in {time.time() - t0:.1f}s")
     if not np.isfinite(float(train_loss(cfg, data, state))):
         raise RuntimeError("training diverged")
     return state
+
+
+def _same(a, b, names=("leaf_value",)) -> bool:
+    """F and the named forest arrays of two states bitwise equal."""
+    return torch.equal(a.f, b.f) and all(
+        torch.equal(getattr(a.forest, n), getattr(b.forest, n)) for n in names)
+
+
+def run_gbdt_threads(args, cfg, data, obj):
+    """The real host-async PS runtime: threads, recorded k(j), elastic
+    membership faults, sharded pulls, checkpoints, and bitwise replay and
+    resume verification; returns ``(state, trace)``."""
+    from repro_torch.core.sgbdt import train_loss
+    from repro_torch.ps import AsyncRuntime, FaultPlan, RunTrace
+
+    join_at = {}
+    for spec in args.join or ():
+        w, _, at = spec.partition(":")
+        join_at[int(w)] = int(at)
+    faults = FaultPlan(
+        crash_tickets=frozenset(args.crash_ticket or ()),
+        leave_tickets=frozenset(args.leave_ticket or ()),
+        join_at=join_at,
+    )
+    if args.adaptive_step:
+        cfg = cfg._replace(adaptive_step=args.adaptive_step)
+    rt = AsyncRuntime(cfg, data, n_workers=args.workers, faults=faults,
+                      shard_pulls=args.shard_pulls)
+    print(f"gbdt[{obj.name}, K={obj.n_outputs}]: {cfg.n_trees} rounds, "
+          f"{args.workers} REAL worker threads (host-async runtime, {args.backend} "
+          f"levels), device={rt.device}")
+    run_kw = dict(
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        halt_at_fold=args.halt_at_fold,
+        trace_path=args.trace_out,
+    )
+    if args.checkpoint_every and not args.checkpoint_dir:
+        raise SystemExit("--checkpoint-every needs --checkpoint-dir")
+    if args.resume_from:
+        if not args.checkpoint_dir:
+            raise SystemExit("--resume-from needs --checkpoint-dir")
+        prefix = RunTrace.load(args.resume_from)
+        print(f"resuming from trace prefix {args.resume_from} "
+              f"({prefix.n_trees}/{cfg.n_trees} folds) + checkpoints under "
+              f"{args.checkpoint_dir}")
+        state, trace = rt.resume(prefix, args.checkpoint_dir, **{
+            k: v for k, v in run_kw.items() if k != "checkpoint_dir"
+        })
+    else:
+        state, trace = rt.run(seed=args.seed, **run_kw)
+    s = trace.summary()
+    print(f"makespan {s['makespan_s']:.2f}s  "
+          f"staleness mean {s['mean_staleness']:.2f} max {s['max_staleness']}  "
+          f"build {s['t_build_mean_s']*1e3:.1f}ms "
+          f"queue {s['t_queue_mean_s']*1e3:.1f}ms "
+          f"fold {s['t_fold_mean_s']*1e3:.1f}ms")
+    print(f"staleness histogram: {trace.staleness_histogram()}")
+    if trace.events:
+        print(f"membership events ({trace.n_epochs} epochs):")
+        for e in trace.events:
+            print(f"  fold {e['fold']:4d}: {e['kind']} worker {e['worker']}"
+                  + (f" (ticket {e['ticket']})" if e["ticket"] >= 0 else ""))
+    if trace.n_parts:
+        print(f"sharded pulls (P={trace.n_parts}): "
+              f"{s['pull_bytes_mean']:.0f} B/pull vs {s['pull_bytes_full']} B "
+              f"full ({100 * s['pull_reduction']:.1f}% reduction)")
+    if trace.adaptive_rho:
+        print(f"adaptive step (rho={trace.adaptive_rho}): mean scale "
+              f"{s['step_scale_mean']:.4f}")
+    loss = float(train_loss(cfg, data, state))
+    print(f"final train loss {loss:.4f}")
+    if not np.isfinite(loss):
+        raise RuntimeError("training diverged")
+    if args.trace_out:
+        path = trace.save(args.trace_out)
+        print(f"trace -> {path}")
+    if args.halt_at_fold is not None:
+        print(f"halted at fold {args.halt_at_fold} (simulated crash); "
+              f"resume with --resume-from {args.trace_out or '<trace>'}")
+        if args.verify_replay:
+            raise SystemExit(
+                "--verify-replay needs a complete run; a halted prefix "
+                "replays only via --resume-from or --verify-resume"
+            )
+    if args.verify_resume:
+        if not args.checkpoint_dir:
+            raise SystemExit("--verify-resume needs --checkpoint-dir")
+        identical = _same(state, rt.replay_from_checkpoint(args.checkpoint_dir, trace))
+        print(f"checkpoint + trace-suffix replay identical: {identical}")
+        if not identical:
+            raise AssertionError("crash-resume replay drifted from the live run")
+    if args.verify_replay and args.halt_at_fold is None:
+        st_replay, _ = rt.replay(trace)
+        identical = _same(state, st_replay, ("leaf_value", "feature", "threshold"))
+        print(f"record-and-replay identical forest: {identical}")
+        if not identical:
+            raise AssertionError("replay drifted from the threaded run")
+    return state, trace
 
 
 def main(argv: list[str] | None = None):
@@ -182,11 +295,46 @@ def main(argv: list[str] | None = None):
                     help="GBDT tree levels: 'staged' (histogram, split gain and "
                          "routing kernels) or 'fused' (one level kernel where it fits)")
     ap.add_argument("--runtime", choices=("simulated", "threads"), default="simulated",
-                    help="PS execution; 'threads' is not ported yet (ROADMAP.md A5)")
+                    help="PS execution: 'simulated' replays a delay schedule; 'threads' "
+                         "runs real worker threads and records the realized k(j)")
     ap.add_argument("--mesh", choices=("none", "1d", "2d"), default="none",
                     help="GBDT build sharding; not ported yet (ROADMAP.md A8)")
     ap.add_argument("--scan", action="store_true",
-                    help="the trainer's scan form; not ported yet")
+                    help="run the GBDT trainer over its explicit schedule and print the "
+                         "per-round loss")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the realized RunTrace JSON here (--runtime threads)")
+    ap.add_argument("--verify-replay", action="store_true",
+                    help="replay the recorded trace through the deterministic engine and "
+                         "assert the forests are bit-identical (--runtime threads)")
+    ap.add_argument("--crash-ticket", type=int, action="append",
+                    help="crash the worker that first draws this build ticket "
+                         "(repeatable; the ticket is re-issued)")
+    ap.add_argument("--leave-ticket", type=int, action="append",
+                    help="worker gracefully leaves after building this ticket (repeatable)")
+    ap.add_argument("--join", action="append", metavar="W:J",
+                    help="worker W (re)joins when the server reaches fold count J "
+                         "(repeatable)")
+    ap.add_argument("--shard-pulls", type=int, default=0, metavar="P",
+                    help="shard the server leaf table into P partitions; workers pull "
+                         "only partitions their sample touches (rowwise objectives only)")
+    ap.add_argument("--adaptive-step", type=float, default=0.0, metavar="RHO",
+                    help="staleness-adaptive server fold: scale each fold by "
+                         "1/(1 + 6*RHO*tau) with tau the observed staleness "
+                         "(--runtime threads)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="runtime checkpoint directory (--runtime threads)")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                    help="checkpoint the server + in-flight versions every K folds")
+    ap.add_argument("--halt-at-fold", type=int, default=None, metavar="J",
+                    help="simulate a whole-process crash: stop the server after J folds "
+                         "and write the prefix trace")
+    ap.add_argument("--resume-from", default=None, metavar="TRACE",
+                    help="resume a halted run from its prefix trace JSON + "
+                         "--checkpoint-dir; unfolded tickets are re-issued")
+    ap.add_argument("--verify-resume", action="store_true",
+                    help="after the run, rebuild the final state from the newest "
+                         "checkpoint + trace suffix and assert it matches bitwise")
     args = ap.parse_args(argv)
 
     if args.arch == "gbdt":

@@ -1,18 +1,34 @@
-"""ps of the PyTorch/CUDA port (twin of ``repro.ps``): the parameter-server
-engine (worker ``propose_tree``, server ``server_fold``, the shared
-``round_body``, the loop-form ``Trainer``, the staleness-adaptive step's
-``staleness_scale`` and ``scale_push``) and its delay schedules."""
+"""ps of the PyTorch/CUDA port (twin of ``repro.ps``), the parameter-server
+execution layer (Algorithm 3):
+
+  * ``engine``    — the Trainer and the one shared round body (worker
+                    ``propose_tree`` with its per-ticket ``round_draws``,
+                    server ``server_fold``, the staleness-adaptive
+                    ``staleness_scale`` and ``scale_push``);
+  * ``schedules`` — delay-schedule providers k(j): closed forms, realized
+                    arrays, or on-the-spot cluster simulation;
+  * ``worker``    — the worker pool a block of W trees at a time;
+  * ``runtime``   — REAL host asynchrony: W worker threads (each on a CUDA
+                    stream of its own on the card) race a server fold loop,
+                    the realized k(j) is recorded into a ``RunTrace``, and
+                    replaying the trace reproduces the forest exactly.
+
+The reference's ``sharded`` (the shard_map data-parallel build) is
+ROADMAP.md A8.
+"""
 from repro_torch.ps.engine import (
     Trainer,
     clear_trainers,
     get_trainer,
     propose_tree,
     round_body,
+    round_draws,
     scale_push,
     server_fold,
     staleness_scale,
     train,
 )
+from repro_torch.ps.runtime import AsyncRuntime, FaultPlan, RunTrace, replay_trace
 from repro_torch.ps.schedules import (
     constant_delay,
     max_staleness,
@@ -20,13 +36,19 @@ from repro_torch.ps.schedules import (
     staleness_scales,
     worker_round_robin,
 )
+from repro_torch.ps.worker import build_trees_batched, train_worker_parallel
 
 __all__ = [
+    "AsyncRuntime",
+    "FaultPlan",
+    "RunTrace",
+    "replay_trace",
     "Trainer",
     "clear_trainers",
     "get_trainer",
     "propose_tree",
     "round_body",
+    "round_draws",
     "scale_push",
     "server_fold",
     "staleness_scale",
@@ -36,4 +58,6 @@ __all__ = [
     "resolve_schedule",
     "staleness_scales",
     "worker_round_robin",
+    "build_trees_batched",
+    "train_worker_parallel",
 ]

@@ -8,22 +8,29 @@ Algorithm 3 splits a boosting round across the PS roles:
   server — fold the pushed tree into the live state F <- F + v * Tree
            (``server_fold``).
 
-``round_body`` composes the two. ``Trainer.train`` runs it in a Python
-loop under any delay schedule, keeping a ring of the last F versions.
+``round_body`` composes the two. ``Trainer`` runs it in a Python loop
+under any delay schedule, keeping a ring of the last F versions: ``train``
+with eval hooks, ``scan_with`` over an explicit (k(j), ticket) pair with a
+per-round loss (the form ``ps.runtime`` replays a recorded run through).
 With ``cfg.adaptive_step`` the server deflates each pushed tree by its
 observed staleness (``staleness_scale``, ``scale_push``).
 
-Randomness comes from a ``torch.Generator`` seeded from ``seed``. It
-cannot reproduce ``jax.random``'s bits, so ``propose_tree`` and
-``Trainer.train`` also take injected per-round draws (``m_prime`` (N,),
-``feat_mask`` (F,)): the parity tests recompute the reference's draws and
-hand them in.
+Randomness is per ticket: ``round_draws(cfg, data, seed, i)`` draws round
+i's Bernoulli weights and feature mask from a ``torch.Generator`` seeded
+as a pure function of (seed, i), as the reference's round key is
+``keys[i]`` of ``jax.random.split(PRNGKey(seed), n_trees)``. So a round's
+tree depends on its ticket and its F^{k(j)} only, whichever thread builds
+it and in whatever order. The draws cannot reproduce ``jax.random``'s
+bits, so ``propose_tree`` and the trainer also take injected draws
+(``m_prime`` (N,), ``feat_mask`` (F,)): the parity tests recompute the
+reference's draws and hand them in.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -35,8 +42,51 @@ from repro_torch.trees.forest import Forest, forest_push
 from repro_torch.trees.learner import build_tree, build_tree_multi
 from repro_torch.trees.tree import Tree, apply_tree, apply_tree_stack
 
-# One round's draws: (m_prime (N,) f32, feat_mask (F,) bool).
-Draws = tuple[torch.Tensor, torch.Tensor]
+# One round's draws: (m_prime (N,) f32, q_any (N,) bool, feat_mask (F,)
+# bool), as ``round_draws`` gives them; an injected (m_prime, feat_mask)
+# pair also serves (q_any is then m_prime > 0, as counts > 0 is).
+Draws = tuple
+
+
+def round_seed(seed: int, i: int) -> int:
+    """The generator seed of ticket ``i`` in a run seeded ``seed``: a pure
+    function of the pair (numpy's ``SeedSequence`` mix, 63 bits)."""
+    state = np.random.SeedSequence([int(seed), int(i)]).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+def _draw(cfg: SGBDTConfig, data: BinnedData, gen: torch.Generator | None
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One round's ``(m_prime, q_any, feat_mask)`` from ``gen``: the
+    Bernoulli weights first, then the feature mask."""
+    dev = data.bins.device
+    m_prime, q_any = bernoulli_weights(gen, cfg.sampling_rate, data.multiplicity)
+    n_feat = data.n_features
+    if cfg.learner.feature_fraction < 1.0:
+        feat_mask = torch.rand(n_feat, generator=gen, device=dev) < cfg.learner.feature_fraction
+    else:
+        feat_mask = torch.ones(n_feat, dtype=torch.bool, device=dev)
+    return m_prime, q_any, feat_mask
+
+
+def round_draws(cfg: SGBDTConfig, data: BinnedData, seed: int, i: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ticket ``i``'s draws, ``(m_prime, q_any, feat_mask)``, on the data's
+    device, from a generator seeded ``round_seed(seed, i)``, in
+    ``propose_tree``'s order. The same (seed, i) gives the same bits on any
+    thread and in any order."""
+    gen = torch.Generator(device=data.bins.device)
+    gen.manual_seed(round_seed(seed, i))
+    return _draw(cfg, data, gen)
+
+
+def unpack_draws(draws: Draws) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(m_prime, q_any, feat_mask)`` of a draw triple or an injected
+    ``(m_prime, feat_mask)`` pair."""
+    if len(draws) == 3:
+        return tuple(draws)
+    m_prime, feat_mask = draws
+    return m_prime, m_prime > 0, feat_mask
 
 
 def propose_tree(
@@ -54,8 +104,8 @@ def propose_tree(
     field, one stacked group with an (N, K) delta: still one push, and one
     (m', mask) draw a round. The step length v scales the leaf table HERE,
     before the gather, so the server fold is a pure add (engine.py:73-81
-    of the reference). Draws not injected come from ``gen``: Bernoulli
-    weights first, then the feature mask.
+    of the reference). Unless both draws are injected they come from
+    ``gen``: Bernoulli weights first, then the feature mask.
 
     The hessian weights: the paper's gradient step takes h_i = m'_i
     (broadcast over the K outputs), so a leaf is the mean sampled
@@ -63,15 +113,8 @@ def propose_tree(
     hessian under the sample weights, for xgboost's leaf -G / (H + lam).
     """
     obj = cfg.obj
-    if m_prime is None:
-        m_prime, _ = bernoulli_weights(gen, cfg.sampling_rate, data.multiplicity)
-    if feat_mask is None:
-        n_feat = data.n_features
-        if cfg.learner.feature_fraction < 1.0:
-            u = torch.rand(n_feat, generator=gen, device=data.bins.device)
-            feat_mask = u < cfg.learner.feature_fraction
-        else:
-            feat_mask = torch.ones(n_feat, dtype=torch.bool, device=data.bins.device)
+    if m_prime is None or feat_mask is None:
+        m_prime, _, feat_mask = _draw(cfg, data, gen)
     g, h = obj.grad_hess(data.labels, f_target, qid=data.qid)
     v = torch.tensor(cfg.step_length, dtype=torch.float32, device=g.device)
     newton = cfg.step_kind == "newton"
@@ -125,6 +168,25 @@ def scale_push(cfg: SGBDTConfig, data: BinnedData, tree: Tree, scale: torch.Tens
     return tree, apply_tree_stack(tree, data.bins)
 
 
+def fold_push(
+    cfg: SGBDTConfig,
+    data: BinnedData,
+    forest: Forest,
+    f_live: torch.Tensor,
+    tree: Tree,
+    delta: torch.Tensor,
+    staleness: int | None = None,
+) -> tuple[Forest, torch.Tensor]:
+    """The server's side of a round: with ``cfg.adaptive_step`` and a
+    ``staleness`` tau_j = j - k(j) (known only at fold time) the pushed
+    tree is deflated first (``scale_push``), then folded. Every trainer
+    and the threaded runtime's server run exactly this."""
+    if cfg.adaptive_step and staleness is not None:
+        scale = staleness_scale(cfg.adaptive_step, staleness, device=f_live.device)
+        tree, delta = scale_push(cfg, data, tree, scale)
+    return server_fold(cfg, forest, f_live, tree, delta)
+
+
 def round_body(
     cfg: SGBDTConfig,
     data: BinnedData,
@@ -136,15 +198,13 @@ def round_body(
     staleness: int | None = None,
 ) -> tuple[Forest, torch.Tensor]:
     """One boosting round: the tree is built against (possibly stale)
-    ``f_target`` but folded into the live server state. ``staleness`` is
-    tau_j = j - k(j), known only at fold time, so the adaptive deflation
-    (``cfg.adaptive_step``) is applied on the server side of the push."""
-    m_prime, feat_mask = draws if draws is not None else (None, None)
+    ``f_target`` but folded into the live server state (``fold_push``,
+    with the adaptive deflation when ``staleness`` is given)."""
+    m_prime = feat_mask = None
+    if draws is not None:
+        m_prime, _, feat_mask = unpack_draws(draws)
     tree, delta = propose_tree(cfg, data, f_target, gen, m_prime, feat_mask)
-    if cfg.adaptive_step and staleness is not None:
-        scale = staleness_scale(cfg.adaptive_step, staleness, device=f_live.device)
-        tree, delta = scale_push(cfg, data, tree, scale)
-    return server_fold(cfg, forest, f_live, tree, delta)
+    return fold_push(cfg, data, forest, f_live, tree, delta, staleness)
 
 
 class Trainer:
@@ -158,6 +218,31 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
 
+    def _loop(self, data, sched, key_index, ring_size: int, seed: int, draws, rounds: int,
+              eval_every: int = 0, eval_fn=None, losses: list | None = None) -> TrainState:
+        """Rounds 0 .. rounds-1: round j builds ticket ``key_index[j]``'s
+        tree (its ``draws`` entry, else ``round_draws``) against F^{k(j)}
+        from the ring and folds it; ``losses`` collects each round's loss."""
+        cfg = self.cfg
+        if data.bins.device != self.device:
+            raise ValueError(f"data lies on {data.bins.device}, trainer on {self.device}")
+        state = init_state(cfg, data)
+        forest, f = state.forest, state.f
+        ring = [f] * ring_size  # the last ring_size versions of F ((N,) or (N, K))
+        for j in range(rounds):
+            i, k = int(key_index[j]), int(sched[j])
+            forest, f = round_body(
+                cfg, data, forest, f, ring[k % ring_size], None,
+                round_draws(cfg, data, seed, i) if draws is None else draws[i],
+                j - k if cfg.adaptive_step else None,
+            )
+            ring[(j + 1) % ring_size] = f
+            if losses is not None:
+                losses.append(cfg.obj.loss(data.labels, f, data.multiplicity, qid=data.qid))
+            if eval_fn is not None and eval_every and (j + 1) % eval_every == 0:
+                eval_fn(TrainState(forest, f, j + 1), j + 1)
+        return TrainState(forest=forest, f=f, step=rounds)
+
     def train(
         self,
         data: BinnedData,
@@ -168,34 +253,54 @@ class Trainer:
         draws: Sequence[Draws] | None = None,
         rounds: int | None = None,
     ) -> TrainState:
-        """Python-loop execution with per-round eval hooks. ``draws[j]``,
-        when given, replaces round j's random draws. ``rounds`` stops after
-        that many rounds of the schedule (default: all ``cfg.n_trees``);
-        the forest keeps its full ``cfg.n_trees`` slots either way."""
+        """Python-loop execution with per-round eval hooks: round j builds
+        ticket j. ``draws[j]``, when given, replaces round j's
+        ``round_draws``. ``rounds`` stops after that many rounds of the
+        schedule (default: all ``cfg.n_trees``); the forest keeps its full
+        ``cfg.n_trees`` slots either way."""
         cfg = self.cfg
-        if data.bins.device != self.device:
-            raise ValueError(f"data lies on {data.bins.device}, trainer on {self.device}")
         sched = resolve_schedule(schedule, cfg.n_trees)
         rounds = cfg.n_trees if rounds is None else rounds
         if not 0 <= rounds <= cfg.n_trees:
             raise ValueError(f"rounds must lie in [0, {cfg.n_trees}], got {rounds}")
-        ring_size = max_staleness(sched) + 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        state = init_state(cfg, data)
-        forest, f = state.forest, state.f
-        ring = [f] * ring_size  # the last ring_size versions of F ((N,) or (N, K))
-        for j in range(rounds):
-            f_target = ring[int(sched[j]) % ring_size]
-            forest, f = round_body(
-                cfg, data, forest, f, f_target, gen,
-                None if draws is None else draws[j],
-                j - int(sched[j]) if cfg.adaptive_step else None,
-            )
-            ring[(j + 1) % ring_size] = f
-            if eval_fn is not None and eval_every and (j + 1) % eval_every == 0:
-                eval_fn(TrainState(forest, f, j + 1), j + 1)
-        return TrainState(forest=forest, f=f, step=rounds)
+        return self._loop(data, sched, range(cfg.n_trees), max_staleness(sched) + 1, seed,
+                          draws, rounds, eval_every, eval_fn)
+
+    def scan_with(
+        self,
+        data: BinnedData,
+        schedule,
+        key_index,
+        ring_size: int,
+        draws: Sequence[Draws] | None = None,
+        seed: int = 0,
+    ) -> tuple[TrainState, torch.Tensor]:
+        """The whole run over an explicit (k(j), ticket) pair: round j folds
+        ticket ``key_index[j]``'s tree built from F^{k(j)}; returns the state
+        and the per-round train losses (T,). The loop-form twin of the
+        reference's ``lax.scan`` (``repro/ps/engine.py:309``), which
+        ``ps.runtime`` replays a recorded run through. ``draws``, when
+        given, is indexed by ticket; ``ring_size`` must exceed the
+        schedule's largest staleness."""
+        cfg = self.cfg
+        sched = resolve_schedule(schedule, cfg.n_trees)
+        key_index = np.asarray(key_index)
+        if key_index.shape != (cfg.n_trees,):
+            raise ValueError(f"key_index shape {key_index.shape} != ({cfg.n_trees},)")
+        if ring_size <= max_staleness(sched):
+            raise ValueError(f"ring_size {ring_size} cannot hold staleness "
+                             f"{max_staleness(sched)}")
+        losses: list = []
+        state = self._loop(data, sched, key_index, ring_size, seed, draws, cfg.n_trees,
+                           losses=losses)
+        return state, torch.stack(losses)
+
+    def train_scan(self, data: BinnedData, schedule=("round_robin", 1), seed: int = 0
+                   ) -> tuple[TrainState, torch.Tensor]:
+        """``scan_with`` under a schedule spec, tickets in round order."""
+        sched = resolve_schedule(schedule, self.cfg.n_trees)
+        return self.scan_with(data, sched, np.arange(self.cfg.n_trees),
+                              max_staleness(sched) + 1, seed=seed)
 
 
 # One cached Trainer per (config, device), LRU-bounded: a sweep over many

@@ -1,5 +1,5 @@
 """Delay-schedule providers for the parameter-server engine (twin of
-``repro.ps.schedules``, without the cluster-simulator provider).
+``repro.ps.schedules``).
 
 Asynchrony is the version map k(j): server update j folds in a tree built
 from F^{k(j)} (staleness j - k(j)).
@@ -43,7 +43,8 @@ def resolve_schedule(spec, n_trees: int) -> np.ndarray:
     """Normalize a schedule to a validated (n_trees,) int32 k(j).
 
     Accepted: an int array / sequence (a realized schedule),
-    ``("constant", tau)``, ``("round_robin", W)``, a bare int W, or a
+    ``("constant", tau)``, ``("round_robin", W)``, a bare int W, a
+    ``core.simulator.ClusterSpec`` (runs ``simulate_async``), or a
     callable ``f(n_trees) -> array``.
     """
     if isinstance(spec, int):
@@ -62,6 +63,10 @@ def resolve_schedule(spec, n_trees: int) -> np.ndarray:
             raise ValueError(f"unknown schedule kind {kind!r}")
     elif callable(spec):
         sched = np.asarray(spec(n_trees), np.int32)
+    elif hasattr(spec, "n_workers") and hasattr(spec, "t_build"):  # ClusterSpec
+        from repro_torch.core.simulator import simulate_async
+
+        sched = simulate_async(spec, n_trees).schedule
     elif isinstance(spec, (np.ndarray, Sequence)) or hasattr(spec, "__array__"):
         sched = np.asarray(spec, np.int32)
     else:

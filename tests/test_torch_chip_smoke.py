@@ -520,3 +520,146 @@ def test_e2006_phase_configs_come_from_the_ported_modules():
     assert set(chip_smoke.OBJECTIVE_TRAIN_CLIS) == {"mse", "quantile:0.9", "huber", "lambdarank"}
     assert set(chip_smoke.OBJECTIVE_SERVE_CLIS) == {"mse", "lambdarank"}
     assert {k for k, _ in chip_smoke.E2006_LINE.values()} == set(chip_smoke.KERNELS)
+
+
+@pytest.fixture
+def threads_phase(monkeypatch, tmp_path):
+    """The threads phase at a small size on the CPU: realsim's configuration
+    at depth 3 (24 trees, 20 for the short runs, the CLI at 6 steps on the
+    CPU), its data 700 x 30; every kernel's plain version counted as a
+    launch (the CPU launches no kernel), streams stood in by the CPU's
+    synchronous order, the fused child run in-process."""
+    import contextlib
+    import io
+    import json
+
+    from repro_torch.kernels import forest_traversal, histogram, level_build, split_scan
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: None)
+    cfg = chip_smoke.CFG._replace(n_trees=24, learner=chip_smoke.CFG.learner._replace(depth=3))
+    fused = cfg._replace(learner=cfg.learner._replace(backend="fused"))
+    cli = ["--arch", "gbdt", "--device", "cpu", "--runtime", "threads", "--steps", "6",
+           "--workers", "4", "--verify-replay", "--checkpoint-dir", str(tmp_path / "cli"),
+           "--checkpoint-every", "3", "--verify-resume"]
+    for name, value in (("CFG", cfg), ("CFG_FUSED", fused), ("THREADS_SHORT", 20),
+                        ("THREADS_CFG", cfg._replace(n_trees=20)), ("THREADS_CLI", cli),
+                        ("THREADS_DIR", tmp_path / "threads"), ("THREADS_SPLIT_REPS", 5),
+                        ("THREADS_REPS", 3), ("THREADS_HALT", 10), ("THREADS_CKPT_EVERY", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    for mod, name in ((histogram, "histogram_plain"), (split_scan, "split_gain_decide_plain"),
+                      (level_build, "level_build_plain")):
+        plain = getattr(mod, name)
+
+        def counted(*args, _plain=plain, _mod=mod, **kw):
+            _mod.launches += 1
+            return _plain(*args, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    traverse = forest_traversal.forest_traverse_plain
+
+    def traverse_counted(*args, **kw):
+        forest_traversal.form_launches["f32"] += 1
+        return traverse(*args, **kw)
+
+    monkeypatch.setattr(forest_traversal, "forest_traverse_plain", traverse_counted)
+    x, y = chip_smoke.synthetic.sparse_classification_xy(700, 30, 6, seed=2)
+    data = chip_smoke.bin_dataset(x, y, n_bins=64, device="cpu")
+    monkeypatch.setattr(chip_smoke.gbdt_configs, "get", lambda name, device=None: (cfg, data))
+
+    def fused_in_process():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            chip_smoke.threads_fused_child("cpu")
+        return {**json.loads(buf.getvalue().splitlines()[-1]), "process_s": 0.0}
+
+    monkeypatch.setattr(chip_smoke, "threads_fused", fused_in_process)
+    return {"data": data, "x": x}
+
+
+def test_threads_phase_passes_and_fails_planted_faults_on_a_small_cpu_run(threads_phase,
+                                                                         monkeypatch):
+    """The phase's gates pass on a small CPU run; then a replay that
+    drifts, a step scale off by one ulp and a pull byte count off by one
+    each fail their gate, and so does a launch count that loses launches
+    under streams."""
+    run = chip_smoke.drive_threads(torch.device("cpu"), threads_phase)
+    report = {}
+    checked = chip_smoke.check_threads(run, report)
+    info = report["threads"]
+    assert info["summary"]["n_trees"] == 24 and set(checked) == set(
+        chip_smoke.THREADS_LINE.values())
+    assert sum(info["staleness_histogram"].values()) == 24 and info["concurrency"] > 0
+    assert run["fused"]["launches"]["level_build"] == 3 * 21
+    assert all(run["counts"][k] > 0 for k in ("histogram", "split_gain", "forest_traverse"))
+    stats = {"ms": 1.0, "device_ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
+             "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0}
+    report["kernels"] = {k: dict(stats) for k in ("histogram", "split_gain", "forest_traverse")}
+    report["level_build_shapes"] = {"level0": dict(stats, staged_ms=1.0, samples_hit=3)}
+    line = chip_smoke.threads_line(run, checked, report)
+    assert [e["name"] for e in line] == list(chip_smoke.THREADS_LINE)
+    assert all(e["launches"] > 0 and "staged_ms" not in e for e in line)
+
+    with monkeypatch.context() as m:
+        m.setattr(run["rt"], "replay", lambda trace: (run["loop"], torch.zeros(24)))
+        with pytest.raises(AssertionError, match="400-tree run vs its replay|differs"):
+            chip_smoke.check_threads(run, {})
+    _, _, atr = run["runs"]["adaptive"]
+    atr.step_scale[5] = np.nextafter(atr.step_scale[5], np.float32(0))
+    with pytest.raises(AssertionError, match="staleness_scales"):
+        chip_smoke.check_threads(run, {})
+    atr.step_scale[5] = np.nextafter(atr.step_scale[5], np.float32(2))
+    _, _, stra = run["runs"]["shards"]
+    stra.pull_bytes[3] += 1
+    with pytest.raises(AssertionError, match="pulled"):
+        chip_smoke.check_threads(run, {})
+    stra.pull_bytes[3] -= 1
+    from repro_torch.kernels import split_scan
+
+    decide = split_scan.split_gain_decide_plain
+    calls = []
+
+    def loses_a_count(*args, **kw):
+        calls.append(1)
+        if len(calls) == 7:
+            split_scan.launches -= 1
+        return decide(*args, **kw)
+
+    monkeypatch.setattr(split_scan, "split_gain_decide_plain", loses_a_count)
+    with pytest.raises(AssertionError, match="launches counted"):
+        chip_smoke.check_threads_kernels(run, {})
+
+
+@pytest.mark.parametrize("off,passes", [(0.5, True), (2.0, False)])
+def test_histogram_case_holds_the_kernel_to_the_f64_sums(monkeypatch, off, passes):
+    """The histogram check's reference is the plain version summed in f64
+    (the f32 plain version's atomics stray further than the kernel on the
+    card): a stand-in kernel ``off`` tolerances from the f64 sums at one
+    cell passes at half a tolerance and fails at two."""
+    monkeypatch.setattr(chip_smoke, "event_times", lambda fn, **kw: {"ms": 0.0})
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda *a, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, "library_times", lambda seg, vals, cells, into: into)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    rng = np.random.default_rng(5)
+    n, f, b = 2000, 5, 16
+    bins = torch.from_numpy(rng.integers(0, b, (n, f)).astype(np.int32))
+    node = torch.zeros(n, dtype=torch.int32)
+    grad = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    hess = torch.full((n,), 0.3, dtype=torch.float32)
+    exact = histogram.histogram_plain(bins, node, grad.double(), hess.double(), 1, b)
+    assert exact.dtype == torch.float64
+    tol = 1e-5 * float(exact.abs().max())
+
+    def kernel(*args):
+        out = exact.clone()
+        out[1, 0, 2, 3] += off * tol
+        return out.float()
+
+    monkeypatch.setattr(histogram, "histogram", kernel)
+    if passes:
+        st = chip_smoke.histogram_case(bins, grad, hess, node, 1, None, b, "t", {})
+        assert st["max_abs_err"] <= tol
+    else:
+        with pytest.raises(AssertionError, match="over tolerance"):
+            chip_smoke.histogram_case(bins, grad, hess, node, 1, None, b, "t", {})

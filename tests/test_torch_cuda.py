@@ -200,6 +200,62 @@ def test_split_gain_decide_ties_pick_the_first_cell(dev, l, f, feats):
     assert idx.tolist() == [feats[1] * b + bin_] * l
 
 
+def test_split_gain_decide_on_four_streams_is_the_single_stream_result(dev):
+    """4 threads, each on a stream of its own and its own level histogram,
+    launch ``split_gain_decide`` 200 times at L = 256 (realsim's level 8):
+    every (gain, best, idx) bitwise the single-stream launch's, and the
+    launch count exact (each stream keeps its own decision workspace)."""
+    import threading
+
+    inputs = []
+    for s in range(4):
+        bins, node, grad, hess = _case(dev, 90 + s, 4000, 1500, 64, 256)
+        hist = histogram.histogram(bins, node, grad, hess, 256, 64)
+        mask = (torch.arange(1500, device=dev) % (3 + s) != 1).to(torch.int32)
+        inputs.append((hist, mask))
+    want = [split_scan.split_gain_decide(h, 1.0, 1e-3, m) for h, m in inputs]
+    torch.cuda.synchronize()
+    before, bad = split_scan.launches, []
+
+    def body(s):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(200):
+                got = split_scan.split_gain_decide(inputs[s][0], 1.0, 1e-3, inputs[s][1])
+                if not all(torch.equal(a, b) for a, b in zip(got, want[s])):
+                    bad.append(s)
+
+    threads = [threading.Thread(target=body, args=(s,)) for s in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not bad
+    assert split_scan.launches - before == 800
+    _decide_ok(*inputs[0])
+
+
+def test_threaded_runtime_replays_bitwise_on_the_card(dev):
+    """W = 4 worker threads, a stream each, on realsim-like data at a small
+    size: the trace replays to the same forest and F bit for bit, staged and
+    fused (the fused level's cooperative launches from four streams)."""
+    from repro_torch.ps import AsyncRuntime
+
+    from repro_torch.data import synthetic
+
+    x, y = synthetic.sparse_classification_xy(2000, 300, 12, seed=4)
+    data = bin_dataset(x, y, n_bins=64, device=dev)
+    for backend in ("staged", "fused"):
+        cfg = SGBDTConfig(n_trees=12, step_length=0.3, sampling_rate=0.8,
+                          learner=LearnerConfig(depth=5, n_bins=64, backend=backend))
+        rt = AsyncRuntime(cfg, data, n_workers=4)
+        state, trace = rt.run(seed=0)
+        replayed, _ = rt.replay(trace)
+        for name in ("feature", "threshold", "leaf_value", "n_trees"):
+            assert torch.equal(getattr(state.forest, name), getattr(replayed.forest, name))
+        assert torch.equal(state.f, replayed.f)
+        assert sorted(trace.key_index.tolist()) == list(range(12))
+
+
 def test_split_gain_decide_masked_and_empty_nodes(dev):
     """Every feature masked: each node idx 0 and -inf. A node without
     hessian mass (no valid cell) beside nodes that split: idx 0 and -inf."""

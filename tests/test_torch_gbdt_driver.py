@@ -133,9 +133,7 @@ def test_gbdt_dataset_for_equals_the_reference(objective):
         np.testing.assert_array_equal(tdata.qid.numpy(), np.asarray(jdata.qid))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--runtime", "threads"], "A5"), (["--mesh", "2d"], "A8"), (["--scan"], "ROADMAP"),
-])
+@pytest.mark.parametrize("flags,item", [(["--mesh", "2d"], "A8")])
 def test_train_cli_flags_not_ported_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(["--arch", "gbdt", "--device", "cpu", "--steps", "2", *flags])

@@ -72,7 +72,8 @@ def test_port_files_were_found():
             "level_build.py", "histogram_sparse.py", "flash_attention.py", "transformer.py",
             "layers.py", "granite_3_2b.py", "steps.py", "train.py", "optimizers.py",
             "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py",
-            "regression.py", "ranking.py", "losses.py", "schedules.py"} <= names
+            "regression.py", "ranking.py", "losses.py", "schedules.py", "runtime.py",
+            "worker.py", "async_sgbdt.py", "simulator.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -83,7 +84,8 @@ def test_port_files_were_found():
     "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.optimizers",
     "repro_torch.launch.serve", "repro_torch.serving.continuous",
     "repro_torch.checkpoint.store", "repro_torch.configs.gbdt",
-    "repro_torch.trees.losses", "repro_torch.ps.schedules",
+    "repro_torch.trees.losses", "repro_torch.ps.schedules", "repro_torch.ps.runtime",
+    "repro_torch.ps.worker", "repro_torch.core.async_sgbdt", "repro_torch.core.simulator",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -170,6 +172,8 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     lambda: lm_train.main(["--arch", "gbdt", "--steps", "1", "--objective", "lambdarank"]),
     lambda: gbdt_serve.main(["--arch", "gbdt", "--trees", "2", "--objective", "lambdarank"]),
     lambda: Trainer(SGBDTConfig(step_kind="newton", adaptive_step=0.1)),
+    lambda: lm_train.main(["--arch", "gbdt", "--steps", "1", "--runtime", "threads"]),
+    lambda: lm_train.main(["--arch", "gbdt", "--steps", "1", "--scan"]),
 ])
 def test_data_entry_points_without_device_raise_without_gpu(no_cuda, make):
     with pytest.raises(RuntimeError, match="no CUDA device"):
