@@ -134,7 +134,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import dataclasses  # noqa: E402
 
 import repro_torch.configs as lm_configs  # noqa: E402
-from repro_torch import checkpoint  # noqa: E402
+from repro_torch import checkpoint, collectives  # noqa: E402
 from repro_torch.configs import gbdt as gbdt_configs  # noqa: E402
 from repro_torch.convert import forest_from_numpy  # noqa: E402
 from repro_torch.core.sgbdt import init_state, train_loss, train_metrics  # noqa: E402
@@ -184,7 +184,8 @@ from repro_torch.serving import (  # noqa: E402
     route_hash,
 )
 from repro_torch.serving.forest_server import ForestServer, PredictRequest  # noqa: E402
-from repro_torch.trees.binning import apply_bins, bin_dataset, gather_feature_bins  # noqa: E402
+from repro_torch.trees.binning import (  # noqa: E402
+    BinnedData, apply_bins, bin_dataset, gather_feature_bins)
 from repro_torch.trees.forest import (  # noqa: E402
     QuantizedForest,
     empty_forest,
@@ -317,6 +318,43 @@ THREADS_CLI = ["--arch", "gbdt", "--runtime", "threads", "--steps", str(THREADS_
 THREADS_LINE = {"histogram_threads": "histogram", "split_gain_threads": "split_gain",
                 "level_build_threads": "level_build",
                 "forest_traverse_threads": "forest_traverse"}
+# The mesh phase (ROADMAP A8): efficiency-realsim at full width through
+# Trainer(mesh=), ROUNDS rounds at W = WORKERS: the (1, 1) mesh as one rank
+# over NCCL in this process; then MESH_RANKS rank processes sharing the
+# card over MESH_BACKEND (NCCL refuses two ranks on one card) train each
+# form of MESH_FORMS (tag -> (mesh, feature axis, sparse layout)); then the
+# mesh train CLIs, each starting its own MESH_RANKS ranks.
+MESH_RANKS = 4
+MESH_BACKEND = "gloo"
+MESH_DIR = ROOT / "build" / "mesh"
+# tag -> (mesh, feature axis, data): "dense" and "sparse" are realsim's
+# layouts, "decisive" the DECISIVE_CFG set (``decisive_data``).
+MESH_FORMS = {
+    "1d_x4": ("x4", None, "dense"),
+    "1d_x4_again": ("x4", None, "dense"),
+    "1d_x4_decisive": ("x4", None, "decisive"),
+    "2d_1x4": ("1x4", "feature", "dense"),
+    "2d_1x4_sparse": ("1x4", "feature", "sparse"),
+    "2d_2x2": ("2x2", "feature", "dense"),
+    "1d_x2_on_2x2": ("2x2", None, "dense"),  # the (2, 2) mesh's data axis alone
+}
+# The 1-D x4 forest held to an independent build: realsim's configuration
+# under squared error on a set of realsim's shape (N, F, 64 bins) whose
+# every split is decisive (``decisive_data``), where the data-parallel
+# forest must split as the unmeshed one, leaves within DECISIVE_LEAF_ATOL
+# (the reference's own tolerance for its sharded builder).
+DECISIVE_CFG = CFG._replace(loss="mse")
+DECISIVE_BITS, DECISIVE_DECAY = 12, 0.9
+DECISIVE_LEAF_ATOL = 1e-5
+MESH_CLIS = {
+    "1d x4": ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--mesh", "1d",
+              "--mesh-shape", "4", "--mesh-backend", MESH_BACKEND],
+    "2d 1x4 sparse": ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--mesh", "2d",
+                      "--mesh-shape", "1x4", "--sparse", "--mesh-backend", MESH_BACKEND],
+}
+# That phase's entries in the kernels line: name -> KERNELS key.
+MESH_LINE = {"histogram_mesh": "histogram", "split_gain_mesh": "split_gain",
+             "histogram_sparse_mesh": "histogram_sparse"}
 # The traversal forms' ragged case: rows (not a multiple of the kernel's
 # 16-sample block) and live slots of each forest (not a multiple of the
 # 16-tree pass, nor of K).
@@ -779,7 +817,8 @@ def kernel_inputs(data) -> tuple:
 
 
 def histogram_case(bins, g, h, node, n_nodes: int, act, n_bins: int, tag: str,
-                   report: dict, key: str = "histogram") -> dict:
+                   report: dict, key: str = "histogram",
+                   plan_features: int | None = None) -> dict:
     """The histogram of the rows ``act`` (every node's row where None) of a
     level of ``n_nodes``: within 1e-5 x max|cell| of its plain version
     summed in f64 (on the card the f32 plain version adds with atomics, one
@@ -787,13 +826,14 @@ def histogram_case(bins, g, h, node, n_nodes: int, act, n_bins: int, tag: str,
     from the f64 sums where the kernel strays 0.0013, the tolerance being
     0.039), two launches bitwise; times, bound and the library yardstick.
     The samples on built rows go to ``report[key + "_samples_hit"]``.
+    ``plan_features``: the launch plan's F, as a feature shard takes it.
     Returns the stats (device times pending)."""
     dev = bins.device
     n, f = bins.shape
     b = n_bins
 
     def run():
-        return histogram.histogram(bins, node, g, h, n_nodes, b, act)
+        return histogram.histogram(bins, node, g, h, n_nodes, b, act, plan_features)
     k1, k2 = run(), run()
     torch.cuda.synchronize()
     if not torch.equal(k1, k2):
@@ -2370,6 +2410,519 @@ def threads_line(run: dict, checked: dict, report: dict) -> list:
     return line
 
 
+# ------------------------------------------------------------- mesh phase
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed_all_reduce(into: list, dev: torch.device):
+    """A stand-in for ``torch.distributed.all_reduce`` that adds each call's
+    host time, between two device synchronizations, to ``into`` (the
+    collective's ms, waits for the other ranks included)."""
+    orig = torch.distributed.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = orig(tensor, *args, **kwargs)
+        _sync(dev)
+        into.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    return orig, timed
+
+
+def mesh_train(data, mesh, feature_axis, rounds: int = ROUNDS, count: bool = True,
+               cfg=CFG) -> dict:
+    """One form of the mesh phase on this rank: ``rounds`` rounds of ``cfg``
+    (efficiency-realsim's) at W = ``WORKERS`` through ``Trainer(mesh=)``, with
+    every collective recorded (``collectives.ByteRecorder``) and timed
+    (``_timed_all_reduce``) and the host time stamped after each round;
+    with ``count``, the collective bytes of one build counted apart
+    (``Trainer.collective_bytes``); each kernel's launches."""
+    trainer = Trainer(cfg, mesh=mesh, feature_axis=feature_axis)
+    rec, coll_ms, stamps, coll_marks = collectives.ByteRecorder(), [], [], [0.0]
+    before = gbdt_counts()
+
+    def tick(state, j):
+        _sync(mesh.device)
+        stamps.append(time.perf_counter())
+        coll_marks.append(sum(coll_ms))
+
+    orig, timed = _timed_all_reduce(coll_ms, mesh.device)
+    torch.distributed.all_reduce = timed
+    try:
+        with collectives.recording(rec):
+            _sync(mesh.device)
+            stamps.append(time.perf_counter())
+            state = trainer.train(data, ("round_robin", WORKERS), seed=SEED, rounds=rounds,
+                                  eval_every=1, eval_fn=tick)
+    finally:
+        torch.distributed.all_reduce = orig
+    after = gbdt_counts()
+    round_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return {
+        "forest": [t.cpu() for t in state.forest], "f": state.f.cpu(),
+        "loss": float(train_loss(cfg, data, state)),
+        "round_ms": round_ms, "rounds": rounds,
+        "collective_ms": [b - a for a, b in zip(coll_marks, coll_marks[1:])],
+        "bytes": rec.summary(), "counted": trainer.collective_bytes(data) if count else None,
+        "launches": {k: after[k] - before[k] for k in ("histogram", "split_gain",
+                                                       "histogram_sparse", "level_build")},
+        "trainer": trainer,
+    }
+
+
+def decisive_data(n: int, f: int, dev: torch.device) -> BinnedData:
+    """A set of realsim's shape (``n`` x ``f``, 64 bins) on which every split
+    is decisive: column k < ``DECISIVE_BITS`` is bit k of the sample's
+    index, in bins 0 and 1; every other column is constant (bin 0, as most
+    of realsim's columns are for most samples); the label is
+    sum_k 4 ``DECISIVE_DECAY``^k bit_k (no noise). A column in bins 0 and 1
+    has one threshold that splits a node, so no two thresholds share a
+    partition (on quantile bins with empty bins between the values, every
+    threshold in a gap splits the samples alike: an exact tie, which the
+    card's scan breaks by rounding). The bits are a full factorial, so on
+    a node, a box of the bit grid, no two free bits cut the samples alike;
+    and their weights differ, so their gains differ far above f32
+    rounding. Deterministic: every rank makes the same set."""
+    bins = np.zeros((n, f), np.int32)
+    bins[:, :DECISIVE_BITS] = (np.arange(n)[:, None] >> np.arange(DECISIVE_BITS)) & 1
+    y = bins[:, :DECISIVE_BITS] @ (4.0 * DECISIVE_DECAY ** np.arange(DECISIVE_BITS))
+    edges = np.full((f, CFG.learner.n_bins - 1), np.inf, np.float32)
+    edges[:DECISIVE_BITS, 0] = 0.5  # a raw 0 or 1 bins as itself
+    return BinnedData(torch.from_numpy(bins).to(dev), torch.from_numpy(edges).to(dev),
+                      torch.from_numpy(y.astype(np.float32)).to(dev),
+                      torch.ones(n, device=dev), CFG.learner.n_bins)
+
+
+def mesh_device_ms(trainer, data) -> tuple[float | None, str]:
+    """The device time of one more round of ``trainer`` on this rank: the
+    profiler's sum of its kernels where it records device time, else None
+    (a CUDA-event span would hold the waits on the other ranks)."""
+    if data.bins.device.type != "cuda" or not profiler_sees_device():
+        return None, "not measured"
+    rows = device_trace(lambda: trainer.train(data, ("round_robin", WORKERS), seed=SEED,
+                                              rounds=1), 1)
+    return (sum(ms for _, ms, _ in rows), "profiler") if rows else (None, "not measured")
+
+
+def count_plain_calls() -> None:
+    """For a rehearsal on the CPU, where no kernel launches: count each call
+    of the mesh phase's kernels' plain versions as a launch."""
+    for mod, name in ((histogram, "histogram_plain"), (split_scan, "split_gain_decide_plain"),
+                      (histogram_sparse, "histogram_sparse_plain")):
+        def counted(*args, _mod=mod, _fn=getattr(mod, name), **kwargs):
+            _mod.launches += 1
+            return _fn(*args, **kwargs)
+        setattr(mod, name, counted)
+
+
+def mesh_rank(rank: int, dev: torch.device, out_dir: str, spec, rounds: int,
+              backend: str) -> None:
+    """One of the ``MESH_RANKS`` rank processes of the mesh phase: the data
+    of ``spec`` (realsim's ``DatasetSpec``), its sparse layout and the
+    decisive set of its shape on ``dev``, the meshes (1-D x4, (1, 4),
+    (2, 2)) over ``backend``, and
+    ``MESH_FORMS`` trained in turn (``mesh_train``); then one profiled round
+    a form (``mesh_device_ms``), after every timed round. Writes the
+    results to ``out_dir/rank{rank}.pt``."""
+    from repro_torch.launch.mesh import make_gbdt_mesh
+
+    if dev.type == "cpu":  # a rehearsal: the ranks share the host's cores
+        count_plain_calls()
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
+    x, y, mult = synthetic.raw(spec)
+    data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
+    sets = {"dense": data,
+            "sparse": bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev, sparse=True),
+            "decisive": decisive_data(*data.bins.shape, dev)}
+    meshes = {"x4": make_gbdt_mesh(4, 1, device=dev, backend=backend, feature_axis=False),
+              "1x4": make_gbdt_mesh(1, 4, device=dev, backend=backend),
+              "2x2": make_gbdt_mesh(2, 2, device=dev, backend=backend)}
+    reset_counts()
+    out = {}
+    for tag, (mesh, fax, kind) in MESH_FORMS.items():
+        # The count depends on shapes alone: rank 0's serves every rank.
+        out[tag] = mesh_train(sets[kind], meshes[mesh], fax, rounds, count=rank == 0,
+                              cfg=DECISIVE_CFG if kind == "decisive" else CFG)
+    for tag, (_, _, kind) in MESH_FORMS.items():
+        trainer = out[tag].pop("trainer")
+        out[tag]["device_ms"], out[tag]["device_ms_by"] = mesh_device_ms(trainer, sets[kind])
+    out["backend"] = meshes["x4"].backend
+    out["coords"] = {k: [a.index for a in m.axes] for k, m in meshes.items()}
+    torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
+
+
+def drive_mesh(dev: torch.device, realsim: dict, spec=None, rounds: int = ROUNDS,
+               clis: dict | None = None, one_rank_backend: str = "nccl") -> dict:
+    """The mesh phase, with its own launch counts: (a) the (1, 1) mesh, one
+    rank over NCCL in this process (its counts reset just before and read
+    just after), whose collectives span one rank and issue no all-reduce,
+    so one all-reduce is issued on its group apart, to check NCCL; the
+    unmeshed run of the decisive set (``decisive_data``), to hold the 1-D
+    x4 decisive form to; (b)-(d) ``MESH_RANKS`` rank processes sharing the card
+    over ``MESH_BACKEND`` (``mesh_rank``; each counts its own launches from
+    its start); (e) the mesh train CLIs (``MESH_CLIS`` unless given), each
+    starting its own ranks. ``spec`` is the data's ``DatasetSpec``
+    (realsim's unless given; ``realsim["data"]`` must be its binning).
+    Returns what ``check_mesh`` needs."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    spec = gbdt_configs.EXPERIMENTS[REALSIM].dataset if spec is None else spec
+    clis = MESH_CLIS if clis is None else clis
+    data = realsim["data"]
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    launch_mesh.init_ranks(0, 1, f"tcp://127.0.0.1:{launch_mesh.free_port()}",
+                           one_rank_backend, dev)
+    try:
+        host = launch_mesh.make_host_mesh(device=dev, backend=one_rank_backend)
+        reset_counts()
+        nccl = mesh_train(data, host, "feature", rounds)
+        nccl["counts"] = gbdt_counts()
+        nccl["backend"] = host.backend
+        del nccl["trainer"]
+        probe = torch.arange(8, dtype=torch.float32, device=dev)
+        torch.distributed.all_reduce(probe, group=host.axis("data").group)
+        if not torch.equal(probe.cpu(), torch.arange(8, dtype=torch.float32)):
+            raise AssertionError(f"mesh (1, 1): {one_rank_backend} all_reduce gave {probe}")
+        nccl["all_reduce_checked"] = True
+    finally:
+        torch.distributed.destroy_process_group()
+    dec = decisive_data(*data.bins.shape, dev)
+    dec_state = Trainer(DECISIVE_CFG, device=dev).train(dec, ("round_robin", WORKERS),
+                                                        seed=SEED, rounds=rounds)
+    decisive = {"forest": [t.cpu() for t in dec_state.forest], "f": dec_state.f.cpu()}
+    t0 = time.perf_counter()
+    launch_mesh.spawn(mesh_rank, MESH_RANKS, (str(MESH_DIR), spec, rounds, MESH_BACKEND),
+                      backend=MESH_BACKEND, device=dev)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(MESH_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    cli_out = {}
+    for tag, argv in clis.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                              capture_output=True, text=True, cwd=ROOT, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh CLI ({tag}) exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        cli_out[tag] = {"s": time.perf_counter() - t0, "out": proc.stdout}
+    return {"nccl": nccl, "decisive": decisive, "ranks": ranks, "ranks_s": ranks_s,
+            "clis": cli_out}
+
+
+def first_tree_departures(tag: str, data, got, want) -> dict:
+    """The nodes where ``got``'s first tree (a (forest, f) pair) splits
+    otherwise than ``want``'s (a state), below agreeing ancestors, over all
+    of the tree's levels. Both trees are built from round 0's draws on the
+    same F, so each such node holds the same samples in both, and each
+    departure must be a tie: under the node's histogram summed in f64 the
+    two splits' gains agree within 1e-5 of the larger (a pass-through node
+    counts 0). Returns the counts; raises on a departure that is no tie."""
+    dev, b, lc = data.bins.device, CFG.learner.n_bins, CFG.learner
+    m, _, mask = ps_engine.round_draws(CFG, data, SEED, 0)
+    g0, _ = CFG.obj.grad_hess(data.labels, init_state(CFG, data).f)
+    fw, tw = want.forest.feature[0], want.forest.threshold[0]
+    fg, tg = got[0][0][0].to(dev), got[0][1][0].to(dev)
+    heap = torch.zeros(data.n_samples, dtype=torch.int64, device=dev)
+    agree, compared, ties, gaps = {0}, 0, 0, []
+    for i in range((1 << lc.depth) - 1):
+        if i > 0 and (i & (i + 1)) == 0:  # a new level: route every sample one step down
+            right = gather_feature_bins(data.bins, fw.long()[heap]) > tw[heap]
+            heap = 2 * heap + 1 + right.long()
+        if i not in agree:
+            continue
+        compared += 1
+        if (fw[i], tw[i]) == (fg[i], tg[i]):
+            agree |= {2 * i + 1, 2 * i + 2}
+            continue
+        on = torch.where(heap == i, 0, -1).to(torch.int32)
+        hist = histogram.histogram_plain(data.bins, on, (m * g0).double(), m.double(), 1, b)
+        gain = split_scan.split_gain_plain(hist, lc.lam, lc.min_child_hess)
+        gain = gain.masked_fill(~mask[None, :, None], float("-inf")).reshape(-1)
+
+        def split_gain(f, t):
+            passes = int(f) == 0 and int(t) == b - 1
+            return 0.0 if passes else max(float(gain[f * b + t]), 0.0)
+        gw, gg = split_gain(fw[i], tw[i]), split_gain(fg[i], tg[i])
+        gaps.append(abs(gw - gg) / max(gw, gg, 1e-30))
+        if abs(gw - gg) > 1e-5 * max(gw, gg):
+            raise AssertionError(f"{tag}: first tree's node {i} splits otherwise without a "
+                                 f"tie (f64 gains {gw} vs {gg})")
+        ties += 1
+    return {"nodes_compared": compared, "ties": ties,
+            "largest_relative_gap": max(gaps, default=0.0)}
+
+
+def forest_agreement(got, want) -> dict:
+    """Figures, not gates: the share of live nodes two forests split alike,
+    whether every tree's heap prefix (levels 0-3) agrees, and F's RMS drift
+    over the reference's RMS."""
+    live = int(want.forest.n_trees)
+    same = ((got[0][0][:live] == want.forest.feature[:live].cpu())
+            & (got[0][1][:live] == want.forest.threshold[:live].cpu()))
+    f_got, f_want = got[1], want.f.cpu()
+    return {"nodes_identical": float(same.float().mean()),
+            "prefix_bitwise": bool(same[:, :15].all()),
+            "f_rms_drift": float(torch.sqrt(((f_got - f_want) ** 2).mean())
+                                 / torch.sqrt((f_want ** 2).mean()))}
+
+
+def decisive_agreement(got: tuple, want: tuple) -> dict:
+    """The 1-D x4 forest on the decisive set (a (forest, f) pair) against the
+    unmeshed one: the same trees, every feature and threshold equal, the
+    leaves within ``DECISIVE_LEAF_ATOL``, and every level of the forest
+    split somewhere (so the deep levels are held too). Returns the
+    figures; raises on a departure."""
+    tag = "mesh 1d x4 decisive vs the unmeshed run"
+    for name, i in (("feature", 0), ("threshold", 1), ("n_trees", 3)):
+        if not torch.equal(got[0][i], want[0][i]):
+            raise AssertionError(f"{tag}: {name} differs")
+    leaf_err = float((got[0][2] - want[0][2]).abs().max())
+    if not leaf_err <= DECISIVE_LEAF_ATOL:
+        raise AssertionError(f"{tag}: leaves {leaf_err} apart (tolerance {DECISIVE_LEAF_ATOL})")
+    live, b = int(want[0][3]), CFG.learner.n_bins
+    split = ((want[0][0][:live] != 0) | (want[0][1][:live] != b - 1)).cpu()
+    by_level = [int(split[:, (1 << lv) - 1:(1 << (lv + 1)) - 1].sum())
+                for lv in range(CFG.learner.depth)]
+    if min(by_level) == 0:
+        raise AssertionError(f"{tag}: a level never splits (splits by level {by_level})")
+    return {"trees": live, "splits_by_level": by_level, "leaf_max_abs_diff": leaf_err,
+            "f_max_abs_diff": float((got[1] - want[1]).abs().max())}
+
+
+def _same_state(tag: str, a: tuple, b: tuple) -> None:
+    for x, y, name in zip((*a[0], a[1]), (*b[0], b[1]),
+                          ("feature", "threshold", "leaf_value", "n_trees", "base_score", "f")):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: {name} differs")
+
+
+def check_mesh(run: dict, realsim: dict, report: dict) -> dict:
+    """The mesh phase's gates: (a) bitwise the unmeshed staged forest with
+    no realized byte, and one NCCL all-reduce right; every form's forest
+    the same on every rank; the 1-D x4 run twice bitwise, its loss
+    falling, and every split where its first tree departs from the
+    unmeshed run's a tie (``first_tree_departures``; after one the forests
+    part ways, so the later trees are compared by figures alone,
+    ``forest_agreement``); on the decisive set, the 1-D x4 forest split for
+    split the unmeshed one, leaves within 1e-5 (``decisive_agreement``); (1, 4)
+    dense and sparse bitwise the unmeshed staged and sparse forests; (2, 2)
+    bitwise its P_d = 2 1-D twin; each form's measured bytes a round equal
+    to ``collective_bytes``'s count of one build, by kind; each kernel of
+    the form launched on every rank; the CLIs' rank agreement and bytes.
+    Prints each form's round wall ms, device and collective ms and bytes
+    a round by rank. Returns the launches by kernel, summed over the ranks
+    (and the NCCL rank)."""
+    staged, sparse = realsim["runs"]["staged"], realsim["runs"]["sparse"]
+    unmeshed = ([t.cpu() for t in staged.forest], staged.f.cpu())
+    nccl, ranks = run["nccl"], run["ranks"]
+    _same_state("mesh (1, 1) nccl vs the unmeshed staged run",
+                (nccl["forest"], nccl["f"]), unmeshed)
+    if nccl["bytes"]["realized_bytes"] or nccl["counted"]["realized_bytes"]:
+        raise AssertionError(f"mesh (1, 1): realized bytes {nccl['bytes']}")
+    if not nccl.get("all_reduce_checked"):
+        raise AssertionError("mesh (1, 1): the NCCL all_reduce was not checked")
+    summary = {"nccl_1x1": {"backend": nccl["backend"], "round_ms": nccl["round_ms"],
+                            "collective_ms": nccl["collective_ms"],
+                            "payload_bytes_per_round":
+                                nccl["bytes"]["payload_bytes"] / nccl["rounds"],
+                            "launches": nccl["launches"]}}
+    print(f"mesh (1, 1) over {nccl['backend']}, one rank: bitwise the unmeshed staged "
+          f"forest, 0 B realized; round wall ms {np.mean(nccl['round_ms'][1:]):.2f} (round 0 "
+          f"{nccl['round_ms'][0]:.2f}), collective ms a round "
+          f"{np.mean(nccl['collective_ms'][1:]):.2f} (round 0 {nccl['collective_ms'][0]:.2f})",
+          flush=True)
+    for tag in MESH_FORMS:
+        for r, rk in enumerate(ranks[1:], 1):
+            _same_state(f"mesh {tag}: rank {r} vs rank 0", (rk[tag]["forest"], rk[tag]["f"]),
+                        (ranks[0][tag]["forest"], ranks[0][tag]["f"]))
+    first = ranks[0]
+    _same_state("mesh 1d x4: two runs", (first["1d_x4"]["forest"], first["1d_x4"]["f"]),
+                (first["1d_x4_again"]["forest"], first["1d_x4_again"]["f"]))
+    got = (first["1d_x4"]["forest"], first["1d_x4"]["f"])
+    summary["1d_x4_vs_unmeshed"] = {
+        **first_tree_departures("mesh 1d x4 vs the unmeshed staged run", realsim["data"],
+                                got, staged),
+        **forest_agreement(got, staged)}
+    print("mesh 1d x4 vs the unmeshed staged run: the first tree's departures all ties "
+          + json.dumps(summary["1d_x4_vs_unmeshed"]), flush=True)
+    loss0 = float(train_loss(CFG, realsim["data"], init_state(CFG, realsim["data"])))
+    if not first["1d_x4"]["loss"] < loss0:
+        raise AssertionError(f"mesh 1d x4: loss {first['1d_x4']['loss']} from {loss0}")
+    summary["1d_x4_decisive_vs_unmeshed"] = decisive_agreement(
+        (first["1d_x4_decisive"]["forest"], first["1d_x4_decisive"]["f"]),
+        (run["decisive"]["forest"], run["decisive"]["f"]))
+    print("mesh 1d x4 on the decisive set: every tree splits as the unmeshed run's, leaves "
+          "within 1e-5 " + json.dumps(summary["1d_x4_decisive_vs_unmeshed"]), flush=True)
+    _same_state("mesh (1, 4) dense vs the unmeshed staged run",
+                (first["2d_1x4"]["forest"], first["2d_1x4"]["f"]), unmeshed)
+    _same_state("mesh (1, 4) sparse vs the unmeshed sparse run",
+                (first["2d_1x4_sparse"]["forest"], first["2d_1x4_sparse"]["f"]),
+                ([t.cpu() for t in sparse.forest], sparse.f.cpu()))
+    _same_state("mesh (2, 2) vs its P_d = 2 1-D twin",
+                (first["2d_2x2"]["forest"], first["2d_2x2"]["f"]),
+                (first["1d_x2_on_2x2"]["forest"], first["1d_x2_on_2x2"]["f"]))
+    launches = {k: nccl["launches"][k] for k in MESH_LINE.values()}
+    by_rank = {}
+    for tag, (_, _, kind) in MESH_FORMS.items():
+        row = {"backend": first["backend"], "round_ms_by_rank": [], "device_ms_by_rank": [],
+               "collective_ms_by_rank": []}
+        for r, rk in enumerate(ranks):
+            form = rk[tag]
+            measured, counted = form["bytes"], first[tag]["counted"]
+            rounds = form["rounds"]
+            per_round = {k: v / rounds for k, v in measured["realized_by_kind"].items()}
+            if (measured["realized_bytes"] != rounds * counted["realized_bytes"]
+                    or per_round != counted["realized_by_kind"]):
+                raise AssertionError(f"mesh {tag} rank {r}: measured bytes {measured} are not "
+                                     f"{rounds} x the count {counted}")
+            need = ("histogram_sparse", "split_gain") if kind == "sparse" else (
+                "histogram", "split_gain")
+            if any(form["launches"][k] <= 0 for k in need) or form["launches"]["level_build"]:
+                raise AssertionError(f"mesh {tag} rank {r}: launches {form['launches']}")
+            row["round_ms_by_rank"].append(float(np.mean(form["round_ms"][1:])))
+            row["device_ms_by_rank"].append(form["device_ms"])
+            row["collective_ms_by_rank"].append(float(np.mean(form["collective_ms"][1:])))
+        row["bytes_per_round"] = first[tag]["counted"]["realized_by_kind"]
+        row["realized_bytes_per_round"] = first[tag]["counted"]["realized_bytes"]
+        row["device_ms_by"] = first[tag]["device_ms_by"]
+        row["launches_by_rank"] = [rk[tag]["launches"] for rk in ranks]
+        summary[tag] = row
+        dev_ms = ", ".join("not measured" if d is None else f"{d:.2f}"
+                           for d in row["device_ms_by_rank"])
+        print(f"mesh {tag} over {first['backend']} x{MESH_RANKS} ranks: round wall ms (mean "
+              f"of rounds 2-{first[tag]['rounds']}) by rank {', '.join(f'{v:.2f}' for v in row['round_ms_by_rank'])}; device ms "
+              f"a round by rank ({row['device_ms_by']}, one more round) {dev_ms}; collective "
+              f"ms a round (rounds 2-{first[tag]['rounds']}) by rank {', '.join(f'{v:.2f}' for v in row['collective_ms_by_rank'])}; "
+              f"bytes a round {row['realized_bytes_per_round']:,} realized "
+              f"{json.dumps(row['bytes_per_round'])} (= collective_bytes)", flush=True)
+    for k in MESH_LINE.values():
+        by_rank[k] = [sum(rk[tag]["launches"][k] for tag in MESH_FORMS) for rk in ranks]
+        launches[k] += sum(by_rank[k])
+    if not run["clis"]:
+        raise AssertionError("mesh phase: no mesh CLI ran")
+    for tag, cli in run["clis"].items():
+        out = cli["out"]
+        if "every rank's forest identical: True" not in out or \
+                "collective bytes/round:" not in out or "mesh: " not in out:
+            raise AssertionError(f"mesh CLI ({tag}): {out[-2000:]}")
+        summary[f"cli {tag}"] = {"s": cli["s"], "lines": [ln for ln in out.splitlines()
+                                                          if ln.startswith(("mesh:",
+                                                                            "collective",
+                                                                            "final",
+                                                                            "every"))]}
+        print(f"mesh CLI {tag}: exit 0 in {cli['s']:.1f} s; " +
+              "; ".join(summary[f"cli {tag}"]["lines"]), flush=True)
+    summary["ranks_s"] = run["ranks_s"]
+    summary["launches_by_rank"] = by_rank
+    report["mesh"] = summary
+    print(f"mesh phase: {MESH_RANKS} rank processes in {run['ranks_s']:.1f} s; launches by "
+          f"rank {json.dumps(by_rank)}, the (1, 1) rank "
+          f"{json.dumps({k: nccl['launches'][k] for k in MESH_LINE.values()})}", flush=True)
+    return {"launches": launches, "by_rank": by_rank}
+
+
+def check_mesh_kernels(realsim: dict, report: dict) -> dict:
+    """The mesh phase's kernels at its shards' shapes: the histogram with the
+    global F's launch plan (``plan_features``, as the (1, 4) build launches
+    it) at F_loc = F / 4 = 375 (rank 0's and rank 3's blocks), level 0 and
+    the level-8 subset, bitwise the same columns of the unsharded
+    histogram; the histogram at level 0 and the level-8 subset on rank 0's
+    block of every form, (1, 4), 1-D x4, (2, 2) and its P_d = 2 twin,
+    against its plain version (``histogram_case``); the split gain's
+    decision at L = 256 on the (1, 4) and (2, 2) blocks' histograms under
+    the block's mask (``split_gain_case``); the sparse
+    histogram on the shard's feature-major store
+    (``check_histogram_sparse``). Records whether the shard's own plan
+    would sum in another order. Device times pending. Returns the stats
+    by kernel."""
+    data, sp = realsim["data"], realsim["sparse"].bins
+    n, f = data.bins.shape
+    f_loc, b = f // MESH_RANKS, CFG.learner.n_bins
+    g, h, node8, active, gen = kernel_inputs(data)
+    node0 = torch.zeros(n, dtype=torch.int32, device=data.bins.device)
+    order = {}
+    for shard in (0, MESH_RANKS - 1):
+        cols = slice(shard * f_loc, (shard + 1) * f_loc)
+        block = data.bins[:, cols].contiguous()
+        for tag, node, n_nodes, act in (("level0", node0, 1, None),
+                                        ("level8_subset", node8, 256, active)):
+            full = histogram.histogram(data.bins, node, g, h, n_nodes, b, act)
+            mine = histogram.histogram(block, node, g, h, n_nodes, b, act, plan_features=f)
+            own = histogram.histogram(block, node, g, h, n_nodes, b, act)
+            if not torch.equal(mine, full[:, :, cols]):
+                raise AssertionError(f"histogram_mesh shard {shard} {tag}: the global plan's "
+                                     "sums differ from the unsharded histogram's columns")
+            order[f"shard{shard}_{tag}"] = {
+                "own_plan_same_bits": bool(torch.equal(own, mine)),
+                "own_plan": histogram.launch_plan(block, n_nodes, b, act)._asdict(),
+                "global_plan": histogram.launch_plan(block, n_nodes, b, act, f)._asdict()}
+    report["histogram_mesh_plan_order"] = order
+    print("histogram_mesh: a shard's histogram under the global F's plan is bitwise the "
+          "unsharded histogram's columns; under its own plan the bits are "
+          + json.dumps({k: "the same" if v["own_plan_same_bits"] else "different"
+                        for k, v in order.items()}), flush=True)
+    # Rank 0's block of every form: (1, 4) (all rows, F / 4 columns under
+    # the global F's plan; untagged), 1-D x4 (N / 4 rows, F), (2, 2) (N / 2
+    # rows, F / 2 columns under the global F's plan) and its P_d = 2 twin
+    # (N / 2 rows, F). The plan takes its warps and splits from the rows
+    # too, so each block's launch is checked on its own.
+    hist_shapes, blocks = {}, {}
+    for form, n_rows, f_cols in (("", n, f_loc), ("x4_", n // 4, f),
+                                 ("2x2_", n // 2, f // 2), ("x2_", n // 2, f)):
+        bins_b = data.bins[:n_rows, :f_cols].contiguous()
+        g_b, h_b = g[:n_rows].contiguous(), h[:n_rows].contiguous()
+        node0_b, node8_b = node0[:n_rows].contiguous(), node8[:n_rows].contiguous()
+        blocks[form] = (bins_b, g_b, h_b, node8_b)
+        for tag, node, n_nodes, act in (("level0", node0_b, 1, None),
+                                        ("level8_subset", node8_b, 256, active)):
+            hist_shapes[form + tag] = histogram_case(
+                bins_b, g_b, h_b, node, n_nodes, act, b, form + tag, report,
+                key="histogram_mesh", plan_features=f if f_cols < f else None)
+    report["histogram_mesh_shapes"] = hist_shapes
+    mask = torch.rand(f, generator=gen, device=data.bins.device) < CFG.learner.feature_fraction
+    gain_shapes = {}
+    for tag, form, f_cols in (("L=256", "", f_loc), ("2x2_L=256", "2x2_", f // 2)):
+        bins_b, g_b, h_b, node8_b = blocks[form]
+        hist = histogram.histogram(bins_b, node8_b, g_b, h_b, 256, b, plan_features=f)
+        gain_shapes[tag] = split_gain_case(hist, CFG.learner.lam, CFG.learner.min_child_hess,
+                                           mask=mask[:f_cols])
+    report["split_gain_mesh_shapes"] = gain_shapes
+    shard = sp._replace(feat_rows=sp.feat_rows[:f_loc].contiguous(),
+                        feat_codes=sp.feat_codes[:f_loc].contiguous(),
+                        zero_bin=sp.zero_bin[:f_loc].contiguous())
+    sp_shapes = check_histogram_sparse(shard, node8, active, g, h, report,
+                                       key="histogram_sparse_mesh")
+    return {"histogram": hist_shapes, "split_gain": gain_shapes,
+            "histogram_sparse": sp_shapes}
+
+
+def mesh_line(checked: dict, shapes: dict) -> list:
+    """The ``kernels`` line's ``*_mesh`` entries, once every device time is
+    taken: each kernel's launches in the mesh phase (summed over the rank
+    processes and the NCCL rank; by rank in ``launches_by_rank``), its
+    error and times at the feature shard's shapes (``check_mesh_kernels``)."""
+    line = []
+    for name, kernel in MESH_LINE.items():
+        launches = checked["launches"][kernel]
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch in the mesh phase")
+        tag = "L=256" if kernel == "split_gain" else "level8_subset"
+        drop = ("surface_ms",) if kernel == "split_gain" else (
+            ("entries_hit",) if kernel == "histogram_sparse" else ())
+        st = line_stats(shapes[kernel], tag, drop=drop)
+        _, source, replaces = KERNELS[kernel]
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, "launches_by_rank": checked["by_rank"][kernel],
+                     **st})
+    return line
+
+
 def seeded_multiclass_forest(rng: np.random.Generator, dev) -> object:
     """A full 2000-slot (400 rounds x 5) depth-6 forest of valid random trees
     over the multiclass set's 60 features and 64 bins."""
@@ -3640,13 +4193,17 @@ def main() -> None:
     check_e2006(phase, report)
     threads = drive_threads(torch.device("cuda"), gbdt)
     threads_checked = check_threads(threads, report)
+    mesh = drive_mesh(torch.device("cuda"), gbdt)
+    mesh_checked = check_mesh(mesh, gbdt, report)
     multi = drive_multiclass(torch.device("cuda"), gbdt)
     checked = check_multiclass(multi, gbdt, report)
     phase_shapes = check_e2006_kernels(phase, report)
+    mesh_shapes = check_mesh_kernels(gbdt, report)
     line = check_drive(gbdt, report)
     line += multiclass_line(multi, checked, report)
     line += e2006_line(phase, phase_shapes, report)
     line += threads_line(threads, threads_checked, report)
+    line += mesh_line(mesh_checked, mesh_shapes)
     del gbdt, multi, phase, threads
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)

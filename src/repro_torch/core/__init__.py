@@ -8,9 +8,8 @@ contribution.
 - ``simulator``: the event-driven parameter-server cluster simulator
   (heterogeneous workers, network jitter), numpy only, bit for bit the
   reference's.
-
-The reference's ``baselines`` (fork-join and DimBoost timing models) is
-ROADMAP.md A7.
+- ``baselines``: the closed-form speedup models (Eq. 13, fork-join,
+  DimBoost), numpy only.
 """
 from repro_torch.core.sgbdt import (
     SGBDTConfig,

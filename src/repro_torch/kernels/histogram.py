@@ -35,11 +35,22 @@ def histogram_plain(
 
 
 def launch_plan(
-    bins: torch.Tensor, n_nodes: int, n_bins: int, active_nodes: torch.Tensor | None
+    bins: torch.Tensor, n_nodes: int, n_bins: int, active_nodes: torch.Tensor | None,
+    plan_features: int | None = None,
 ) -> hist_plan.HistPlan:
-    """The kernel's launch plan for these inputs (``kernels.hist_plan``)."""
+    """The kernel's launch plan for these inputs (``kernels.hist_plan``).
+
+    ``plan_features``: the F to take the plan of, when it is not the
+    bins' own (a feature shard of a wider matrix). A cell's order depends
+    on the plan's tile, warps and splits, never on which features a tile
+    holds, so the shard's cells then sum in the wide matrix's order; the
+    grid is cut down to the shard's own tiles."""
     rows = n_nodes if active_nodes is None else active_nodes.shape[0]
-    return hist_plan.plan(bins.shape[0], bins.shape[1], n_bins, rows)
+    n, f = bins.shape
+    p = hist_plan.plan(n, plan_features or f, n_bins, rows)
+    if plan_features is None or plan_features == f:
+        return p
+    return p._replace(grid=(-(-f // p.feat_tile), rows, p.splits))
 
 
 def histogram(
@@ -50,9 +61,11 @@ def histogram(
     n_nodes: int,
     n_bins: int,
     active_nodes: torch.Tensor | None = None,  # (R,) int32 node subset
+    plan_features: int | None = None,  # the F whose launch plan to take
 ) -> torch.Tensor:
     """(2, R, F, n_bins) f32 histograms; R = n_nodes for the full level
-    (``active_nodes=None``), else row r sums node ``active_nodes[r]``."""
+    (``active_nodes=None``), else row r sums node ``active_nodes[r]``.
+    ``plan_features``: see ``launch_plan``."""
     if bins.device.type == "cpu":
         return histogram_plain(bins, node_ids, grad, hess, n_nodes, n_bins, active_nodes)
     if bins.device.type != "cuda":
@@ -70,7 +83,7 @@ def histogram(
     out = torch.empty((2, rows, f, n_bins), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    plan = launch_plan(bins, n_nodes, n_bins, active_nodes)
+    plan = launch_plan(bins, n_nodes, n_bins, active_nodes, plan_features)
     work = torch.empty(hist_plan.work_ints(plan, n, n_bins), dtype=torch.int32, device=dev)
     fn = _build.function(
         "histogram", "histogram_launch",

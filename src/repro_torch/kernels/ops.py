@@ -6,11 +6,17 @@ kernel or raises. There is no backend knob and no fallback. The histogram
 entry points also dispatch on the layout: a ``SparseBins`` takes the
 sparse kernel plus the zero-bin complement. Dtypes are checked by the
 kernel modules, not cast.
+
+``axis`` (a ``launch.mesh.MeshAxis``): under a data-parallel build each
+rank histograms its own samples with the same kernels, and the histograms
+merge with a psum over the axis (``collectives``): every cell is a sum
+over disjoint sample subsets, so the partial sums compose.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import collectives
 from repro_torch.kernels import (
     flash_attention as _flash,
     forest_traversal,
@@ -102,13 +108,19 @@ def build_histogram_sparse(
     n_nodes: int,
     n_bins: int,
     active_nodes: torch.Tensor | None = None,  # (R,) int32 node subset
+    axis=None,  # MeshAxis the samples are sharded over
 ) -> torch.Tensor:
     """(2, R, F, n_bins) histograms from the feature-major sparse store:
     the stored-entry kernel, then the zero-bin complement in plain torch
-    (every device; the node totals are masked sums, no float atomics)."""
+    (every device; the node totals are masked sums, no float atomics).
+    Under ``axis`` the stored sums and the node totals merge first, and
+    the complement (a subtraction) runs on the merged values."""
     stored = histogram_sparse.histogram_sparse(
         feat_rows, feat_codes, node_ids, grad, hess, n_nodes, n_bins, active_nodes)
     totals = _node_totals(node_ids, grad, hess, active_nodes, n_nodes)
+    if axis is not None:
+        stored = collectives.psum(stored, axis)
+        totals = collectives.psum(totals, axis)
     return _zero_bin_complement(stored, totals, zero_bin)
 
 
@@ -119,12 +131,19 @@ def build_histogram(
     hess: torch.Tensor,  # (N,) f32
     n_nodes: int,
     n_bins: int,
+    axis=None,  # MeshAxis the samples are sharded over
+    plan_features: int | None = None,
 ) -> torch.Tensor:
-    """(2, n_nodes, F, n_bins) histograms of a full level."""
+    """(2, n_nodes, F, n_bins) histograms of a full level, merged over
+    ``axis``. ``plan_features``: the F whose launch plan the dense kernel
+    takes (a feature shard passes the global F, so each cell sums in the
+    order it has unsharded; ``histogram.histogram``)."""
     if isinstance(bins, SparseBins):
         return build_histogram_sparse(bins.feat_rows, bins.feat_codes, bins.zero_bin,
-                                      node_ids, grad, hess, n_nodes, n_bins)
-    return histogram.histogram(bins, node_ids, grad, hess, n_nodes, n_bins)
+                                      node_ids, grad, hess, n_nodes, n_bins, axis=axis)
+    out = histogram.histogram(bins, node_ids, grad, hess, n_nodes, n_bins,
+                              plan_features=plan_features)
+    return out if axis is None else collectives.psum(out, axis)
 
 
 def build_histogram_subset(
@@ -135,11 +154,18 @@ def build_histogram_subset(
     active_nodes: torch.Tensor,  # (n_sub,) int32 node ids to build
     n_nodes: int,
     n_bins: int,
+    axis=None,  # MeshAxis the samples are sharded over
+    plan_features: int | None = None,
 ) -> torch.Tensor:
     """(2, n_sub, F, n_bins) histograms of the ``active_nodes`` only — the
     smaller-child build of histogram subtraction (the reference's argument
-    order)."""
+    order), merged over ``axis``. The sibling's subtraction is not here:
+    the learner subtracts after the merge, so every rank derives it from
+    the same merged values."""
     if isinstance(bins, SparseBins):
         return build_histogram_sparse(bins.feat_rows, bins.feat_codes, bins.zero_bin,
-                                      node_ids, grad, hess, n_nodes, n_bins, active_nodes)
-    return histogram.histogram(bins, node_ids, grad, hess, n_nodes, n_bins, active_nodes)
+                                      node_ids, grad, hess, n_nodes, n_bins, active_nodes,
+                                      axis=axis)
+    out = histogram.histogram(bins, node_ids, grad, hess, n_nodes, n_bins, active_nodes,
+                              plan_features=plan_features)
+    return out if axis is None else collectives.psum(out, axis)

@@ -30,11 +30,21 @@ recorded), with ``--trace-out``, ``--verify-replay``, faults
     PYTHONPATH=src python -m repro_torch.launch.train --arch gbdt \
         --runtime threads --steps 32 --workers 4 --verify-replay [--device cpu]
 
-``--mesh`` (ROADMAP.md A8) raises until it is ported.
+``--mesh 1d|2d`` shards the tree build (``repro_torch.ps.sharded``): one
+command starts the ``P_d x P_f`` ranks itself (``--mesh-shape``, e.g.
+``4`` or ``1x4``), or joins them when started under ``torchrun``; rank 0
+prints the mesh and the collective bytes of a round:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gbdt --device cpu \
+        --steps 6 --workers 2 --mesh 2d --mesh-shape 1x2 --sparse
+
+``--mesh-backend`` picks the process-group backend (default: NCCL on the
+card, gloo on the CPU; ranks sharing one card need gloo).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -123,8 +133,12 @@ def run_gbdt(args):
     from repro_torch.trees import binning
 
     if args.mesh != "none":
-        raise NotImplementedError("--mesh: the sharded GBDT build is not ported yet "
-                                  "(ROADMAP.md A8)")
+        if args.runtime == "threads":
+            raise SystemExit(
+                "--mesh applies to the simulated PS engine; the threaded "
+                "runtime builds on the local device"
+            )
+        return run_gbdt_mesh(args)
     dev = resolve_device(args.device)
     obj, data = gbdt_dataset_for(args.objective, args.seed, device=dev)
     if args.sparse:
@@ -155,6 +169,95 @@ def run_gbdt(args):
         metrics = {k: f"{float(v):.4f}" for k, v in train_metrics(cfg, data, state).items()}
         print(f"final {metrics}")
     print(f"trained in {time.time() - t0:.1f}s")
+    if not np.isfinite(float(train_loss(cfg, data, state))):
+        raise RuntimeError("training diverged")
+    return state
+
+
+def mesh_shape(args) -> tuple[int, int]:
+    """(P_d, P_f) of ``--mesh`` / ``--mesh-shape`` (the reference's
+    defaults: 2 data shards for 1d, 1x2 for 2d)."""
+    shape = args.mesh_shape or ("2" if args.mesh == "1d" else "1x2")
+    pd, _, pf = shape.partition("x")
+    if args.mesh == "1d":
+        if pf:
+            raise SystemExit(f"--mesh 1d takes one shard count, got --mesh-shape {shape}")
+        return int(pd), 1
+    return int(pd), int(pf or 1)
+
+
+def run_gbdt_mesh(args):
+    """``--mesh``: start the P_d x P_f ranks (``launch.mesh.spawn``), or
+    join them under ``torchrun``, and train on each (``_gbdt_mesh_rank``).
+    Returns rank 0's final ``TrainState`` in this process when it is a rank
+    (``torchrun``), else None."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    pd, pf = mesh_shape(args)
+    dev = resolve_device(args.device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, world, rank_dev = launch_mesh.init_from_env(dev, args.mesh_backend)
+        try:
+            return _gbdt_mesh_rank(rank, rank_dev, args, pd, pf)
+        finally:
+            torch.distributed.destroy_process_group()
+    backend = args.mesh_backend or launch_mesh.default_backend(dev)
+    print(f"starting {pd * pf} ranks over {backend} on {dev.type}")
+    launch_mesh.spawn(_gbdt_mesh_rank, pd * pf, (args, pd, pf), backend=backend,
+                      device=dev)
+    return None
+
+
+def _gbdt_mesh_rank(rank: int, dev: torch.device, args, pd: int, pf: int):
+    """One rank of ``--mesh``: the whole dataset and the server state on
+    every rank, the build sharded over the mesh. Rank 0 prints; every rank
+    checks that all ranks hold the same forest."""
+    from repro_torch.core.sgbdt import train_loss, train_metrics
+    from repro_torch.launch.mesh import make_gbdt_mesh
+    from repro_torch.ps import Trainer
+    from repro_torch.trees import binning
+
+    world = torch.distributed.get_world_size()
+    if world != pd * pf:
+        raise SystemExit(f"--mesh-shape {pd}x{pf} needs {pd * pf} ranks, got {world}")
+    if dev.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    say = print if rank == 0 else (lambda *a, **k: None)
+    mesh = make_gbdt_mesh(pd, pf, device=dev, backend=args.mesh_backend,
+                          feature_axis=args.mesh == "2d")
+    say(f"mesh: {args.mesh} {mesh.shape} ({world} ranks, {mesh.backend}, device={dev})")
+    obj, data = gbdt_dataset_for(args.objective, args.seed, device=dev)
+    if args.sparse:
+        data = data._replace(bins=binning.to_sparse(data.bins))
+        say(f"sparse bins: {data.bins.indices.shape[1]} nnz/row ELL "
+            "(dense round-trip exact)")
+    cfg = gbdt_config(args.objective, args.steps, args.sample or 0.8, args.hist_mode,
+                      args.backend)
+    trainer = Trainer(cfg, mesh=mesh)
+    cb = trainer.collective_bytes(data)
+    if cb is not None:
+        # One tree build per round: the realized (wire) bytes of every
+        # collective in the sharded build, by kind.
+        kinds = ", ".join(f"{k}={v:,}B" for k, v in sorted(cb["realized_by_kind"].items()))
+        say(f"collective bytes/round: {cb['realized_bytes']:,}B realized ({kinds})")
+    say(f"gbdt[{obj.name}, K={obj.n_outputs}]: {args.steps} rounds, {args.workers} PS "
+        f"workers (loop form, {args.backend} levels)")
+    t0 = time.time()
+
+    def on_eval(st, j):
+        say(f"  round {j:4d}: train loss {float(train_loss(cfg, data, st)):.4f}")
+
+    state = trainer.train(data, ("round_robin", args.workers), seed=args.seed,
+                          eval_every=max(args.log_every, 1) * 5, eval_fn=on_eval)
+    metrics = {k: f"{float(v):.4f}" for k, v in train_metrics(cfg, data, state).items()}
+    say(f"final {metrics}")
+    say(f"trained in {time.time() - t0:.1f}s")
+    mine = [t.cpu() for t in (*state.forest, state.f)]
+    every = [None] * world
+    torch.distributed.all_gather_object(every, mine)
+    if not all(all(torch.equal(a, b) for a, b in zip(mine, other)) for other in every):
+        raise RuntimeError(f"rank {rank}: the ranks' forests differ")
+    say(f"every rank's forest identical: True ({world} ranks)")
     if not np.isfinite(float(train_loss(cfg, data, state))):
         raise RuntimeError("training diverged")
     return state
@@ -298,7 +401,16 @@ def main(argv: list[str] | None = None):
                     help="PS execution: 'simulated' replays a delay schedule; 'threads' "
                          "runs real worker threads and records the realized k(j)")
     ap.add_argument("--mesh", choices=("none", "1d", "2d"), default="none",
-                    help="GBDT build sharding; not ported yet (ROADMAP.md A8)")
+                    help="GBDT build sharding: '1d' shards samples over a ('data',) "
+                         "mesh (psum-merged histograms); '2d' the block-distributed "
+                         "(data x feature) mesh with the argmax-merge split search. "
+                         "Starts its ranks itself, or joins them under torchrun")
+    ap.add_argument("--mesh-shape", default=None, metavar="PDxPF",
+                    help="mesh shape, e.g. '4' (--mesh 1d) or '2x2' / '1x4' "
+                         "(--mesh 2d; sparse bins need Pd=1)")
+    ap.add_argument("--mesh-backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend of --mesh (default: nccl on the card, "
+                         "gloo on the CPU; ranks that share one card need gloo)")
     ap.add_argument("--scan", action="store_true",
                     help="run the GBDT trainer over its explicit schedule and print the "
                          "per-round loss")

@@ -12,9 +12,9 @@ execution layer (Algorithm 3):
                     stream of its own on the card) race a server fold loop,
                     the realized k(j) is recorded into a ``RunTrace``, and
                     replaying the trace reproduces the forest exactly.
-
-The reference's ``sharded`` (the shard_map data-parallel build) is
-ROADMAP.md A8.
+  * ``sharded``   — the synchronous sharded build over ``torch.distributed``
+                    (data-parallel and 2D data x feature), which
+                    ``Trainer(mesh=)`` runs.
 """
 from repro_torch.ps.engine import (
     Trainer,

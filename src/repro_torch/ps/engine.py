@@ -96,6 +96,7 @@ def propose_tree(
     gen: torch.Generator | None = None,
     m_prime: torch.Tensor | None = None,
     feat_mask: torch.Tensor | None = None,
+    builder: Callable | None = None,
 ) -> tuple[Tree, torch.Tensor]:
     """Worker side: sample Q -> build target from F^{k(j)} -> fit a tree.
 
@@ -111,6 +112,9 @@ def propose_tree(
     (broadcast over the K outputs), so a leaf is the mean sampled
     gradient; ``step_kind="newton"`` takes m'_i h_i, the objective's
     hessian under the sample weights, for xgboost's leaf -G / (H + lam).
+
+    ``builder`` (``ps.sharded``) replaces ``build_tree``: ``builder(bins,
+    g, h, feat_mask)`` on the whole arrays, one call per output.
     """
     obj = cfg.obj
     if m_prime is None or feat_mask is None:
@@ -120,12 +124,20 @@ def propose_tree(
     newton = cfg.step_kind == "newton"
     if obj.n_outputs == 1:
         hess_w = m_prime * h if newton else m_prime
-        tree = build_tree(cfg.learner, data.bins, m_prime * g, hess_w, feat_mask.bool())
+        if builder is None:
+            tree = build_tree(cfg.learner, data.bins, m_prime * g, hess_w, feat_mask.bool())
+        else:
+            tree = builder(data.bins, m_prime * g, hess_w, feat_mask.bool())
         tree = tree._replace(leaf_value=v * tree.leaf_value)
         return tree, apply_tree(tree, data.bins)
+    g_w = m_prime[:, None] * g
     h_w = m_prime[:, None] * h if newton else m_prime[:, None].expand_as(g)
-    trees = build_tree_multi(cfg.learner, data.bins, m_prime[:, None] * g, h_w,
-                             feat_mask.bool())
+    if builder is None:
+        trees = build_tree_multi(cfg.learner, data.bins, g_w, h_w, feat_mask.bool())
+    else:
+        built = [builder(data.bins, g_w[:, k].contiguous(), h_w[:, k].contiguous(),
+                         feat_mask.bool()) for k in range(g.shape[1])]
+        trees = Tree(*(torch.stack(parts) for parts in zip(*built)))
     trees = trees._replace(leaf_value=v * trees.leaf_value)
     return trees, apply_tree_stack(trees, data.bins)
 
@@ -196,27 +208,73 @@ def round_body(
     gen: torch.Generator | None = None,
     draws: Draws | None = None,
     staleness: int | None = None,
+    builder: Callable | None = None,
 ) -> tuple[Forest, torch.Tensor]:
     """One boosting round: the tree is built against (possibly stale)
-    ``f_target`` but folded into the live server state (``fold_push``,
-    with the adaptive deflation when ``staleness`` is given)."""
+    ``f_target`` (by ``builder`` when given) but folded into the live
+    server state (``fold_push``, with the adaptive deflation when
+    ``staleness`` is given)."""
     m_prime = feat_mask = None
     if draws is not None:
         m_prime, _, feat_mask = unpack_draws(draws)
-    tree, delta = propose_tree(cfg, data, f_target, gen, m_prime, feat_mask)
+    tree, delta = propose_tree(cfg, data, f_target, gen, m_prime, feat_mask, builder)
     return fold_push(cfg, data, forest, f_live, tree, delta, staleness)
 
 
 class Trainer:
-    """Single-device parameter-server GBDT trainer (the loop form).
+    """Mesh-aware parameter-server GBDT trainer (the loop form).
 
     Runs on the card unless ``device`` is given; without a GPU and without
     a ``device`` it raises.
+
+    With a ``mesh`` (``launch.mesh``) whose ``axis_name`` axis has more
+    than one shard, tree builds run data-parallel (``ps.sharded``); a mesh
+    that also has a ``feature_axis`` axis (any size) selects the 2D build:
+    features shard across it and splits merge with the (L,)-sized argmax
+    collective. Every rank runs the same trainer: the server state and the
+    fold stay whole on every rank, only the build is sharded, and every
+    rank ends with the same forest. The device is the mesh's.
     """
 
-    def __init__(self, cfg: SGBDTConfig, *, device: str | torch.device | None = None):
+    def __init__(
+        self,
+        cfg: SGBDTConfig,
+        *,
+        device: str | torch.device | None = None,
+        mesh=None,
+        axis_name: str = "data",
+        feature_axis: str | None = "feature",
+    ):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.feature_axis = feature_axis
+        self.builder: Callable | None = None
+        self._is_2d = mesh is not None and feature_axis in mesh.axis_names
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, trainer on {self.device}")
+        if self._is_2d:
+            from repro_torch.ps.sharded import make_sharded_builder_2d
+
+            self.builder = make_sharded_builder_2d(cfg.learner, mesh, axis_name, feature_axis)
+        elif mesh is not None and mesh.shape.get(axis_name, 1) > 1:
+            from repro_torch.ps.sharded import make_sharded_builder
+
+            self.builder = make_sharded_builder(cfg.learner, mesh, axis_name)
+
+    def collective_bytes(self, data: BinnedData) -> dict | None:
+        """The collective bytes of one tree build on this trainer's mesh
+        (``ps.sharded.collective_bytes_per_build``); None when builds are
+        single-device (no collectives at all)."""
+        if self.builder is None:
+            return None
+        from repro_torch.ps.sharded import collective_bytes_per_build
+
+        return collective_bytes_per_build(
+            self.cfg.learner, self.mesh, data.bins, data_axis=self.axis_name,
+            feature_axis=self.feature_axis if self._is_2d else None)
 
     def _loop(self, data, sched, key_index, ring_size: int, seed: int, draws, rounds: int,
               eval_every: int = 0, eval_fn=None, losses: list | None = None) -> TrainState:
@@ -234,7 +292,7 @@ class Trainer:
             forest, f = round_body(
                 cfg, data, forest, f, ring[k % ring_size], None,
                 round_draws(cfg, data, seed, i) if draws is None else draws[i],
-                j - k if cfg.adaptive_step else None,
+                j - k if cfg.adaptive_step else None, self.builder,
             )
             ring[(j + 1) % ring_size] = f
             if losses is not None:
@@ -303,19 +361,21 @@ class Trainer:
                               max_staleness(sched) + 1, seed=seed)
 
 
-# One cached Trainer per (config, device), LRU-bounded: a sweep over many
-# configs keeps at most _TRAINERS_MAX of them.
-_TRAINERS: "OrderedDict[tuple[SGBDTConfig, torch.device], Trainer]" = OrderedDict()
+# One cached Trainer per (config, device, mesh), LRU-bounded: a sweep over
+# many configs keeps at most _TRAINERS_MAX of them.
+_TRAINERS: "OrderedDict[tuple, Trainer]" = OrderedDict()
 _TRAINERS_MAX = 8
 
 
-def get_trainer(cfg: SGBDTConfig, device: str | torch.device | None = None) -> Trainer:
+def get_trainer(cfg: SGBDTConfig, device: str | torch.device | None = None,
+                mesh=None) -> Trainer:
     """The cached ``Trainer`` of ``cfg`` on ``device`` (the card unless one
-    is given)."""
-    key = (cfg, resolve_device(device))
+    is given, the mesh's with a mesh) and ``mesh`` (None: single-device)."""
+    dev = resolve_device(device if mesh is None or device is not None else mesh.device)
+    key = (cfg, dev, mesh)
     trainer = _TRAINERS.get(key)
     if trainer is None:
-        trainer = _TRAINERS[key] = Trainer(cfg, device=key[1])
+        trainer = _TRAINERS[key] = Trainer(cfg, device=dev, mesh=mesh)
         while len(_TRAINERS) > _TRAINERS_MAX:
             _TRAINERS.popitem(last=False)
     else:

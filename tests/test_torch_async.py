@@ -250,8 +250,18 @@ def test_port_runtime_checkpoint_replays_in_the_reference(decisive, tmp_path):
     """The reverse: a port run (on the reference's draws) halted at fold 5
     with checkpoints, resumed; the reference restores the port's
     checkpoint and replays the suffix to the port's forest (the
-    cross-package standard); the port's own replay is bitwise."""
-    jcfg, tcfg = _cfgs()
+    cross-package standard); the port's own replay is bitwise.
+
+    The race realizes a different schedule on every run. On some (22% of
+    1277 sampled) a level-2 node holds 7 drawn samples that two features
+    split as mirror images: an exact tie in exact arithmetic, which the
+    two packages' f32 sums break apart, and the mirrored split routes the
+    node's undrawn samples elsewhere (F 1.7-2.5% RMS apart). So both
+    learners here ask for a child mass of 10 (eight drawn samples at
+    weight 1.25), which no such node has: the splits stay decisive under
+    every sampled schedule."""
+    jcfg, tcfg = (c._replace(learner=c.learner._replace(min_child_hess=10.0))
+                  for c in _cfgs())
     ck = tmp_path / "ck"
     draws = _reference_draws(jcfg, decisive[0], 6)
     rt = AsyncRuntime(tcfg, decisive[1], n_workers=3, draws=draws)

@@ -663,3 +663,92 @@ def test_histogram_case_holds_the_kernel_to_the_f64_sums(monkeypatch, off, passe
     else:
         with pytest.raises(AssertionError, match="over tolerance"):
             chip_smoke.histogram_case(bins, grad, hess, node, 1, None, b, "t", {})
+
+
+def test_mesh_phase_passes_and_fails_planted_faults_on_a_small_cpu_run(monkeypatch,
+                                                                       tmp_path):
+    """The mesh phase on the CPU at a small size: realsim's configuration on
+    its dataset cut to 800 x 300, 3 rounds; the (1, 1) rank over gloo (no
+    NCCL here), 4 gloo rank processes (each counting its kernels' plain
+    calls as launches), one 2-rank CLI. Every gate passes; then a rank's
+    forest one ulp off, a measured byte count off by one, a CLI without its
+    lines, a first-tree departure that is no tie, a decisive-set threshold
+    or leaf off and an unchecked one-rank all-reduce each fail their gate."""
+    import copy
+    import dataclasses
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import histogram_sparse, split_scan
+    from repro_torch.trees.binning import bin_dataset
+
+    rounds = 3
+    monkeypatch.setattr(chip_smoke, "ROUNDS", rounds)
+    monkeypatch.setattr(chip_smoke, "MESH_DIR", tmp_path / "mesh")
+    for mod, name in ((histogram, "histogram_plain"), (split_scan, "split_gain_decide_plain"),
+                      (histogram_sparse, "histogram_sparse_plain")):
+        plain = getattr(mod, name)
+
+        def counted(*args, _plain=plain, _mod=mod, **kw):
+            _mod.launches += 1
+            return _plain(*args, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    spec = dataclasses.replace(chip_smoke.gbdt_configs.EXPERIMENTS[chip_smoke.REALSIM].dataset,
+                               n=800, dim=300)
+    x, y, mult = synthetic.raw(spec)
+    cpu = torch.device("cpu")
+    data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=cpu)
+    sparse = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=cpu, sparse=True)
+    realsim = {"data": data, "sparse": sparse,
+               "runs": {"staged": chip_smoke.train(data), "sparse": chip_smoke.train(sparse)}}
+    clis = {"2d 1x2 sparse": ["--arch", "gbdt", "--device", "cpu", "--steps", "2",
+                              "--workers", "2", "--mesh", "2d", "--mesh-shape", "1x2",
+                              "--sparse", "--mesh-backend", "gloo"]}
+    run = chip_smoke.drive_mesh(cpu, realsim, spec=spec, rounds=rounds, clis=clis,
+                                one_rank_backend="gloo")
+    report = {}
+    checked = chip_smoke.check_mesh(run, realsim, report)
+    assert all(checked["launches"][k] > 0 for k in chip_smoke.MESH_LINE.values())
+    assert all(len(v) == chip_smoke.MESH_RANKS for v in checked["by_rank"].values())
+    info = report["mesh"]
+    assert info["2d_1x4_sparse"]["bytes_per_round"] == {"pmax": 4 * 511, "pmin": 4 * 511}
+    assert info["1d_x4_vs_unmeshed"]["nodes_compared"] > 0
+    assert info["1d_x4_decisive_vs_unmeshed"]["leaf_max_abs_diff"] <= 1e-5
+    assert run["nccl"]["all_reduce_checked"]
+
+    def fails(match, mutate):
+        bad = copy.deepcopy(run)
+        mutate(bad)
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_mesh(bad, realsim, {})
+
+    def ulp(bad):
+        leaf = bad["ranks"][2]["2d_1x4"]["forest"][2]
+        leaf[0, 0] = torch.nextafter(leaf[0, 0], torch.tensor(1.0))
+
+    fails("rank 2 vs rank 0", ulp)
+    fails("measured bytes", lambda bad: bad["ranks"][1]["2d_1x4_sparse"]["bytes"].update(
+        realized_bytes=bad["ranks"][1]["2d_1x4_sparse"]["bytes"]["realized_bytes"] + 1))
+    fails("mesh CLI", lambda bad: bad["clis"]["2d 1x2 sparse"].update(out=""))
+
+    def departs(bad):
+        for rk in bad["ranks"]:
+            for tag in ("1d_x4", "1d_x4_again"):
+                feature = rk[tag]["forest"][0]
+                feature[0, 0] = (feature[0, 0] + 1) % data.n_features
+
+    fails("without a tie", departs)
+
+    def decisive_threshold(bad):
+        for rk in bad["ranks"]:
+            threshold = rk["1d_x4_decisive"]["forest"][1]
+            threshold[0, 0] = (threshold[0, 0] + 1) % 64
+
+    def decisive_leaf(bad):
+        for rk in bad["ranks"]:
+            rk["1d_x4_decisive"]["forest"][2][0, 0] += 2e-5
+
+    fails("decisive vs the unmeshed run: threshold differs", decisive_threshold)
+    fails("decisive vs the unmeshed run: leaves", decisive_leaf)
+    fails("NCCL all_reduce was not checked",
+          lambda bad: bad["nccl"].pop("all_reduce_checked"))

@@ -244,7 +244,9 @@ def test_train_driver_runs_on_the_cpu():
 
 def test_train_driver_refuses_gbdt():
     """``--arch gbdt`` trains (tests/test_torch_gbdt_driver.py), threaded
-    too (tests/test_torch_async.py); what the driver still refuses is the
-    sharded GBDT build not ported yet."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttrain.main(["--arch", "gbdt", "--device", "cpu", "--mesh", "1d"])
+    too (tests/test_torch_async.py), and sharded (tests/test_torch_mesh.py);
+    what the train CLI refuses is the sharded build under the threaded
+    runtime, with the reference's message."""
+    with pytest.raises(SystemExit, match="threaded runtime builds on the local device"):
+        ttrain.main(["--arch", "gbdt", "--device", "cpu", "--runtime", "threads",
+                     "--mesh", "1d"])

@@ -73,7 +73,8 @@ def test_port_files_were_found():
             "layers.py", "granite_3_2b.py", "steps.py", "train.py", "optimizers.py",
             "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py",
             "regression.py", "ranking.py", "losses.py", "schedules.py", "runtime.py",
-            "worker.py", "async_sgbdt.py", "simulator.py"} <= names
+            "worker.py", "async_sgbdt.py", "simulator.py", "collectives.py", "mesh.py",
+            "rules.py", "sharded.py", "baselines.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -86,6 +87,8 @@ def test_port_files_were_found():
     "repro_torch.checkpoint.store", "repro_torch.configs.gbdt",
     "repro_torch.trees.losses", "repro_torch.ps.schedules", "repro_torch.ps.runtime",
     "repro_torch.ps.worker", "repro_torch.core.async_sgbdt", "repro_torch.core.simulator",
+    "repro_torch.collectives", "repro_torch.launch.mesh", "repro_torch.sharding.rules",
+    "repro_torch.ps.sharded", "repro_torch.core.baselines",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
