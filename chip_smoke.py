@@ -102,6 +102,23 @@ with Bernoulli sampling (R = 0.8) for 6 steps, every forward and backward
 launch on the wgmma route; one more step is profiled, and one microbatch's loss and
 gradients are held against the chunked attention path's.
 
+Then the hybrid family: the flash forward and backward against their
+plain versions at zamba2's shared-block shape (B 4, S 2048, 32 q heads on
+32 kv heads, d 64, bf16, causal; the wgmma routes), beside SDPA and its
+backward, and zamba2-1.2b at full width (38 Mamba2 layers in 6 groups of
+6 + 2 tail, one shared attention block called after each group, bf16,
+seeded random weights, flash) served through ``ServingEngine`` on the
+dense path's waves, twice (6 flash launches a wave's prefill; the flash
+prefill's logits against the chunked path's and f32; each decode step's
+logits against the f32 teacher-forced forward, which catches a drift of
+the SSM and conv caches), then trained through ``make_train_step`` on run
+A's batches and recipe, twice (bitwise equal; 12 forward and 6 backward
+flash launches a microbatch under per-group remat; ``a_log`` and
+``dt_bias`` f32 after the steps; the shared block's and the first and
+last Mamba2 layer's projection gradients, flash against chunked). Its
+profiles split device time into GEMMs, flash, the SSD scan (its ops and
+their backward) and the rest (``device_groups``).
+
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel, and per form of the traversal kernel: launches on its path, error
 against the plain version, time as a CUDA-event mean and as device time
@@ -162,6 +179,8 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import gbdt_config, synthetic_batches  # noqa: E402
 from repro_torch.models import forward_train, init_params  # noqa: E402
+from repro_torch.models import ssm as lm_ssm  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     adamw,
@@ -395,6 +414,17 @@ TRAIN_KERNELS = {
     "flash_attention_bwd_dkv": ("dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:329"),
 }
+# The hybrid family: zamba2-1.2b at full width (38 Mamba2 layers in 6
+# groups of 6 + 2 tail layers, one shared attention block of 32 q heads on
+# 32 kv heads), served on LM_PROMPTS' waves and trained on the dense
+# path's batches and recipe (run A). Its flash entries in the kernels
+# line are the kernels at the shared block's shape (group 1).
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_KERNELS = {
+    "flash_attention_zamba2": LM_KERNELS["flash_attention"][1:],
+    "flash_attention_bwd_dq_zamba2": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
+    "flash_attention_bwd_dkv_zamba2": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
+}
 # (b, sq, sk, h, kv, d, causal, dtype, seq_k): the ragged edges of each
 # route (the wgmma kernel off its 128-row q tiles and 128-key tiles last;
 # the 1000-row shapes give its persistent grid of 132 blocks 256 work
@@ -473,15 +503,20 @@ def event_times(fn, into: dict | None = None, key: str = "", reps: int = 20,
 
 def device_rows(prof) -> list:
     """(kernel name, device ms, launches) of each kernel in a finished
-    ``torch.profiler`` trace that took device time."""
+    ``torch.profiler`` trace that took device time (a ``record_function``
+    range's span on the device, a user annotation, is no kernel)."""
     return [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)
+            and e.key != SSD_RANGE]
 
 
 def device_trace(fn, reps: int) -> list:
     """``device_rows`` of ``reps`` calls of ``fn``: a trace that caught no
-    kernel is taken again, three times in all; empty if none caught one."""
+    kernel, or whose launches of some kernel are no multiple of ``reps``
+    (it lost some calls' kernels, or caught a first call's one-off), is
+    taken again, three times in all; empty if none was whole. Traces
+    taken again are counted in ``_PROFILER["traces_taken_again"]``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -491,8 +526,9 @@ def device_trace(fn, reps: int) -> list:
                 fn()
             torch.cuda.synchronize()
         rows = device_rows(prof)
-        if rows:
+        if rows and all(c % reps == 0 for _, _, c in rows):
             return rows
+        _PROFILER["traces_taken_again"] = _PROFILER.get("traces_taken_again", 0) + 1
     return []
 
 
@@ -3304,11 +3340,15 @@ def sdpa_backend(fn) -> dict:
 
     if not profiler_sees_device():
         return {"backend": "not traced", "kernels": []}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    names = []
+    for _ in range(3):  # a trace that caught no kernel is taken again
         torch.cuda.synchronize()
-    names = sorted({k[:120] for k, _, _ in device_rows(prof)})
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({k[:120] for k, _, _ in device_rows(prof)})
+        if names:
+            break
     backend = next((b for key, b in SDPA_BACKENDS if any(key in n.lower() for n in names)),
                    "math or other")
     return {"backend": backend, "kernels": names}
@@ -3348,7 +3388,8 @@ def flash_rel_l2(got, want) -> dict:
     return {"whole": rel_l2(got, want), "later_rows": rel_l2(got[:, :, half:], want[:, :, half:])}
 
 
-def check_flash(dev, report: dict) -> dict:
+def check_flash(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAGGED,
+                suffix: str = "") -> dict:
     """The flash kernel against its plain version (the f32 softmax) at the
     serving prefill's shape and at the ragged shapes, two launches bitwise,
     each shape's route (``flash_plan.route``) reported. Tolerances: bf16
@@ -3360,13 +3401,14 @@ def check_flash(dev, report: dict) -> dict:
     element-wise limit (about sqrt(e / n) for randn rows that see n keys).
     Times at the prefill's shape, beside
     ``scaled_dot_product_attention`` on the same inputs (contiguous), whose
-    backend is named."""
-    cfg = lm_configs.get(LM_ARCH)
+    backend is named. ``arch`` gives the prefill's heads; the report's keys
+    take ``suffix``."""
+    cfg = lm_configs.get(arch)
     b, s = LM_SLOTS, LM_PROMPTS[0]
     cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     shapes, out = {}, None
-    for bq, sq, sk, h, kv, d, causal, dtype, seq_k in cases + FLASH_RAGGED:
+    for bq, sq, sk, h, kv, d, causal, dtype, seq_k in cases + ragged:
         # Model layout (B, S, H, d), read by the kernel in place.
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype).transpose(1, 2)
                    for shape in ((bq, sq, h, d), (bq, sk, kv, d), (bq, sk, kv, d)))
@@ -3426,7 +3468,7 @@ def check_flash(dev, report: dict) -> dict:
             shapes[tag].update(out, bytes=nbytes, flops=4.0 * d * pairs, pairs=pairs,
                                ex2_bound_ms=pairs / PEAK_EX2_S * 1e3,
                                library_backend=sdpa_backend(sdpa))
-    report["flash_attention_shapes"] = shapes
+    report["flash_attention_shapes" + suffix] = shapes
     out["max_abs_err"] = max(v["max_abs_err"] for v in shapes.values())
     return out
 
@@ -3474,7 +3516,8 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
         torch.cuda.synchronize()
         start, stop = (torch.cuda.Event(enable_timing=True),
                        torch.cuda.Event(enable_timing=True))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with ssd_ranges(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             start.record()
             if phase == "prefill":
@@ -3491,11 +3534,51 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
         dev_ms = (sum(r[1] for r in rows) if rows else start.elapsed_time(stop)) / n
         res[phase] = {"calls": n, "device_ms": dev_ms,
                       "device_ms_by": "profiler" if rows else "events",
-                      "wall_ms_profiled": wall / n}
+                      "wall_ms_profiled": wall / n,
+                      "by_group_ms": {k: v / n for k, v in device_groups(prof).items()}
+                      if rows else {}}
         res[phase].update({"device_busy_share": busy(res[phase], dev_ms, wall / n),
                            "top": [{"name": k[:80], "device_ms": ms / n, "calls": c}
                                    for k, ms, c in rows[:12]]})
     return res
+
+
+def prefill_against_f32(cfg, params: dict, batch: dict) -> dict:
+    """Flash against chunked on one wave: last-position prefill logits, same
+    weights. Tolerance: twice what bf16 costs the chunked path itself,
+    measured against the chunked path in f32 (the same weights upcast; no
+    TF32): if the flash path is as accurate, the two bf16 paths differ by
+    at most that. Where the top-2 margin of a row exceeds the tolerance,
+    both paths must pick the same first token. Returns the figures."""
+    flash_step = make_prefill_step(cfg, LM_MAX_LEN)
+    tok_f, lf, _ = flash_step(params, batch)
+    _, lf2, _ = flash_step(params, batch)
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    tok_c, lc, _ = make_prefill_step(chunked, LM_MAX_LEN)(params, batch)
+    params32 = to_f32(params)
+    _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"), LM_MAX_LEN)(
+        params32, batch)
+    del params32
+    vocab = slice(0, cfg.vocab_size)
+    lf, lf2, lc, lr = (x[:, vocab].float() for x in (lf, lf2, lc, lr))
+    if not all(torch.isfinite(x).all() for x in (lf, lc, lr)):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    err_c, err_f = float((lc - lr).abs().max()), float((lf - lr).abs().max())
+    tol = 2 * err_c
+    diff = float((lf - lc).abs().max())
+    if diff > tol:
+        raise AssertionError(f"{cfg.name}: flash vs chunked prefill logits: max |diff| {diff} "
+                             f"> {tol}")
+    top2 = lf.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > tol
+    if not torch.equal(tok_f[decisive], tok_c[decisive]):
+        raise AssertionError(f"{cfg.name}: flash and chunked pick other first tokens where the "
+                             "top-2 margin exceeds the tolerance")
+    return {"max_abs_diff": diff, "tolerance": tol, "logit_scale": float(lr.abs().max()),
+            "chunked_vs_f32": err_c, "flash_vs_f32": err_f,
+            "decisive_rows": int(decisive.sum()),
+            "first_tokens_equal": bool(torch.equal(tok_f, tok_c)),
+            "bitwise_across_runs": bool(torch.equal(lf, lf2))}
 
 
 def drive_lm(dev: torch.device, report: dict) -> dict:
@@ -3554,37 +3637,12 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
         if not np.array_equal(a.tokens, b.tokens):
             raise AssertionError(f"request {a.uid}: the second run served other tokens")
 
-    # Flash against chunked on the 2048-token wave: last-position prefill
-    # logits, same weights. Tolerance: twice what bf16 costs the chunked
-    # path itself, measured against the chunked path in f32 (the same
-    # weights upcast; no TF32): if the flash path is as accurate, the two
-    # bf16 paths differ by at most that.
     batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
                                        device=dev)}
-    flash_step = make_prefill_step(cfg, LM_MAX_LEN)
-    tok_f, lf, _ = flash_step(params, batch)
-    _, lf2, _ = flash_step(params, batch)
-    chunked = dataclasses.replace(cfg, attn_impl="chunked")
-    tok_c, lc, _ = make_prefill_step(chunked, LM_MAX_LEN)(params, batch)
-    params32 = to_f32(params)
-    _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"), LM_MAX_LEN)(
-        params32, batch)
-    del params32
-    vocab = slice(0, cfg.vocab_size)
-    lf, lf2, lc, lr = (x[:, vocab].float() for x in (lf, lf2, lc, lr))
-    if not all(torch.isfinite(x).all() for x in (lf, lc, lr)):
-        raise AssertionError("non-finite prefill logits")
-    err_c, err_f = float((lc - lr).abs().max()), float((lf - lr).abs().max())
-    tol = 2 * err_c
-    diff = float((lf - lc).abs().max())
-    if diff > tol:
-        raise AssertionError(f"flash vs chunked prefill logits: max |diff| {diff} > {tol}")
-    top2 = lf.topk(2, dim=-1).values
-    decisive = (top2[:, 0] - top2[:, 1]) > tol
-    if not torch.equal(tok_f[decisive], tok_c[decisive]):
-        raise AssertionError("flash and chunked pick other first tokens where the top-2 "
-                             "margin exceeds the tolerance")
-    scale = float(lr.abs().max())
+    vs = prefill_against_f32(cfg, params, batch)
+    diff, tol, err_c, err_f, scale = (vs[k] for k in ("max_abs_diff", "tolerance",
+                                                      "chunked_vs_f32", "flash_vs_f32",
+                                                      "logit_scale"))
     prefill_ms = [1e3 * outs[i * LM_SLOTS].prefill_s for outs, _ in runs
                   for i in range(len(LM_PROMPTS))]
     decode_ms_tok = [1e3 * outs[i * LM_SLOTS].decode_s / (LM_NEW - 1) for outs, _ in runs
@@ -3601,11 +3659,8 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
         "tokens_per_s_per_wave": tok_s, "peak_mem_gb": peak_gb, "launches": counts,
         "launches_by_route": routes,
         "flash_launches_per_wave": [w for _, pw in runs for w in pw],
-        "flash_vs_chunked": {"max_abs_diff": diff, "tolerance": tol, "logit_scale": scale,
-                             "chunked_vs_f32": err_c, "flash_vs_f32": err_f,
-                             "decisive_rows": int(decisive.sum()),
-                             "first_tokens_equal": bool(torch.equal(tok_f, tok_c))},
-        "prefill_logits_bitwise_across_runs": bool(torch.equal(lf, lf2)),
+        "flash_vs_chunked": {k: v for k, v in vs.items() if k != "bitwise_across_runs"},
+        "prefill_logits_bitwise_across_runs": vs["bitwise_across_runs"],
         "tokens_equal_across_runs": True,
     }
     lm["profile"] = profile_lm(engine, requests)
@@ -3676,7 +3731,8 @@ def bwd_close(tag: str, got, want, mag, dtype, one_key: bool = False) -> dict:
     return errs
 
 
-def check_flash_bwd(dev, report: dict) -> dict:
+def check_flash_bwd(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAGGED,
+                    suffix: str = "") -> dict:
     """The backward kernels (delta, dq, dk/dv) against their plain version
     (the f32 formulas) at the training shape and the ragged shapes, held by
     ``bwd_close``; two launches bitwise; each shape's route
@@ -3687,13 +3743,14 @@ def check_flash_bwd(dev, report: dict) -> dict:
     ``scaled_dot_product_attention``, on the same inputs made contiguous,
     compute), and each kernel alone beside a bound from its own products
     and bytes and beside the ``ex2`` floor of its p. Returns each kernel's
-    stats for the kernels line."""
-    cfg = lm_configs.get(LM_ARCH)
+    stats for the kernels line. ``arch`` gives the training shape's heads;
+    the report's keys take ``suffix``."""
+    cfg = lm_configs.get(arch)
     b, s = LM_SLOTS, LM_PROMPTS[0]
     cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     shapes, out = {}, None
-    for bq, sq, sk, h, kv, d, causal, dtype, seq_k in cases + FLASH_RAGGED:
+    for bq, sq, sk, h, kv, d, causal, dtype, seq_k in cases + ragged:
         q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype).transpose(1, 2)
                        for shape in ((bq, sq, h, d), (bq, sk, kv, d), (bq, sk, kv, d),
                                      (bq, sq, h, d)))
@@ -3758,7 +3815,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
             }
             shapes[tag].update(out, bytes=work["whole"][0], flops=5 * 2.0 * d * pairs)
             del operands, lib_out, qc, kc, vc
-    report["flash_attention_bwd_shapes"] = shapes
+    report["flash_attention_bwd_shapes" + suffix] = shapes
 
     # The repaired fault: the gradient reaches wq through the flash kernel.
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
@@ -3777,7 +3834,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
     if not (grads[1].abs().max() > 0 and rel <= 5e-2):
         raise AssertionError(f"wq gradient through the flash kernel: relative L2 error {rel} "
                              "against the CPU route (tolerance 5e-2, bf16)")
-    report["flash_wq_grad_rel_err"] = rel
+    report["flash_wq_grad_rel_err" + suffix] = rel
 
     # The kernels line: each entry is the whole backward (delta, dq and
     # dk/dv, launched together by every call), so ms, bound, plain and
@@ -3797,7 +3854,7 @@ def check_flash_bwd(dev, report: dict) -> dict:
             "kernel_bound_ms": out["kernel_bound_ms"][kern],
             "kernel_bound_by": out["kernel_bound_by"][kern],
             "ex2_bound_ms": out["ex2_bound_ms"]}
-    report["flash_attention_bwd"] = out
+    report["flash_attention_bwd" + suffix] = out
     return stats
 
 
@@ -3843,14 +3900,79 @@ def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0
     return res, params, state, step, gen
 
 
+# The SSD chunk loop's profiler range (``ssd_ranges``).
+SSD_RANGE = "ssd_scan"
+SSD_GROUP = "SSD scan (einsums, exp, cumsum)"
+
+
+@contextlib.contextmanager
+def ssd_ranges():
+    """While it is open, each call of ``models.ssm.ssd_scan`` (the SSD chunk
+    loop and its cumsum; training's recompute included) runs inside a
+    ``record_function`` range named ``SSD_RANGE``."""
+    inner = lm_ssm.ssd_scan
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(SSD_RANGE):
+            return inner(*args, **kw)
+    lm_ssm.ssd_scan = ranged
+    try:
+        yield
+    finally:
+        lm_ssm.ssd_scan = inner
+
+
+def kernel_group(name: str) -> str:
+    for key in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_delta", "flash_fwd"):
+        if key in name:
+            return key
+    if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")):
+        return "cuBLAS GEMMs"
+    return "elementwise, reductions and copies"
+
+
+def ssd_events(events: list) -> set:
+    """The ids of a trace's host ops (``prof.events()``) that belong to the
+    SSD scan: ops inside an ``SSD_RANGE`` range, and ops under the backward
+    of an autograd node whose forward op ran inside one (matched by the
+    node's forward thread and sequence number)."""
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+    forward = {(e.thread, e.sequence_nr) for e in events if e.sequence_nr >= 0
+               and e.scope != 1 and any(p.name == SSD_RANGE for p in chain(e))}
+    return {id(e) for e in events  # scope 1: an autograd node's backward
+            if any(p.name == SSD_RANGE or (p.scope == 1 and (p.fwd_thread, p.sequence_nr)
+                                           in forward) for p in chain(e))}
+
+
+def device_groups(prof) -> dict:
+    """Device ms by group of a finished trace, from the kernels each op
+    launched: the flash kernels by name; then every kernel an op of
+    ``ssd_events`` launched, as ``SSD_GROUP``; then cuBLAS GEMMs by name;
+    the rest."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = [e for e in prof.events() if e.device_type == cpu]
+    ssd = ssd_events(events)
+    groups: dict = {}
+    for e in events:
+        for k in e.kernels:
+            g = kernel_group(k.name)
+            if id(e) in ssd and not g.startswith("flash"):
+                g = SSD_GROUP
+            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+    return groups
+
+
 def profile_train_step(step, params, state, batch, gen) -> dict:
     """Where a training step's device time goes: ``torch.profiler`` over
-    one more step, by kernel name."""
+    one more step, by kernel name and by group (``device_groups``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with ssd_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         start.record()
         step(params, state, batch, gen)
@@ -3860,60 +3982,72 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
     rows = device_rows(prof) if profiler_sees_device() else []
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows) if rows else start.elapsed_time(stop)
-
-    def group(key: str) -> str:
-        if "flash_bwd_dq" in key:
-            return "flash_bwd_dq"
-        if "flash_bwd_dkv" in key:
-            return "flash_bwd_dkv"
-        if "flash_bwd_delta" in key:
-            return "flash_bwd_delta"
-        if "flash_fwd" in key:
-            return "flash_fwd"
-        if any(t in key for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")):
-            return "cuBLAS GEMMs"
-        return "elementwise, reductions and copies"
-    groups: dict = {}
-    for k, ms, _ in rows:
-        groups[group(k)] = groups.get(group(k), 0.0) + ms
     return {"device_ms": dev_ms, "device_ms_by": "profiler" if rows else "events",
-            "wall_ms_profiled": wall, "by_group_ms": groups,
+            "wall_ms_profiled": wall, "by_group_ms": device_groups(prof) if rows else {},
             "top": [{"name": k[:80], "device_ms": ms, "calls": c} for k, ms, c in rows[:15]]}
 
 
-def check_train_grads(cfg, batch: dict, dev) -> dict:
+def dense_grad_picks(cfg) -> list:
+    """The dense gradients ``check_train_grads`` holds: wq, wk, wv and wo over
+    all layers, and each MLP leaf of the first and the last layer."""
+    last = cfg.n_layers - 1
+    return ([(f"attn.{n}", ("layers", "attn", n), ()) for n in ("wq", "wk", "wv", "wo")]
+            + [(f"mlp.{n}[{i}]", ("layers", "mlp", n), (i,)) for n in ("wg", "wu", "wd")
+               for i in (0, last)])
+
+
+def hybrid_grad_picks(cfg) -> list:
+    """The hybrid gradients ``check_train_grads`` holds: the shared block's
+    wq, wk, wv and wo (summed over its calls), and in_proj and out_proj of
+    the first and the last Mamba2 layer."""
+    g, every, tail = TT.hybrid_layout(cfg)
+    last = (("tail",), (tail - 1,)) if tail else (("groups", "mamba"), (g - 1, every - 1))
+    return ([(f"shared.attn.{n}", ("shared", "attn", n), ()) for n in ("wq", "wk", "wv", "wo")]
+            + [(f"mamba[{i}].{n}", where + (n,), idx) for n in ("in_proj", "out_proj")
+               for i, (where, idx) in ((0, (("groups", "mamba"), (0, 0))),
+                                       (cfg.n_layers - 1, last))])
+
+
+def _with_leaves(tree: dict, subs: dict, path: tuple = ()) -> dict:
+    """A copy of a nested dict with the leaves at ``subs``' paths replaced."""
+    return {k: _with_leaves(v, subs, path + (k,)) if isinstance(v, dict)
+            else subs.get(path + (k,), v) for k, v in tree.items()}
+
+
+def check_train_grads(cfg, batch: dict, dev, picks: list | None = None) -> dict:
     """One full-width microbatch's loss and gradients from the seeded
-    initial weights, flash against chunked: wq, wk, wv and wo over all
-    layers, and each MLP leaf of the first and the last layer. Tolerance,
+    initial weights, flash against chunked, of the leaves ``picks`` names
+    ((name, path, index) each; ``dense_grad_picks`` by default). Tolerance,
     as for the prefill logits: twice what bf16 costs the chunked path,
     measured against the chunked path in f32 (the same weights upcast; no
     TF32), by relative L2 a leaf; the loss within twice the chunked path's
     own error or twice one bf16 rounding of a token's loss averaged over the
     microbatch's tokens (2^-8 |loss| / sqrt(tokens)), whichever is larger,
     since one number's error may land near zero by chance."""
+    picks = dense_grad_picks(cfg) if picks is None else picks
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, device=dev)
     chunked = dataclasses.replace(cfg, attn_impl="chunked")
     routes = {"flash": cfg, "chunked": chunked,
               "chunked_f32": dataclasses.replace(chunked, dtype="float32")}
+    paths = sorted({path for _, path, _ in picks})
     out = {}
     for route, c in routes.items():
         base = to_f32(params) if c.dtype == "float32" else params
-        layers = base["layers"]
-        want = {f"{part}.{n}": t.detach().requires_grad_()
-                for part in ("attn", "mlp") for n, t in layers[part].items()}
-        p = {**base, "layers": {**layers, **{
-            part: {n: want[f"{part}.{n}"] for n in layers[part]} for part in ("attn", "mlp")}}}
-        loss, _ = forward_train(p, c, batch)
-        grads = dict(zip(want, torch.autograd.grad(loss, list(want.values()))))
-        kept = {n: g for n, g in grads.items() if n.startswith("attn.")}
-        for n in ("wg", "wu", "wd"):
-            kept[f"mlp.{n}[0]"] = grads[f"mlp.{n}"][0].clone()
-            kept[f"mlp.{n}[{cfg.n_layers - 1}]"] = grads[f"mlp.{n}"][-1].clone()
+        want = {}
+        for path in paths:
+            t = base
+            for k in path:
+                t = t[k]
+            want[path] = t.detach().requires_grad_()
+        loss, _ = forward_train(_with_leaves(base, want), c, batch)
+        grads = dict(zip(paths, torch.autograd.grad(loss, [want[x] for x in paths])))
+        kept = {name: grads[path][idx].clone() if idx else grads[path]
+                for name, path, idx in picks}
         if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in kept.values())):
             raise AssertionError(f"train gradients ({route}): non-finite values")
         out[route] = (float(loss.detach()), kept)
-        del grads, loss, want, layers, p, base
+        del grads, loss, want, base
     del params
     torch.cuda.empty_cache()
     (lf, gf), (lc, gc), (lr, gr) = out["flash"], out["chunked"], out["chunked_f32"]
@@ -4075,6 +4209,290 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
     return line
 
 
+def hybrid_decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray,
+                        dev) -> dict:
+    """One wave's greedy decode with each step's logits (the engine's path:
+    the flash prefill, then the SSM, conv and shared-ring caches written in
+    place a step), held against the f32 teacher-forced forward of the same
+    tokens at each position: a step's largest |logit error| must stay within
+    twice that of the bf16 teacher-forced forward (chunked attention) at
+    that position, which catches a drift of the recurrent caches. The
+    tokens must be the engine's (``served``). The teacher-forced forwards
+    take the largest SSM chunk up to ``cfg.ssm_chunk`` that divides their
+    length (prompt + new tokens - 1)."""
+    toks = torch.as_tensor(prompts, device=dev)
+    plen = toks.shape[1]
+    tok, logits, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, {"tokens": toks})
+    steps, gen = [logits], [tok]
+    for _ in range(LM_NEW - 1):
+        logits, cache = TT.decode_step(params, cfg, tok[:, None], cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        steps.append(logits)
+        gen.append(tok)
+    gen = torch.stack(gen, dim=1)
+    if not np.array_equal(gen.cpu().numpy(), served):
+        raise AssertionError(f"{cfg.name}: the stepped decode serves other tokens than the engine")
+    del cache
+    full = torch.cat([toks, gen[:, :-1]], dim=1)
+    n = full.shape[1]
+    chunk = max(c for c in range(1, cfg.ssm_chunk + 1) if n % c == 0)
+    vocab = slice(0, cfg.vocab_size)
+    tf = {}
+    for name, dtype in (("bf16", cfg.dtype), ("f32", "float32")):
+        c = dataclasses.replace(cfg, attn_impl="chunked", ssm_chunk=chunk, dtype=dtype,
+                                remat=False)
+        p = params if dtype == cfg.dtype else to_f32(params)
+        with torch.inference_mode():
+            h, _ = TT.backbone_train(p, c, p["embed"][full.long()])
+            tf[name] = TT._logits(p, c, h[:, plen - 1:])[..., vocab].float()
+        del p, h
+    dec = torch.stack(steps, dim=1)[..., vocab].float()
+    if not all(torch.isfinite(x).all() for x in (dec, *tf.values())):
+        raise AssertionError(f"{cfg.name}: non-finite decode or teacher-forced logits")
+    err_dec = (dec - tf["f32"]).abs().amax(dim=(0, 2))
+    err_bf16 = (tf["bf16"] - tf["f32"]).abs().amax(dim=(0, 2))
+    over = (err_dec > 2 * err_bf16).nonzero().flatten().tolist()
+    if over:
+        raise AssertionError(
+            f"{cfg.name}: decode logits drift from the f32 teacher-forced forward at steps "
+            f"{over}: {[float(err_dec[i]) for i in over]} against twice the bf16 forward's "
+            f"{[2 * float(err_bf16[i]) for i in over]}")
+    return {"steps": LM_NEW, "teacher_forced_ssm_chunk": chunk,
+            "decode_vs_f32": err_dec.tolist(), "bf16_forward_vs_f32": err_bf16.tolist(),
+            "worst_ratio": float((err_dec / err_bf16).max())}
+
+
+def f32_leaves(params: dict) -> list:
+    """The paths of a hybrid tree's a_log and dt_bias leaves that are not f32."""
+    trees = {"groups.mamba": params["groups"]["mamba"], "tail": params.get("tail", {})}
+    return [f"{k}.{n}" for k, t in trees.items() for n in ("a_log", "dt_bias")
+            if n in t and t[n].dtype != torch.float32]
+
+
+def drive_hybrid(dev: torch.device, report: dict) -> list:
+    """The hybrid family's serving and training paths (zamba2-1.2b at full
+    width); returns its kernels' entries (the flash kernels at the shared
+    block's shape)."""
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def lap(name: str) -> None:  # seconds since the last lap, by part
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    card = report.get("nvidia_smi", "card not queried")
+    fwd = check_flash(dev, report, HYBRID_ARCH, [], "_zamba2")
+    bwd = check_flash_bwd(dev, report, HYBRID_ARCH, [], "_zamba2")
+    lap("kernel checks")
+    fs = next(iter(report["flash_attention_shapes_zamba2"].values()))
+    bw = report["flash_attention_bwd_zamba2"]
+    print(f"flash_attention at zamba2's {LM_SLOTS} x {LM_PROMPTS[0]} h32/32 ({fs['route']}): "
+          f"max abs error {fs['max_abs_err']:.4g}, relative L2 {fs['rel_l2_err']}; "
+          f"{fwd['ms']:.4f} ms, device {fwd['device_ms']:.4f} (bound {fwd['bound_ms']:.4f}); "
+          f"SDPA ({fs['library_backend']['backend']}) {fwd['library_ms']:.4f} ms, device "
+          f"{fwd['library_device_ms']:.4f}; backward whole {bw['ms']:.4f} ms, device "
+          f"{bw['device_ms']:.4f} (bound {bw['bound_ms']:.4f}, SDPA backward "
+          f"{bw['library_ms']:.4f}, device {bw['library_device_ms']:.4f}); alone (event / "
+          "device ms): " + ", ".join(
+              f"{k} {bw['kernel_ms'][k]:.4f} / {bw['kernel_device_ms'][k]:.4f} (bound "
+              f"{bw['kernel_bound_ms'][k]:.4f})" for k in flash_attention.BWD_KERNELS)
+          + f"; errors " + json.dumps({k: {n: [v["max_abs_err"][n], v["rel_l2_err"][n]]
+                                          for n in v["max_abs_err"]}
+                                      for k, v in report[
+                                          "flash_attention_bwd_shapes_zamba2"].items()})
+          + f" [{card}]", flush=True)
+
+    # Serving: two waves, twice; only these launches are counted.
+    cfg = dataclasses.replace(lm_configs.get(HYBRID_ARCH), attn_impl="flash")
+    g, every, tail = TT.hybrid_layout(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    n_params = count_params(params)
+    if f32_leaves(params):
+        raise AssertionError(f"{HYBRID_ARCH}: leaves not f32 at init: {f32_leaves(params)}")
+    engine = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN, device=dev)
+    requests = lm_requests(cfg, np.random.default_rng(SEED))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve_lm(engine, requests) for _ in range(2)]
+    torch.cuda.synchronize()
+    serve_launches = flash_attention.launches
+    routes = dict(flash_attention.route_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if routes["wgmma"] != serve_launches:
+        raise AssertionError(f"{HYBRID_ARCH}: flash launches by route {routes}: all "
+                             f"{serve_launches} must be the wgmma kernel's")
+    for outs, per_wave in runs:
+        if per_wave != [g] * len(LM_PROMPTS):
+            raise AssertionError(f"{HYBRID_ARCH}: flash launches per wave {per_wave}, expected "
+                                 f"{g} (one a call of the shared block)")
+        if [c.uid for c in outs] != [r.uid for r in requests]:
+            raise AssertionError(f"{HYBRID_ARCH}: not every request was answered")
+        for c in outs:
+            if c.tokens.shape != (LM_NEW,) or not (
+                    (c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all():
+                raise AssertionError(f"{HYBRID_ARCH} request {c.uid}: tokens {c.tokens}")
+    for a, b in zip(*(outs for outs, _ in runs)):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"{HYBRID_ARCH} request {a.uid}: the second run served other "
+                                 "tokens")
+    lap("serve")
+    prompts = np.stack([r.prompt for r in requests[:LM_SLOTS]])
+    vs = prefill_against_f32(cfg, params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    drift = hybrid_decode_drift(cfg, params, prompts,
+                                np.stack([c.tokens for c in runs[0][0][:LM_SLOTS]]), dev)
+    prefill_ms = [1e3 * outs[i * LM_SLOTS].prefill_s for outs, _ in runs
+                  for i in range(len(LM_PROMPTS))]
+    decode_ms_tok = [1e3 * outs[i * LM_SLOTS].decode_s / (LM_NEW - 1) for outs, _ in runs
+                     for i in range(len(LM_PROMPTS))]
+    tok_s = [LM_SLOTS * LM_NEW / (outs[i * LM_SLOTS].prefill_s + outs[i * LM_SLOTS].decode_s)
+             for outs, _ in runs for i in range(len(LM_PROMPTS))]
+    lap("serve checks")
+    serve_profile = profile_lm(engine, requests)
+    lap("serve profile")
+    del engine, params
+    torch.cuda.empty_cache()
+    for i, p in enumerate(LM_PROMPTS):
+        print(f"serve {HYBRID_ARCH} ({cfg.n_layers} Mamba2 layers, {g} shared-block calls, "
+              f"d_model {cfg.d_model}, {cfg.dtype}, {cfg.attn_impl}, {n_params / 1e9:.3f} B "
+              f"parameters) wave {LM_SLOTS} x {p}: prefill "
+              + " / ".join(f"{prefill_ms[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
+              + " ms, decode " + " / ".join(
+                  f"{decode_ms_tok[r * len(LM_PROMPTS) + i]:.2f}" for r in range(2))
+              + " ms a token, " + " / ".join(
+                  f"{tok_s[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
+              + f" generated tokens/s (two runs) [{card}]", flush=True)
+    print(f"serve {HYBRID_ARCH}: flash launches {serve_launches} ({g} a wave, by route {routes}); "
+          f"tokens equal across two runs; prefill logits bitwise across runs: "
+          f"{vs['bitwise_across_runs']}; flash vs chunked max |diff| {vs['max_abs_diff']:.4g} "
+          f"(tolerance {vs['tolerance']:.4g}; against f32: chunked {vs['chunked_vs_f32']:.4g}, "
+          f"flash {vs['flash_vs_f32']:.4g}); decode vs the f32 teacher-forced forward over "
+          f"{LM_NEW} steps: worst {drift['worst_ratio']:.3f} of the bf16 forward's own error "
+          f"(limit 2; teacher-forced SSM chunk {drift['teacher_forced_ssm_chunk']}); peak "
+          f"device memory {peak_gb:.2f} GB [{card}]", flush=True)
+    for phase, prof in serve_profile.items():
+        print(f"profile ({HYBRID_ARCH} {phase}): device {prof['device_ms']:.2f} ms a "
+              f"{'wave' if phase == 'prefill' else 'step'} ({prof['device_ms_by']}), busy "
+              f"{pct(prof['device_busy_share'])}; " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in prof["by_group_ms"].items()) + f" [{card}]",
+              flush=True)
+
+    # Training: run A's recipe twice; only these launches are counted.
+    b, s = LM_SLOTS, LM_PROMPTS[0]
+    batches = list(synthetic_batches(cfg, b, s, TRAIN_STEPS, seed=SEED, device=dev))
+    recipe = adamw(cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS),
+                   weight_decay=0.01, max_grad_norm=1.0)
+    reset_counts()
+    trains, copies = [], []
+    for _ in range(2):
+        res, params, state, step, gen = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev)
+        trains.append(res)
+        copies.append(param_copy(params))
+        if len(trains) == 1:
+            del params, state, step, gen
+    torch.cuda.synchronize()
+    lap("train")
+    train_counts = {"fwd": flash_attention.launches, "bwd": flash_attention.bwd_launches}
+    train_routes = {"fwd": dict(flash_attention.route_launches),
+                    "bwd": dict(flash_attention.bwd_route_launches)}
+    if f32_leaves(params):
+        raise AssertionError(f"{HYBRID_ARCH}: leaves not f32 after training: "
+                             f"{f32_leaves(params)}")
+    bad_moments = [i for i, m in enumerate(tree_leaves(state[-1].mu))
+                   if m.dtype != torch.float32] if hasattr(state[-1], "mu") else []
+    profile = profile_train_step(step, params, state, batches[-1], gen)
+    profile["device_busy_share"] = busy(profile, profile["device_ms"],
+                                        float(np.median(trains[1]["step_ms"][1:])))
+    lap("train profile")
+    del params, state, step, gen
+    torch.cuda.empty_cache()
+    a1, a2 = trains
+    if a1["loss"] != a2["loss"]:
+        raise AssertionError(f"{HYBRID_ARCH}: losses differ across two runs: {a1['loss']}, "
+                             f"{a2['loss']}")
+    for i, (x, y) in enumerate(zip(*copies)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{HYBRID_ARCH}: parameter leaf {i} differs across two runs")
+    if not (np.isfinite(a1["loss"][-1]) and a1["loss"][-1] < a1["loss"][0]):
+        raise AssertionError(f"{HYBRID_ARCH}: the loss did not fall: {a1['loss']}")
+    if bad_moments:
+        raise AssertionError(f"{HYBRID_ARCH}: AdamW moments not f32: leaves {bad_moments}")
+    per_mb = {"fwd": 2 * g, "bwd": g}  # forward + the group's remat recompute
+    for tag, res in (("run A", a1), ("run A again", a2)):
+        if res["fwd_launches"] != [TRAIN_ACCUM * per_mb["fwd"]] * TRAIN_STEPS or \
+                res["bwd_launches"] != [TRAIN_ACCUM * per_mb["bwd"]] * TRAIN_STEPS:
+            raise AssertionError(f"{HYBRID_ARCH} {tag}: flash launches a step "
+                                 f"{res['fwd_launches']} forward, {res['bwd_launches']} "
+                                 f"backward; expected {TRAIN_ACCUM * per_mb['fwd']} and "
+                                 f"{TRAIN_ACCUM * per_mb['bwd']}")
+    for kind in ("fwd", "bwd"):
+        if train_routes[kind]["wgmma"] != train_counts[kind]:
+            raise AssertionError(f"{HYBRID_ARCH}: flash {kind} launches by route "
+                                 f"{train_routes[kind]}: all must be the wgmma kernels'")
+    grads = check_train_grads(cfg, {k: v[:b // TRAIN_ACCUM] for k, v in batches[0].items()},
+                              dev, hybrid_grad_picks(cfg))
+    lap("train gradients")
+    del copies
+    torch.cuda.empty_cache()
+    tokens = b * s
+    summary = {}
+    for tag, res in (("A", a1), ("A again", a2)):
+        med = float(np.median(res["step_ms"][1:]))
+        summary[tag] = {"median_step_ms": med, "tokens_per_s": tokens / med * 1e3,
+                        "peak_mem_gb": res["peak_mem_gb"]}
+        print(f"train {HYBRID_ARCH} run {tag}: losses " + " ".join(
+            f"{x:.4f}" for x in res["loss"]) + "; step ms " + " ".join(
+            f"{x:.1f}" for x in res["step_ms"]) + f"; median (steps 2-{TRAIN_STEPS}) "
+            f"{med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s; peak device memory "
+            f"{res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    worst = max(grads["leaves"].items(), key=lambda kv: kv[1]["flash_vs_chunked"]
+                / kv[1]["tolerance"])
+    phase_s = time.perf_counter() - t_phase
+    print(f"train {HYBRID_ARCH}: bitwise equal across two runs (losses and every parameter); "
+          f"a_log and dt_bias f32 after the steps; flash launches a microbatch: "
+          f"{per_mb['fwd']} forward and {per_mb['bwd']} backward (routes {train_routes}); "
+          f"flash vs chunked on one {b // TRAIN_ACCUM} x {s} microbatch: loss "
+          f"{grads['loss']['flash']:.6f} / {grads['loss']['chunked']:.6f} (f32 "
+          f"{grads['loss']['chunked_f32']:.6f}); {len(grads['leaves'])} gradients within "
+          f"twice the chunked path's own error, closest {worst[0]}: relative L2 "
+          f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}", flush=True)
+    print(f"profile ({HYBRID_ARCH} train step): device {profile['device_ms']:.1f} ms "
+          f"({profile['device_ms_by']}), busy {pct(profile['device_busy_share'])} of an "
+          "unprofiled step's wall time; " + ", ".join(
+              f"{k} {v:.1f}" for k, v in profile["by_group_ms"].items())
+          + f"; the hybrid phase took {phase_s:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]", flush=True)
+    report["hybrid"] = {
+        "config": {"arch": HYBRID_ARCH, "n_layers": cfg.n_layers, "groups": g,
+                   "every": every, "tail": tail, "d_model": cfg.d_model,
+                   "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
+                   "ssm_chunk": cfg.ssm_chunk, "n_heads": cfg.n_heads,
+                   "n_kv_heads": cfg.n_kv_heads, "dtype": cfg.dtype,
+                   "attn_impl": cfg.attn_impl, "params": n_params, "batch": b, "seq": s,
+                   "steps": TRAIN_STEPS, "accum": TRAIN_ACCUM, "lr": TRAIN_LR},
+        "serve": {"waves": [f"{LM_SLOTS} x {p}" for p in LM_PROMPTS], "new_tokens": LM_NEW,
+                  "prefill_ms_per_wave": prefill_ms, "decode_ms_per_token": decode_ms_tok,
+                  "tokens_per_s_per_wave": tok_s, "peak_mem_gb": peak_gb,
+                  "flash_launches": serve_launches, "launches_by_route": routes,
+                  "flash_vs_chunked": vs, "decode_drift": drift, "profile": serve_profile},
+        "train": {"run_a": a1, "run_a_again": a2, "summary": summary,
+                  "launches": train_counts, "launches_by_route": train_routes,
+                  "profile": profile, "flash_vs_chunked": grads},
+        "phase_s": phase_s, "phase_s_by_part": parts,
+    }
+    launches = {"flash_attention_zamba2": serve_launches,
+                "flash_attention_bwd_dq_zamba2": train_counts["bwd"],
+                "flash_attention_bwd_dkv_zamba2": train_counts["bwd"]}
+    stats = {"flash_attention_zamba2": fwd,
+             "flash_attention_bwd_dq_zamba2": bwd["flash_attention_bwd_dq"],
+             "flash_attention_bwd_dkv_zamba2": bwd["flash_attention_bwd_dkv"]}
+    line = []
+    for name, (source, replaces) in HYBRID_KERNELS.items():
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch on the hybrid path")
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], **stats[name]})
+    return line
+
+
 def ptxas_kernels(lines: list) -> list:
     """Each kernel of a ``-Xptxas -v`` log (its lines holding "registers",
     "spill" or "wgmma"): the function, its registers, its spill bytes and
@@ -4207,7 +4625,9 @@ def main() -> None:
     del gbdt, multi, phase, threads
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)
+    line += drive_hybrid(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")
+    report["profiler_traces_taken_again"] = _PROFILER.get("traces_taken_again", 0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

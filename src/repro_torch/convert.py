@@ -11,9 +11,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.cache import torch_dtype
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import map_schema, param_schema
+from repro_torch.models.transformer import entry_dtype, map_schema, param_schema
 from repro_torch.optim.delayed import DelayedState
 from repro_torch.optim.optimizers import AdamState, SgdState, tree_leaves
 from repro_torch.trees.binning import BinnedData, SparseBins
@@ -22,6 +21,15 @@ from repro_torch.trees.forest import Forest, QuantizedForest
 
 def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype), device=dev)  # a writable copy
+
+
+def _from_numpy(a) -> torch.Tensor:
+    """A CPU tensor of ``a``'s values and dtype, bfloat16 (``ml_dtypes``,
+    which numpy does not know) included."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # move the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def forest_from_numpy(
@@ -98,9 +106,10 @@ def lm_params_from_numpy(
     """The port's parameter tree from the reference's, name for name (both
     follow ``param_schema``: stacked (L, ...) layers, ``x @ w`` layouts).
     Leaves are numpy arrays, bfloat16 ones included (``ml_dtypes``); each
-    must have its entry's shape and becomes a tensor in ``cfg.dtype``."""
+    must have its entry's shape and becomes a tensor of its entry's dtype
+    (``transformer.entry_dtype``: ``cfg.dtype``, but f32 for a Mamba2
+    layer's ``a_log`` and ``dt_bias``)."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg)
 
     def leaf(path, entry):
         a = params
@@ -109,11 +118,7 @@ def lm_params_from_numpy(
         a = np.asarray(a)
         if tuple(a.shape) != tuple(entry.shape):
             raise ValueError(f"{'.'.join(path)}: shape {a.shape}, expected {entry.shape}")
-        if a.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
-            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        return t.to(device=dev, dtype=dt)
+        return _from_numpy(a).to(device=dev, dtype=entry_dtype(cfg, entry))
 
     return map_schema(leaf, param_schema(cfg))
 
@@ -122,13 +127,15 @@ def opt_state_from_numpy(cfg: ModelConfig, opt_state, params_t: dict):
     """The port's optimizer state from the reference's, with numpy leaves
     (``jax.tree.map(np.asarray, state)``): ``AdamState``, ``SgdState`` and
     ``DelayedState`` become the port's NamedTuples of the same name, tuples
-    (``chain``) stay tuples, and leaves keep their dtype on the device of
-    ``params_t``. Every moment tree must have ``param_schema(cfg)``'s
-    shapes; a delayed ring leaf has the delay in front."""
+    (``chain``) stay tuples, and leaves keep their own dtype (bfloat16
+    included: an f32 ``a_log`` moment stays f32 in a bf16 model) on the
+    device of ``params_t``. Every moment tree must have
+    ``param_schema(cfg)``'s shapes; a delayed ring leaf has the delay in
+    front."""
     dev = tree_leaves(params_t)[0].device
 
     def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a)).to(dev)
+        return _from_numpy(a).to(dev)
 
     def tree(t, lead: tuple = ()) -> dict:
         def leaf(path, entry):

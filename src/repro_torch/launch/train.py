@@ -54,7 +54,7 @@ import repro_torch.configs as configs
 from repro_torch import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params
-from repro_torch.models.cache import require_dense
+from repro_torch.models.cache import require_ported
 from repro_torch.optim import adamw, cosine_schedule, delayed_gradient, staleness_step_scale
 from repro_torch.optim.optimizers import tree_leaves
 
@@ -64,7 +64,7 @@ def synthetic_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
     """Markov-chain token stream with learnable (non-uniform) bigram
     structure: the reference's numpy stream bit for bit, as int32 tensors
     on ``device``."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     v = cfg.vocab_size

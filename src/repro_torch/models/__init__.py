@@ -1,6 +1,7 @@
 """Model zoo of the PyTorch/CUDA port (twin of ``repro.models``): the dense
-family so far (training, prefill, decode); the other families raise
-``NotImplementedError``."""
+family and the hybrid one (zamba2: Mamba2 layers and a shared attention
+block), each with training, prefill and decode; the MoE, VLM, audio and
+xLSTM families raise ``NotImplementedError``."""
 from repro_torch.models.cache import init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (

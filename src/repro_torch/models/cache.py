@@ -1,11 +1,17 @@
-"""Decode caches of the dense family (twin of the dense part of
+"""Decode caches of the dense and hybrid families (twin of those parts of
 ``repro.models.cache``).
 
-Layout: ``{"pos": () int32, "self": {"k", "v": (L, B, cap, KV, hd),
+Dense layout: ``{"pos": () int32, "self": {"k", "v": (L, B, cap, KV, hd),
 "slot_pos": (L, cap) int32}}``. The attention cache is a ring buffer of
 ``cap`` slots; ``slot_pos`` holds each slot's absolute position (-1 =
 empty); ``cap`` is ``ModelConfig.window_for(seq_len)``; ``pos`` is the
 absolute position of the next token.
+
+Hybrid layout (zamba2): ``{"pos", "ssm": (L, B, nh, hp, st), "conv": (L,
+B, 3, conv channels), "shared": the ring above over ``L //
+shared_attn_every`` slots}``: each Mamba2 layer's recurrent state and its
+last three conv inputs, and each invocation of the shared attention
+block's K/V. All in the model's dtype.
 """
 from __future__ import annotations
 
@@ -16,31 +22,53 @@ from repro_torch.models.config import ModelConfig
 
 Cache = dict
 
+PORTED_FAMILIES = ("dense", "hybrid")
+# Where each family still refused is queued (ROADMAP.md, queue A).
+_QUEUED = {
+    "moe": "A10, MoE: moe_ffn, the router and the expert shard",
+    "vlm": "A10, VLM: cross_attention and the media cache",
+    "audio": "A10, audio: whisper's encoder_attention",
+    "ssm": "A10, xLSTM: models/xlstm.py",
+}
 
-def require_dense(cfg: ModelConfig) -> None:
-    """The port carries the dense family only so far."""
-    if cfg.family != "dense":
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not carry
+    yet (every one but dense and hybrid), naming its ROADMAP item."""
+    if cfg.family not in PORTED_FAMILIES:
+        where = _QUEUED.get(cfg.family, "A10, the other LM families")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md, "
-            "queue: the other LM families, after the training slice)")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md, {where})")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _ring(n: int, batch: int, cap: int, cfg: ModelConfig, dev: torch.device) -> dict:
+    shape = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
+        "v": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
+        "slot_pos": torch.full((n, cap), -1, dtype=torch.int32, device=dev),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: str | torch.device | None = None) -> Cache:
-    """A zero cache: every slot empty, ``pos`` 0."""
-    require_dense(cfg)
+    """A zero cache: every slot empty, every state zero, ``pos`` 0."""
+    require_ported(cfg)
     dev = resolve_device(device)
     cap = cfg.window_for(seq_len)
-    shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=dev),
-        "self": {
-            "k": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
-            "slot_pos": torch.full((cfg.n_layers, cap), -1, dtype=torch.int32, device=dev),
-        },
-    }
+    cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.family == "dense":
+        cache["self"] = _ring(cfg.n_layers, batch, cap, cfg, dev)
+        return cache
+    dt = torch_dtype(cfg)
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    cache["ssm"] = torch.zeros(
+        (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+        dtype=dt, device=dev)
+    cache["conv"] = torch.zeros((cfg.n_layers, batch, 3, conv_ch), dtype=dt, device=dev)
+    cache["shared"] = _ring(cfg.n_layers // cfg.shared_attn_every, batch, cap, cfg, dev)
+    return cache

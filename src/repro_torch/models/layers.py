@@ -1,5 +1,6 @@
-"""Transformer building blocks of the dense family: norms, rope, attention,
-MLP (twin of the dense part of ``repro.models.layers``).
+"""Transformer building blocks: norms, rope, self-attention and the
+SwiGLU MLP (twin of those parts of ``repro.models.layers``), which the
+dense layers and the hybrid family's shared block are made of.
 
 Attention is q-chunked on the plain path (a loop over query chunks), so
 peak score memory is bounded by (B, H, chunk, S_kv). With

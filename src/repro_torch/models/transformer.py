@@ -1,5 +1,5 @@
-"""Model assembly of the dense family: parameter schema, init, the train
-forward, prefill and decode (twin of the dense part of
+"""Model assembly of the dense and hybrid families: parameter schema,
+init, the train forward, prefill and decode (twin of those parts of
 ``repro.models.transformer``).
 
 ``param_schema(cfg)`` is the one source of truth for parameter names and
@@ -7,9 +7,18 @@ shapes: a nested dict of ``Entry(shape, axes, init)`` with layers stacked
 on a leading (L, ...) axis and weights laid out for ``x @ w``, as in the
 reference, so ``convert.lm_params_from_numpy`` is a copy name for name.
 The layer stack is a Python loop over the stacked tensors (the
-reference's ``lax.scan``). In training, with ``cfg.remat``, each layer
-runs under ``torch.utils.checkpoint`` (the reference's "full" remat
+reference's ``lax.scan``). In training, with ``cfg.remat``, each dense
+layer runs under ``torch.utils.checkpoint`` (the reference's "full" remat
 policy). Prefill and decode run under ``torch.inference_mode()``.
+
+The hybrid family (zamba2) scans groups of ``shared_attn_every`` Mamba2
+layers, each group followed by the one shared attention + MLP block (the
+same weights at every call), then the tail Mamba2 layers:
+``groups.mamba`` is stacked (g, every, ...), ``tail`` (tail, ...), and
+``shared`` is one unstacked dense layer. With ``cfg.remat`` each group
+and each tail layer is checkpointed, as the reference's ``_scan`` does;
+``remat_policy`` is not read there, as in the reference. The Mamba2
+layers' ``a_log`` and ``dt_bias`` are f32 whatever ``cfg.dtype`` is.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.cache import require_dense, torch_dtype
+from repro_torch.models import ssm as S
+from repro_torch.models.cache import require_ported, torch_dtype
 from repro_torch.models.config import ModelConfig
 
 Params = dict
@@ -29,7 +39,18 @@ Params = dict
 class Entry(NamedTuple):
     shape: tuple
     axes: tuple  # logical axis names, same length as shape
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | alog | dtbias
+
+
+# Entries kept in f32 whatever the model's dtype (the reference's
+# ``abstract_params``).
+F32_INITS = ("alog", "dtbias")
+
+
+def entry_dtype(cfg: ModelConfig, e: Entry) -> torch.dtype:
+    """The dtype of a parameter: f32 for ``a_log`` and ``dt_bias``, else the
+    model's."""
+    return torch.float32 if e.init in F32_INITS else torch_dtype(cfg)
 
 
 # ------------------------------------------------------------------ schemas
@@ -52,6 +73,23 @@ def _mlp_schema(cfg: ModelConfig) -> dict:
     }
 
 
+def _mamba_schema(cfg: ModelConfig) -> dict:
+    d, di, st, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    proj = 2 * di + 2 * st + nh
+    conv_ch = di + 2 * st
+    return {
+        "in_proj": Entry((d, proj), ("embed", "inner_proj")),
+        "conv_w": Entry((4, conv_ch), (None, "conv_ch")),
+        "conv_b": Entry((conv_ch,), ("conv_ch",), "zeros"),
+        "dt_bias": Entry((nh,), (None,), "dtbias"),
+        "a_log": Entry((nh,), (None,), "alog"),
+        "d_skip": Entry((nh,), (None,), "ones"),
+        "norm": Entry((di,), ("inner",), "ones"),
+        "out_proj": Entry((di, d), ("inner", "embed")),
+        "ln": Entry((d,), ("embed",), "ones"),
+    }
+
+
 def _dense_layer(cfg: ModelConfig) -> dict:
     return {
         "attn": _attn_schema(cfg),
@@ -69,15 +107,30 @@ def _stack(schema: dict, n: int) -> dict:
     }
 
 
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(groups, Mamba2 layers a group, tail layers) of a hybrid model."""
+    every = cfg.shared_attn_every
+    g = cfg.n_layers // every
+    return g, every, cfg.n_layers - g * every
+
+
 def param_schema(cfg: ModelConfig) -> dict:
-    require_dense(cfg)
+    require_ported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    return {
+    schema = {
         "embed": Entry((v, d), ("vocab", "embed")),
         "lm_head": Entry((d, v), ("embed", "vocab")),
         "final_norm": Entry((d,), ("embed",), "ones"),
-        "layers": _stack(_dense_layer(cfg), cfg.n_layers),
     }
+    if cfg.family == "dense":
+        schema["layers"] = _stack(_dense_layer(cfg), cfg.n_layers)
+        return schema
+    g, every, tail = hybrid_layout(cfg)
+    schema["groups"] = {"mamba": _stack(_stack(_mamba_schema(cfg), every), g)}
+    if tail:
+        schema["tail"] = _stack(_mamba_schema(cfg), tail)
+    schema["shared"] = _dense_layer(cfg)
+    return schema
 
 
 def map_schema(fn, schema: dict, path: tuple = ()) -> dict:
@@ -94,7 +147,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random parameters in ``cfg.dtype``: normal weights scaled by
     1 / sqrt(fan_in) (fan_in = the second-to-last dim), drawn in f32 from
     ``generator`` (which must live on ``device``), in schema order; norms
-    are ones."""
+    are ones. A Mamba2 layer's ``a_log`` is log(1 + h % 15) + 0.5 for head
+    h and its ``dt_bias`` -4, both f32, as the reference makes them."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
 
@@ -103,6 +157,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             return torch.zeros(e.shape, dtype=dt, device=dev)
         if e.init == "ones":
             return torch.ones(e.shape, dtype=dt, device=dev)
+        if e.init == "alog":
+            base = torch.log(1.0 + torch.arange(e.shape[-1], dtype=torch.float32,
+                                                 device=dev) % 15)
+            return (base + 0.5).expand(e.shape).contiguous()
+        if e.init == "dtbias":
+            return torch.full(e.shape, -4.0, dtype=torch.float32, device=dev)
         fan_in = e.shape[-2] if len(e.shape) >= 2 else e.shape[-1]
         scale = 1.0 / torch.sqrt(torch.tensor(float(max(fan_in, 1))))
         w = torch.randn(e.shape, generator=generator, dtype=torch.float32, device=dev)
@@ -117,16 +177,17 @@ def layer(stacked: dict, i: int) -> dict:
 
 
 class LanguageModel(torch.nn.Module):
-    """Holds a dense model's parameters as (frozen) module parameters whose
+    """Holds a model's parameters as (frozen) module parameters whose
     ``state_dict`` names are the schema's paths ("layers.attn.wq"), and
-    serves them through ``prefill`` and ``decode_step``."""
+    serves them through ``prefill`` and ``decode_step``. Each parameter
+    must have its entry's shape and dtype (``entry_dtype``)."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
         self.cfg = cfg
         self._paths = []
 
-        def register(path, _entry):
+        def register(path, entry):
             owner = self
             for name in path[:-1]:
                 if not hasattr(owner, name):
@@ -135,6 +196,9 @@ class LanguageModel(torch.nn.Module):
             tensor = params
             for name in path:
                 tensor = tensor[name]
+            if (tuple(tensor.shape), tensor.dtype) != (entry.shape, entry_dtype(cfg, entry)):
+                raise ValueError(f"{'.'.join(path)}: {tuple(tensor.shape)} {tensor.dtype}, "
+                                 f"expected {entry.shape} {entry_dtype(cfg, entry)}")
             owner.register_parameter(path[-1], torch.nn.Parameter(tensor, requires_grad=False))
             self._paths.append(path)
 
@@ -165,6 +229,18 @@ def _dense_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int) -> tor
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
 
 
+def _mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + S.mamba2_train(p, L.rms_norm(x, p["ln"]), cfg)
+
+
+def _hybrid_group(ps: list, x: torch.Tensor, shared: dict, cfg: ModelConfig,
+                  window: int) -> torch.Tensor:
+    """One group: its Mamba2 layers, then the shared block."""
+    for p in ps:
+        x = _mamba_block(p, x, cfg)
+    return _dense_block(shared, x, cfg, window)
+
+
 def unstack(stacked: dict) -> list[dict]:
     """Every layer's tree of a stacked (L, ...) tree, split once by
     ``torch.unbind``: its backward is one ``stack`` a leaf, where L indexing
@@ -175,21 +251,31 @@ def unstack(stacked: dict) -> list[dict]:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
+def _maybe_checkpoint(cfg: ModelConfig, fn, *args):
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def backbone_train(params: Params, cfg: ModelConfig,
                    x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Hidden states (B, S, D) of the teacher-forced sequence, and the MoE
-    aux loss (0 for the dense family), from embedded tokens x (B, S, D)."""
-    require_dense(cfg)
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only the 'full' policy is ported "
-            "(ROADMAP.md, queue: remat_policy='dots')")
+    aux loss (0 for these families), from embedded tokens x (B, S, D)."""
+    require_ported(cfg)
     window = cfg.window_for(x.shape[1])
-    for p in unstack(params["layers"]):
-        if cfg.remat:
-            x = checkpoint(_dense_block, p, x, cfg, window, use_reentrant=False)
-        else:
-            x = _dense_block(p, x, cfg, window)
+    if cfg.family == "hybrid":  # the reference's hybrid branch takes no policy
+        for group in unstack(params["groups"]["mamba"]):
+            x = _maybe_checkpoint(cfg, _hybrid_group, unstack(group), x, params["shared"],
+                                  cfg, window)
+        for p in unstack(params["tail"]) if "tail" in params else ():
+            x = _maybe_checkpoint(cfg, _mamba_block, p, x, cfg)
+    else:
+        if cfg.remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r}: only the 'full' policy is ported "
+                "(ROADMAP.md, queue: remat_policy='dots')")
+        for p in unstack(params["layers"]):
+            x = _maybe_checkpoint(cfg, _dense_block, p, x, cfg, window)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -199,9 +285,16 @@ def forward_train(params: Params, cfg: ModelConfig,
     [weights (B,) — Bernoulli importance weights m'_i / R, the paper's
     sampled objective lifted to sequence level]. Returns (loss, {"ce",
     "aux"}). Logits are taken in ``cfg.dtype``, -1e9 past the vocab, then
-    cast to f32; the loss is logsumexp - gold, averaged per sequence."""
-    require_dense(cfg)
+    cast to f32; the loss is logsumexp - gold, averaged per sequence.
+    Packed ``segments`` raise: ``ValueError`` for the recurrent hybrid
+    family, as in the reference, and ``NotImplementedError`` for the dense
+    one, whose masking is not ported yet."""
+    require_ported(cfg)
     if batch.get("segments") is not None:
+        if cfg.family != "dense":
+            raise ValueError(
+                "packed segments need attention masking; recurrent families "
+                "would need per-segment state resets (not implemented)")
         raise NotImplementedError("packed segments are not ported yet (ROADMAP.md, queue: "
                                   "segments and data/pipeline.py)")
     x = params["embed"][batch["tokens"].long()]
@@ -261,26 +354,51 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Score the prompt and build the decode cache. batch: tokens (B, S).
     ``max_len`` is the total context budget (prompt + decode headroom);
-    the cache capacity is ``cfg.window_for(max_len)``. Returns
+    the attention cache capacity is ``cfg.window_for(max_len)``. Returns
     (last-position logits (B, Vpad), cache) in the ``models.cache`` layout.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = params["embed"][tokens.long()]
     cap = cfg.window_for(max_len if max_len is not None else s)
     window = cfg.window_for(s)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p = layer(params["layers"], i)
+
+    def attn_block(p, x):
         a, (k, v) = L.self_attention_train(
             p["attn"], L.rms_norm(x, p["ln1"]), cfg, window, return_kv=True)
         x = x + a
-        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
         ks.append(k)
         vs.append(v)
-    cache = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device),
-             "self": _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)}
+        return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+
+    cache: dict = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device)}
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x = attn_block(layer(params["layers"], i), x)
+        cache["self"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
+        return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
+
+    states, convs = [], []
+
+    def mamba(p, x):
+        out, h, conv = S.mamba2_train(p, L.rms_norm(x, p["ln"]), cfg, return_state=True)
+        states.append(h)
+        convs.append(conv)
+        return x + out
+
+    g, every, tail = hybrid_layout(cfg)
+    for i in range(g):
+        group = layer(params["groups"]["mamba"], i)
+        for j in range(every):
+            x = mamba(layer(group, j), x)
+        x = attn_block(params["shared"], x)
+    for i in range(tail):
+        x = mamba(layer(params["tail"], i), x)
+    cache["ssm"] = torch.stack(states)
+    cache["conv"] = torch.stack(convs)
+    cache["shared"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
     return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
 
 
@@ -289,21 +407,42 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict) -> tuple[torch.Tensor, dict]:
     """One token (B, 1) against the cache -> (logits (B, Vpad), cache').
 
-    The cache is updated in place (each layer writes the slot of ``pos``)
-    and returned with ``pos`` advanced; the reference returns a new cache
-    and leaves the old one as it was.
+    The cache is updated in place (each attention layer writes the slot of
+    ``pos``, each Mamba2 layer its state and conv rows) and returned with
+    ``pos`` advanced; the reference returns a new cache and leaves the old
+    one as it was.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     x = params["embed"][tokens.long()]  # (B, 1, D)
     pos = cache["pos"]
-    c = cache["self"]
-    cap = c["k"].shape[2]
-    for i in range(cfg.n_layers):
-        p = layer(params["layers"], i)
+    ring = cache["self"] if cfg.family == "dense" else cache["shared"]
+    cap = ring["k"].shape[2]
+
+    def attn_block(p, x, i):
         out, _, _, _ = L.self_attention_decode(
-            p["attn"], L.rms_norm(x, p["ln1"]), c["k"][i], c["v"][i], c["slot_pos"][i],
-            pos, cfg, cap)
+            p["attn"], L.rms_norm(x, p["ln1"]), ring["k"][i], ring["v"][i],
+            ring["slot_pos"][i], pos, cfg, cap)
         x = x + out
-        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+
+    def mamba(p, x, i):
+        out, st, cv = S.mamba2_decode(p, L.rms_norm(x, p["ln"]), cache["ssm"][i],
+                                      cache["conv"][i], cfg)
+        cache["ssm"][i].copy_(st)
+        cache["conv"][i].copy_(cv)
+        return x + out
+
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x = attn_block(layer(params["layers"], i), x, i)
+    else:
+        g, every, tail = hybrid_layout(cfg)
+        for i in range(g):
+            group = layer(params["groups"]["mamba"], i)
+            for j in range(every):
+                x = mamba(layer(group, j), x, i * every + j)
+            x = attn_block(params["shared"], x, i)
+        for i in range(tail):
+            x = mamba(layer(params["tail"], i), x, g * every + i)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x)[:, 0], cache

@@ -1,5 +1,5 @@
 """Batched serving engine: request queue -> same-length waves -> greedy decode
-(twin of ``repro.serving.engine`` for the dense family).
+(twin of ``repro.serving.engine``, for the dense and hybrid families).
 
 Requests are bucketed by prompt length, packed into waves of ``slots``
 sequences (a short wave is padded with its last prompt), prefilled once,
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.cache import require_dense
+from repro_torch.models.cache import require_ported
 from repro_torch.models.config import ModelConfig
 
 
@@ -48,7 +48,7 @@ class ServingEngine:
         eos_id: int | None = None,
         device: str | torch.device | None = None,
     ):
-        require_dense(cfg)
+        require_ported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"parameters lie on {params['embed'].device}, the engine "

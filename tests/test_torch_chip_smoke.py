@@ -752,3 +752,121 @@ def test_mesh_phase_passes_and_fails_planted_faults_on_a_small_cpu_run(monkeypat
     fails("decisive vs the unmeshed run: leaves", decisive_leaf)
     fails("NCCL all_reduce was not checked",
           lambda bad: bad["nccl"].pop("all_reduce_checked"))
+
+
+# ----------------------------------------------------------- hybrid phase
+def _small_hybrid(dtype="bfloat16"):
+    import dataclasses
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(lm_configs.get("zamba2-1.2b").reduced(), n_layers=5,
+                              dtype=dtype, attn_impl="flash")
+    return cfg, TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_ssd_events_take_the_scan_forward_its_recompute_and_its_backward():
+    """A profiled training forward and backward of a small hybrid model on
+    the CPU: the ops inside the SSD ranges (forward and remat recompute) and
+    the backward nodes of their forward ops are the SSD's; the projections
+    and the shared block are not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg, params = _small_hybrid("float32")
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
+    with chip_smoke.ssd_ranges(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss, _ = TT.forward_train(params, cfg, {"tokens": toks[:, :-1],
+                                                 "labels": toks[:, 1:]})
+        torch.autograd.grad(loss, leaves)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    ssd = chip_smoke.ssd_events(events)
+    names = {e.name for e in events if id(e) in ssd}
+    ranges = [e for e in events if e.name == chip_smoke.SSD_RANGE]
+    assert len(ranges) == 2 * cfg.n_layers  # the forward and the recompute
+    assert {"aten::cumsum", "aten::exp", "aten::bmm", "CumsumBackward0", "ExpBackward0",
+            "BmmBackward0"} <= names
+    others = {e.name for e in events if id(e) not in ssd}
+    assert {"aten::mm", "MmBackward0", "aten::softmax"} & others
+    assert not any(e.name == "SoftmaxBackward0" for e in events if id(e) in ssd)
+    assert chip_smoke.lm_ssm.ssd_scan.__name__ == "ssd_scan"  # the range is taken away
+
+
+def test_hybrid_grad_picks_name_the_first_and_last_mamba2_layers():
+    import repro_torch.configs as lm_configs
+
+    cfg = lm_configs.get("zamba2-1.2b")
+    picks = {name: (path, idx) for name, path, idx in chip_smoke.hybrid_grad_picks(cfg)}
+    assert picks["shared.attn.wq"] == (("shared", "attn", "wq"), ())
+    assert picks["mamba[0].in_proj"] == (("groups", "mamba", "in_proj"), (0, 0))
+    assert picks["mamba[37].out_proj"] == (("tail", "out_proj"), (1,))
+    assert len(picks) == 8
+    small, _ = _small_hybrid()
+    import dataclasses
+    no_tail = dataclasses.replace(small, n_layers=4)
+    picks = {name: (path, idx) for name, path, idx in chip_smoke.hybrid_grad_picks(no_tail)}
+    assert picks["mamba[3].in_proj"] == (("groups", "mamba", "in_proj"), (1, 1))
+
+
+@pytest.fixture(scope="module")
+def drift_model():
+    """A small bf16 hybrid model's greedy decode of 2 x 32-token prompts, 8
+    new tokens, on the CPU, with the tokens it serves."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg, params = _small_hybrid()
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    tok, _, cache = make_prefill_step(cfg, 48)(params, {"tokens": torch.from_numpy(prompts)})
+    served = [tok]
+    for _ in range(7):
+        tok, cache = make_decode_step(cfg)(params, tok[:, None], cache)
+        served.append(tok)
+    return cfg, params, prompts, torch.stack(served, 1).numpy()
+
+
+@pytest.fixture
+def drift_run(drift_model, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "LM_MAX_LEN", 48)
+    monkeypatch.setattr(chip_smoke, "LM_NEW", 8)
+    return drift_model
+
+
+def test_hybrid_decode_drift_passes_on_a_small_cpu_run(drift_run):
+    cfg, params, prompts, served = drift_run
+    out = chip_smoke.hybrid_decode_drift(cfg, params, prompts, served, "cpu")
+    assert out["steps"] == 8 and out["teacher_forced_ssm_chunk"] == 13  # 39 = 3 x 13
+    assert len(out["decode_vs_f32"]) == 8 and out["worst_ratio"] <= 2
+
+
+@pytest.mark.parametrize("fault", ["conv cache not advanced", "SSM state not written"])
+def test_hybrid_decode_drift_fails_a_cache_that_is_not_updated(drift_run, monkeypatch, fault):
+    """A Mamba2 decode that hands back its old conv rows, or its old SSM
+    state: the gate rejects the drift that follows."""
+    cfg, params, prompts, served = drift_run
+    inner = chip_smoke.lm_ssm.mamba2_decode
+
+    def faulty(p, x, state, conv, c):
+        y, state2, conv2 = inner(p, x, state, conv, c)
+        return (y, state2, conv) if fault.startswith("conv") else (y, state, conv2)
+    monkeypatch.setattr(chip_smoke.lm_ssm, "mamba2_decode", faulty)
+    with pytest.raises(AssertionError, match="drift|other tokens"):
+        chip_smoke.hybrid_decode_drift(cfg, params, prompts, served, "cpu")
+
+
+def test_device_trace_takes_a_partial_trace_again(monkeypatch):
+    """A trace whose launches of a kernel are no multiple of the calls (it
+    lost some calls' kernels) is taken again; three such traces give none."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "_PROFILER", {})
+    traces = iter([[("flash_fwd", 1.2, 12)], [("flash_fwd", 4.0, 20), ("memset", 0.1, 40)]])
+    monkeypatch.setattr(chip_smoke, "device_rows", lambda prof: next(traces))
+    assert chip_smoke.device_trace(lambda: None, 20) == [("flash_fwd", 4.0, 20),
+                                                          ("memset", 0.1, 40)]
+    assert chip_smoke._PROFILER["traces_taken_again"] == 1
+    monkeypatch.setattr(chip_smoke, "device_rows", lambda prof: [("flash_fwd", 1.2, 12)])
+    assert chip_smoke.device_trace(lambda: None, 20) == []
+    assert chip_smoke._PROFILER["traces_taken_again"] == 4

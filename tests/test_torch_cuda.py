@@ -1134,6 +1134,79 @@ def test_flash_bwd_takes_a_strided_do(dev):
         assert torch.equal(g, w)
 
 
+def test_flash_at_zamba2s_group_1(dev):
+    """zamba2's shared block (B 4, S 2048, 32 q heads on 32 kv heads, d 64,
+    bf16, causal): the forward and the backward on the wgmma routes, each
+    against its plain version with the tolerances above."""
+    args = _bwd_case(dev, 4, 2048, 2048, 32, 32, 64, True, torch.bfloat16, 27)
+    q, k, v, out, lse, do = args
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert max(_flash_rel_l2(out, want)) <= FLASH_OUT_REL_L2
+    torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3)
+    before = dict(flash_attention.bwd_route_launches)
+    got = flash_attention.flash_attention_bwd(*args, True)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_route_launches["wgmma"] == before["wgmma"] + 1
+    _bwd_close(got, args, True, torch.bfloat16)
+
+
+def _zamba2(dtype: str, **changes):
+    return dataclasses.replace(lm_configs.get("zamba2-1.2b").reduced(), attn_impl="flash",
+                               dtype=dtype, **changes)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_forward_train_gradients_on_the_card(dev, dtype):
+    """Reduced zamba2 with a tail layer (2 groups of 2, tail 1): the loss
+    and every gradient on the card against the CPU route; one flash
+    backward a group; a_log and dt_bias gradients f32."""
+    cfg = _zamba2(dtype, n_layers=5)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, 2, 64, 1, seed=3, device="cpu"))
+    results = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
+        before = flash_attention.bwd_launches
+        loss, _ = TT.forward_train(p, cfg, {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        results.append((loss, grads))
+        if device != "cpu":
+            assert flash_attention.bwd_launches == before + 2
+    (l_cpu, g_cpu), (l_dev, g_dev) = results
+    torch.testing.assert_close(l_dev.detach().float().cpu(), l_cpu.detach().float(),
+                               rtol=1e-4 if dtype == "float32" else 2e-2, atol=0)
+    names = []
+    TT.map_schema(lambda path, _: names.append(".".join(path)), TT.param_schema(cfg))
+    for name, a, b in zip(names, g_dev, g_cpu):
+        if name.endswith(("a_log", "dt_bias")):
+            assert a.dtype == torch.float32, name
+        _grad_close(a, b, dtype, name)
+
+
+def test_hybrid_prefill_and_decode_on_the_card(dev):
+    """Reduced zamba2 in f32: prefill and 4 decode steps on the card against
+    the CPU route, the caches written in place on the card."""
+    cfg = _zamba2("float32", n_layers=5)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 36), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    out = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        logits, cache = TT.prefill(p, cfg, {"tokens": toks[:, :32].to(device)}, max_len=40)
+        steps = [logits]
+        for i in range(32, 36):
+            logits, cache = TT.decode_step(p, cfg, toks[:, i:i + 1].to(device), cache)
+            steps.append(logits)
+        out.append(([x.cpu() for x in steps], {n: cache[n].cpu() for n in ("ssm", "conv")}))
+    (l_cpu, c_cpu), (l_dev, c_dev) = out
+    for a, b in zip(l_dev, l_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for n in c_cpu:
+        torch.testing.assert_close(c_dev[n], c_cpu[n], rtol=1e-4, atol=1e-4)
+
+
 def _granite(dtype: str, **changes):
     return dataclasses.replace(lm_configs.get("granite-3-2b").reduced(), attn_impl="flash",
                                dtype=dtype, **changes)

@@ -14,6 +14,7 @@ from repro_torch.kernels import _build, flash_attention, flash_plan
 
 SMEM_LIMIT = 232448  # bytes a block may use on the H100
 GRANITE = (4, 2048, 2048, 32, 8, 64)  # b, sq, sk, h, kv, d: the training shape
+ZAMBA2 = (4, 2048, 2048, 32, 32, 64)  # zamba2's shared block: group 1
 
 
 @pytest.fixture(autouse=True)
@@ -97,7 +98,7 @@ def test_bwd_persistent_grid_is_a_block_a_multiprocessor_while_the_tiles_last(
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,seq_k,strided_do", [
-    GRANITE + (None, False), GRANITE + (None, True),
+    GRANITE + (None, False), GRANITE + (None, True), ZAMBA2 + (None, False),
     (1, 130, 300, 4, 4, 128, None, False), (1, 130, 300, 4, 1, 64, 250, True),
     (2, 1000, 1100, 16, 4, 128, 950, False),
 ])

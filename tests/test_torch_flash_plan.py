@@ -13,6 +13,7 @@ from repro_torch.kernels import _build, flash_attention, flash_plan
 
 SMEM_LIMIT = 232448  # bytes a block may use on the H100
 GRANITE = (4, 2048, 2048, 32, 8, 64)  # b, sq, sk, h, kv, d: the prefill's shape
+ZAMBA2 = (4, 2048, 2048, 32, 32, 64)  # zamba2's shared block: group 1
 
 
 def _views(b, sq, sk, h, kv, d, dtype=torch.bfloat16):
@@ -63,7 +64,7 @@ def test_persistent_grid_is_a_block_a_multiprocessor_while_the_tiles_last(b, sq,
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,seq_k", [
-    GRANITE + (2048,), (2, 1000, 1100, 16, 4, 128, 1050),
+    GRANITE + (2048,), ZAMBA2 + (2048,), (2, 1000, 1100, 16, 4, 128, 1050),
     (1, 1, 129, 4, 1, 64, 129), (1, 100, 100, 2, 2, 128, 100), (1, 200, 200, 8, 2, 64, 200),
     (1, 130, 300, 4, 4, 128, 300), (2, 64, 192, 4, 4, 64, 150), (1, 80, 128, 4, 2, 64, 77),
 ])

@@ -74,7 +74,7 @@ def test_port_files_were_found():
             "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py",
             "regression.py", "ranking.py", "losses.py", "schedules.py", "runtime.py",
             "worker.py", "async_sgbdt.py", "simulator.py", "collectives.py", "mesh.py",
-            "rules.py", "sharded.py", "baselines.py"} <= names
+            "rules.py", "sharded.py", "baselines.py", "ssm.py", "zamba2_1_2b.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -88,7 +88,7 @@ def test_port_files_were_found():
     "repro_torch.trees.losses", "repro_torch.ps.schedules", "repro_torch.ps.runtime",
     "repro_torch.ps.worker", "repro_torch.core.async_sgbdt", "repro_torch.core.simulator",
     "repro_torch.collectives", "repro_torch.launch.mesh", "repro_torch.sharding.rules",
-    "repro_torch.ps.sharded", "repro_torch.core.baselines",
+    "repro_torch.ps.sharded", "repro_torch.core.baselines", "repro_torch.models.ssm",
 ])
 def test_kernel_modules_import_without_a_build(module, monkeypatch):
     from repro_torch.kernels import _build
@@ -144,6 +144,8 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
 @pytest.mark.parametrize("make", [
     lambda: init_params(configs.get("granite-3-2b").reduced()),
     lambda: init_cache(configs.get("granite-3-2b").reduced(), 1, 8),
+    lambda: init_params(configs.get("zamba2-1.2b").reduced()),
+    lambda: init_cache(configs.get("zamba2-1.2b").reduced(), 1, 8),
     lambda: lm_params_from_numpy(configs.get("granite-3-2b").reduced(), {}),
     lambda: bin_dataset(np.zeros((4, 2), np.float32), np.zeros(4, np.float32), 8),
     lambda: empty_forest(4, 2),
