@@ -100,7 +100,21 @@ schedule, clipping, decay) at accum 2 for 6 steps, twice (bitwise equal),
 then the delayed-gradient wrapper (tau = 2, Proposition 1's step scale)
 with Bernoulli sampling (R = 0.8) for 6 steps, every forward and backward
 launch on the wgmma route; one more step is profiled, and one microbatch's loss and
-gradients are held against the chunked attention path's.
+gradients are held against the chunked attention path's. Run A is then
+trained once more under ``remat_policy="dots"`` (selective checkpointing
+that keeps the layers' batch-free matmul outputs): its losses and every
+parameter must be bitwise run A's, with the same 80 forward and 40
+backward flash launches a microbatch; its step time and peak memory are
+printed beside "full"'s and one more step is profiled. Then packed
+documents (``data.pipeline``: seeded Markov documents of 64-3072 tokens
+packed into rows of 2049 by ``pack_documents``, batched by
+``TokenPipeline``, the last row with a pad tail) train granite-3-2b for 4
+steps twice under ``attn_impl="flash"``: bitwise across the two runs, the
+loss falling, a microbatch with a pad tail giving finite loss and
+gradients, and no flash launch at all (packed rows take the chunked
+attention, by the reference's rule); one row of two packed documents
+gives each document's logits within twice the bf16 error of the document
+in a row of its own, both against the f32 forward of the separate rows.
 
 Then the hybrid family: the flash forward and backward against their
 plain versions at zamba2's shared-block shape (B 4, S 2048, 32 q heads on
@@ -156,7 +170,7 @@ from repro_torch.configs import gbdt as gbdt_configs  # noqa: E402
 from repro_torch.convert import forest_from_numpy  # noqa: E402
 from repro_torch.core.sgbdt import init_state, train_loss, train_metrics  # noqa: E402
 from repro_torch.data.sampling import bernoulli_weights  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data import TokenPipeline, pack_documents, synthetic  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     flash_attention,
@@ -188,7 +202,7 @@ from repro_torch.optim import (  # noqa: E402
     delayed_gradient,
     staleness_step_scale,
 )
-from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.ps import engine as ps_engine  # noqa: E402
 from repro_torch.ps.engine import Trainer  # noqa: E402
 from repro_torch.ps.runtime import AsyncRuntime, FaultPlan, RunTrace, replay_trace  # noqa: E402
@@ -414,6 +428,13 @@ TRAIN_KERNELS = {
     "flash_attention_bwd_dkv": ("dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:329"),
 }
+# Packed documents (``drive_lm_packed``): rows of LM_PROMPTS[0] + 1 tokens
+# packed from seeded documents of PACKED_DOC_LEN tokens (as fractions of
+# the row: 64-3072 at 2048), trained PACKED_STEPS steps at TRAIN_ACCUM;
+# the last row keeps a pad tail of PACKED_PAD of the row.
+PACKED_STEPS = 4
+PACKED_DOC_LEN = (1 / 32, 3 / 2)
+PACKED_PAD = 0.15
 # The hybrid family: zamba2-1.2b at full width (38 Mamba2 layers in 6
 # groups of 6 + 2 tail layers, one shared attention block of 32 q heads on
 # 32 kv heads), served on LM_PROMPTS' waves and trained on the dense
@@ -4069,6 +4090,28 @@ def check_train_grads(cfg, batch: dict, dev, picks: list | None = None) -> dict:
     return res
 
 
+def check_dots_run(res: dict, full: dict, params: dict, full_params: list, counts: dict,
+                   accum: int, n_layers: int) -> None:
+    """The gates of a run under remat_policy="dots" against the same run
+    under "full": losses and every parameter bitwise, 2 x ``n_layers``
+    forward and ``n_layers`` backward flash launches a microbatch (forward
+    and recompute), every one on the wgmma routes."""
+    if res["loss"] != full["loss"]:
+        raise AssertionError(f'remat_policy="dots": losses {res["loss"]} differ from '
+                             f'"full"\'s {full["loss"]}')
+    same_params('remat_policy="dots" against "full"', params, full_params)
+    steps = len(res["loss"])
+    want = ([accum * 2 * n_layers] * steps, [accum * n_layers] * steps)
+    if (res["fwd_launches"], res["bwd_launches"]) != want:
+        raise AssertionError(f'remat_policy="dots": flash launches a step '
+                             f"{res['fwd_launches']} forward, {res['bwd_launches']} backward; "
+                             f"expected {want[0][0]} and {want[1][0]}")
+    if counts["fwd_routes"].get("wgmma") != counts["flash_attention_fwd"] or \
+            counts["bwd_routes"].get("wgmma") != counts["flash_attention_bwd"]:
+        raise AssertionError(f'remat_policy="dots": flash launches by route {counts}: all '
+                             "must be the wgmma kernels'")
+
+
 def drive_lm_train(dev: torch.device, report: dict) -> list:
     """The LM zoo's training path; returns the backward kernels' entries."""
     kstats = check_flash_bwd(dev, report)
@@ -4131,6 +4174,24 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
                              "kernels'")
     del params, state
     torch.cuda.empty_cache()
+    per_mb = {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}  # forward + remat recompute
+    # Run A once more under remat_policy="dots", with its own counts: the
+    # same kernels in the same order, the layers' mm outputs kept.
+    reset_counts()
+    res_dots, params, state, step, gen = train_lm(
+        dataclasses.replace(cfg, remat_policy="dots"), recipe, batches, TRAIN_ACCUM, 0.0, dev)
+    torch.cuda.synchronize()
+    dots_counts = {"flash_attention_fwd": flash_attention.launches,
+                   "flash_attention_bwd": flash_attention.bwd_launches,
+                   "fwd_routes": dict(flash_attention.route_launches),
+                   "bwd_routes": dict(flash_attention.bwd_route_launches)}
+    check_dots_run(res_dots, runs[0], params, copies[0], dots_counts, TRAIN_ACCUM,
+                   cfg.n_layers)
+    dots_profile = profile_train_step(step, params, state, batches[-1], gen)
+    dots_profile["device_busy_share"] = busy(dots_profile, dots_profile["device_ms"],
+                                             float(np.median(res_dots["step_ms"][1:])))
+    del params, state, step, gen
+    torch.cuda.empty_cache()
     # Flash against chunked at full width (after the counts are read): one
     # microbatch of run A, from the initial weights.
     grads = check_train_grads(
@@ -4140,7 +4201,7 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
     tokens = b * s
     summary = {}
     a1, a2 = runs
-    for tag, res in (("A", a1), ("A again", a2), ("B", res_b)):
+    for tag, res in (("A", a1), ("A again", a2), ("B", res_b), ("A dots", res_dots)):
         med = float(np.median(res["step_ms"][1:]))
         summary[tag] = {"median_step_ms": med, "tokens_per_s": tokens / med * 1e3,
                         "peak_mem_gb": res["peak_mem_gb"]}
@@ -4161,7 +4222,6 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
             raise AssertionError(f"{tag}: the loss did not fall: {loss}")
     if not res_b.get("warm_up_bitwise"):
         raise AssertionError("run B's warm-up check did not run")
-    per_mb = {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}  # forward + remat recompute
     for tag, res, accum in (("run A", a1, TRAIN_ACCUM), ("run A again", a2, TRAIN_ACCUM),
                             ("run B", res_b, 1)):
         if res["fwd_launches"] != [accum * per_mb["fwd"]] * TRAIN_STEPS or \
@@ -4184,18 +4244,29 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
           f"within twice the chunked path's own error, closest {worst[0]}: relative L2 "
           f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}",
           flush=True)
-    print(f"profile ({LM_ARCH} train step, run A): device {profile['device_ms']:.1f} ms "
-          f"({profile['device_ms_by']}), busy "
-          f"{pct(profile['device_busy_share'])} of an unprofiled step's wall time;"
-          " " + ", ".join(f"{k} {v:.1f}" for k, v in profile["by_group_ms"].items())
-          + f" [{card}]", flush=True)
+    for tag, prof in (("run A", profile), ('run A, remat_policy="dots"', dots_profile)):
+        print(f"profile ({LM_ARCH} train step, {tag}): device {prof['device_ms']:.1f} ms "
+              f"({prof['device_ms_by']}), busy "
+              f"{pct(prof['device_busy_share'])} of an unprofiled step's wall time;"
+              " " + ", ".join(f"{k} {v:.1f}" for k, v in prof["by_group_ms"].items())
+              + f" [{card}]", flush=True)
+    full, dots = summary["A again"], summary["A dots"]
+    print(f'train {LM_ARCH} remat_policy="dots" against "full" (run A, accum {TRAIN_ACCUM}): '
+          "losses and every parameter bitwise; flash launches a microbatch "
+          f"{per_mb['fwd']} forward, {per_mb['bwd']} backward, all wgmma; median step "
+          f"{dots['median_step_ms']:.1f} / {full['median_step_ms']:.1f} ms, "
+          f"{dots['tokens_per_s']:.0f} / {full['tokens_per_s']:.0f} tokens/s, peak device "
+          f"memory {dots['peak_mem_gb']:.2f} / {full['peak_mem_gb']:.2f} GB, profiled device "
+          f"{dots_profile['device_ms']:.1f} / {profile['device_ms']:.1f} ms [{card}]",
+          flush=True)
     report["lm_train"] = {
         "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                    "dtype": cfg.dtype, "attn_impl": cfg.attn_impl, "remat": cfg.remat,
                    "batch": b, "seq": s, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
                    "accum_run_a": TRAIN_ACCUM, "delay_run_b": TRAIN_DELAY,
                    "lr_run_b": lr_b, "sample_run_b": TRAIN_SAMPLE},
-        "run_a": a1, "run_a_again": a2, "run_b": res_b, "summary": summary,
+        "run_a": a1, "run_a_again": a2, "run_b": res_b, "run_a_dots": res_dots,
+        "summary": summary, "dots_launches": dots_counts, "dots_profile": dots_profile,
         "launches": counts, "launches_by_route": routes, "bwd_launches_by_route": bwd_routes,
         "profile": profile,
         "flash_vs_chunked": grads,
@@ -4207,6 +4278,191 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": counts["flash_attention_bwd"], **kstats[name]})
     return line
+
+
+def markov_documents(vocab: int, lengths, rng: np.random.Generator) -> list:
+    """Documents of the given lengths from one seeded bigram chain (four
+    likely successors a token, 10% noise, tokens 1..vocab-1: 0 is the pad),
+    so the loss has something to learn, as ``synthetic_batches``' has."""
+    nxt = rng.integers(1, vocab, size=(vocab, 4))
+    docs = []
+    for n in lengths:
+        doc = np.empty(n, np.int64)
+        doc[0] = rng.integers(1, vocab)
+        choice, noise = rng.integers(0, 4, n), rng.integers(1, vocab, n)
+        mix = rng.random(n) < 0.1
+        for t in range(1, n):
+            doc[t] = noise[t] if mix[t] else nxt[doc[t - 1], choice[t]]
+        docs.append(doc)
+    return docs
+
+
+def packed_batches(vocab: int, batch: int, seq: int, steps: int, dev) -> tuple:
+    """``steps`` batches of ``batch`` packed rows of ``seq`` tokens from
+    ``TokenPipeline`` (seed SEED), over exactly ``batch * steps`` rows
+    packed by ``pack_documents`` from seeded documents with lengths uniform
+    on PACKED_DOC_LEN x seq: the last document is cut so that the last row
+    keeps a pad tail of PACKED_PAD x seq. Returns (batches on ``dev``,
+    {"documents", "lengths", "rows", "pad_tokens", "split_documents"})."""
+    rng = np.random.default_rng(SEED)
+    lo, hi = (int(f * seq) for f in PACKED_DOC_LEN)
+    room = batch * steps * (seq + 1) - int(PACKED_PAD * seq)
+    lengths = []
+    while sum(lengths) < room:
+        lengths.append(int(rng.integers(lo, hi + 1)))
+    lengths[-1] -= sum(lengths) - room
+    tokens, segments = pack_documents(markov_documents(vocab, lengths, rng), seq + 1)
+    if tokens.shape[0] != batch * steps:
+        raise AssertionError(f"packed {tokens.shape[0]} rows, expected {batch * steps}")
+    pipe = TokenPipeline(tokens, batch_size=batch, seed=SEED, segments=segments)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_at(i).items()}
+               for i in range(steps)]
+    # a document that runs on into the next row starts that row as segment 1
+    split = int(sum(1 for r in range(1, len(segments))
+                    if segments[r - 1, -1] > 0 and segments[r, 0] == 1))
+    return batches, {"documents": len(lengths), "lengths": [min(lengths), max(lengths)],
+                     "rows": int(tokens.shape[0]), "split_documents": split,
+                     "pad_tokens": int((segments[:, :-1] == 0).sum())}
+
+
+def check_packed_runs(runs: list, counts: dict) -> None:
+    """The gates of the packed runs: losses bitwise across the two (their
+    parameters are compared as they are made), every loss finite, the loss
+    falling, and no flash launch in any packed step."""
+    first, second = runs
+    if first["loss"] != second["loss"]:
+        raise AssertionError(f"packed runs: losses differ across two runs: {first['loss']}, "
+                             f"{second['loss']}")
+    loss = first["loss"]
+    if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        raise AssertionError(f"packed runs: the loss did not fall or is not finite: {loss}")
+    launched = [(r["fwd_launches"], r["bwd_launches"]) for r in runs]
+    if any(n for fwd, bwd in launched for n in fwd + bwd) or any(counts.values()):
+        raise AssertionError(f"packed runs launched flash ({counts}; forward, backward a "
+                             f"step: {launched}): packed rows take the chunked attention")
+
+
+def check_packed_grads(cfg, params: dict, batch: dict) -> dict:
+    """Loss and every gradient of one packed microbatch that holds a pad
+    tail must be finite (a pad query's softmax row is all -inf)."""
+    if not bool((batch["segments"] == 0).any()):
+        raise AssertionError("the packed microbatch checked holds no pad tail")
+    tree = tree_map(lambda p: p.detach().requires_grad_(), params)
+    leaves = tree_leaves(tree)
+    loss, _ = forward_train(tree, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    bad = [i for i, g in enumerate(grads) if not bool(torch.isfinite(g).all())]
+    if not bool(torch.isfinite(loss)) or bad:
+        raise AssertionError(f"packed microbatch with a pad tail: loss {float(loss)}, "
+                             f"non-finite gradients in leaves {bad}")
+    return {"loss": float(loss.detach()), "leaves": len(grads),
+            "pad_tokens": int((batch["segments"] == 0).sum())}
+
+
+def check_packed_isolation(cfg, params: dict, docs: tuple, dev) -> dict:
+    """Two documents packed in one row (segments 1 and 2) against each in a
+    row of its own: each document's logits (bf16, chunked attention, the
+    route of packed rows) packed and alone, both against the f32 forward of
+    it alone (the same weights upcast). The packed error must be within
+    twice the lone row's own bf16 error, by relative L2 over the vocab."""
+    chunked = dataclasses.replace(cfg, attn_impl="chunked", remat=False)
+    f32 = dataclasses.replace(chunked, dtype="float32")
+    d1, d2 = (torch.as_tensor(d, device=dev) for d in docs)
+    row = torch.cat([d1, d2])[None]
+    segments = torch.cat([torch.ones_like(d1), torch.full_like(d2, 2)])[None].int()
+
+    @torch.no_grad()
+    def logits(c, p, tokens, segs=None):
+        x = p["embed"][tokens.long()]
+        h, _ = TT.backbone_train(p, c, x, segs)
+        return TT._logits(p, c, h)[0, :, :c.vocab_size].float()
+
+    packed = logits(chunked, params, row, segments)
+    alone = [logits(chunked, params, d[None]) for d in (d1, d2)]
+    ref = to_f32(params)
+    want = [logits(f32, ref, d[None]) for d in (d1, d2)]
+    del ref
+    out = {}
+    for k, (part, own, w) in enumerate(zip((packed[:d1.numel()], packed[d1.numel():]),
+                                           alone, want), 1):
+        err_packed, err_alone = rel_l2(part, w), rel_l2(own, w)
+        out[f"document {k}"] = {"tokens": int(w.shape[0]), "packed_vs_f32": err_packed,
+                                "alone_vs_f32": err_alone, "tolerance": 2 * err_alone}
+        if not err_packed <= 2 * err_alone:
+            raise AssertionError(f"packed isolation, document {k}: relative L2 {err_packed} "
+                                 f"against the f32 lone row, over twice the lone bf16 row's "
+                                 f"{err_alone}")
+    return out
+
+
+def drive_lm_packed(dev: torch.device, report: dict, cfg=None, seq: int = LM_PROMPTS[0],
+                    batch: int = LM_SLOTS) -> dict:
+    """Packed documents through ``data.pipeline`` and ``make_train_step``:
+    granite-3-2b at full width (``attn_impl="flash"``), ``batch`` rows of
+    ``seq`` tokens a step, the reference recipe at TRAIN_ACCUM, PACKED_STEPS
+    steps, twice, with their own launch counts (none may be flash's); then
+    a microbatch with a pad tail (``check_packed_grads``) and one row of
+    two documents (``check_packed_isolation``)."""
+    cfg = cfg or dataclasses.replace(lm_configs.get(LM_ARCH), attn_impl="flash")
+    batches, info = packed_batches(cfg.vocab_size, batch, seq, PACKED_STEPS, dev)
+    recipe = adamw(cosine_schedule(TRAIN_LR, max(PACKED_STEPS // 20, 1), PACKED_STEPS),
+                   weight_decay=0.01, max_grad_norm=1.0)
+    # The packed path: two runs; only these launches are counted.
+    reset_counts()
+    runs, first = [], None
+    for _ in range(2):
+        res, params, state, _, _ = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev)
+        runs.append(res)
+        if first is None:
+            first = param_copy(params)
+        else:
+            same_params("packed runs: the second run's parameters", params, first)
+        del params, state
+    torch.cuda.synchronize()
+    counts = {"flash_attention_fwd": flash_attention.launches,
+              "flash_attention_bwd": flash_attention.bwd_launches}
+    del first
+    torch.cuda.empty_cache()
+    check_packed_runs(runs, counts)
+    # The checks (after the counts are read), from the seeded initial weights.
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    mb = batch // TRAIN_ACCUM
+    pad_mb = next({k: v[i:i + mb] for k, v in b.items()} for b in batches
+                  for i in range(0, batch, mb) if bool((b["segments"][i:i + mb] == 0).any()))
+    grads = check_packed_grads(cfg, params, pad_mb)
+    n1 = int(seq * 11 / 32)
+    docs = markov_documents(cfg.vocab_size, (n1, seq - n1), np.random.default_rng(SEED + 1))
+    isolation = check_packed_isolation(cfg, params, tuple(docs), dev)
+    del params
+    torch.cuda.empty_cache()
+    card = report.get("nvidia_smi", "card not queried")
+    tokens = batch * seq
+    med = float(np.median(runs[0]["step_ms"][1:]))
+    summary = {"median_step_ms": med, "tokens_per_s": tokens / med * 1e3,
+               "peak_mem_gb": runs[0]["peak_mem_gb"]}
+    print(f"train {LM_ARCH} on packed documents ({info['documents']} documents of "
+          f"{info['lengths'][0]}-{info['lengths'][1]} tokens in {info['rows']} rows of "
+          f"{seq + 1}, {info['split_documents']} split across rows, {info['pad_tokens']} pad "
+          f"tokens; {PACKED_STEPS} steps of {batch} x {seq} at accum {TRAIN_ACCUM}, "
+          f"attn_impl flash): losses " + " ".join(f"{x:.4f}" for x in runs[0]["loss"])
+          + ", bitwise equal across two runs; step ms "
+          + " ".join(f"{x:.1f}" for x in runs[0]["step_ms"])
+          + f"; median {med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s; peak device memory "
+          f"{runs[0]['peak_mem_gb']:.2f} GB; flash launches {counts} (the chunked attention "
+          f"by the reference's rule) [{card}]", flush=True)
+    print(f"train {LM_ARCH} packed: a microbatch with {grads['pad_tokens']} pad tokens gives "
+          f"a finite loss {grads['loss']:.4f} and {grads['leaves']} finite gradients; "
+          "isolation (relative L2 against the f32 lone row, packed / lone bf16): " + ", ".join(
+              f"{k} ({v['tokens']} tokens) {v['packed_vs_f32']:.4g} / {v['alone_vs_f32']:.4g}"
+              for k, v in isolation.items()), flush=True)
+    report["lm_packed"] = {
+        "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "dtype": cfg.dtype, "attn_impl": cfg.attn_impl, "batch": batch,
+                   "seq": seq, "steps": PACKED_STEPS, "accum": TRAIN_ACCUM, "lr": TRAIN_LR},
+        "data": info, "runs": runs, "summary": summary, "launches": counts,
+        "pad_microbatch": grads, "isolation": isolation,
+    }
+    return report["lm_packed"]
 
 
 def hybrid_decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray,
@@ -4625,6 +4881,7 @@ def main() -> None:
     del gbdt, multi, phase, threads
     line.append(drive_lm(torch.device("cuda"), report))
     line += drive_lm_train(torch.device("cuda"), report)
+    drive_lm_packed(torch.device("cuda"), report)
     line += drive_hybrid(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")
     report["profiler_traces_taken_again"] = _PROFILER.get("traces_taken_again", 0)

@@ -72,3 +72,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     cache["conv"] = torch.zeros((cfg.n_layers, batch, 3, conv_ch), dtype=dt, device=dev)
     cache["shared"] = _ring(cfg.n_layers // cfg.shared_attn_every, batch, cap, cfg, dev)
     return cache
+
+
+def cache_structure(cfg: ModelConfig, batch: int, seq_len: int) -> Cache:
+    """The cache's blueprint: ``init_cache`` on the ``meta`` device, leaves
+    with shapes and dtypes and no storage (the reference's
+    ``ShapeDtypeStruct`` leaves)."""
+    return init_cache(cfg, batch, seq_len, device="meta")

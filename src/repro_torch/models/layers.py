@@ -4,10 +4,12 @@ dense layers and the hybrid family's shared block are made of.
 
 Attention is q-chunked on the plain path (a loop over query chunks), so
 peak score memory is bounded by (B, H, chunk, S_kv). With
-``attn_impl="flash"`` full-causal prefill goes through the flash kernel
-instead. The KV cache is a ring buffer over ``capacity`` slots with
-per-slot absolute positions, which unifies full attention (capacity =
-max_len) and a sliding window (capacity = window) under one code path.
+``attn_impl="flash"`` full-causal training and prefill go through the
+flash kernel instead, unless the rows hold packed documents
+(``segments``), which only the chunked path masks. The KV cache is a ring
+buffer over ``capacity`` slots with per-slot absolute positions, which
+unifies full attention (capacity = max_len) and a sliding window
+(capacity = window) under one code path.
 Dtype casts stand where the reference has them.
 """
 from __future__ import annotations
@@ -56,7 +58,12 @@ def _attend(
     k_pos: torch.Tensor,  # (Sk,) absolute positions of keys (-1 = empty slot)
     window: int,  # attend iff 0 <= qpos - kpos < window (causal SWA)
     causal: bool,
+    q_seg: torch.Tensor | None = None,  # (B, Sq) packing segment ids (0 = pad)
+    k_seg: torch.Tensor | None = None,  # (B, Sk)
 ) -> torch.Tensor:
+    """A query attends only to the keys of its own packed document
+    (``q_seg == k_seg``), and a pad query (segment 0) to none: its row of
+    scores is all -inf, and its output and gradient come out 0."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, h // kv, hd)
@@ -67,6 +74,9 @@ def _attend(
     valid = k_pos[None, None, None, None, :] >= 0
     if causal:
         valid = valid & (dist >= 0) & (dist < window)
+    if q_seg is not None and k_seg is not None:
+        qs = q_seg[:, None, None, :, None]
+        valid = valid & (qs == k_seg[:, None, None, None, :]) & (qs > 0)
     scores = scores.masked_fill(~valid, float("-inf"))
     p = torch.softmax(scores, dim=-1)
     p = torch.where(torch.isfinite(scores).any(-1, keepdim=True), p, torch.zeros_like(p))
@@ -83,15 +93,18 @@ def chunked_attention(
     window: int,
     causal: bool,
     chunk: int,
+    segments: torch.Tensor | None = None,  # (B, S) packing segment ids
 ) -> torch.Tensor:
     """A loop over query chunks: bounded score memory for long sequences.
     The last chunk is simply shorter (rows are independent), where the
-    reference pads it."""
+    reference pads it. With ``segments`` each query chunk takes its slice
+    of them and the keys take them whole."""
     b, sq = q.shape[:2]
     chunk = min(chunk, sq)
     outs = [
         _attend(q[:, i:i + chunk], k, v, q_pos[i:i + chunk].expand(b, -1), k_pos, window,
-                causal)
+                causal, q_seg=None if segments is None else segments[:, i:i + chunk],
+                k_seg=segments)
         for i in range(0, sq, chunk)
     ]
     return torch.cat(outs, dim=1)
@@ -107,19 +120,23 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def self_attention_train(
     p: Params, x: torch.Tensor, cfg: ModelConfig, window: int, return_kv: bool = False,
+    segments: torch.Tensor | None = None,
 ):
-    """Full-sequence path (scoring, prefill): causal, or sliding window.
+    """Full-sequence path (training, scoring, prefill): causal, or sliding
+    window. ``segments`` (B, S) keeps packed documents apart (0 = padding).
     ``attn_impl="flash"`` takes the flash kernel when the window covers the
-    whole sequence; otherwise the chunked path runs."""
+    whole sequence and nothing is packed, by the reference's rule; otherwise
+    the chunked path runs."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    if cfg.attn_impl == "flash" and window >= s:
+    if cfg.attn_impl == "flash" and window >= s and segments is None:
         out = ops.flash_attention(q, k, v, causal=True)
     else:
-        out = chunked_attention(q, k, v, pos, pos, window, True, cfg.attn_chunk)
+        out = chunked_attention(q, k, v, pos, pos, window, True, cfg.attn_chunk,
+                                segments=segments)
     out = out.reshape(b, s, cfg.q_dim) @ p["wo"]
     if return_kv:
         return out, (k, v)

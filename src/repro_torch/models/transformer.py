@@ -8,8 +8,11 @@ on a leading (L, ...) axis and weights laid out for ``x @ w``, as in the
 reference, so ``convert.lm_params_from_numpy`` is a copy name for name.
 The layer stack is a Python loop over the stacked tensors (the
 reference's ``lax.scan``). In training, with ``cfg.remat``, each dense
-layer runs under ``torch.utils.checkpoint`` (the reference's "full" remat
-policy). Prefill and decode run under ``torch.inference_mode()``.
+layer runs under ``torch.utils.checkpoint``: by the reference's "full"
+policy it keeps only its input, and under ``remat_policy="dots"`` also the
+outputs of its batch-free matmuls (``_DOTS_SAVED``). Packed rows
+(``segments``) train on the dense family. Prefill and decode run under
+``torch.inference_mode()``.
 
 The hybrid family (zamba2) scans groups of ``shared_attn_every`` Mamba2
 layers, each group followed by the one shared attention + MLP block (the
@@ -25,7 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -224,8 +227,10 @@ class LanguageModel(torch.nn.Module):
 
 
 # ------------------------------------------------------------ train forward
-def _dense_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int) -> torch.Tensor:
-    x = x + L.self_attention_train(p["attn"], L.rms_norm(x, p["ln1"]), cfg, window)
+def _dense_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
+                 segments: torch.Tensor | None = None) -> torch.Tensor:
+    x = x + L.self_attention_train(p["attn"], L.rms_norm(x, p["ln1"]), cfg, window,
+                                   segments=segments)
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
 
 
@@ -251,16 +256,37 @@ def unstack(stacked: dict) -> list[dict]:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
-def _maybe_checkpoint(cfg: ModelConfig, fn, *args):
-    if cfg.remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+# The "dots" policy (the reference's ``dots_with_no_batch_dims_saveable``):
+# the outputs of matmuls without a batch dimension are kept. ``x @ W`` of a
+# (B, S, D) x reaches the dispatcher as an ``mm`` of the flattened rows (q,
+# k, v, o, gate, up, down); the attention's einsums are ``bmm``s, which keep
+# a batch dimension, and are recomputed with everything else, the flash
+# kernels (launched out of the dispatcher's sight) included.
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
-def backbone_train(params: Params, cfg: ModelConfig,
-                   x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_DOTS_SAVED)
+
+
+def _maybe_checkpoint(cfg: ModelConfig, fn, *args, policy: str = "full"):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat``:
+    ``policy="dots"`` saves ``_DOTS_SAVED``'s outputs, any other value
+    recomputes the whole of ``fn`` ("full"), as in the reference."""
+    if not cfg.remat:
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_contexts)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   segments: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Hidden states (B, S, D) of the teacher-forced sequence, and the MoE
-    aux loss (0 for these families), from embedded tokens x (B, S, D)."""
+    aux loss (0 for these families), from embedded tokens x (B, S, D).
+    ``segments`` (B, S), packed-document ids (0 = padding), mask the dense
+    family's attention; the dense layers read ``cfg.remat_policy``
+    ("dots", or anything else for "full"), the hybrid ones do not."""
     require_ported(cfg)
     window = cfg.window_for(x.shape[1])
     if cfg.family == "hybrid":  # the reference's hybrid branch takes no policy
@@ -270,35 +296,32 @@ def backbone_train(params: Params, cfg: ModelConfig,
         for p in unstack(params["tail"]) if "tail" in params else ():
             x = _maybe_checkpoint(cfg, _mamba_block, p, x, cfg)
     else:
-        if cfg.remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r}: only the 'full' policy is ported "
-                "(ROADMAP.md, queue: remat_policy='dots')")
         for p in unstack(params["layers"]):
-            x = _maybe_checkpoint(cfg, _dense_block, p, x, cfg, window)
+            x = _maybe_checkpoint(cfg, _dense_block, p, x, cfg, window, segments,
+                                  policy=cfg.remat_policy)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward_train(params: Params, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, dict]:
     """Teacher-forced LM loss. batch: tokens (B, S), labels (B, S),
+    [segments (B, S) — packed-document ids, 0 = padding, dense only],
     [weights (B,) — Bernoulli importance weights m'_i / R, the paper's
     sampled objective lifted to sequence level]. Returns (loss, {"ce",
     "aux"}). Logits are taken in ``cfg.dtype``, -1e9 past the vocab, then
-    cast to f32; the loss is logsumexp - gold, averaged per sequence.
-    Packed ``segments`` raise: ``ValueError`` for the recurrent hybrid
-    family, as in the reference, and ``NotImplementedError`` for the dense
-    one, whose masking is not ported yet."""
+    cast to f32; the loss is logsumexp - gold, averaged per sequence, pad
+    positions included, as in the reference. Packed rows run the chunked
+    attention even under ``attn_impl="flash"``
+    (``layers.self_attention_train``); the recurrent hybrid family raises
+    ``ValueError`` for them, as the reference does."""
     require_ported(cfg)
-    if batch.get("segments") is not None:
-        if cfg.family != "dense":
-            raise ValueError(
-                "packed segments need attention masking; recurrent families "
-                "would need per-segment state resets (not implemented)")
-        raise NotImplementedError("packed segments are not ported yet (ROADMAP.md, queue: "
-                                  "segments and data/pipeline.py)")
+    segments = batch.get("segments")
+    if segments is not None and cfg.family != "dense":
+        raise ValueError(
+            "packed segments need attention masking; recurrent families "
+            "would need per-segment state resets (not implemented)")
     x = params["embed"][batch["tokens"].long()]
-    x, aux = backbone_train(params, cfg, x)
+    x, aux = backbone_train(params, cfg, x, segments)
     logits = _logits(params, cfg, x).float()  # (B, S, Vpad)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]

@@ -1,22 +1,131 @@
-"""Sharding rules of the GBDT dataset (twin of ``repro.sharding.rules``,
-``gbdt_data_specs``).
+"""Sharding rules (twin of ``repro.sharding.rules``): the logical-axis rule
+table of the LM zoo and the cut of a rank's shard of the GBDT dataset.
 
-The reference names a ``PartitionSpec`` per leaf and lets ``shard_map``
-cut the blocks. Here every rank holds the whole dataset (the server state
-and the fold stay replicated, as the reference's global arrays are) and
-cuts its own block out: ``block`` takes this rank's contiguous 1/size of
-one dim, as a ``PartitionSpec`` entry does. Shard s of an axis owns
-elements ``[s * n / size, (s + 1) * n / size)``. ``shard_bins`` is the
-bins' rule, which ``gbdt_data_specs`` and the sharded builders
-(``ps.sharded``) share.
+LM part. Every parameter is declared with logical axis names
+(``models.transformer.param_schema``); ``spec_for`` maps them to mesh axes
+by ``DEFAULT_RULES``: megatron-style tensor parallelism on 'model' (ff,
+heads, vocab) with FSDP-style parameter sharding on 'data' (+ 'pod') along
+the embed dimension. Assignment is greedy per tensor: for each dim, left
+to right, every candidate mesh axis that is in the mesh with more than one
+shard, is not used by an earlier dim of the same tensor, and divides what
+is left of the dim, is taken. A ``PartitionSpec`` here is a tuple of
+entries (an axis name, a tuple of names, or None), normalised as the
+reference's is. These functions read only ``mesh.shape``, so a
+``launch.mesh.make_dry_mesh`` stands in for a mesh of any size; placing
+tensors by the specs (the reference's ``named`` and ``tree_shardings``)
+comes with the sharded LM step.
+
+GBDT part. The reference names a ``PartitionSpec`` per leaf and lets
+``shard_map`` cut the blocks. Here every rank holds the whole dataset (the
+server state and the fold stay replicated, as the reference's global
+arrays are) and cuts its own block out: ``block`` takes this rank's
+contiguous 1/size of one dim, as a ``PartitionSpec`` entry does. Shard s
+of an axis owns elements ``[s * n / size, (s + 1) * n / size)``.
+``shard_bins`` is the bins' rule, which ``gbdt_data_specs`` and the
+sharded builders (``ps.sharded``) share.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Mapping, Sequence
 
 import torch
 
 from repro_torch.trees.binning import BinnedData, SparseBins
+
+# Logical axis -> mesh-axis candidates, in order (the reference's table).
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    # --- parameters ---
+    "vocab": ("model",),
+    "ff": ("model",),
+    "q_flat": ("model",),
+    "kv_flat": ("model",),
+    "experts": ("model",),
+    "gates": ("model",),  # slstm 4d gate stack
+    "inner": ("model",),  # mamba d_inner
+    "inner_proj": ("model",),  # mamba fused in_proj output
+    "conv_ch": ("model",),
+    "head_dim": ("model",),  # only reached when heads were unshardable
+    "embed": ("data", "pod"),  # FSDP / ZeRO-3 axis for weights
+    "layers": (),  # the layer-stack axis, never sharded
+    # --- activations / caches ---
+    "batch": ("pod", "data"),
+    "seq": ("model",),  # long-context fallback: shard positions
+    "kv_heads": ("model",),
+    "heads": ("model",),
+    "capacity": ("model", "data"),  # decode cache ring slots
+    "media": (),
+    # --- GBDT parameter-server engine ---
+    "samples": ("data",),  # binned rows / labels / targets / weights
+    "features": ("feature", "model"),  # feature columns of the binned matrix
+}
+
+
+class PartitionSpec(tuple):
+    """A tuple of per-dim entries: a mesh-axis name, a tuple of names, or
+    None (not sharded). Entries are normalised as the reference's are (an
+    empty tuple is None, a tuple of one name is the name) and trailing
+    Nones are stripped, so specs that shard alike compare equal."""
+
+    def __new__(cls, *parts):
+        norm = [None if p == () else p[0] if isinstance(p, tuple) and len(p) == 1 else p
+                for p in parts]
+        while norm and norm[-1] is None:
+            norm.pop()
+        return super().__new__(cls, norm)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def serving_rules() -> dict[str, tuple[str, ...]]:
+    """Serving-time placement: pure tensor parallelism, parameters
+    replicated over 'data'/'pod' (decode amortizes no per-step parameter
+    all-gather), and the FFN's contraction dim sharded over model x data so
+    large parameters still fit without the FSDP axis."""
+    rules = dict(DEFAULT_RULES)
+    rules["embed"] = ()
+    rules["ff"] = ("model", "data")
+    return rules
+
+
+def spec_for(
+    shape: Sequence[int],
+    axes: Sequence[str | None],
+    mesh,
+    rules: Mapping[str, tuple[str, ...]] | None = None,
+    min_ndim: int = 2,
+) -> PartitionSpec:
+    """The spec of one tensor under the rule table (see the module's
+    docstring); tensors of fewer than ``min_ndim`` dims are replicated."""
+    rules = DEFAULT_RULES if rules is None else rules
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} vs axes {axes}")
+    if len(shape) < min_ndim:
+        return P()
+    sizes = dict(mesh.shape)
+    used: set[str] = set()
+    parts: list = []
+    for dim, name in zip(shape, axes):
+        got: list[str] = []
+        rem = int(dim)
+        for cand in rules.get(name, ()) if name else ():
+            size = sizes.get(cand, 0)
+            if size <= 1 or cand in used or rem % size != 0:
+                continue
+            got.append(cand)
+            used.add(cand)
+            rem //= size
+        parts.append(tuple(got))
+    return P(*parts)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes that carry the global batch ('pod' first when present)."""
+    names = dict(mesh.shape)
+    return tuple(a for a in ("pod", "data") if names.get(a, 1) > 1)
 
 
 def block(x: torch.Tensor, dim: int, axis) -> torch.Tensor:

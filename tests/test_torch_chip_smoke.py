@@ -870,3 +870,118 @@ def test_device_trace_takes_a_partial_trace_again(monkeypatch):
     monkeypatch.setattr(chip_smoke, "device_rows", lambda prof: [("flash_fwd", 1.2, 12)])
     assert chip_smoke.device_trace(lambda: None, 20) == []
     assert chip_smoke._PROFILER["traces_taken_again"] == 4
+
+
+# ------------------------------------------------- dots and packed training
+@pytest.fixture
+def lm_train_cpu(monkeypatch):
+    """The LM training phase's helpers on the CPU at reduced granite-3-2b
+    (2 layers, bf16, flash): the card's memory and sync calls stubbed, and
+    the plain flash forward and backward counted as wgmma launches (the CPU
+    launches no kernel)."""
+    import dataclasses
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.kernels import flash_attention, ops
+
+    for name, value in (("synchronize", None), ("empty_cache", None),
+                        ("reset_peak_memory_stats", None), ("max_memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value, **k: _v)
+    chip_smoke.reset_counts()
+    fwd, bwd = ops.flash_attention, flash_attention.flash_attention_bwd
+
+    def fwd_counted(*args, **kw):
+        flash_attention.launches += 1
+        flash_attention.route_launches["wgmma"] += 1
+        return fwd(*args, **kw)
+
+    def bwd_counted(*args, **kw):
+        flash_attention.bwd_launches += 1
+        flash_attention.bwd_route_launches["wgmma"] += 1
+        return bwd(*args, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", fwd_counted)
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd", bwd_counted)
+    cfg = dataclasses.replace(lm_configs.get("granite-3-2b").reduced(), dtype="bfloat16",
+                              attn_impl="flash")
+    yield cfg
+    chip_smoke.reset_counts()
+
+
+def test_dots_run_is_bitwise_full_and_its_gate_fails_a_changed_parameter(lm_train_cpu):
+    """Run A's recipe at accum 2 under "full" and "dots": the gate passes
+    (same losses, parameters, 2 x L forward and L backward flash launches a
+    microbatch), then fails a parameter off by one ulp and a missing
+    recompute launch."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention
+
+    cfg = lm_train_cpu
+    batches = list(chip_smoke.synthetic_batches(cfg, 4, 32, 2, seed=0, device="cpu"))
+    recipe = chip_smoke.adamw(chip_smoke.cosine_schedule(1e-3, 1, 2), weight_decay=0.01,
+                              max_grad_norm=1.0)
+    full, params, _, _, _ = chip_smoke.train_lm(cfg, recipe, batches, 2, 0.0, "cpu")
+    copy = chip_smoke.param_copy(params)
+    chip_smoke.reset_counts()
+    dots, params, _, _, _ = chip_smoke.train_lm(
+        dataclasses.replace(cfg, remat_policy="dots"), recipe, batches, 2, 0.0, "cpu")
+    counts = {"flash_attention_fwd": flash_attention.launches,
+              "flash_attention_bwd": flash_attention.bwd_launches,
+              "fwd_routes": dict(flash_attention.route_launches),
+              "bwd_routes": dict(flash_attention.bwd_route_launches)}
+    assert dots["fwd_launches"] == [2 * 2 * cfg.n_layers] * 2
+    chip_smoke.check_dots_run(dots, full, params, copy, counts, 2, cfg.n_layers)
+    off = [c.clone() for c in copy]
+    off[0].view(torch.int16).view(-1)[0] += 1  # one bf16 ulp
+    with pytest.raises(AssertionError, match="parameter leaf 0 differs"):
+        chip_smoke.check_dots_run(dots, full, params, off, counts, 2, cfg.n_layers)
+    short = dict(dots, fwd_launches=[2 * cfg.n_layers] * 2)  # no recompute launches
+    with pytest.raises(AssertionError, match="flash launches a step"):
+        chip_smoke.check_dots_run(short, full, params, copy, counts, 2, cfg.n_layers)
+
+
+def test_packed_phase_passes_on_a_small_cpu_run(lm_train_cpu):
+    report = {}
+    out = chip_smoke.drive_lm_packed(torch.device("cpu"), report, lm_train_cpu, seq=64,
+                                     batch=4)
+    assert out["launches"] == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    assert out["data"]["rows"] == 4 * chip_smoke.PACKED_STEPS
+    assert out["data"]["pad_tokens"] > 0 and out["data"]["split_documents"] > 0
+    assert out["runs"][0]["loss"] == out["runs"][1]["loss"]
+    assert set(out["isolation"]) == {"document 1", "document 2"}
+    assert out["pad_microbatch"]["pad_tokens"] > 0
+
+
+def test_packed_isolation_gate_fails_a_cross_document_leak(lm_train_cpu, monkeypatch):
+    """A mask that ignores the segments lets document 2 attend to document
+    1: the isolation gate fails (and passes with the mask in place)."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as TT
+
+    cfg = lm_train_cpu
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    docs = chip_smoke.markov_documents(cfg.vocab_size, (22, 42), np.random.default_rng(1))
+    chip_smoke.check_packed_isolation(cfg, params, tuple(docs), "cpu")
+    chunked = layers.chunked_attention
+    monkeypatch.setattr(layers, "chunked_attention",
+                        lambda *a, segments=None, **k: chunked(*a, **k))
+    with pytest.raises(AssertionError, match="packed isolation, document 2"):
+        chip_smoke.check_packed_isolation(cfg, params, tuple(docs), "cpu")
+
+
+def test_packed_flash_gate_fails_when_a_packed_microbatch_launches_flash(lm_train_cpu,
+                                                                        monkeypatch):
+    """A route rule that sends packed rows to flash (dropping their mask)
+    launches flash in every packed microbatch: the phase fails its gate."""
+    from repro_torch.models import layers
+
+    train = layers.self_attention_train
+
+    def flash_anyway(p, x, cfg, window, return_kv=False, segments=None):
+        return train(p, x, cfg, window, return_kv,
+                     segments=None if cfg.attn_impl == "flash" else segments)
+
+    monkeypatch.setattr(layers, "self_attention_train", flash_anyway)
+    with pytest.raises(AssertionError, match="packed runs launched flash"):
+        chip_smoke.drive_lm_packed(torch.device("cpu"), {}, lm_train_cpu, seq=64, batch=4)

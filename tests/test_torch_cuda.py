@@ -1287,6 +1287,54 @@ def test_train_step_accum_2_on_the_card(dev):
         assert float(diff.max()) <= 2 * 5e-3
 
 
+def test_dots_remat_gradients_are_bitwise_full_on_the_card(dev):
+    """remat_policy="dots" recomputes with the same kernels in the same
+    order as "full" (the flash forward too: 2 x L forward and L backward
+    launches either way), so loss and gradients are bitwise equal."""
+    cfg = _granite("bfloat16", n_kv_heads=2)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, 2, 128, 1, seed=3, device=dev))
+    p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+    out = []
+    for policy in ("full", "dots"):
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        loss, _ = TT.forward_train(p, dataclasses.replace(cfg, remat_policy=policy), batch)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        assert flash_attention.launches - fwd == 2 * cfg.n_layers
+        assert flash_attention.bwd_launches - bwd == cfg.n_layers
+        out.append((loss.detach(), grads))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_packed_forward_train_gradients_on_the_card(dev):
+    """Packed rows with pad tails under attn_impl="flash" on the card take
+    the chunked attention (no flash launch); loss and gradients are finite
+    and within bf16 tolerance of the f32 CPU route on the same weights."""
+    cfg = _granite("bfloat16", n_kv_heads=2, attn_chunk=48)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, 2, 128, 1, seed=3, device="cpu"))
+    batch["segments"] = torch.tensor([[1] * 50 + [2] * 60 + [0] * 18,
+                                      [1] * 90 + [2] * 30 + [0] * 8], dtype=torch.int32)
+    results = []
+    for device, c in (("cpu", dataclasses.replace(cfg, dtype="float32")), (dev, cfg)):
+        p = tree_map(lambda t: t.detach().to(device, getattr(torch, c.dtype)).requires_grad_(),
+                     params)
+        before = flash_attention.launches, flash_attention.bwd_launches
+        loss, _ = TT.forward_train(p, c, {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        assert (flash_attention.launches, flash_attention.bwd_launches) == before
+        results.append((loss.detach(), grads))
+    (l_cpu, g_cpu), (l_dev, g_dev) = results
+    assert torch.isfinite(l_dev) and all(torch.isfinite(g).all() for g in g_dev)
+    torch.testing.assert_close(l_dev.float().cpu(), l_cpu, rtol=2e-2, atol=0)
+    names = []
+    TT.map_schema(lambda path, _: names.append(".".join(path)), TT.param_schema(cfg))
+    for name, a, b in zip(names, g_dev, g_cpu):
+        _grad_close(a, b, "bfloat16", name)
+
+
 def _swap_setup(dev, root):
     """A depth-5 forest trained 8 rounds on the card, checkpointed (as a
     TrainState) at rounds 4 and 8, with its raw rows and edges."""

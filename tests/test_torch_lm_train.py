@@ -95,14 +95,28 @@ def test_synthetic_batches_are_the_reference_stream():
             np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
 
 
-@pytest.mark.parametrize("attn_impl,kv,weighted", [
-    ("chunked", 4, False), ("chunked", 4, True), ("flash", 4, False), ("flash", 2, True),
-], ids=["chunked", "chunked-weights", "flash", "flash-gqa-weights"])
-def test_forward_train_loss_and_gradients(attn_impl, kv, weighted):
-    cfg_j, params_j, cfg_t, params_t = _pair(attn_impl, n_kv_heads=kv)
+# Packed rows of 40 tokens: documents split across rows, pad tails in rows
+# 0 and 2 (segment 0), and query chunks of 16 so the last one is ragged.
+PACKED_SEGMENTS = np.array([[1] * 15 + [2] * 20 + [0] * 5,
+                            [1] * 40,
+                            [1] * 7 + [2] * 7 + [3] * 20 + [0] * 6], np.int32)
+
+
+@pytest.mark.parametrize("attn_impl,kv,weighted,packed", [
+    ("chunked", 4, False, False), ("chunked", 4, True, False), ("flash", 4, False, False),
+    ("flash", 2, True, False), ("chunked", 4, False, True), ("flash", 2, True, True),
+], ids=["chunked", "chunked-weights", "flash", "flash-gqa-weights", "chunked-packed",
+        "flash-gqa-weights-packed"])
+def test_forward_train_loss_and_gradients(attn_impl, kv, weighted, packed):
+    """Packed rows take the chunked path under "flash" too, in both
+    packages."""
+    cfg_j, params_j, cfg_t, params_t = _pair(attn_impl, n_kv_heads=kv,
+                                              **({"attn_chunk": 16} if packed else {}))
     batch = _batches(cfg_t, 3, 40, 1, seed=2)[0]
     if weighted:
         batch["weights"] = _weights(3, 7)
+    if packed:
+        batch["segments"] = PACKED_SEGMENTS
     (lj, mj), gj = jax.jit(jax.value_and_grad(JT.forward_train, has_aux=True),
                            static_argnums=1)(params_j, cfg_j,
                                              {k: jnp.asarray(v) for k, v in batch.items()})
@@ -119,29 +133,38 @@ def test_forward_train_loss_and_gradients(attn_impl, kv, weighted):
                                    err_msg=".".join(path))
 
 
-@pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
-def test_remat_gives_the_same_gradients(attn_impl):
+@pytest.mark.parametrize("attn_impl,policy", [
+    ("chunked", "full"), ("flash", "full"), ("chunked", "dots"), ("flash", "dots"),
+], ids=["chunked", "flash", "chunked-dots", "flash-dots"])
+def test_remat_gives_the_same_gradients(attn_impl, policy):
+    """Bitwise: "full" against no remat, "dots" against "full" (both
+    recompute with the same ops in the same order; "dots" returns saved
+    matmul outputs instead of recomputing them)."""
     _, _, cfg, params = _pair(attn_impl)
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 2, 32, 1)[0].items()}
     leaves = [p.requires_grad_() for _, p in _paths(params)]
     grads = []
-    for remat in (True, False):
-        loss, _ = TT.forward_train(params, dataclasses.replace(cfg, remat=remat), batch)
+    variants = [{"remat": True}, {"remat": False}] if policy == "full" else \
+        [{"remat_policy": "dots"}, {"remat_policy": "full"}]
+    for changes in variants:
+        loss, _ = TT.forward_train(params, dataclasses.replace(cfg, **changes), batch)
         grads.append(torch.autograd.grad(loss, leaves))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
 
 
 def test_forward_train_refuses_what_is_not_ported():
+    """The MoE family is not ported; packed rows on the recurrent hybrid
+    family raise as in the reference. ("dots" and dense packed rows train:
+    the tests above.)"""
     _, _, cfg, params = _pair()
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1, 8, 1)[0].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward_train(params, dataclasses.replace(cfg, remat_policy="dots"), batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward_train(params, cfg, {**batch, "segments": batch["tokens"]})
     moe = tconfigs.get("phi3.5-moe-42b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.forward_train(params, moe, batch)
+    hybrid = tconfigs.get("zamba2-1.2b").reduced()
+    with pytest.raises(ValueError, match="per-segment state resets"):
+        TT.forward_train(params, hybrid, {**batch, "segments": batch["tokens"]})
 
 
 def _recipe(O, lr, steps):
@@ -175,13 +198,21 @@ def _same_params(params_t, params_j, lr: float, steps: int, atol=5e-5):
         assert diff.max() <= 2 * lr * steps, f"{name}: max |diff| {diff.max()}"
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_matches_reference(accum):
-    """Three steps of the AdamW recipe, Bernoulli weights injected."""
+PACKED_SEGMENTS_4x32 = np.array([[1] * 10 + [2] * 16 + [0] * 6, [1] * 32,
+                                 [1] * 20 + [0] * 12, [1] * 5 + [2] * 5 + [3] * 22], np.int32)
+
+
+@pytest.mark.parametrize("accum,packed", [(1, False), (2, False), (2, True)],
+                         ids=["1", "2", "2-packed"])
+def test_train_step_matches_reference(accum, packed):
+    """Three steps of the AdamW recipe, Bernoulli weights injected; packed,
+    the segments split into microbatches beside the tokens and weights."""
     cfg_j, params_j, cfg_t, params_t = _pair()
     batches = _batches(cfg_t, 4, 32, 3, seed=1)
     for i, b in enumerate(batches):
         b["weights"] = _weights(4, 10 + i)
+        if packed:
+            b["segments"] = np.roll(PACKED_SEGMENTS_4x32, i, axis=0)
     lj, lt, pj, pt = _train_both(cfg_j, params_j, cfg_t, params_t,
                                  lambda O: _recipe(O, 5e-3, 3), batches, accum)
     np.testing.assert_allclose(lt, lj, rtol=1e-5)

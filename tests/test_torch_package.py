@@ -74,7 +74,8 @@ def test_port_files_were_found():
             "delayed.py", "store.py", "continuous.py", "serve.py", "gbdt.py",
             "regression.py", "ranking.py", "losses.py", "schedules.py", "runtime.py",
             "worker.py", "async_sgbdt.py", "simulator.py", "collectives.py", "mesh.py",
-            "rules.py", "sharded.py", "baselines.py", "ssm.py", "zamba2_1_2b.py"} <= names
+            "rules.py", "sharded.py", "baselines.py", "ssm.py", "zamba2_1_2b.py",
+            "pipeline.py", "policy.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
