@@ -133,6 +133,24 @@ last Mamba2 layer's projection gradients, flash against chunked). Its
 profiles split device time into GEMMs, flash, the SSD scan (its ops and
 their backward) and the rest (``device_groups``).
 
+Then the MoE family: the flash forward and backward at phi3.5-moe's shape
+(B 4, S 2048, 32 q heads on 8 kv heads, d 128, bf16, causal; the wgmma
+routes) beside SDPA, and phi3.5-moe-42b at full width (d_model 4096, 16
+experts top-2 of d_ff 6400, bf16, seeded random weights, flash) served at
+16 of its 32 layers (all 32 do not fit the card) on the dense path's
+waves, twice (16 flash launches a wave's prefill; the KV ring's bytes),
+then trained at 2 layers on run A's batches and recipe, twice (bitwise;
+the loss falling; the router aux in (0, 2]; 4 forward and 2 backward
+flash launches a microbatch), under "dots" (bitwise "full") and on packed
+rows (bitwise, no flash launch). At 2 layers: every layer's router
+gradient, the flash prefill's logits against the chunked path's and f32,
+each decode step against the f32 teacher-forced forward (every token kept
+by the capacity in both; both gates over the rows the compared paths
+route alike), and every expert's dispatch on the card against the CPU's
+from the same ids and weights; last the serve CLI (``--arch
+phi3.5-moe-42b``, reduced). Its profiles split device time into GEMMs,
+flash, the router with dispatch and combine, and the rest.
+
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel, and per form of the traversal kernel: launches on its path, error
 against the plain version, time as a CUDA-event mean and as device time
@@ -193,6 +211,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import gbdt_config, synthetic_batches  # noqa: E402
 from repro_torch.models import forward_train, init_params  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
@@ -445,6 +464,21 @@ HYBRID_KERNELS = {
     "flash_attention_zamba2": LM_KERNELS["flash_attention"][1:],
     "flash_attention_bwd_dq_zamba2": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
     "flash_attention_bwd_dkv_zamba2": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
+}
+# The MoE family: phi3.5-moe-42b at full width (d_model 4096, 32 q heads on
+# 8 kv heads of 128, 16 experts of d_ff 6400, top-2, vocab 32,064, bf16).
+# All 32 layers hold 83.7 GB of bf16 weights, more than the card's 80: it
+# is served at MOE_SERVE_LAYERS layers on LM_PROMPTS' waves and trained at
+# MOE_TRAIN_LAYERS on run A's batches and recipe (bf16 weights, f32
+# accumulated gradients and moments: 16 bytes a parameter), its "dots" and
+# packed runs MOE_EXTRA_STEPS steps each. Its flash entries in the kernels
+# line are the kernels at its attention's shape (d 128).
+MOE_ARCH = "phi3.5-moe-42b"
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_EXTRA_STEPS = 16, 2, 2
+MOE_KERNELS = {
+    "flash_attention_phi35": LM_KERNELS["flash_attention"][1:],
+    "flash_attention_bwd_dq_phi35": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
+    "flash_attention_bwd_dkv_phi35": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
 }
 # (b, sq, sk, h, kv, d, causal, dtype, seq_k): the ragged edges of each
 # route (the wgmma kernel off its 128-row q tiles and 128-key tiles last;
@@ -3537,7 +3571,7 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
         torch.cuda.synchronize()
         start, stop = (torch.cuda.Event(enable_timing=True),
                        torch.cuda.Event(enable_timing=True))
-        with ssd_ranges(), profile(
+        with op_ranges(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             start.record()
@@ -3564,24 +3598,82 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
     return res
 
 
+# The share of rows (prefill) or of (row, step) pairs (decode) whose MoE
+# routing must agree across the paths a numeric gate compares
+# (``route_agreement``).
+ROUTE_AGREEMENT = 0.75
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While it is open, the expert ids of every ``layers._router`` call
+    (sorted within each token's k) are appended to the yielded list."""
+    calls, inner = [], lm_layers._router
+
+    def spy(p, xf, cfg):
+        out = inner(p, xf, cfg)
+        calls.append(out[1].detach().sort(dim=-1).values.cpu())
+        return out
+    lm_layers._router = spy
+    try:
+        yield calls
+    finally:
+        lm_layers._router = inner
+
+
+def route_agreement(tag: str, routes: list, shape: tuple) -> torch.Tensor:
+    """Where the paths' MoE routings agree: ``routes`` holds, for each path,
+    a tensor (..., layers, k) of ids, or None (no router: a dense or hybrid
+    model); returns a bool mask of ``shape``, True where every path routed
+    every layer alike, and fails if it covers less than ROUTE_AGREEMENT of
+    the entries. A numeric gate compares logits only where the routing
+    agrees: a near-tied router logit that rounds the other way in one path
+    swaps an expert, a discrete change no tolerance on rounding covers."""
+    routes = [r for r in routes if r is not None]
+    agree = torch.ones(shape, dtype=torch.bool)
+    for r in routes[1:]:
+        agree &= (r == routes[0]).flatten(-2).all(-1)
+    if float(agree.float().mean()) < ROUTE_AGREEMENT:
+        raise AssertionError(f"{tag}: the routings agree on {int(agree.sum())} of "
+                             f"{agree.numel()} entries, under {ROUTE_AGREEMENT}")
+    return agree
+
+
+def last_routes(calls: list, batch: int) -> torch.Tensor | None:
+    """The last position's ids (B, layers, k) of a prefill's router calls."""
+    if not calls:
+        return None
+    return torch.stack([c.reshape(batch, -1, c.shape[-1])[:, -1] for c in calls], dim=1)
+
+
 def prefill_against_f32(cfg, params: dict, batch: dict) -> dict:
     """Flash against chunked on one wave: last-position prefill logits, same
     weights. Tolerance: twice what bf16 costs the chunked path itself,
     measured against the chunked path in f32 (the same weights upcast; no
     TF32): if the flash path is as accurate, the two bf16 paths differ by
     at most that. Where the top-2 margin of a row exceeds the tolerance,
-    both paths must pick the same first token. Returns the figures."""
+    both paths must pick the same first token. For an MoE model only the
+    rows whose last position the three paths route alike are compared
+    (``route_agreement``). Returns the figures."""
     flash_step = make_prefill_step(cfg, LM_MAX_LEN)
-    tok_f, lf, _ = flash_step(params, batch)
+    b = batch["tokens"].shape[0]
+    with recorded_routes() as rf:
+        tok_f, lf, _ = flash_step(params, batch)
     _, lf2, _ = flash_step(params, batch)
     chunked = dataclasses.replace(cfg, attn_impl="chunked")
-    tok_c, lc, _ = make_prefill_step(chunked, LM_MAX_LEN)(params, batch)
+    with recorded_routes() as rc:
+        tok_c, lc, _ = make_prefill_step(chunked, LM_MAX_LEN)(params, batch)
     params32 = to_f32(params)
-    _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"), LM_MAX_LEN)(
-        params32, batch)
+    with recorded_routes() as rr:
+        _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"),
+                                     LM_MAX_LEN)(params32, batch)
     del params32
+    rows = route_agreement(f"{cfg.name} prefill", [last_routes(r, b) for r in (rf, rc, rr)],
+                           (b,)).to(lf.device)
     vocab = slice(0, cfg.vocab_size)
-    lf, lf2, lc, lr = (x[:, vocab].float() for x in (lf, lf2, lc, lr))
+    bitwise = bool(torch.equal(lf, lf2))
+    lf, lc, lr = (x[rows, vocab].float() for x in (lf, lc, lr))
+    tok_f, tok_c = tok_f[rows], tok_c[rows]
     if not all(torch.isfinite(x).all() for x in (lf, lc, lr)):
         raise AssertionError(f"{cfg.name}: non-finite prefill logits")
     err_c, err_f = float((lc - lr).abs().max()), float((lf - lr).abs().max())
@@ -3597,9 +3689,9 @@ def prefill_against_f32(cfg, params: dict, batch: dict) -> dict:
                              "top-2 margin exceeds the tolerance")
     return {"max_abs_diff": diff, "tolerance": tol, "logit_scale": float(lr.abs().max()),
             "chunked_vs_f32": err_c, "flash_vs_f32": err_f,
-            "decisive_rows": int(decisive.sum()),
+            "decisive_rows": int(decisive.sum()), "rows_compared": int(rows.sum()),
             "first_tokens_equal": bool(torch.equal(tok_f, tok_c)),
-            "bitwise_across_runs": bool(torch.equal(lf, lf2))}
+            "bitwise_across_runs": bitwise}
 
 
 def drive_lm(dev: torch.device, report: dict) -> dict:
@@ -3643,20 +3735,7 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
         raise AssertionError(f"flash launches by route {routes}: the prefill's "
                              f"{counts['flash_attention']} must all be the wgmma kernel's")
 
-    for outs, per_wave in runs:
-        if per_wave != [cfg.n_layers] * len(LM_PROMPTS):
-            raise AssertionError(f"flash launches per wave {per_wave}, expected "
-                                 f"{cfg.n_layers} (one a layer)")
-        if [c.uid for c in outs] != [r.uid for r in requests]:
-            raise AssertionError("not every LM request was answered")
-        for c in outs:
-            if c.tokens.shape != (LM_NEW,):
-                raise AssertionError(f"request {c.uid}: {c.tokens.shape[0]} tokens")
-            if not ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all():
-                raise AssertionError(f"request {c.uid}: a token id outside the vocab")
-    for a, b in zip(*(outs for outs, _ in runs)):
-        if not np.array_equal(a.tokens, b.tokens):
-            raise AssertionError(f"request {a.uid}: the second run served other tokens")
+    check_lm_waves(LM_ARCH, cfg, runs, requests, cfg.n_layers)  # one flash launch a layer
 
     batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
                                        device=dev)}
@@ -3664,12 +3743,9 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
     diff, tol, err_c, err_f, scale = (vs[k] for k in ("max_abs_diff", "tolerance",
                                                       "chunked_vs_f32", "flash_vs_f32",
                                                       "logit_scale"))
-    prefill_ms = [1e3 * outs[i * LM_SLOTS].prefill_s for outs, _ in runs
-                  for i in range(len(LM_PROMPTS))]
-    decode_ms_tok = [1e3 * outs[i * LM_SLOTS].decode_s / (LM_NEW - 1) for outs, _ in runs
-                     for i in range(len(LM_PROMPTS))]
-    tok_s = [LM_SLOTS * LM_NEW / (outs[i * LM_SLOTS].prefill_s + outs[i * LM_SLOTS].decode_s)
-             for outs, _ in runs for i in range(len(LM_PROMPTS))]
+    waves = lm_wave_stats(runs)
+    prefill_ms, decode_ms_tok, tok_s = (waves[k] for k in (
+        "prefill_ms_per_wave", "decode_ms_per_token", "tokens_per_s_per_wave"))
     lm = {
         "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                    "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
@@ -3890,12 +3966,14 @@ def same_params(tag: str, params: dict, copy: list) -> None:
             raise AssertionError(f"{tag}: parameter leaf {i} differs")
 
 
-def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0) -> tuple:
+def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0,
+             on_step=None) -> tuple:
     """Seeded weights, then one ``make_train_step`` step a batch; returns
-    losses, step ms (host clock after ``synchronize``), flash launches a
-    step, peak memory, the parameters, the optimizer state, the step and
-    the generator. With ``warm_up`` > 0 the parameters after that many
-    steps must be bitwise the initial ones."""
+    losses, router aux losses, step ms (host clock after ``synchronize``),
+    flash launches a step, peak memory, the parameters, the optimizer
+    state, the step and the generator. With ``warm_up`` > 0 the parameters
+    after that many steps must be bitwise the initial ones; ``on_step(i,
+    params)`` is called after step i."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3903,7 +3981,7 @@ def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0
     initial = param_copy(params) if warm_up else None
     state = opt.init(params)
     step = make_train_step(cfg, opt, accum=accum, sampling_rate=sample)
-    res = {"loss": [], "step_ms": [], "fwd_launches": [], "bwd_launches": []}
+    res = {"loss": [], "aux": [], "step_ms": [], "fwd_launches": [], "bwd_launches": []}
     for i, batch in enumerate(batches):
         fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
         torch.cuda.synchronize()
@@ -3912,35 +3990,47 @@ def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0
         torch.cuda.synchronize()
         res["step_ms"].append(1e3 * (time.perf_counter() - t0))
         res["loss"].append(float(m["loss"]))
+        res["aux"].append(float(m["aux"]))
         res["fwd_launches"].append(flash_attention.launches - fwd)
         res["bwd_launches"].append(flash_attention.bwd_launches - bwd)
         if i + 1 == warm_up:
             same_params(f"the parameters after {warm_up} warm-up steps", params, initial)
             res["warm_up_bitwise"] = True
+        if on_step is not None:
+            on_step(i, params)
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     return res, params, state, step, gen
 
 
-# The SSD chunk loop's profiler range (``ssd_ranges``).
+# The profiler ranges of ``op_ranges``: the SSD chunk loop and the MoE FFN.
 SSD_RANGE = "ssd_scan"
 SSD_GROUP = "SSD scan (einsums, exp, cumsum)"
+MOE_RANGE = "moe_ffn"
+MOE_GROUP = "router, dispatch and combine"
+REST_GROUP = "elementwise, reductions and copies"
 
 
 @contextlib.contextmanager
-def ssd_ranges():
+def op_ranges():
     """While it is open, each call of ``models.ssm.ssd_scan`` (the SSD chunk
-    loop and its cumsum; training's recompute included) runs inside a
-    ``record_function`` range named ``SSD_RANGE``."""
-    inner = lm_ssm.ssd_scan
+    loop and its cumsum) runs inside a ``record_function`` range named
+    ``SSD_RANGE``, and each call of ``models.layers.moe_ffn`` (the router,
+    the experts' dispatch, products and combine) inside one named
+    ``MOE_RANGE``; training's recompute included."""
+    inner = {(lm_ssm, "ssd_scan"): lm_ssm.ssd_scan, (lm_layers, "moe_ffn"): lm_layers.moe_ffn}
 
-    def ranged(*args, **kw):
-        with torch.profiler.record_function(SSD_RANGE):
-            return inner(*args, **kw)
-    lm_ssm.ssd_scan = ranged
+    def ranged(fn, name):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+    lm_ssm.ssd_scan = ranged(lm_ssm.ssd_scan, SSD_RANGE)
+    lm_layers.moe_ffn = ranged(lm_layers.moe_ffn, MOE_RANGE)
     try:
         yield
     finally:
-        lm_ssm.ssd_scan = inner
+        for (mod, name), fn in inner.items():
+            setattr(mod, name, fn)
 
 
 def kernel_group(name: str) -> str:
@@ -3949,39 +4039,42 @@ def kernel_group(name: str) -> str:
             return key
     if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")):
         return "cuBLAS GEMMs"
-    return "elementwise, reductions and copies"
+    return REST_GROUP
 
 
-def ssd_events(events: list) -> set:
+def range_events(events: list, name: str) -> set:
     """The ids of a trace's host ops (``prof.events()``) that belong to the
-    SSD scan: ops inside an ``SSD_RANGE`` range, and ops under the backward
-    of an autograd node whose forward op ran inside one (matched by the
-    node's forward thread and sequence number)."""
+    range ``name``: ops inside such a range, and ops under the backward of
+    an autograd node whose forward op ran inside one (matched by the node's
+    forward thread and sequence number)."""
     def chain(e):
         while e is not None:
             yield e
             e = e.cpu_parent
     forward = {(e.thread, e.sequence_nr) for e in events if e.sequence_nr >= 0
-               and e.scope != 1 and any(p.name == SSD_RANGE for p in chain(e))}
+               and e.scope != 1 and any(p.name == name for p in chain(e))}
     return {id(e) for e in events  # scope 1: an autograd node's backward
-            if any(p.name == SSD_RANGE or (p.scope == 1 and (p.fwd_thread, p.sequence_nr)
-                                           in forward) for p in chain(e))}
+            if any(p.name == name or (p.scope == 1 and (p.fwd_thread, p.sequence_nr)
+                                      in forward) for p in chain(e))}
 
 
 def device_groups(prof) -> dict:
     """Device ms by group of a finished trace, from the kernels each op
-    launched: the flash kernels by name; then every kernel an op of
-    ``ssd_events`` launched, as ``SSD_GROUP``; then cuBLAS GEMMs by name;
-    the rest."""
+    launched: the flash kernels by name; then every kernel an op of the
+    SSD range launched, as ``SSD_GROUP``; then cuBLAS GEMMs by name (the
+    experts' and the router's products among them); then every other
+    kernel an op of the MoE range launched, as ``MOE_GROUP``; the rest."""
     cpu = torch.autograd.DeviceType.CPU
     events = [e for e in prof.events() if e.device_type == cpu]
-    ssd = ssd_events(events)
+    ssd, moe = range_events(events, SSD_RANGE), range_events(events, MOE_RANGE)
     groups: dict = {}
     for e in events:
         for k in e.kernels:
             g = kernel_group(k.name)
             if id(e) in ssd and not g.startswith("flash"):
                 g = SSD_GROUP
+            elif id(e) in moe and g == REST_GROUP:
+                g = MOE_GROUP
             groups[g] = groups.get(g, 0.0) + k.duration / 1e3
     return groups
 
@@ -3993,7 +4086,7 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
 
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with ssd_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with op_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         start.record()
         step(params, state, batch, gen)
@@ -4325,16 +4418,16 @@ def packed_batches(vocab: int, batch: int, seq: int, steps: int, dev) -> tuple:
                      "pad_tokens": int((segments[:, :-1] == 0).sum())}
 
 
-def check_packed_runs(runs: list, counts: dict) -> None:
+def check_packed_runs(runs: list, counts: dict, falls: bool = True) -> None:
     """The gates of the packed runs: losses bitwise across the two (their
     parameters are compared as they are made), every loss finite, the loss
-    falling, and no flash launch in any packed step."""
+    falling (unless not ``falls``), and no flash launch in any packed step."""
     first, second = runs
     if first["loss"] != second["loss"]:
         raise AssertionError(f"packed runs: losses differ across two runs: {first['loss']}, "
                              f"{second['loss']}")
     loss = first["loss"]
-    if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+    if not (all(np.isfinite(loss)) and (loss[-1] < loss[0] or not falls)):
         raise AssertionError(f"packed runs: the loss did not fall or is not finite: {loss}")
     launched = [(r["fwd_launches"], r["bwd_launches"]) for r in runs]
     if any(n for fwd, bwd in launched for n in fwd + bwd) or any(counts.values()):
@@ -4465,28 +4558,35 @@ def drive_lm_packed(dev: torch.device, report: dict, cfg=None, seq: int = LM_PRO
     return report["lm_packed"]
 
 
-def hybrid_decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray,
-                        dev) -> dict:
+def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | None,
+                 dev) -> dict:
     """One wave's greedy decode with each step's logits (the engine's path:
-    the flash prefill, then the SSM, conv and shared-ring caches written in
-    place a step), held against the f32 teacher-forced forward of the same
-    tokens at each position: a step's largest |logit error| must stay within
-    twice that of the bf16 teacher-forced forward (chunked attention) at
-    that position, which catches a drift of the recurrent caches. The
-    tokens must be the engine's (``served``). The teacher-forced forwards
-    take the largest SSM chunk up to ``cfg.ssm_chunk`` that divides their
-    length (prompt + new tokens - 1)."""
+    the flash prefill, then the caches written in place a step: the ring,
+    and a hybrid model's SSM and conv states), held against the f32
+    teacher-forced forward of the same tokens at each position: a step's
+    largest |logit error| must stay within twice that of the bf16
+    teacher-forced forward (chunked attention) at that position, which
+    catches a drift of the caches. The tokens must be the engine's
+    (``served``, unless None). A hybrid model's teacher-forced forwards take
+    the largest SSM chunk up to ``cfg.ssm_chunk`` that divides their length
+    (prompt + new tokens - 1). For an MoE model each step's error is taken
+    over the rows that the decode and the f32 forward route alike at that
+    position (``route_agreement``)."""
     toks = torch.as_tensor(prompts, device=dev)
-    plen = toks.shape[1]
-    tok, logits, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, {"tokens": toks})
-    steps, gen = [logits], [tok]
-    for _ in range(LM_NEW - 1):
-        logits, cache = TT.decode_step(params, cfg, tok[:, None], cache)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        steps.append(logits)
-        gen.append(tok)
+    b, plen = toks.shape
+    with recorded_routes() as calls:
+        tok, logits, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, {"tokens": toks})
+        routes = [last_routes(calls, b)]
+        steps, gen = [logits], [tok]
+        for _ in range(LM_NEW - 1):
+            calls.clear()
+            logits, cache = TT.decode_step(params, cfg, tok[:, None], cache)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps.append(logits)
+            gen.append(tok)
+            routes.append(last_routes(calls, b))
     gen = torch.stack(gen, dim=1)
-    if not np.array_equal(gen.cpu().numpy(), served):
+    if served is not None and not np.array_equal(gen.cpu().numpy(), served):
         raise AssertionError(f"{cfg.name}: the stepped decode serves other tokens than the engine")
     del cache
     full = torch.cat([toks, gen[:, :-1]], dim=1)
@@ -4498,24 +4598,32 @@ def hybrid_decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarr
         c = dataclasses.replace(cfg, attn_impl="chunked", ssm_chunk=chunk, dtype=dtype,
                                 remat=False)
         p = params if dtype == cfg.dtype else to_f32(params)
-        with torch.inference_mode():
+        with torch.inference_mode(), recorded_routes() as calls:
             h, _ = TT.backbone_train(p, c, p["embed"][full.long()])
             tf[name] = TT._logits(p, c, h[:, plen - 1:])[..., vocab].float()
         del p, h
+    tf_routes = (torch.stack([x.reshape(b, n, -1)[:, plen - 1:] for x in calls], dim=2)
+                 if calls else None)  # (B, steps, layers, k)
+    dec_routes = torch.stack(routes, dim=1) if routes[0] is not None else None
+    pairs = route_agreement(f"{cfg.name} decode", [dec_routes, tf_routes],
+                            (b, LM_NEW)).to(dev)
     dec = torch.stack(steps, dim=1)[..., vocab].float()
     if not all(torch.isfinite(x).all() for x in (dec, *tf.values())):
         raise AssertionError(f"{cfg.name}: non-finite decode or teacher-forced logits")
-    err_dec = (dec - tf["f32"]).abs().amax(dim=(0, 2))
-    err_bf16 = (tf["bf16"] - tf["f32"]).abs().amax(dim=(0, 2))
+    # Errors by step over the rows routed alike (0 where none is).
+    err_dec = torch.where(pairs, (dec - tf["f32"]).abs().amax(dim=2), 0).amax(dim=0)
+    err_bf16 = torch.where(pairs, (tf["bf16"] - tf["f32"]).abs().amax(dim=2), 0).amax(dim=0)
     over = (err_dec > 2 * err_bf16).nonzero().flatten().tolist()
     if over:
         raise AssertionError(
             f"{cfg.name}: decode logits drift from the f32 teacher-forced forward at steps "
             f"{over}: {[float(err_dec[i]) for i in over]} against twice the bf16 forward's "
             f"{[2 * float(err_bf16[i]) for i in over]}")
+    kept = pairs.any(dim=0)
     return {"steps": LM_NEW, "teacher_forced_ssm_chunk": chunk,
             "decode_vs_f32": err_dec.tolist(), "bf16_forward_vs_f32": err_bf16.tolist(),
-            "worst_ratio": float((err_dec / err_bf16).max())}
+            "pairs_compared": int(pairs.sum()), "pairs": pairs.numel(),
+            "worst_ratio": float((err_dec[kept] / err_bf16[kept]).max())}
 
 
 def f32_leaves(params: dict) -> list:
@@ -4576,31 +4684,15 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
     if routes["wgmma"] != serve_launches:
         raise AssertionError(f"{HYBRID_ARCH}: flash launches by route {routes}: all "
                              f"{serve_launches} must be the wgmma kernel's")
-    for outs, per_wave in runs:
-        if per_wave != [g] * len(LM_PROMPTS):
-            raise AssertionError(f"{HYBRID_ARCH}: flash launches per wave {per_wave}, expected "
-                                 f"{g} (one a call of the shared block)")
-        if [c.uid for c in outs] != [r.uid for r in requests]:
-            raise AssertionError(f"{HYBRID_ARCH}: not every request was answered")
-        for c in outs:
-            if c.tokens.shape != (LM_NEW,) or not (
-                    (c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all():
-                raise AssertionError(f"{HYBRID_ARCH} request {c.uid}: tokens {c.tokens}")
-    for a, b in zip(*(outs for outs, _ in runs)):
-        if not np.array_equal(a.tokens, b.tokens):
-            raise AssertionError(f"{HYBRID_ARCH} request {a.uid}: the second run served other "
-                                 "tokens")
+    check_lm_waves(HYBRID_ARCH, cfg, runs, requests, g)  # one a call of the shared block
     lap("serve")
     prompts = np.stack([r.prompt for r in requests[:LM_SLOTS]])
     vs = prefill_against_f32(cfg, params, {"tokens": torch.as_tensor(prompts, device=dev)})
-    drift = hybrid_decode_drift(cfg, params, prompts,
-                                np.stack([c.tokens for c in runs[0][0][:LM_SLOTS]]), dev)
-    prefill_ms = [1e3 * outs[i * LM_SLOTS].prefill_s for outs, _ in runs
-                  for i in range(len(LM_PROMPTS))]
-    decode_ms_tok = [1e3 * outs[i * LM_SLOTS].decode_s / (LM_NEW - 1) for outs, _ in runs
-                     for i in range(len(LM_PROMPTS))]
-    tok_s = [LM_SLOTS * LM_NEW / (outs[i * LM_SLOTS].prefill_s + outs[i * LM_SLOTS].decode_s)
-             for outs, _ in runs for i in range(len(LM_PROMPTS))]
+    drift = decode_drift(cfg, params, prompts,
+                         np.stack([c.tokens for c in runs[0][0][:LM_SLOTS]]), dev)
+    waves = lm_wave_stats(runs)
+    prefill_ms, decode_ms_tok, tok_s = (waves[k] for k in (
+        "prefill_ms_per_wave", "decode_ms_per_token", "tokens_per_s_per_wave"))
     lap("serve checks")
     serve_profile = profile_lm(engine, requests)
     lap("serve profile")
@@ -4661,24 +4753,10 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
     del params, state, step, gen
     torch.cuda.empty_cache()
     a1, a2 = trains
-    if a1["loss"] != a2["loss"]:
-        raise AssertionError(f"{HYBRID_ARCH}: losses differ across two runs: {a1['loss']}, "
-                             f"{a2['loss']}")
-    for i, (x, y) in enumerate(zip(*copies)):
-        if not torch.equal(x, y):
-            raise AssertionError(f"{HYBRID_ARCH}: parameter leaf {i} differs across two runs")
-    if not (np.isfinite(a1["loss"][-1]) and a1["loss"][-1] < a1["loss"][0]):
-        raise AssertionError(f"{HYBRID_ARCH}: the loss did not fall: {a1['loss']}")
+    per_mb = {"fwd": 2 * g, "bwd": g}  # forward + the group's remat recompute
+    check_lm_runs(f"{HYBRID_ARCH} run A", trains, copies, g, TRAIN_ACCUM, aux_max=0)
     if bad_moments:
         raise AssertionError(f"{HYBRID_ARCH}: AdamW moments not f32: leaves {bad_moments}")
-    per_mb = {"fwd": 2 * g, "bwd": g}  # forward + the group's remat recompute
-    for tag, res in (("run A", a1), ("run A again", a2)):
-        if res["fwd_launches"] != [TRAIN_ACCUM * per_mb["fwd"]] * TRAIN_STEPS or \
-                res["bwd_launches"] != [TRAIN_ACCUM * per_mb["bwd"]] * TRAIN_STEPS:
-            raise AssertionError(f"{HYBRID_ARCH} {tag}: flash launches a step "
-                                 f"{res['fwd_launches']} forward, {res['bwd_launches']} "
-                                 f"backward; expected {TRAIN_ACCUM * per_mb['fwd']} and "
-                                 f"{TRAIN_ACCUM * per_mb['bwd']}")
     for kind in ("fwd", "bwd"):
         if train_routes[kind]["wgmma"] != train_counts[kind]:
             raise AssertionError(f"{HYBRID_ARCH}: flash {kind} launches by route "
@@ -4744,6 +4822,379 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
     for name, (source, replaces) in HYBRID_KERNELS.items():
         if launches[name] <= 0:
             raise AssertionError(f"{name}: no launch on the hybrid path")
+        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], **stats[name]})
+    return line
+
+
+def lm_wave_stats(runs: list) -> dict:
+    """Prefill ms a wave, decode ms a token and generated tokens/s of each
+    wave of ``serve_lm``'s runs, in run order."""
+    firsts = [outs[i * LM_SLOTS] for outs, _ in runs for i in range(len(LM_PROMPTS))]
+    return {"prefill_ms_per_wave": [1e3 * c.prefill_s for c in firsts],
+            "decode_ms_per_token": [1e3 * c.decode_s / (LM_NEW - 1) for c in firsts],
+            "tokens_per_s_per_wave": [LM_SLOTS * LM_NEW / (c.prefill_s + c.decode_s)
+                                      for c in firsts]}
+
+
+def check_lm_waves(tag: str, cfg, runs: list, requests: list, per_wave: int) -> None:
+    """The gates of ``serve_lm``'s runs: ``per_wave`` flash launches a
+    wave's prefill, every request answered with LM_NEW in-vocab tokens,
+    and the second run's tokens the first's."""
+    for outs, launched in runs:
+        if launched != [per_wave] * len(LM_PROMPTS):
+            raise AssertionError(f"{tag}: flash launches per wave {launched}, expected "
+                                 f"{per_wave}")
+        if [c.uid for c in outs] != [r.uid for r in requests]:
+            raise AssertionError(f"{tag}: not every request was answered")
+        for c in outs:
+            if c.tokens.shape != (LM_NEW,) or not (
+                    (c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all():
+                raise AssertionError(f"{tag} request {c.uid}: tokens {c.tokens}")
+    for a, b in zip(*(outs for outs, _ in runs)):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"{tag} request {a.uid}: the second run served other tokens")
+
+
+def check_lm_runs(tag: str, runs: list, copies: list, n_attn: int, accum: int,
+                  aux_max: float) -> None:
+    """The gates of two LM training runs from the same seed: losses and
+    every parameter bitwise across the two, the loss falling, each step's
+    router aux finite and in (0, aux_max] (0 itself where ``aux_max`` is 0:
+    no router), and 2 x ``n_attn`` forward (forward and remat recompute)
+    and ``n_attn`` backward flash launches a microbatch."""
+    first, second = runs
+    if first["loss"] != second["loss"]:
+        raise AssertionError(f"{tag}: losses differ across two runs: {first['loss']}, "
+                             f"{second['loss']}")
+    for i, (x, y) in enumerate(zip(*copies)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: parameter leaf {i} differs across two runs")
+    loss = first["loss"]
+    if not (np.isfinite(loss[-1]) and loss[-1] < loss[0]):
+        raise AssertionError(f"{tag}: the loss did not fall: {loss}")
+    if not all(a == 0 if aux_max == 0 else np.isfinite(a) and 0 < a <= aux_max
+               for a in first["aux"]):
+        raise AssertionError(f"{tag}: router aux {first['aux']} outside (0, {aux_max}]")
+    steps = len(loss)
+    want = ([accum * 2 * n_attn] * steps, [accum * n_attn] * steps)
+    for res in runs:
+        if (res["fwd_launches"], res["bwd_launches"]) != want:
+            raise AssertionError(f"{tag}: flash launches a step {res['fwd_launches']} forward, "
+                                 f"{res['bwd_launches']} backward; expected {want[0][0]} and "
+                                 f"{want[1][0]}")
+
+
+def check_router_grads(cfg, params: dict, batch: dict) -> dict:
+    """One microbatch's loss and router gradient from ``params``: every
+    layer's wr gets a finite, non-zero gradient (through the combine
+    weights and the aux loss)."""
+    tree = tree_map(lambda p: p.detach(), params)
+    wr = tree["layers"]["moe"]["wr"].requires_grad_()
+    loss, m = forward_train(tree, cfg, batch)
+    g = torch.autograd.grad(loss, [wr], allow_unused=True)[0] if loss.requires_grad else None
+    g = torch.zeros_like(wr) if g is None else g
+    norms = [float(g[i].float().norm()) for i in range(cfg.n_layers)]
+    if not (bool(torch.isfinite(g).all()) and all(n > 0 for n in norms)):
+        raise AssertionError(f"router gradients: per-layer norms {norms}, finite "
+                             f"{bool(torch.isfinite(g).all())}")
+    return {"loss": float(loss.detach()), "aux": float(m["aux"].detach()),
+            "wr_grad_norm_by_layer": norms}
+
+
+def moe_inputs(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Layer 0's FFN input (B x S, D) for ``tokens``: the embedded tokens
+    after layer 0's attention, normed, as ``_moe_block`` makes it."""
+    p = TT.layer(params["layers"], 0)
+    with torch.inference_mode():
+        x = params["embed"][tokens.long()]
+        x = x + lm_layers.self_attention_train(p["attn"], lm_layers.rms_norm(x, p["ln1"]), cfg,
+                                               tokens.shape[1])
+        return lm_layers.rms_norm(x, p["ln2"]).reshape(-1, cfg.d_model)
+
+
+def check_moe_dispatch(cfg, ids: torch.Tensor, weights: torch.Tensor, capacity: int,
+                       dev) -> dict:
+    """Every expert's dispatch (``layers.expert_dispatch``, what
+    ``moe_ffn`` runs) and combine weights from the same ids and weights on
+    ``dev`` and on the CPU, bit for bit; returns the tokens each expert
+    kept and dropped."""
+    got = lm_layers.expert_dispatch(ids.to(dev), weights.to(dev), cfg.n_experts, capacity)
+    want = lm_layers.expert_dispatch(ids.cpu(), weights.cpu(), cfg.n_experts, capacity)
+    kept, dropped = [], []
+    for e in range(cfg.n_experts):
+        for name, g, w in zip(("dispatch", "combine weights"), got, want):
+            if not torch.equal(g[e].cpu(), w[e]):
+                raise AssertionError(f"expert {e}: the {name} on {dev} differ from the CPU's")
+        kept.append(int((want[0][e] < ids.shape[0]).sum()))
+        dropped.append(int((ids.cpu() == e).any(1).sum()) - kept[-1])
+    return {"capacity": capacity, "tokens": int(ids.shape[0]), "kept": kept,
+            "dropped": dropped}
+
+
+def drive_moe(dev: torch.device, report: dict) -> list:
+    """The MoE family's serving and training paths (phi3.5-moe-42b at full
+    width); returns its kernels' entries (the flash kernels at its shape)."""
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def lap(name: str) -> None:  # seconds since the last lap, by part
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    card = report.get("nvidia_smi", "card not queried")
+    fwd = check_flash(dev, report, MOE_ARCH, [], "_phi35")
+    bwd = check_flash_bwd(dev, report, MOE_ARCH, [], "_phi35")
+    lap("kernel checks")
+    fs = next(iter(report["flash_attention_shapes_phi35"].values()))
+    bw = report["flash_attention_bwd_phi35"]
+    print(f"flash_attention at phi3.5-moe's {LM_SLOTS} x {LM_PROMPTS[0]} h32/8 d128 "
+          f"({fs['route']}): max abs error {fs['max_abs_err']:.4g}, relative L2 "
+          f"{fs['rel_l2_err']}; {fwd['ms']:.4f} ms, device {fwd['device_ms']:.4f} (bound "
+          f"{fwd['bound_ms']:.4f}, ex2 {fs['ex2_bound_ms']:.4f}); SDPA "
+          f"({fs['library_backend']['backend']}) {fwd['library_ms']:.4f} ms, device "
+          f"{fwd['library_device_ms']:.4f}; backward whole {bw['ms']:.4f} ms, device "
+          f"{bw['device_ms']:.4f} (bound {bw['bound_ms']:.4f}, SDPA backward "
+          f"{bw['library_ms']:.4f}, device {bw['library_device_ms']:.4f}); alone (event / "
+          "device ms): " + ", ".join(
+              f"{k} {bw['kernel_ms'][k]:.4f} / {bw['kernel_device_ms'][k]:.4f} (bound "
+              f"{bw['kernel_bound_ms'][k]:.4f})" for k in flash_attention.BWD_KERNELS)
+          + " [" + card + "]", flush=True)
+
+    # Serving at MOE_SERVE_LAYERS layers: two waves, twice; only these
+    # launches are counted.
+    base = lm_configs.get(MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=MOE_SERVE_LAYERS, attn_impl="flash")
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n_params = count_params(params)
+    # ModelConfig.param_count counts the weight matrices, not the norm scales.
+    if n_params != cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model:
+        raise AssertionError(f"{MOE_ARCH}: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    engine = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN, device=dev)
+    requests = lm_requests(cfg, np.random.default_rng(SEED))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve_lm(engine, requests) for _ in range(2)]
+    torch.cuda.synchronize()
+    serve_launches = flash_attention.launches
+    routes = dict(flash_attention.route_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if routes["wgmma"] != serve_launches:
+        raise AssertionError(f"{MOE_ARCH}: flash launches by route {routes}: all "
+                             f"{serve_launches} must be the wgmma kernel's")
+    check_lm_waves(MOE_ARCH, cfg, runs, requests, cfg.n_layers)
+    lap("serve")
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
+                                       device=dev)}
+    _, _, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, batch)
+    ring = cache["self"]
+    ring_bytes = sum(t.numel() * t.element_size() for t in ring.values())
+    want_ring = (2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.kv_dim * 2
+                 + 4 * cfg.n_layers * LM_MAX_LEN)
+    if ring_bytes != want_ring or ring["k"].shape != (cfg.n_layers, LM_SLOTS, LM_MAX_LEN,
+                                                        cfg.n_kv_heads, cfg.head_dim):
+        raise AssertionError(f"{MOE_ARCH}: the KV ring holds {ring_bytes} bytes "
+                             f"{tuple(ring['k'].shape)}, expected {want_ring}")
+    del cache, ring
+    waves = lm_wave_stats(runs)
+    serve_profile = profile_lm(engine, requests, steps=2)
+    lap("serve profile")
+    del engine, params
+    torch.cuda.empty_cache()
+    for i, plen in enumerate(LM_PROMPTS):
+        print(f"serve {MOE_ARCH} ({cfg.n_layers} of {base.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}, "
+              f"{cfg.dtype}, {cfg.attn_impl}, {n_params / 1e9:.3f} B parameters) wave "
+              f"{LM_SLOTS} x {plen}: prefill " + " / ".join(
+                  f"{waves['prefill_ms_per_wave'][r * len(LM_PROMPTS) + i]:.1f}"
+                  for r in range(2)) + " ms, decode " + " / ".join(
+                  f"{waves['decode_ms_per_token'][r * len(LM_PROMPTS) + i]:.2f}"
+                  for r in range(2)) + " ms a token, " + " / ".join(
+                  f"{waves['tokens_per_s_per_wave'][r * len(LM_PROMPTS) + i]:.1f}"
+                  for r in range(2)) + f" generated tokens/s (two runs) [{card}]", flush=True)
+    print(f"serve {MOE_ARCH}: flash launches {serve_launches} ({cfg.n_layers} a wave, by route "
+          f"{routes}); tokens in the vocab and equal across two runs; KV ring "
+          f"{ring_bytes / 1e9:.3f} GB; peak device memory {peak_gb:.2f} GB [{card}]",
+          flush=True)
+    for phase, prof in serve_profile.items():
+        print(f"profile ({MOE_ARCH} {phase}, {cfg.n_layers} layers): device "
+              f"{prof['device_ms']:.2f} ms a {'wave' if phase == 'prefill' else 'step'} "
+              f"({prof['device_ms_by']}), busy {pct(prof['device_busy_share'])}; " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in prof["by_group_ms"].items()) + f" [{card}]",
+              flush=True)
+
+    # Training at MOE_TRAIN_LAYERS layers: run A's recipe twice, then
+    # "dots" and packed rows; only these launches are counted.
+    cfg = dataclasses.replace(base, n_layers=MOE_TRAIN_LAYERS, attn_impl="flash")
+    n_train = cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
+    b, s = LM_SLOTS, LM_PROMPTS[0]
+    batches = list(synthetic_batches(cfg, b, s, TRAIN_STEPS, seed=SEED, device=dev))
+    recipe = adamw(cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS),
+                   weight_decay=0.01, max_grad_norm=1.0)
+    reset_counts()
+    trains, copies, early = [], [], {}
+
+    def keep_early(i, p):  # run A's parameters after the "dots" run's steps
+        if i + 1 == MOE_EXTRA_STEPS and not early:
+            early["params"] = param_copy(p)
+    for _ in range(2):
+        res, params, state, step, gen = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev,
+                                                 on_step=keep_early)
+        trains.append(res)
+        copies.append(param_copy(params))
+        if len(trains) == 1:
+            del params, state, step, gen
+    torch.cuda.synchronize()
+    train_counts = {"fwd": flash_attention.launches, "bwd": flash_attention.bwd_launches}
+    train_routes = {"fwd": dict(flash_attention.route_launches),
+                    "bwd": dict(flash_attention.bwd_route_launches)}
+    lap("train")
+    profile = profile_train_step(step, params, state, batches[-1], gen)
+    profile["device_busy_share"] = busy(profile, profile["device_ms"],
+                                        float(np.median(trains[1]["step_ms"][1:])))
+    lap("train profile")
+    del params, state, step, gen
+    torch.cuda.empty_cache()
+    # A layer's aux, E mean(f_e P_e) = sum_e f_e P_e, lies in (0, 1].
+    check_lm_runs(f"{MOE_ARCH} run A", trains, copies, cfg.n_layers, TRAIN_ACCUM,
+                  aux_max=cfg.n_layers)
+    del copies
+    for kind in ("fwd", "bwd"):
+        if train_routes[kind]["wgmma"] != train_counts[kind]:
+            raise AssertionError(f"{MOE_ARCH}: flash {kind} launches by route "
+                                 f"{train_routes[kind]}: all must be the wgmma kernels'")
+    reset_counts()
+    res_dots, params, state, _, _ = train_lm(dataclasses.replace(cfg, remat_policy="dots"),
+                                             recipe, batches[:MOE_EXTRA_STEPS], TRAIN_ACCUM,
+                                             0.0, dev)
+    torch.cuda.synchronize()
+    dots_counts = {"flash_attention_fwd": flash_attention.launches,
+                   "flash_attention_bwd": flash_attention.bwd_launches,
+                   "fwd_routes": dict(flash_attention.route_launches),
+                   "bwd_routes": dict(flash_attention.bwd_route_launches)}
+    check_dots_run(res_dots, {"loss": trains[0]["loss"][:MOE_EXTRA_STEPS]}, params,
+                   early.pop("params"), dots_counts, TRAIN_ACCUM, cfg.n_layers)
+    del params, state
+    torch.cuda.empty_cache()
+    lap("dots")
+    packed, info = packed_batches(cfg.vocab_size, b, s, MOE_EXTRA_STEPS, dev)
+    packed_recipe = adamw(cosine_schedule(TRAIN_LR, 1, MOE_EXTRA_STEPS), weight_decay=0.01,
+                          max_grad_norm=1.0)
+    reset_counts()
+    packed_runs, first = [], None
+    for _ in range(2):
+        res, params, state, _, _ = train_lm(cfg, packed_recipe, packed, TRAIN_ACCUM, 0.0, dev)
+        packed_runs.append(res)
+        if first is None:
+            first = param_copy(params)
+        else:
+            same_params(f"{MOE_ARCH} packed runs: the second run's parameters", params, first)
+        del params, state
+    torch.cuda.synchronize()
+    packed_counts = {"flash_attention_fwd": flash_attention.launches,
+                     "flash_attention_bwd": flash_attention.bwd_launches}
+    del first
+    torch.cuda.empty_cache()
+    check_packed_runs(packed_runs, packed_counts, falls=False)
+    lap("packed")
+
+    # The checks at MOE_TRAIN_LAYERS layers (after the counts are read),
+    # from the seeded initial weights.
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    mb = b // TRAIN_ACCUM
+    router = check_router_grads(cfg, params, {k: v[:mb] for k, v in batches[0].items()})
+    pad_mb = next({k: v[i:i + mb] for k, v in pb.items()} for pb in packed
+                  for i in range(0, b, mb) if bool((pb["segments"][i:i + mb] == 0).any()))
+    packed_grads = check_packed_grads(cfg, params, pad_mb)
+    tokens = batches[0]["tokens"][:mb]
+    xin = moe_inputs(cfg, params, tokens)
+    with torch.inference_mode():
+        weights, ids, _ = lm_layers._router(TT.layer(params["layers"], 0)["moe"], xin, cfg)
+    dispatch = check_moe_dispatch(cfg, ids, weights, lm_layers.moe_capacity(cfg, ids.shape[0]),
+                                  dev)
+    prompts = np.stack([r.prompt for r in requests[:LM_SLOTS]])
+    vs = prefill_against_f32(cfg, params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    # Decode against the teacher-forced forward with every token kept (the
+    # capacity lossless in prefill and in the forward), so both route the
+    # same function.
+    lossless = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    drift = decode_drift(lossless, params, prompts, None, dev)
+    del params
+    torch.cuda.empty_cache()
+    lap("accuracy")
+    cli = io.StringIO()
+    with contextlib.redirect_stdout(cli):
+        cli_tokens = serve_cli.main(["--arch", MOE_ARCH, "--reduced"])
+    lap("serve CLI")
+    phase_s = time.perf_counter() - t_phase
+
+    a1, a2 = trains
+    summary = {}
+    for tag, res in (("A", a1), ("A again", a2), ("A dots", res_dots),
+                     ("packed", packed_runs[0])):
+        med = float(np.median(res["step_ms"][1:]))
+        summary[tag] = {"median_step_ms": med, "tokens_per_s": b * s / med * 1e3,
+                        "peak_mem_gb": res["peak_mem_gb"]}
+        print(f"train {MOE_ARCH} ({cfg.n_layers} layers, {n_train / 1e9:.3f} B parameters) "
+              f"run {tag}: losses " + " ".join(f"{x:.4f}" for x in res["loss"])
+              + "; aux " + " ".join(f"{x:.4f}" for x in res["aux"]) + "; step ms "
+              + " ".join(f"{x:.1f}" for x in res["step_ms"]) + f"; median {med:.1f} ms, "
+              f"{b * s / med * 1e3:.0f} tokens/s; peak device memory "
+              f"{res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    print(f"train {MOE_ARCH}: run A bitwise equal across two runs (losses and every "
+          f"parameter), the loss falling, aux in (0, {cfg.n_layers}]; flash launches a "
+          f"microbatch {2 * cfg.n_layers} forward and {cfg.n_layers} backward (routes "
+          f"{train_routes}); \"dots\" bitwise \"full\" over {MOE_EXTRA_STEPS} steps; packed "
+          f"rows ({info['documents']} documents, {info['pad_tokens']} pad tokens) bitwise "
+          f"across two runs with flash launches {packed_counts}; a pad-tail microbatch's "
+          f"{packed_grads['leaves']} gradients finite; wr gradient norms by layer "
+          f"{router['wr_grad_norm_by_layer']}", flush=True)
+    print(f"{MOE_ARCH} at {cfg.n_layers} layers: flash vs chunked prefill logits max |diff| "
+          f"{vs['max_abs_diff']:.4g} (tolerance {vs['tolerance']:.4g}; against f32: chunked "
+          f"{vs['chunked_vs_f32']:.4g}, flash {vs['flash_vs_f32']:.4g}); decode vs the f32 "
+          f"teacher-forced forward over {LM_NEW} steps: worst {drift['worst_ratio']:.3f} of "
+          f"the bf16 forward's own error (limit 2); dispatch on the card bitwise the CPU's "
+          f"at capacity {dispatch['capacity']} of {dispatch['tokens']} tokens (kept "
+          f"{dispatch['kept']}, dropped {dispatch['dropped']})", flush=True)
+    print(f"profile ({MOE_ARCH} train step, {cfg.n_layers} layers): device "
+          f"{profile['device_ms']:.1f} ms ({profile['device_ms_by']}), busy "
+          f"{pct(profile['device_busy_share'])} of an unprofiled step's wall time; " + ", ".join(
+              f"{k} {v:.1f}" for k, v in profile["by_group_ms"].items())
+          + f"; serve CLI ({MOE_ARCH} --reduced) served {cli_tokens.shape} tokens; the MoE "
+          f"phase took {phase_s:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f") [{card}]", flush=True)
+    report["moe"] = {
+        "config": {"arch": MOE_ARCH, "serve_layers": MOE_SERVE_LAYERS,
+                   "train_layers": MOE_TRAIN_LAYERS, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                   "attn_impl": cfg.attn_impl, "serve_params": n_params,
+                   "train_params": n_train, "batch": b, "seq": s, "steps": TRAIN_STEPS,
+                   "accum": TRAIN_ACCUM, "lr": TRAIN_LR},
+        "serve": {"waves": [f"{LM_SLOTS} x {p}" for p in LM_PROMPTS], "new_tokens": LM_NEW,
+                  **waves, "peak_mem_gb": peak_gb, "kv_ring_bytes": ring_bytes,
+                  "flash_launches": serve_launches, "launches_by_route": routes,
+                  "profile": serve_profile},
+        "train": {"run_a": a1, "run_a_again": a2, "run_a_dots": res_dots,
+                  "packed": {"runs": packed_runs, "data": info, "launches": packed_counts,
+                             "pad_microbatch": packed_grads},
+                  "summary": summary, "launches": train_counts,
+                  "launches_by_route": train_routes, "dots_launches": dots_counts,
+                  "profile": profile, "router_gradients": router},
+        "accuracy": {"flash_vs_chunked": vs, "decode_drift": drift, "dispatch": dispatch},
+        "serve_cli": cli.getvalue(), "phase_s": phase_s, "phase_s_by_part": parts,
+    }
+    launches = {"flash_attention_phi35": serve_launches,
+                "flash_attention_bwd_dq_phi35": train_counts["bwd"],
+                "flash_attention_bwd_dkv_phi35": train_counts["bwd"]}
+    stats = {"flash_attention_phi35": fwd,
+             "flash_attention_bwd_dq_phi35": bwd["flash_attention_bwd_dq"],
+             "flash_attention_bwd_dkv_phi35": bwd["flash_attention_bwd_dkv"]}
+    line = []
+    for name, (source, replaces) in MOE_KERNELS.items():
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch on the MoE path")
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], **stats[name]})
     return line
@@ -4883,6 +5334,7 @@ def main() -> None:
     line += drive_lm_train(torch.device("cuda"), report)
     drive_lm_packed(torch.device("cuda"), report)
     line += drive_hybrid(torch.device("cuda"), report)
+    line += drive_moe(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")
     report["profiler_traces_taken_again"] = _PROFILER.get("traces_taken_again", 0)
     out_dir = ROOT / "chiprun_out"

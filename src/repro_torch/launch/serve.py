@@ -1,5 +1,12 @@
-"""Serving driver (twin of ``repro.launch.serve``), GBDT part, on the card
-unless ``--device cpu``.
+"""Serving driver (twin of ``repro.launch.serve``), on the card unless
+``--device cpu``. The LM zoo: seeded weights, a batch of seeded prompts
+prefilled once, then greedy decode against the cache:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b \
+        [--full] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0]
+
+Configs are reduced unless ``--full``; the families the port does not
+carry yet (VLM, audio, xLSTM) raise ``NotImplementedError``.
 
 ``--arch gbdt`` serves the paper's own model: train an asynch-SGBDT forest
 on the PS engine, checkpoint it mid-run and at the end, then answer
@@ -16,8 +23,7 @@ checkpoint between waves:
 continuous-batching ``ForestEngine``: the mid-training and final
 checkpoints load as two named versions, traffic A/B-splits between them by
 uid hash, and p50/p99 queue, compute and end-to-end latency is reported
-against ``--slo-ms``. The LM zoo's serving CLI is not ported yet
-(ROADMAP.md A11): any other ``--arch`` raises.
+against ``--slo-ms``.
 """
 from __future__ import annotations
 
@@ -26,8 +32,55 @@ import tempfile
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
+
+
+def run_lm(args) -> np.ndarray:
+    """Prefill ``--batch`` seeded prompts of ``--prompt-len`` tokens, then
+    decode greedily to ``--gen`` tokens each; prints the times and a
+    sample, checks every token is in the vocab and returns them (B, gen)."""
+    import repro_torch.configs as configs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models.cache import require_ported
+
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    require_ported(cfg)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, device=dev)
+    prefill_fn = make_prefill_step(cfg, max_len=args.prompt_len + args.gen)
+    decode_fn = make_decode_step(cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
+                            device=dev, dtype=torch.int32)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.time()
+    tok, _, cache = prefill_fn(params, {"tokens": prompts})
+    sync()
+    t1 = time.time()
+    out = [tok]
+    for _ in range(args.gen - 1):
+        tok, cache = decode_fn(params, tok[:, None], cache)
+        out.append(tok)
+    sync()
+    t2 = time.time()
+    tokens = torch.stack(out, dim=1).cpu().numpy()
+    print(f"{cfg.name}: prefill {args.batch}x{args.prompt_len} in {t1 - t0:.2f}s; "
+          f"decoded {args.gen} tokens in {t2 - t1:.2f}s "
+          f"({args.batch * args.gen / (t2 - t1):,.1f} tok/s)")
+    print("sample:", tokens[0, :16].tolist())
+    if not (tokens.min() >= 0 and tokens.max() < cfg.vocab_size):
+        raise RuntimeError("a served token lies outside the vocab")
+    return tokens
 
 
 def run_gbdt(args) -> list:
@@ -163,9 +216,14 @@ def run_gbdt(args) -> list:
     return outs
 
 
-def main(argv: list[str] | None = None) -> list:
+def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trees", type=int, default=60,
                     help="forest size to train then serve (--arch gbdt)")
@@ -191,10 +249,9 @@ def main(argv: list[str] | None = None) -> list:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
-    if args.arch != "gbdt":
-        raise NotImplementedError(f"--arch {args.arch}: the LM serving CLI is not ported "
-                                  "yet (ROADMAP.md A11); --arch gbdt serves forests")
-    return run_gbdt(args)
+    if args.arch == "gbdt":
+        return run_gbdt(args)
+    return run_lm(args)
 
 
 if __name__ == "__main__":

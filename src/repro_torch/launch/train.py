@@ -7,7 +7,9 @@
 ``--delay`` wraps the optimizer in the paper's DelayedGradient staleness
 mechanism with Proposition 1's step scale; ``--sample`` draws Bernoulli
 importance weights per microbatch: the two halves of asynch-SGBDT applied
-to NN training. Configs are reduced unless ``--full``.
+to NN training. Configs are reduced unless ``--full``. Each logged step
+prints the loss, its cross-entropy part and the router aux loss (the MoE
+family's load-balance term, summed over the layers; 0 for the others).
 
 ``--arch gbdt`` drives the paper's own model through the parameter-server
 engine (``repro_torch.ps``):
@@ -480,9 +482,11 @@ def main(argv: list[str] | None = None):
         losses.append(float(metrics["loss"]))
         if (i + 1) % args.log_every == 0:
             rate = args.batch * args.seq * args.log_every / (time.time() - t0)
-            print(f"step {i+1:5d} loss={losses[-1]:.4f} tok/s={rate:,.0f}")
+            print(f"step {i+1:5d} loss={losses[-1]:.4f} ce={float(metrics['ce']):.4f} "
+                  f"aux={float(metrics['aux']):.4f} tok/s={rate:,.0f}")
             t0 = time.time()
-    print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f})")
+    print(f"final loss: {losses[-1]:.4f} (start {losses[0]:.4f}); ce "
+          f"{float(metrics['ce']):.4f}, aux {float(metrics['aux']):.4f}")
     if not np.isfinite(losses[-1]):
         raise RuntimeError("training diverged")
     return losses

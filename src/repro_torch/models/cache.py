@@ -1,7 +1,7 @@
-"""Decode caches of the dense and hybrid families (twin of those parts of
-``repro.models.cache``).
+"""Decode caches of the dense, MoE and hybrid families (twin of those
+parts of ``repro.models.cache``).
 
-Dense layout: ``{"pos": () int32, "self": {"k", "v": (L, B, cap, KV, hd),
+Dense and MoE layout: ``{"pos": () int32, "self": {"k", "v": (L, B, cap, KV, hd),
 "slot_pos": (L, cap) int32}}``. The attention cache is a ring buffer of
 ``cap`` slots; ``slot_pos`` holds each slot's absolute position (-1 =
 empty); ``cap`` is ``ModelConfig.window_for(seq_len)``; ``pos`` is the
@@ -22,10 +22,9 @@ from repro_torch.models.config import ModelConfig
 
 Cache = dict
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 # Where each family still refused is queued (ROADMAP.md, queue A).
 _QUEUED = {
-    "moe": "A10, MoE: moe_ffn, the router and the expert shard",
     "vlm": "A10, VLM: cross_attention and the media cache",
     "audio": "A10, audio: whisper's encoder_attention",
     "ssm": "A10, xLSTM: models/xlstm.py",
@@ -34,7 +33,7 @@ _QUEUED = {
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not carry
-    yet (every one but dense and hybrid), naming its ROADMAP item."""
+    yet (every one but dense, MoE and hybrid), naming its ROADMAP item."""
     if cfg.family not in PORTED_FAMILIES:
         where = _QUEUED.get(cfg.family, "A10, the other LM families")
         raise NotImplementedError(
@@ -61,7 +60,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     dev = resolve_device(device)
     cap = cfg.window_for(seq_len)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         cache["self"] = _ring(cfg.n_layers, batch, cap, cfg, dev)
         return cache
     dt = torch_dtype(cfg)

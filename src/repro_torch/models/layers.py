@@ -1,6 +1,7 @@
-"""Transformer building blocks: norms, rope, self-attention and the
-SwiGLU MLP (twin of those parts of ``repro.models.layers``), which the
-dense layers and the hybrid family's shared block are made of.
+"""Transformer building blocks: norms, rope, self-attention, the SwiGLU
+MLP and the MoE FFN (twin of ``repro.models.layers`` without its
+expert-parallel branch), which the dense and MoE layers and the hybrid
+family's shared block are made of.
 
 Attention is q-chunked on the plain path (a loop over query chunks), so
 peak score memory is bounded by (B, H, chunk, S_kv). With
@@ -11,6 +12,14 @@ buffer over ``capacity`` slots with per-slot absolute positions, which
 unifies full attention (capacity = max_len) and a sliding window
 (capacity = window) under one code path.
 Dtype casts stand where the reference has them.
+
+The MoE FFN runs on one device: top-k routing, then each expert, one
+after another, on a fixed-capacity dispatch of its tokens (slot = rank
+among the expert's tokens in token order; tokens past the capacity are
+dropped), and the outputs added back to their rows in expert order. It
+syncs nothing with the host (no mask indexing, ``nonzero`` or
+``.item()``; every shape follows from T, E and the capacity), and its sum
+is the same on every run: a row takes at most one add an expert.
 """
 from __future__ import annotations
 
@@ -186,3 +195,92 @@ def self_attention_decode(
 # ---------------------------------------------------------------------- MLP
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return swiglu(x, p["wg"], p["wu"], p["wd"])
+
+
+# ---------------------------------------------------------------------- MoE
+def _router(p: Params, xf: torch.Tensor, cfg: ModelConfig):
+    """Top-k routing and the switch-style load-balance aux loss. The logits
+    are an f32 product (left in true f32: a TF32 product moves near-tied
+    ids); the k largest probabilities come from a stable descending sort,
+    so a tie goes to the lower expert, as ``jax.lax.top_k`` breaks it
+    (``torch.topk`` promises no order on ties); they are renormalised and
+    cast to xf's dtype. aux = E * mean_e(mean_t(one_hot(top-1 id)) *
+    mean_t(probs)). Returns (weights (T, k), ids (T, k) int64, aux)."""
+    logits = xf.float() @ p["wr"].float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :cfg.top_k], ids[:, :cfg.top_k]
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(ids[:, 0], cfg.n_experts).float()  # top-1 load
+    aux = cfg.n_experts * (onehot.mean(dim=0) * probs.mean(dim=0)).mean()
+    return weights.to(xf.dtype), ids, aux
+
+
+def expert_dispatch(ids: torch.Tensor, weights: torch.Tensor, n_experts: int,
+                    capacity: int, e_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fixed-capacity dispatch of experts ``e_offset`` .. ``e_offset +
+    n_experts - 1``: each one's token row at each of its ``capacity``
+    slots (E, C) (T, the sentinel, where a slot stays empty), and each
+    token's combine weight for each expert (E, T) (0 if not routed to it).
+    A token's slot is its rank among the expert's routed tokens, in token
+    order; tokens at or past the capacity are dropped. No host sync: the
+    tokens scatter into capacity + 1 slots an expert, the last catching
+    every token not placed, and it is cut off."""
+    t = ids.shape[0]
+    dev = ids.device
+    experts = torch.arange(n_experts, device=dev)
+    m = ids[None] == (experts + e_offset)[:, None, None]  # (E, T, k)
+    tok_w = torch.where(m, weights[None], torch.zeros((), dtype=weights.dtype,
+                                                      device=dev)).sum(dim=-1)
+    routed = m.any(dim=-1)  # (E, T): each expert's scan runs along its row
+    rank = torch.cumsum(routed.long(), dim=1) - 1
+    slot = torch.where(routed & (rank < capacity), rank, capacity)
+    slot = slot + experts[:, None] * (capacity + 1)
+    dispatch = torch.full((n_experts * (capacity + 1),), t, dtype=torch.long, device=dev)
+    dispatch.scatter_(0, slot.reshape(-1), torch.arange(t, device=dev).repeat(n_experts))
+    return dispatch.view(n_experts, capacity + 1)[:, :capacity], tok_w
+
+
+def _expert_block(xf: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+                  wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, e_offset: int,
+                  capacity: int) -> torch.Tensor:
+    """The experts of wg/wu/wd (E_loc, ...) on their dispatched tokens, one
+    expert after another, as in the reference: a (C, D) gather of the input
+    with a zero row for the sentinel, the SwiGLU MLP as three 2-D products,
+    and the output scaled by the token's weight and added back to its row
+    in expert order (at most one add a row each expert, so the sum is the
+    same on every run, whatever top_k). Returns the weighted output (T, D);
+    dropped tokens get nothing."""
+    t, d = xf.shape
+    dispatch, tok_w = expert_dispatch(ids, weights, wg.shape[0], capacity, e_offset)
+    we = torch.cat([tok_w, tok_w.new_zeros((tok_w.shape[0], 1))], dim=1).gather(1, dispatch)
+    xpad = torch.cat([xf, xf.new_zeros((1, d))])
+    out = xf.new_zeros((t + 1, d))
+    for j, (g, u, dn) in enumerate(zip(wg.unbind(0), wu.unbind(0), wd.unbind(0))):
+        he = swiglu(torch.index_select(xpad, 0, dispatch[j]), g, u, dn)  # (C, D)
+        out.index_add_(0, dispatch[j], he * we[j, :, None])
+    return out[:t]
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int, capacity: int | None = None) -> int:
+    """Slots an expert: ``capacity`` if given, every token under -1 (lossless;
+    decode), else max(1, int(top_k * T / E * capacity_factor))."""
+    if capacity == -1:
+        return tokens
+    if capacity is not None:
+        return capacity
+    return max(1, int(cfg.top_k * tokens / cfg.n_experts * cfg.capacity_factor))
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            capacity: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN on one device (the reference's ``mesh=None`` branch):
+    route the (B, S) tokens, run every expert on its fixed-capacity
+    dispatch and combine. ``capacity``: None for the capacity-factor rule,
+    -1 for all tokens (decode). Returns (out (B, S, D), aux)."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    weights, ids, aux = _router(p, xf, cfg)
+    out = _expert_block(xf, ids, weights, p["wg"], p["wu"], p["wd"], 0,
+                        moe_capacity(cfg, xf.shape[0], capacity))
+    return out.reshape(b, s, d), aux

@@ -1,4 +1,4 @@
-"""Model assembly of the dense and hybrid families: parameter schema,
+"""Model assembly of the dense, MoE and hybrid families: parameter schema,
 init, the train forward, prefill and decode (twin of those parts of
 ``repro.models.transformer``).
 
@@ -11,8 +11,16 @@ reference's ``lax.scan``). In training, with ``cfg.remat``, each dense
 layer runs under ``torch.utils.checkpoint``: by the reference's "full"
 policy it keeps only its input, and under ``remat_policy="dots"`` also the
 outputs of its batch-free matmuls (``_DOTS_SAVED``). Packed rows
-(``segments``) train on the dense family. Prefill and decode run under
-``torch.inference_mode()``.
+(``segments``) train on the dense and MoE families. Prefill and decode
+run under ``torch.inference_mode()``.
+
+The MoE family (phi3.5-moe, dbrx) stacks layers of attention and the
+one-device ``layers.moe_ffn`` (``moe``: the router ``wr`` (D, E) and the
+experts' ``wg``, ``wu`` (E, D, F) and ``wd`` (E, F, D)); the train
+backbone sums each layer's router aux loss into the loss (weighted by
+``router_aux_weight``) and takes ``remat_policy`` as the dense one does;
+prefill routes by the capacity-factor rule, decode with every token kept
+(``capacity=-1``), as the reference does.
 
 The hybrid family (zamba2) scans groups of ``shared_attn_every`` Mamba2
 layers, each group followed by the one shared attention + MLP block (the
@@ -76,6 +84,16 @@ def _mlp_schema(cfg: ModelConfig) -> dict:
     }
 
 
+def _moe_schema(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "wr": Entry((d, e), ("embed", None)),
+        "wg": Entry((e, d, f), ("experts", "embed", "ff")),
+        "wu": Entry((e, d, f), ("experts", "embed", "ff")),
+        "wd": Entry((e, f, d), ("experts", "ff", "embed")),
+    }
+
+
 def _mamba_schema(cfg: ModelConfig) -> dict:
     d, di, st, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = 2 * di + 2 * st + nh
@@ -97,6 +115,15 @@ def _dense_layer(cfg: ModelConfig) -> dict:
     return {
         "attn": _attn_schema(cfg),
         "mlp": _mlp_schema(cfg),
+        "ln1": Entry((cfg.d_model,), ("embed",), "ones"),
+        "ln2": Entry((cfg.d_model,), ("embed",), "ones"),
+    }
+
+
+def _moe_layer(cfg: ModelConfig) -> dict:
+    return {
+        "attn": _attn_schema(cfg),
+        "moe": _moe_schema(cfg),
         "ln1": Entry((cfg.d_model,), ("embed",), "ones"),
         "ln2": Entry((cfg.d_model,), ("embed",), "ones"),
     }
@@ -125,8 +152,9 @@ def param_schema(cfg: ModelConfig) -> dict:
         "lm_head": Entry((d, v), ("embed", "vocab")),
         "final_norm": Entry((d,), ("embed",), "ones"),
     }
-    if cfg.family == "dense":
-        schema["layers"] = _stack(_dense_layer(cfg), cfg.n_layers)
+    if cfg.family in ("dense", "moe"):
+        layer_schema = _dense_layer(cfg) if cfg.family == "dense" else _moe_layer(cfg)
+        schema["layers"] = _stack(layer_schema, cfg.n_layers)
         return schema
     g, every, tail = hybrid_layout(cfg)
     schema["groups"] = {"mamba": _stack(_stack(_mamba_schema(cfg), every), g)}
@@ -150,7 +178,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random parameters in ``cfg.dtype``: normal weights scaled by
     1 / sqrt(fan_in) (fan_in = the second-to-last dim), drawn in f32 from
     ``generator`` (which must live on ``device``), in schema order; norms
-    are ones. A Mamba2 layer's ``a_log`` is log(1 + h % 15) + 0.5 for head
+    are ones. An entry of three dims or more (a stack of layers) is drawn
+    one leading slice at a time into its output, so the f32 draw never
+    holds more than one slice (a 16-layer phi3.5-moe expert entry is 27 GB
+    in f32). A Mamba2 layer's ``a_log`` is log(1 + h % 15) + 0.5 for head
     h and its ``dt_bias`` -4, both f32, as the reference makes them."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
@@ -167,9 +198,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         if e.init == "dtbias":
             return torch.full(e.shape, -4.0, dtype=torch.float32, device=dev)
         fan_in = e.shape[-2] if len(e.shape) >= 2 else e.shape[-1]
-        scale = 1.0 / torch.sqrt(torch.tensor(float(max(fan_in, 1))))
-        w = torch.randn(e.shape, generator=generator, dtype=torch.float32, device=dev)
-        return (w * scale.to(dev)).to(dt)
+        scale = (1.0 / torch.sqrt(torch.tensor(float(max(fan_in, 1))))).to(dev)
+
+        def draw(shape):
+            return torch.randn(shape, generator=generator, dtype=torch.float32,
+                               device=dev).mul_(scale)
+        if len(e.shape) < 3:
+            return draw(e.shape).to(dt)
+        out = torch.empty(e.shape, dtype=dt, device=dev)
+        for part in out:
+            part.copy_(draw(e.shape[1:]))
+        return out
 
     return map_schema(make, param_schema(cfg))
 
@@ -234,6 +273,14 @@ def _dense_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
 
 
+def _moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
+               segments: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    x = x + L.self_attention_train(p["attn"], L.rms_norm(x, p["ln1"]), cfg, window,
+                                   segments=segments)
+    out, aux = L.moe_ffn(p["moe"], L.rms_norm(x, p["ln2"]), cfg)
+    return x + out, aux
+
+
 def _mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + S.mamba2_train(p, L.rms_norm(x, p["ln"]), cfg)
 
@@ -259,9 +306,11 @@ def unstack(stacked: dict) -> list[dict]:
 # The "dots" policy (the reference's ``dots_with_no_batch_dims_saveable``):
 # the outputs of matmuls without a batch dimension are kept. ``x @ W`` of a
 # (B, S, D) x reaches the dispatcher as an ``mm`` of the flattened rows (q,
-# k, v, o, gate, up, down); the attention's einsums are ``bmm``s, which keep
-# a batch dimension, and are recomputed with everything else, the flash
-# kernels (launched out of the dispatcher's sight) included.
+# k, v, o, gate, up, down), as do the MoE router's product and each
+# expert's three (2-D on its (C, D) tokens); the attention's einsums are
+# ``bmm``s, which keep a batch dimension, and are recomputed with
+# everything else, the flash kernels (launched out of the dispatcher's
+# sight) included.
 _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
@@ -283,13 +332,20 @@ def _maybe_checkpoint(cfg: ModelConfig, fn, *args, policy: str = "full"):
 def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    segments: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Hidden states (B, S, D) of the teacher-forced sequence, and the MoE
-    aux loss (0 for these families), from embedded tokens x (B, S, D).
-    ``segments`` (B, S), packed-document ids (0 = padding), mask the dense
-    family's attention; the dense layers read ``cfg.remat_policy``
-    ("dots", or anything else for "full"), the hybrid ones do not."""
+    aux loss (the sum of the layers' router losses; 0 for the other
+    families), from embedded tokens x (B, S, D). ``segments`` (B, S),
+    packed-document ids (0 = padding), mask the dense and MoE families'
+    attention; their layers read ``cfg.remat_policy`` ("dots", or anything
+    else for "full"), the hybrid ones do not."""
     require_ported(cfg)
     window = cfg.window_for(x.shape[1])
-    if cfg.family == "hybrid":  # the reference's hybrid branch takes no policy
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        for p in unstack(params["layers"]):
+            x, a = _maybe_checkpoint(cfg, _moe_block, p, x, cfg, window, segments,
+                                     policy=cfg.remat_policy)
+            aux = aux + a
+    elif cfg.family == "hybrid":  # the reference's hybrid branch takes no policy
         for group in unstack(params["groups"]["mamba"]):
             x = _maybe_checkpoint(cfg, _hybrid_group, unstack(group), x, params["shared"],
                                   cfg, window)
@@ -299,13 +355,13 @@ def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
         for p in unstack(params["layers"]):
             x = _maybe_checkpoint(cfg, _dense_block, p, x, cfg, window, segments,
                                   policy=cfg.remat_policy)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward_train(params: Params, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, dict]:
     """Teacher-forced LM loss. batch: tokens (B, S), labels (B, S),
-    [segments (B, S) — packed-document ids, 0 = padding, dense only],
+    [segments (B, S) — packed-document ids, 0 = padding, dense and MoE],
     [weights (B,) — Bernoulli importance weights m'_i / R, the paper's
     sampled objective lifted to sequence level]. Returns (loss, {"ce",
     "aux"}). Logits are taken in ``cfg.dtype``, -1e9 past the vocab, then
@@ -316,7 +372,7 @@ def forward_train(params: Params, cfg: ModelConfig,
     ``ValueError`` for them, as the reference does."""
     require_ported(cfg)
     segments = batch.get("segments")
-    if segments is not None and cfg.family != "dense":
+    if segments is not None and cfg.family not in ("dense", "moe"):
         raise ValueError(
             "packed segments need attention masking; recurrent families "
             "would need per-segment state resets (not implemented)")
@@ -372,6 +428,14 @@ def _ring_from_kv(ks: torch.Tensor, vs: torch.Tensor, cap: int) -> dict:
     }
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, capacity: int | None = None):
+    """A serving layer's feed-forward part: the MoE FFN (its aux dropped) on
+    a layer that has one, else the MLP."""
+    if "moe" in p:
+        return L.moe_ffn(p["moe"], x, cfg, capacity)[0]
+    return L.mlp(p["mlp"], x)
+
+
 @torch.inference_mode()
 def prefill(params: Params, cfg: ModelConfig, batch: dict,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
@@ -394,10 +458,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
         x = x + a
         ks.append(k)
         vs.append(v)
-        return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg)
 
     cache: dict = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x = attn_block(layer(params["layers"], i), x)
         cache["self"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
@@ -438,7 +502,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     require_ported(cfg)
     x = params["embed"][tokens.long()]  # (B, 1, D)
     pos = cache["pos"]
-    ring = cache["self"] if cfg.family == "dense" else cache["shared"]
+    ring = cache["shared"] if cfg.family == "hybrid" else cache["self"]
     cap = ring["k"].shape[2]
 
     def attn_block(p, x, i):
@@ -446,7 +510,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             p["attn"], L.rms_norm(x, p["ln1"]), ring["k"][i], ring["v"][i],
             ring["slot_pos"][i], pos, cfg, cap)
         x = x + out
-        return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg, capacity=-1)
 
     def mamba(p, x, i):
         out, st, cv = S.mamba2_decode(p, L.rms_norm(x, p["ln"]), cache["ssm"][i],
@@ -455,7 +519,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         cache["conv"][i].copy_(cv)
         return x + out
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x = attn_block(layer(params["layers"], i), x, i)
     else:

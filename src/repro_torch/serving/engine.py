@@ -1,5 +1,5 @@
 """Batched serving engine: request queue -> same-length waves -> greedy decode
-(twin of ``repro.serving.engine``, for the dense and hybrid families).
+(twin of ``repro.serving.engine``, for the dense, MoE and hybrid families).
 
 Requests are bucketed by prompt length, packed into waves of ``slots``
 sequences (a short wave is padded with its last prompt), prefilled once,

@@ -86,7 +86,7 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, seq_len: int) -> dict:
         return "model" if model > 1 and dim % model == 0 else None
 
     out: dict = {"pos": P()}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         out["self"] = _attn_cache_spec(mesh, struct["self"]["k"].shape, baxes)
         return out
     ssm = struct["ssm"].shape  # (L, B, nh, hp, st)

@@ -779,12 +779,12 @@ def test_ssd_events_take_the_scan_forward_its_recompute_and_its_backward():
     cfg, params = _small_hybrid("float32")
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
-    with chip_smoke.ssd_ranges(), profile(activities=[ProfilerActivity.CPU]) as prof:
+    with chip_smoke.op_ranges(), profile(activities=[ProfilerActivity.CPU]) as prof:
         loss, _ = TT.forward_train(params, cfg, {"tokens": toks[:, :-1],
                                                  "labels": toks[:, 1:]})
         torch.autograd.grad(loss, leaves)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    ssd = chip_smoke.ssd_events(events)
+    ssd = chip_smoke.range_events(events, chip_smoke.SSD_RANGE)
     names = {e.name for e in events if id(e) in ssd}
     ranges = [e for e in events if e.name == chip_smoke.SSD_RANGE]
     assert len(ranges) == 2 * cfg.n_layers  # the forward and the recompute
@@ -793,7 +793,8 @@ def test_ssd_events_take_the_scan_forward_its_recompute_and_its_backward():
     others = {e.name for e in events if id(e) not in ssd}
     assert {"aten::mm", "MmBackward0", "aten::softmax"} & others
     assert not any(e.name == "SoftmaxBackward0" for e in events if id(e) in ssd)
-    assert chip_smoke.lm_ssm.ssd_scan.__name__ == "ssd_scan"  # the range is taken away
+    assert chip_smoke.lm_ssm.ssd_scan.__name__ == "ssd_scan"  # the ranges are taken away
+    assert chip_smoke.lm_layers.moe_ffn.__name__ == "moe_ffn"
 
 
 def test_hybrid_grad_picks_name_the_first_and_last_mamba2_layers():
@@ -837,7 +838,7 @@ def drift_run(drift_model, monkeypatch):
 
 def test_hybrid_decode_drift_passes_on_a_small_cpu_run(drift_run):
     cfg, params, prompts, served = drift_run
-    out = chip_smoke.hybrid_decode_drift(cfg, params, prompts, served, "cpu")
+    out = chip_smoke.decode_drift(cfg, params, prompts, served, "cpu")
     assert out["steps"] == 8 and out["teacher_forced_ssm_chunk"] == 13  # 39 = 3 x 13
     assert len(out["decode_vs_f32"]) == 8 and out["worst_ratio"] <= 2
 
@@ -854,7 +855,7 @@ def test_hybrid_decode_drift_fails_a_cache_that_is_not_updated(drift_run, monkey
         return (y, state2, conv) if fault.startswith("conv") else (y, state, conv2)
     monkeypatch.setattr(chip_smoke.lm_ssm, "mamba2_decode", faulty)
     with pytest.raises(AssertionError, match="drift|other tokens"):
-        chip_smoke.hybrid_decode_drift(cfg, params, prompts, served, "cpu")
+        chip_smoke.decode_drift(cfg, params, prompts, served, "cpu")
 
 
 def test_device_trace_takes_a_partial_trace_again(monkeypatch):

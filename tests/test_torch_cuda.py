@@ -1335,6 +1335,105 @@ def test_packed_forward_train_gradients_on_the_card(dev):
         _grad_close(a, b, "bfloat16", name)
 
 
+def _moe(dtype: str, **changes):
+    return dataclasses.replace(lm_configs.get("phi3.5-moe-42b").reduced(), attn_impl="flash",
+                               dtype=dtype, **changes)
+
+
+def test_moe_router_breaks_a_planted_tie_on_the_card(dev):
+    """Logits exact in f32 (small integers over 64) with experts 1 and 3
+    tied for every token: the card's ids are the CPU's (the lower expert
+    first), the weights and aux within 1e-6."""
+    cfg = _moe("float32")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(-2, 3, (256, cfg.d_model), generator=g).float()
+    wr = torch.randint(-4, 5, (cfg.d_model, cfg.n_experts), generator=g).float() / 64
+    wr[:, 3] = wr[:, 1]
+    want = LM._router({"wr": wr}, x, cfg)
+    got = LM._router({"wr": wr.to(dev)}, x.to(dev), cfg)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert ((want[1][:, 0] == 1) & (want[1][:, 1] == 3)).any()
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-6)
+    assert abs(float(got[2]) - float(want[2])) <= 1e-6
+
+
+@pytest.mark.parametrize("top_k", [2, 4])
+def test_moe_dispatch_and_combine_on_the_card(dev, top_k):
+    """With the CPU's ids and weights, every expert's dispatch on the card
+    is the CPU's bit for bit; the expert block agrees with the CPU's in f32
+    and repeats bitwise (at top-4 too: a row takes one add an expert)."""
+    cfg = _moe("float32", n_experts=8, top_k=top_k)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p = TT.layer(params["layers"], 0)["moe"]
+    x = torch.randn((300, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    weights, ids, _ = LM._router(p, x, cfg)
+    cap = LM.moe_capacity(cfg, 300)
+    got = LM.expert_dispatch(ids.to(dev), weights.to(dev), cfg.n_experts, cap)
+    want = LM.expert_dispatch(ids, weights, cfg.n_experts, cap)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    pd = {k: v.to(dev) for k, v in p.items()}
+    args = (x.to(dev), ids.to(dev), weights.to(dev), pd["wg"], pd["wu"], pd["wd"], 0, cap)
+    out = LM._expert_block(*args)
+    assert torch.equal(out, LM._expert_block(*args))
+    want = LM._expert_block(x, ids, weights, p["wg"], p["wu"], p["wd"], 0, cap)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_forward_train_gradients_on_the_card(dev, dtype):
+    """Reduced phi3.5-moe: loss, aux and every gradient on the card against
+    the CPU route (routing compared: the same ids at f32); "dots" bitwise
+    "full" on the card; 2 x L forward and L backward flash launches."""
+    cfg = _moe(dtype)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, 2, 64, 1, seed=3, device="cpu"))
+    results = []
+    for device, policy in (("cpu", "full"), (dev, "full"), (dev, "dots")):
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        loss, m = TT.forward_train(p, c, {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        results.append((loss.detach(), m["aux"].detach(), grads))
+        if device != "cpu":
+            assert flash_attention.launches - fwd == 2 * cfg.n_layers
+            assert flash_attention.bwd_launches - bwd == cfg.n_layers
+    (l_cpu, a_cpu, g_cpu), (l_dev, a_dev, g_dev), (l_dots, _, g_dots) = results
+    assert torch.equal(l_dots, l_dev) and all(torch.equal(a, b) for a, b in zip(g_dots, g_dev))
+    torch.testing.assert_close(l_dev.float().cpu(), l_cpu.float(),
+                               rtol=1e-4 if dtype == "float32" else 2e-2, atol=0)
+    if dtype == "float32":
+        assert abs(float(a_dev) - float(a_cpu)) <= 1e-5
+    names = []
+    TT.map_schema(lambda path, _: names.append(".".join(path)), TT.param_schema(cfg))
+    for name, a, b in zip(names, g_dev, g_cpu):
+        _grad_close(a, b, dtype, name)
+
+
+def test_moe_prefill_and_decode_on_the_card(dev):
+    """Reduced phi3.5-moe in f32: prefill (capacity rule) and 4 decode steps
+    (every token kept) on the card against the CPU route, the ring written
+    in place on the card."""
+    cfg = _moe("float32")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 36), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    out = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        logits, cache = TT.prefill(p, cfg, {"tokens": toks[:, :32].to(device)}, max_len=40)
+        steps = [logits]
+        for i in range(32, 36):
+            logits, cache = TT.decode_step(p, cfg, toks[:, i:i + 1].to(device), cache)
+            steps.append(logits)
+        out.append(([x.cpu() for x in steps], {n: cache["self"][n].cpu() for n in ("k", "v")}))
+    (l_cpu, c_cpu), (l_dev, c_dev) = out
+    for a, b in zip(l_dev, l_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for n in c_cpu:
+        torch.testing.assert_close(c_dev[n], c_cpu[n], rtol=1e-4, atol=1e-4)
+
+
 def _swap_setup(dev, root):
     """A depth-5 forest trained 8 rounds on the card, checkpointed (as a
     TrainState) at rounds 4 and 8, with its raw rows and edges."""

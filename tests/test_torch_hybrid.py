@@ -55,6 +55,17 @@ ARCH = "zamba2-1.2b"
 LAYERS = {"4L": {}, "5L-tail": {"n_layers": 5}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: these models are small, and the suite runs files
+    side by side, where each file's thread pool would contend for the
+    same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfgs(**changes):
     return (dataclasses.replace(jconfigs.get(ARCH).reduced(), **changes),
             dataclasses.replace(tconfigs.get(ARCH).reduced(), **changes))
@@ -266,8 +277,17 @@ def test_family_gate_admits_dense_and_hybrid():
         TT.param_schema(tconfigs.get(arch).reduced())
 
 
-@pytest.mark.parametrize("family,item", [("moe", "MoE"), ("vlm", "VLM"), ("audio", "audio"),
-                                         ("ssm", "xLSTM")])
+def test_family_gate_admits_moe():
+    """The MoE family is ported (tests/test_torch_moe.py): the schema, the
+    cache and the engine take it."""
+    cfg = tconfigs.get("phi3.5-moe-42b").reduced()
+    assert "moe" in TT.param_schema(cfg)["layers"]
+    assert set(init_cache(cfg, 1, 8, device="cpu")) == {"pos", "self"}
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ServingEngine(cfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("family,item", [("vlm", "VLM"), ("audio", "audio"), ("ssm", "xLSTM")])
 def test_family_gate_names_each_roadmap_item(family, item):
     arch = next(a for a in jconfigs.ALIASES if tconfigs.get(a).family == family)
     cfg = tconfigs.get(arch).reduced()

@@ -47,6 +47,17 @@ from repro_torch.models import transformer as TT
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: these models are small, and the suite runs files
+    side by side, where each file's thread pool would contend for the
+    same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _pair(attn_impl: str = "chunked", **changes):
     cfg_j = dataclasses.replace(jconfigs.get("granite-3-2b").reduced(), attn_impl=attn_impl,
                                 **changes)
@@ -154,14 +165,14 @@ def test_remat_gives_the_same_gradients(attn_impl, policy):
 
 
 def test_forward_train_refuses_what_is_not_ported():
-    """The MoE family is not ported; packed rows on the recurrent hybrid
+    """The VLM family is not ported; packed rows on the recurrent hybrid
     family raise as in the reference. ("dots" and dense packed rows train:
-    the tests above.)"""
+    the tests above; the MoE family: tests/test_torch_moe.py.)"""
     _, _, cfg, params = _pair()
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1, 8, 1)[0].items()}
-    moe = tconfigs.get("phi3.5-moe-42b").reduced()
+    vlm = tconfigs.get("llama-3.2-vision-90b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward_train(params, moe, batch)
+        TT.forward_train(params, vlm, batch)
     hybrid = tconfigs.get("zamba2-1.2b").reduced()
     with pytest.raises(ValueError, match="per-segment state resets"):
         TT.forward_train(params, hybrid, {**batch, "segments": batch["tokens"]})

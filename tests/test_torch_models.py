@@ -29,7 +29,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.cache import init_cache
 
 ARCHS = list(jconfigs.ALIASES)
-NOT_DENSE = [a for a in ARCHS if jconfigs.get(a).family not in ("dense", "hybrid")]
+NOT_DENSE = [a for a in ARCHS if jconfigs.get(a).family not in ("dense", "moe", "hybrid")]
 
 
 def _pair(arch: str, attn_impl: str = "chunked"):

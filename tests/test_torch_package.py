@@ -163,6 +163,7 @@ def test_serving_engine_without_device_raises_without_gpu(no_cuda):
     lambda: lm_train.main(["--steps", "1"]),
     lambda: lm_train.main(["--arch", "gbdt", "--steps", "1"]),
     lambda: gbdt_serve.main(["--arch", "gbdt", "--trees", "2"]),
+    lambda: gbdt_serve.main(["--arch", "phi3.5-moe-42b"]),
     lambda: ForestEngine(torch.zeros((3, 7))),
     lambda: load_forest_checkpoint(GOLDEN_CKPT, 8),
     lambda: checkpoint.restore_pytree(GOLDEN_CKPT, 8, {"f": np.zeros(320, np.float32)}),
