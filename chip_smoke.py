@@ -151,6 +151,36 @@ from the same ids and weights; last the serve CLI (``--arch
 phi3.5-moe-42b``, reduced). Its profiles split device time into GEMMs,
 flash, the router with dispatch and combine, and the rest.
 
+Then the media families. llama-3.2-vision-90b at full width (d_model
+8192, 64 q heads on 8 kv heads of 128, bf16, seeded random weights,
+flash, every cross layer's gates set to 0.5 and -0.3: at their init of 0
+a cross layer is the identity): the flash forward and backward at its self
+layers' shape (B 4, S 2048, group 8, d 128) beside SDPA; served at 20 of
+its 100 layers (4 groups of 4 self + 1 cross; all 100 do not fit the card)
+on the dense path's waves, each request with its own seeded (1601, 8192)
+media, twice (16 flash launches a wave's prefill; the ring's and the
+media caches' bytes; one prompt with two media gives other logits); at
+one group (5 layers) the flash prefill's logits against the chunked
+path's and f32 and each decode step against the f32 teacher-forced
+forward, then 4 plain-SGD steps (2 x 2048 tokens, accum 2, two batches
+each seen twice) twice (bitwise; each batch's loss lower the second time;
+8 forward and 4 backward flash launches a microbatch under the group's
+remat) and every cross projection's and gate's gradient finite and
+non-zero. whisper-small whole (12 encoder and 12 decoder layers, 12 heads
+of 64, (1500, 768) media): the flash kernels at its training shape (B 8,
+S 448) and serving prompts (64 and 320); served in waves of 8 requests
+with 64- and 320-token prompts and 64 new tokens, twice (12 flash
+launches a wave's prefill; the same gates, and the accuracy gates on the
+320-token wave); trained with run A's recipe on 16 x 448 tokens a step,
+6 steps twice (bitwise, the loss falling, 24 forward and 12 backward
+flash launches a microbatch); the encoder's first and last wq and every
+decoder layer's cross projections with finite, non-zero gradients; last
+the train and serve CLIs for both arches, reduced. Its profiles split
+device time into GEMMs, flash, the chunked attention of the encoder and
+the cross layers (``CHUNKED_RANGE``), and the rest; each kernel is
+counted once, under the innermost host op that launched it
+(``device_kernels``), and the groups must sum to the device total.
+
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel, and per form of the traversal kernel: launches on its path, error
 against the plain version, time as a CUDA-event mean and as device time
@@ -162,6 +192,7 @@ then non-zero and the last line is not printed. Details go to
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -219,6 +250,7 @@ from repro_torch.optim import (  # noqa: E402
     adamw,
     cosine_schedule,
     delayed_gradient,
+    sgd,
     staleness_step_scale,
 )
 from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
@@ -480,6 +512,43 @@ MOE_KERNELS = {
     "flash_attention_bwd_dq_phi35": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
     "flash_attention_bwd_dkv_phi35": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
 }
+# The media families. llama-3.2-vision-90b at full width (d_model 8192, 64
+# q heads on 8 kv heads of 128, d_ff 28,672, vocab 128,256; every 5th layer
+# a gated cross-attention layer over 1601 media tokens): all 100 layers hold
+# 175 GB of bf16 weights, so it is served at VLM_SERVE_LAYERS (4 groups of 4
+# self + 1 cross) on LM_PROMPTS' waves, and trained at one group with plain
+# SGD (a group's AdamW moments do not fit beside its f32 gradient
+# accumulator) for VLM_TRAIN_STEPS steps of VLM_TRAIN_BATCH rows a step,
+# cycling two batches (each seen twice); its cross layers' gates are set to
+# VLM_GATES (at their init of 0 a cross layer is the identity). Its accuracy
+# gates run at one group, where an f32 copy fits. Its flash entries in the
+# kernels line are the kernels at its self layers' shape (group 8, d 128).
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 20, 5, 4, 2
+VLM_GATES = {"gate_attn": 0.5, "gate_mlp": -0.3}
+VLM_SGD_LR = 0.01
+VLM_KERNELS = {
+    "flash_attention_vlm": LM_KERNELS["flash_attention"][1:],
+    "flash_attention_bwd_dq_vlm": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
+    "flash_attention_bwd_dkv_vlm": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
+}
+# whisper-small whole (12 encoder and 12 decoder layers, d_model 768, 12
+# heads on 12 of 64, 1500 media frames): served in waves of AUDIO_SLOTS
+# requests with AUDIO_PROMPTS' prompts and AUDIO_NEW new tokens within its
+# 448-token decoding horizon (AUDIO_MAX_LEN), and trained on AUDIO_TRAIN
+# (rows, tokens) a step with run A's recipe. Its flash entries are the
+# kernels at the training shape (B 8 a microbatch, S 448: 3.5 key tiles);
+# the serving prompts (one partial tile, 2.5 tiles) are checked beside it.
+AUDIO_ARCH = "whisper-small"
+AUDIO_SLOTS, AUDIO_PROMPTS, AUDIO_NEW, AUDIO_MAX_LEN = 8, (64, 320), 64, 448
+AUDIO_TRAIN = (16, 448)
+AUDIO_FLASH_SERVE = [(AUDIO_SLOTS, p, p, 12, 12, 64, True, torch.bfloat16, None)
+                     for p in AUDIO_PROMPTS]
+AUDIO_KERNELS = {
+    "flash_attention_whisper": LM_KERNELS["flash_attention"][1:],
+    "flash_attention_bwd_dq_whisper": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
+    "flash_attention_bwd_dkv_whisper": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
+}
 # (b, sq, sk, h, kv, d, causal, dtype, seq_k): the ragged edges of each
 # route (the wgmma kernel off its 128-row q tiles and 128-key tiles last;
 # the 1000-row shapes give its persistent grid of 132 blocks 256 work
@@ -563,7 +632,7 @@ def device_rows(prof) -> list:
     return [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)
-            and e.key != SSD_RANGE]
+            and e.key not in RANGES]
 
 
 def device_trace(fn, reps: int) -> list:
@@ -634,11 +703,11 @@ def fill_device_times() -> None:
 
 
 def kernel_times(fn, reps: int = 20, warmup: int = 2) -> dict:
-    """``event_times`` with the device time taken at once: ``ms`` and
-    ``device_ms``."""
+    """``event_times`` with the device time taken at once: ``ms``,
+    ``device_ms`` and ``device_ms_by``."""
     d = event_times(fn, reps=reps, warmup=warmup)
     fill_device_times()
-    return {"ms": d["ms"], "device_ms": d["device_ms"]}
+    return {"ms": d["ms"], "device_ms": d["device_ms"], "device_ms_by": d["device_ms_by"]}
 
 
 def line_stats(shapes: dict, tag: str, drop: tuple = ()) -> dict:
@@ -2657,7 +2726,8 @@ def drive_mesh(dev: torch.device, realsim: dict, spec=None, rounds: int = ROUNDS
     over ``MESH_BACKEND`` (``mesh_rank``; each counts its own launches from
     its start); (e) the mesh train CLIs (``MESH_CLIS`` unless given), each
     starting its own ranks. ``spec`` is the data's ``DatasetSpec``
-    (realsim's unless given; ``realsim["data"]`` must be its binning).
+    (realsim's unless given; ``realsim["data"]`` must be its binning). The
+    CLIs run at once; each one's seconds run from their common start.
     Returns what ``check_mesh`` needs."""
     from repro_torch.launch import mesh as launch_mesh
 
@@ -2692,16 +2762,18 @@ def drive_mesh(dev: torch.device, realsim: dict, spec=None, rounds: int = ROUNDS
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(MESH_DIR / f"rank{r}.pt", weights_only=False)
              for r in range(MESH_RANKS)]
-    cli_out = {}
-    for tag, argv in clis.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
-                              capture_output=True, text=True, cwd=ROOT, timeout=600,
-                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    # The CLIs run side by side: each spends most of its time starting its
+    # ranks, and they share the card as the rank processes above do.
+    t0, cli_out = time.perf_counter(), {}
+    procs = {tag: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+             for tag, argv in clis.items()}
+    for tag, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            raise AssertionError(f"mesh CLI ({tag}) exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-3000:]}")
-        cli_out[tag] = {"s": time.perf_counter() - t0, "out": proc.stdout}
+            raise AssertionError(f"mesh CLI ({tag}) exited {proc.returncode}:\n{err[-3000:]}")
+        cli_out[tag] = {"s": time.perf_counter() - t0, "out": out}
     return {"nccl": nccl, "decisive": decisive, "ranks": ranks, "ranks_s": ranks_s,
             "clis": cli_out}
 
@@ -3444,7 +3516,7 @@ def flash_rel_l2(got, want) -> dict:
 
 
 def check_flash(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAGGED,
-                suffix: str = "") -> dict:
+                suffix: str = "", shape: tuple = (LM_SLOTS, LM_PROMPTS[0])) -> dict:
     """The flash kernel against its plain version (the f32 softmax) at the
     serving prefill's shape and at the ragged shapes, two launches bitwise,
     each shape's route (``flash_plan.route``) reported. Tolerances: bf16
@@ -3456,10 +3528,11 @@ def check_flash(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAG
     element-wise limit (about sqrt(e / n) for randn rows that see n keys).
     Times at the prefill's shape, beside
     ``scaled_dot_product_attention`` on the same inputs (contiguous), whose
-    backend is named. ``arch`` gives the prefill's heads; the report's keys
-    take ``suffix``."""
+    backend is named. ``arch`` gives the prefill's heads and ``shape`` its
+    (batch, length); the planted faults need a length of 512 or more. The
+    report's keys take ``suffix``."""
     cfg = lm_configs.get(arch)
-    b, s = LM_SLOTS, LM_PROMPTS[0]
+    b, s = shape
     cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     shapes, out = {}, None
@@ -3489,7 +3562,8 @@ def check_flash(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAG
                        "route": flash_plan.route(dtype, d)}
         if out is None:  # the prefill's shape: the planted faults, times and bound
             planted = {}
-            for name, bad in flash_planted_faults(q, k, v, l1, o1).items():
+            for name, bad in (flash_planted_faults(q, k, v, l1, o1) if sq >= 512
+                              else {}).items():
                 r = flash_rel_l2(bad, want)
                 if max(r.values()) <= FLASH_OUT_REL_L2:
                     raise AssertionError(f"flash_attention: the planted fault {name} passes "
@@ -3498,7 +3572,7 @@ def check_flash(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAG
                 planted[name] = {"rel_l2_err": r, "passes_elementwise": bool(
                     (diff <= 2e-2 + 2e-2 * want.float().abs()).all())}
             shapes[tag]["planted_faults"] = planted
-            del bad, diff
+            bad = diff = None
             el = q.element_size()
             # Bytes: q, k, v read once, out written once, lse; operations:
             # two products of 2d flops for every (query, key) pair the mask
@@ -3529,28 +3603,54 @@ def check_flash(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAG
 
 
 def to_f32(tree: dict) -> dict:
-    return {k: to_f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+    """The tree's float leaves in f32 (integer leaves, a batch's tokens, kept)."""
+    return {k: to_f32(v) if isinstance(v, dict) else v.float() if v.is_floating_point() else v
+            for k, v in tree.items()}
 
 
 def count_params(tree: dict) -> int:
     return sum(count_params(v) if isinstance(v, dict) else v.numel() for v in tree.values())
 
 
-def lm_requests(cfg, rng) -> list:
-    """LM_SLOTS seeded requests for each prompt length of LM_PROMPTS."""
-    return [Request(uid=i * LM_SLOTS + j,
-                    prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
-                    max_new_tokens=LM_NEW)
-            for i, plen in enumerate(LM_PROMPTS) for j in range(LM_SLOTS)]
+def media_of(cfg, uid: int) -> np.ndarray:
+    """Request ``uid``'s seeded media (M, D): unit normals in f32."""
+    return np.random.default_rng(SEED + 1000 + uid).standard_normal(
+        (cfg.n_media_tokens, cfg.d_model), dtype=np.float32)
+
+
+def lm_requests(cfg, rng, slots: int | None = None, prompts: tuple | None = None,
+                new: int | None = None, media: bool = False) -> list:
+    """``slots`` seeded requests for each prompt length of ``prompts``, each
+    of ``new`` tokens (LM_SLOTS, LM_PROMPTS and LM_NEW by default), with
+    its own ``media_of`` where ``media``."""
+    slots, prompts, new = slots or LM_SLOTS, prompts or LM_PROMPTS, new or LM_NEW
+    out = []
+    for i, plen in enumerate(prompts):
+        for j in range(slots):
+            uid = i * slots + j
+            out.append(Request(uid=uid,
+                               prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+                               max_new_tokens=new, media=media_of(cfg, uid) if media else None))
+    return out
+
+
+def wave_batch(cfg, requests: list, dev) -> dict:
+    """The prefill batch of one wave of requests: tokens, and their media
+    in the model's dtype where they have any."""
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests]), device=dev)}
+    if requests[0].media is not None:
+        batch["media"] = torch.as_tensor(np.stack([r.media for r in requests]),
+                                         device=dev).to(getattr(torch, cfg.dtype))
+    return batch
 
 
 def serve_lm(engine, requests) -> tuple:
-    """One wave a ``run`` call (LM_SLOTS same-length requests fill the
-    slots); returns (completions, flash launches of each wave)."""
+    """One wave a ``run`` call (the engine's slots filled by same-length
+    requests); returns (completions, flash launches of each wave)."""
     outs, per_wave = [], []
-    for i in range(0, len(requests), LM_SLOTS):
+    for i in range(0, len(requests), engine.slots):
         before = flash_attention.launches
-        outs += engine.run(requests[i:i + LM_SLOTS])
+        outs += engine.run(requests[i:i + engine.slots])
         per_wave.append(flash_attention.launches - before)
     return outs, per_wave
 
@@ -3561,9 +3661,10 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     cfg, dev = engine.cfg, engine.device
-    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
-                                       device=dev)}
-    prefill_step = make_prefill_step(cfg, LM_MAX_LEN)
+    longest = max(len(r.prompt) for r in requests)
+    batch = wave_batch(cfg, [r for r in requests if len(r.prompt) == longest][:engine.slots],
+                       dev)
+    prefill_step = make_prefill_step(cfg, engine.max_len)
     decode = make_decode_step(cfg)
     res = {}
     for phase in ("prefill", "decode"):
@@ -3587,11 +3688,13 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
         rows = device_rows(prof) if profiler_sees_device() else []
         rows.sort(key=lambda r: -r[1])
         dev_ms = (sum(r[1] for r in rows) if rows else start.elapsed_time(stop)) / n
+        groups = {k: v / n for k, v in device_groups(prof).items()} if rows else {}
         res[phase] = {"calls": n, "device_ms": dev_ms,
                       "device_ms_by": "profiler" if rows else "events",
-                      "wall_ms_profiled": wall / n,
-                      "by_group_ms": {k: v / n for k, v in device_groups(prof).items()}
-                      if rows else {}}
+                      "wall_ms_profiled": wall / n, "by_group_ms": groups,
+                      "range_spans_ms": {k: v / n for k, v in range_spans(prof).items()},
+                      "groups_over_device": groups_cover(f"{cfg.name} {phase}", groups, dev_ms)
+                      if rows else None}
         res[phase].update({"device_busy_share": busy(res[phase], dev_ms, wall / n),
                            "top": [{"name": k[:80], "device_ms": ms / n, "calls": c}
                                    for k, ms, c in rows[:12]]})
@@ -3646,7 +3749,7 @@ def last_routes(calls: list, batch: int) -> torch.Tensor | None:
     return torch.stack([c.reshape(batch, -1, c.shape[-1])[:, -1] for c in calls], dim=1)
 
 
-def prefill_against_f32(cfg, params: dict, batch: dict) -> dict:
+def prefill_against_f32(cfg, params: dict, batch: dict, max_len: int | None = None) -> dict:
     """Flash against chunked on one wave: last-position prefill logits, same
     weights. Tolerance: twice what bf16 costs the chunked path itself,
     measured against the chunked path in f32 (the same weights upcast; no
@@ -3654,19 +3757,21 @@ def prefill_against_f32(cfg, params: dict, batch: dict) -> dict:
     at most that. Where the top-2 margin of a row exceeds the tolerance,
     both paths must pick the same first token. For an MoE model only the
     rows whose last position the three paths route alike are compared
-    (``route_agreement``). Returns the figures."""
-    flash_step = make_prefill_step(cfg, LM_MAX_LEN)
+    (``route_agreement``). A batch's media are cast to each path's dtype;
+    ``max_len`` is LM_MAX_LEN unless given. Returns the figures."""
+    max_len = max_len or LM_MAX_LEN
+    flash_step = make_prefill_step(cfg, max_len)
     b = batch["tokens"].shape[0]
     with recorded_routes() as rf:
         tok_f, lf, _ = flash_step(params, batch)
     _, lf2, _ = flash_step(params, batch)
     chunked = dataclasses.replace(cfg, attn_impl="chunked")
     with recorded_routes() as rc:
-        tok_c, lc, _ = make_prefill_step(chunked, LM_MAX_LEN)(params, batch)
+        tok_c, lc, _ = make_prefill_step(chunked, max_len)(params, batch)
     params32 = to_f32(params)
     with recorded_routes() as rr:
         _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"),
-                                     LM_MAX_LEN)(params32, batch)
+                                     max_len)(params32, to_f32(batch))
     del params32
     rows = route_agreement(f"{cfg.name} prefill", [last_routes(r, b) for r in (rf, rc, rr)],
                            (b,)).to(lf.device)
@@ -3829,7 +3934,7 @@ def bwd_close(tag: str, got, want, mag, dtype, one_key: bool = False) -> dict:
 
 
 def check_flash_bwd(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH_RAGGED,
-                    suffix: str = "") -> dict:
+                    suffix: str = "", shape: tuple = (LM_SLOTS, LM_PROMPTS[0])) -> dict:
     """The backward kernels (delta, dq, dk/dv) against their plain version
     (the f32 formulas) at the training shape and the ragged shapes, held by
     ``bwd_close``; two launches bitwise; each shape's route
@@ -3840,10 +3945,10 @@ def check_flash_bwd(dev, report: dict, arch: str = LM_ARCH, ragged: list = FLASH
     ``scaled_dot_product_attention``, on the same inputs made contiguous,
     compute), and each kernel alone beside a bound from its own products
     and bytes and beside the ``ex2`` floor of its p. Returns each kernel's
-    stats for the kernels line. ``arch`` gives the training shape's heads;
-    the report's keys take ``suffix``."""
+    stats for the kernels line. ``arch`` gives the training shape's heads
+    and ``shape`` its (batch, length); the report's keys take ``suffix``."""
     cfg = lm_configs.get(arch)
-    b, s = LM_SLOTS, LM_PROMPTS[0]
+    b, s = shape
     cases = [(b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16, None)]
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     shapes, out = {}, None
@@ -3967,17 +4072,18 @@ def same_params(tag: str, params: dict, copy: list) -> None:
 
 
 def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0,
-             on_step=None) -> tuple:
+             on_step=None, init=None) -> tuple:
     """Seeded weights, then one ``make_train_step`` step a batch; returns
     losses, router aux losses, step ms (host clock after ``synchronize``),
     flash launches a step, peak memory, the parameters, the optimizer
     state, the step and the generator. With ``warm_up`` > 0 the parameters
     after that many steps must be bitwise the initial ones; ``on_step(i,
-    params)`` is called after step i."""
+    params)`` is called after step i. ``init(cfg, gen, device=)`` makes the
+    weights (``init_params`` by default)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_params(cfg, gen, device=dev)
+    params = (init or init_params)(cfg, gen, device=dev)
     initial = param_copy(params) if warm_up else None
     state = opt.init(params)
     step = make_train_step(cfg, opt, accum=accum, sampling_rate=sample)
@@ -4002,35 +4108,49 @@ def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0
     return res, params, state, step, gen
 
 
-# The profiler ranges of ``op_ranges``: the SSD chunk loop and the MoE FFN.
+# The profiler ranges of ``op_ranges``: the SSD chunk loop, the MoE FFN,
+# and the chunked attention of whisper's encoder and of the cross layers.
 SSD_RANGE = "ssd_scan"
 SSD_GROUP = "SSD scan (einsums, exp, cumsum)"
 MOE_RANGE = "moe_ffn"
 MOE_GROUP = "router, dispatch and combine"
+CHUNKED_RANGE = "chunked_attention"
+CHUNKED_GROUP = "chunked attention (encoder, cross)"
 REST_GROUP = "elementwise, reductions and copies"
+RANGES = (SSD_RANGE, MOE_RANGE, CHUNKED_RANGE)
+# The host ops of a range's projections (x @ W, and their backward's
+# products), whose GEMMs stay in the GEMM group.
+PROJECTION_OPS = ("aten::mm", "aten::addmm")
 
 
 @contextlib.contextmanager
 def op_ranges():
     """While it is open, each call of ``models.ssm.ssd_scan`` (the SSD chunk
     loop and its cumsum) runs inside a ``record_function`` range named
-    ``SSD_RANGE``, and each call of ``models.layers.moe_ffn`` (the router,
-    the experts' dispatch, products and combine) inside one named
-    ``MOE_RANGE``; training's recompute included."""
-    inner = {(lm_ssm, "ssd_scan"): lm_ssm.ssd_scan, (lm_layers, "moe_ffn"): lm_layers.moe_ffn}
+    ``SSD_RANGE``, each call of ``models.layers.moe_ffn`` (the router, the
+    experts' dispatch, products and combine) inside one named
+    ``MOE_RANGE``, and each call of ``layers.encoder_attention`` and
+    ``layers.cross_attention`` (plain chunked attention, as in the
+    reference) inside one named ``CHUNKED_RANGE``; training's recompute
+    included."""
+    inner = {(lm_ssm, "ssd_scan"): lm_ssm.ssd_scan, (lm_layers, "moe_ffn"): lm_layers.moe_ffn,
+             (lm_layers, "encoder_attention"): lm_layers.encoder_attention,
+             (lm_layers, "cross_attention"): lm_layers.cross_attention}
+    names = {"ssd_scan": SSD_RANGE, "moe_ffn": MOE_RANGE,
+             "encoder_attention": CHUNKED_RANGE, "cross_attention": CHUNKED_RANGE}
 
     def ranged(fn, name):
         def call(*args, **kw):
             with torch.profiler.record_function(name):
                 return fn(*args, **kw)
         return call
-    lm_ssm.ssd_scan = ranged(lm_ssm.ssd_scan, SSD_RANGE)
-    lm_layers.moe_ffn = ranged(lm_layers.moe_ffn, MOE_RANGE)
+    for (mod, attr), fn in inner.items():
+        setattr(mod, attr, ranged(fn, names[attr]))
     try:
         yield
     finally:
-        for (mod, name), fn in inner.items():
-            setattr(mod, name, fn)
+        for (mod, attr), fn in inner.items():
+            setattr(mod, attr, fn)
 
 
 def kernel_group(name: str) -> str:
@@ -4058,25 +4178,88 @@ def range_events(events: list, name: str) -> set:
                                       in forward) for p in chain(e))}
 
 
-def device_groups(prof) -> dict:
-    """Device ms by group of a finished trace, from the kernels each op
-    launched: the flash kernels by name; then every kernel an op of the
-    SSD range launched, as ``SSD_GROUP``; then cuBLAS GEMMs by name (the
-    experts' and the router's products among them); then every other
-    kernel an op of the MoE range launched, as ``MOE_GROUP``; the rest."""
+def device_kernels(prof) -> list:
+    """Each device activity of a finished trace once, as (kernel name,
+    device ms, the innermost host op that launched it, or None): the
+    activities ``device_rows`` sums, each filed under a host op that lists
+    it among its kernels. Two kinds of entry in those lists are not
+    kernels of the op: a ``record_function`` range lists its own span on
+    the device (the ``op_ranges`` ranges are left out), and a kernel an op
+    lists beside one of its descendants is that descendant's (the
+    innermost op keeps it). An op claims a kernel only while the trace
+    holds an activity of that name and duration not yet claimed, so no
+    activity is counted twice; what no op claims stays unfiled."""
     cpu = torch.autograd.DeviceType.CPU
-    events = [e for e in prof.events() if e.device_type == cpu]
-    ssd, moe = range_events(events, SSD_RANGE), range_events(events, MOE_RANGE)
+    events = list(prof.events())
+    left = collections.Counter(
+        (k.name, k.self_device_time_total) for k in events
+        if k.device_type != cpu and not getattr(k, "is_user_annotation", False)
+        and k.name not in RANGES and k.self_device_time_total > 0)
+
+    def depth(e):
+        n = 0
+        while e.cpu_parent is not None:
+            e, n = e.cpu_parent, n + 1
+        return n
+    out, below = [], {}
+    for e in sorted((e for e in events if e.device_type == cpu), key=depth, reverse=True):
+        inner = sum((below.get(id(c), collections.Counter()) for c in e.cpu_children),
+                    collections.Counter())
+        own = collections.Counter(
+            (k.name, k.duration) for k in e.kernels if k.name not in RANGES) - inner
+        for key, n in own.items():
+            n = min(n, left[key])
+            left[key] -= n
+            out += [(key[0], key[1] / 1e3, e)] * n
+        below[id(e)] = inner + own
+    return out + [(name, ms / 1e3, None) for (name, ms), n in left.items() for _ in range(n)]
+
+
+def device_groups(prof) -> dict:
+    """Device ms by group of a finished trace, each kernel counted once,
+    under the innermost host op that launched it (``device_kernels``): the
+    flash kernels by name; then every kernel an op of the SSD range
+    launched, as ``SSD_GROUP``; then every kernel an op of the chunked
+    attention's range launched, as ``CHUNKED_GROUP``, except its
+    projections' GEMMs (``PROJECTION_OPS``); then cuBLAS GEMMs by name (the
+    experts' and the router's products among them); then every other
+    kernel an op of the MoE range launched, as ``MOE_GROUP``; the rest.
+    The groups sum to the trace's device total (``device_rows``)."""
+    cpu = torch.autograd.DeviceType.CPU
+    host = [e for e in prof.events() if e.device_type == cpu]
+    ssd, moe, chunked = (range_events(host, r) for r in (SSD_RANGE, MOE_RANGE, CHUNKED_RANGE))
     groups: dict = {}
-    for e in events:
-        for k in e.kernels:
-            g = kernel_group(k.name)
-            if id(e) in ssd and not g.startswith("flash"):
+    for name, ms, owner in device_kernels(prof):
+        g = kernel_group(name)
+        where = id(owner) if owner is not None else None
+        if not g.startswith("flash"):
+            if where in ssd:
                 g = SSD_GROUP
-            elif id(e) in moe and g == REST_GROUP:
+            elif where in chunked and owner.name not in PROJECTION_OPS:
+                g = CHUNKED_GROUP
+            elif where in moe and g == REST_GROUP:
                 g = MOE_GROUP
-            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+        groups[g] = groups.get(g, 0.0) + ms
     return groups
+
+
+def range_spans(prof) -> dict:
+    """The device spans of the ``op_ranges`` ranges in a finished trace, ms
+    by range: what a sum over the host ops' kernel lists would add."""
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU and e.name in RANGES:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def groups_cover(tag: str, groups: dict, device_ms: float) -> float:
+    """The groups' sum over the profiled device total; fails outside 1%."""
+    share = sum(groups.values()) / device_ms
+    if abs(share - 1) > 0.01:
+        raise AssertionError(f"{tag}: the device groups sum to {sum(groups.values())} ms "
+                             f"against a device total of {device_ms} ms")
+    return share
 
 
 def profile_train_step(step, params, state, batch, gen) -> dict:
@@ -4096,8 +4279,10 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
     rows = device_rows(prof) if profiler_sees_device() else []
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows) if rows else start.elapsed_time(stop)
+    groups = device_groups(prof) if rows else {}
     return {"device_ms": dev_ms, "device_ms_by": "profiler" if rows else "events",
-            "wall_ms_profiled": wall, "by_group_ms": device_groups(prof) if rows else {},
+            "wall_ms_profiled": wall, "by_group_ms": groups, "range_spans_ms": range_spans(prof),
+            "groups_over_device": groups_cover("train step", groups, dev_ms) if rows else None,
             "top": [{"name": k[:80], "device_ms": ms, "calls": c} for k, ms, c in rows[:15]]}
 
 
@@ -4559,7 +4744,8 @@ def drive_lm_packed(dev: torch.device, report: dict, cfg=None, seq: int = LM_PRO
 
 
 def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | None,
-                 dev) -> dict:
+                 dev, media: torch.Tensor | None = None, new: int | None = None,
+                 max_len: int | None = None) -> dict:
     """One wave's greedy decode with each step's logits (the engine's path:
     the flash prefill, then the caches written in place a step: the ring,
     and a hybrid model's SSM and conv states), held against the f32
@@ -4571,14 +4757,18 @@ def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | No
     the largest SSM chunk up to ``cfg.ssm_chunk`` that divides their length
     (prompt + new tokens - 1). For an MoE model each step's error is taken
     over the rows that the decode and the f32 forward route alike at that
-    position (``route_agreement``)."""
+    position (``route_agreement``). A VLM or audio model reads ``media``
+    (B, M, D), cast to each path's dtype. ``new`` and ``max_len`` are
+    LM_NEW and LM_MAX_LEN unless given."""
+    new, max_len = new or LM_NEW, max_len or LM_MAX_LEN
     toks = torch.as_tensor(prompts, device=dev)
     b, plen = toks.shape
+    batch = {"tokens": toks} if media is None else {"tokens": toks, "media": media}
     with recorded_routes() as calls:
-        tok, logits, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, {"tokens": toks})
+        tok, logits, cache = make_prefill_step(cfg, max_len)(params, batch)
         routes = [last_routes(calls, b)]
         steps, gen = [logits], [tok]
-        for _ in range(LM_NEW - 1):
+        for _ in range(new - 1):
             calls.clear()
             logits, cache = TT.decode_step(params, cfg, tok[:, None], cache)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -4598,15 +4788,16 @@ def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | No
         c = dataclasses.replace(cfg, attn_impl="chunked", ssm_chunk=chunk, dtype=dtype,
                                 remat=False)
         p = params if dtype == cfg.dtype else to_f32(params)
+        m = None if media is None else media.to(getattr(torch, dtype))
         with torch.inference_mode(), recorded_routes() as calls:
-            h, _ = TT.backbone_train(p, c, p["embed"][full.long()])
+            h, _ = TT.backbone_train(p, c, p["embed"][full.long()], media=m)
             tf[name] = TT._logits(p, c, h[:, plen - 1:])[..., vocab].float()
         del p, h
     tf_routes = (torch.stack([x.reshape(b, n, -1)[:, plen - 1:] for x in calls], dim=2)
                  if calls else None)  # (B, steps, layers, k)
     dec_routes = torch.stack(routes, dim=1) if routes[0] is not None else None
     pairs = route_agreement(f"{cfg.name} decode", [dec_routes, tf_routes],
-                            (b, LM_NEW)).to(dev)
+                            (b, new)).to(dev)
     dec = torch.stack(steps, dim=1)[..., vocab].float()
     if not all(torch.isfinite(x).all() for x in (dec, *tf.values())):
         raise AssertionError(f"{cfg.name}: non-finite decode or teacher-forced logits")
@@ -4620,7 +4811,7 @@ def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | No
             f"{over}: {[float(err_dec[i]) for i in over]} against twice the bf16 forward's "
             f"{[2 * float(err_bf16[i]) for i in over]}")
     kept = pairs.any(dim=0)
-    return {"steps": LM_NEW, "teacher_forced_ssm_chunk": chunk,
+    return {"steps": new, "teacher_forced_ssm_chunk": chunk,
             "decode_vs_f32": err_dec.tolist(), "bf16_forward_vs_f32": err_bf16.tolist(),
             "pairs_compared": int(pairs.sum()), "pairs": pairs.numel(),
             "worst_ratio": float((err_dec[kept] / err_bf16[kept]).max())}
@@ -4694,7 +4885,7 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
     prefill_ms, decode_ms_tok, tok_s = (waves[k] for k in (
         "prefill_ms_per_wave", "decode_ms_per_token", "tokens_per_s_per_wave"))
     lap("serve checks")
-    serve_profile = profile_lm(engine, requests)
+    serve_profile = profile_lm(engine, requests, steps=2)
     lap("serve profile")
     del engine, params
     torch.cuda.empty_cache()
@@ -4818,37 +5009,35 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
     stats = {"flash_attention_zamba2": fwd,
              "flash_attention_bwd_dq_zamba2": bwd["flash_attention_bwd_dq"],
              "flash_attention_bwd_dkv_zamba2": bwd["flash_attention_bwd_dkv"]}
-    line = []
-    for name, (source, replaces) in HYBRID_KERNELS.items():
-        if launches[name] <= 0:
-            raise AssertionError(f"{name}: no launch on the hybrid path")
-        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], **stats[name]})
-    return line
+    return family_line(HYBRID_KERNELS, launches, stats, "hybrid")
 
 
-def lm_wave_stats(runs: list) -> dict:
+def lm_wave_stats(runs: list, slots: int | None = None, prompts: tuple | None = None,
+                  new: int | None = None) -> dict:
     """Prefill ms a wave, decode ms a token and generated tokens/s of each
-    wave of ``serve_lm``'s runs, in run order."""
-    firsts = [outs[i * LM_SLOTS] for outs, _ in runs for i in range(len(LM_PROMPTS))]
+    wave of ``serve_lm``'s runs, in run order (waves of LM_SLOTS requests,
+    LM_PROMPTS' lengths, LM_NEW tokens, unless given)."""
+    slots, prompts, new = slots or LM_SLOTS, prompts or LM_PROMPTS, new or LM_NEW
+    firsts = [outs[i * slots] for outs, _ in runs for i in range(len(prompts))]
     return {"prefill_ms_per_wave": [1e3 * c.prefill_s for c in firsts],
-            "decode_ms_per_token": [1e3 * c.decode_s / (LM_NEW - 1) for c in firsts],
-            "tokens_per_s_per_wave": [LM_SLOTS * LM_NEW / (c.prefill_s + c.decode_s)
+            "decode_ms_per_token": [1e3 * c.decode_s / (new - 1) for c in firsts],
+            "tokens_per_s_per_wave": [slots * new / (c.prefill_s + c.decode_s)
                                       for c in firsts]}
 
 
 def check_lm_waves(tag: str, cfg, runs: list, requests: list, per_wave: int) -> None:
     """The gates of ``serve_lm``'s runs: ``per_wave`` flash launches a
-    wave's prefill, every request answered with LM_NEW in-vocab tokens,
-    and the second run's tokens the first's."""
+    wave's prefill, every request answered with its budget of in-vocab
+    tokens, and the second run's tokens the first's."""
+    waves = len({len(r.prompt) for r in requests})
     for outs, launched in runs:
-        if launched != [per_wave] * len(LM_PROMPTS):
+        if launched != [per_wave] * waves:
             raise AssertionError(f"{tag}: flash launches per wave {launched}, expected "
                                  f"{per_wave}")
         if [c.uid for c in outs] != [r.uid for r in requests]:
             raise AssertionError(f"{tag}: not every request was answered")
-        for c in outs:
-            if c.tokens.shape != (LM_NEW,) or not (
+        for c, r in zip(outs, requests):
+            if c.tokens.shape != (r.max_new_tokens,) or not (
                     (c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all():
                 raise AssertionError(f"{tag} request {c.uid}: tokens {c.tokens}")
     for a, b in zip(*(outs for outs, _ in runs)):
@@ -5191,13 +5380,418 @@ def drive_moe(dev: torch.device, report: dict) -> list:
     stats = {"flash_attention_phi35": fwd,
              "flash_attention_bwd_dq_phi35": bwd["flash_attention_bwd_dq"],
              "flash_attention_bwd_dkv_phi35": bwd["flash_attention_bwd_dkv"]}
+    return family_line(MOE_KERNELS, launches, stats, "MoE")
+
+
+def media_flash_checks(dev, report: dict, arch: str, suffix: str, shape: tuple,
+                       ragged: list) -> tuple:
+    """The flash forward and backward at a media family's shape (and the
+    forward at ``ragged``), printed; returns their kernels-line stats."""
+    fwd = check_flash(dev, report, arch, ragged, suffix, shape)
+    bwd = check_flash_bwd(dev, report, arch, [], suffix, shape)
+    fs = report["flash_attention_shapes" + suffix]
+    main = next(iter(fs.values()))
+    bw = report["flash_attention_bwd" + suffix]
+    print(f"flash_attention at {arch}'s {next(iter(fs))} ({main['route']}): max abs error "
+          f"{main['max_abs_err']:.4g}, relative L2 {main['rel_l2_err']}; {fwd['ms']:.4f} ms, "
+          f"device {fwd['device_ms']:.4f} (bound {fwd['bound_ms']:.4f}, ex2 "
+          f"{main['ex2_bound_ms']:.4f}); SDPA ({main['library_backend']['backend']}) "
+          f"{fwd['library_ms']:.4f} ms, device {fwd['library_device_ms']:.4f}; backward whole "
+          f"{bw['ms']:.4f} ms, device {bw['device_ms']:.4f} (bound {bw['bound_ms']:.4f}, SDPA "
+          f"backward {bw['library_ms']:.4f}, device {bw['library_device_ms']:.4f}); alone "
+          "(event / device ms): " + ", ".join(
+              f"{k} {bw['kernel_ms'][k]:.4f} / {bw['kernel_device_ms'][k]:.4f} (bound "
+              f"{bw['kernel_bound_ms'][k]:.4f})" for k in flash_attention.BWD_KERNELS)
+          + "; other shapes (max abs error, relative L2, route): " + json.dumps(
+              {k: [v["max_abs_err"], v["rel_l2_err"]["whole"], v["route"]]
+               for k, v in list(fs.items())[1:]})
+          + f" [{report.get('nvidia_smi', 'card not queried')}]", flush=True)
+    return fwd, bwd
+
+
+def media_params(cfg, gen=None, device=None) -> dict:
+    """Seeded weights (from ``gen``, else a generator seeded with SEED); a
+    VLM's gates at VLM_GATES."""
+    gen = gen or torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(cfg, gen, device=device)
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for name, value in VLM_GATES.items():
+                params["groups"]["cross"][name].fill_(value)
+    return params
+
+
+def media_changes_logits(cfg, params: dict, prompt: np.ndarray, max_len: int, dev) -> dict:
+    """One prompt twice in a batch, with two requests' media: the two rows'
+    prefill logits must differ (the media reach the logits)."""
+    batch = wave_batch(cfg, [Request(uid=i, prompt=prompt, media=media_of(cfg, 500 + i))
+                             for i in range(2)], dev)
+    _, logits, _ = make_prefill_step(cfg, max_len)(params, batch)
+    diff = float((logits[0, :cfg.vocab_size] - logits[1, :cfg.vocab_size]).float().abs().max())
+    if not diff > 0:
+        raise AssertionError(f"{cfg.name}: two media give the same prefill logits")
+    return {"max_abs_diff": diff,
+            "logit_scale": float(logits[:, :cfg.vocab_size].float().abs().max())}
+
+
+def media_cache_bytes(cfg, cache: dict, n_self: int, n_media: int, slots: int,
+                      max_len: int) -> dict:
+    """The ring's and the media caches' bytes of a prefill's cache, held to
+    their layout: (n_self, slots, max_len, KV, hd) K and V in bf16 and
+    (n_self, max_len) slot positions; (n_media, slots, M, KV, hd) media K
+    and V."""
+    ring = sum(t.numel() * t.element_size() for t in cache["self"].values())
+    media = sum(cache[k].numel() * cache[k].element_size() for k in ("media_k", "media_v"))
+    want_ring = 2 * n_self * slots * max_len * cfg.kv_dim * 2 + 4 * n_self * max_len
+    want_media = 2 * n_media * slots * cfg.n_media_tokens * cfg.kv_dim * 2
+    shape = (n_media, slots, cfg.n_media_tokens, cfg.n_kv_heads, cfg.head_dim)
+    if (ring, media) != (want_ring, want_media) or tuple(cache["media_k"].shape) != shape:
+        raise AssertionError(f"{cfg.name}: the ring holds {ring} bytes and the media caches "
+                             f"{media} {tuple(cache['media_k'].shape)}, expected {want_ring} "
+                             f"and {want_media} {shape}")
+    return {"ring_bytes": ring, "media_bytes": media}
+
+
+def leaf_grads(cfg, params: dict, batch: dict, picks: list) -> dict:
+    """One microbatch's loss and the gradients of the leaves ``picks`` names
+    ((name, path, index) each), every one finite and non-zero; returns
+    their norms."""
+    tree = tree_map(lambda p: p.detach(), params)
+    paths = sorted({path for _, path, _ in picks})
+    want = {}
+    for path in paths:
+        t = tree
+        for k in path:
+            t = t[k]
+        want[path] = t.requires_grad_()
+    loss, _ = forward_train(_with_leaves(tree, want), cfg, batch)
+    grads = dict(zip(paths, torch.autograd.grad(loss, [want[p] for p in paths],
+                                                allow_unused=True)))
+    norms = {}
+    for name, path, idx in picks:
+        g = torch.zeros_like(want[path]) if grads[path] is None else grads[path]
+        g = g[idx] if idx else g
+        norms[name] = float(g.float().norm())
+        if not (bool(torch.isfinite(g).all()) and norms[name] > 0):
+            raise AssertionError(f"{cfg.name}: the gradient of {name} is not finite and "
+                                 f"non-zero (norm {norms[name]})")
+    return {"loss": float(loss.detach()), "grad_norms": norms}
+
+
+def vlm_grad_picks(cfg) -> list:
+    """Every cross layer's projections and gates."""
+    g, _ = TT.vlm_layout(cfg)
+    return ([(f"cross[{i}].xattn.{n}", ("groups", "cross", "xattn", n), (i,))
+             for i in range(g) for n in ("wq", "wk", "wv", "wo")]
+            + [(f"cross[{i}].{n}", ("groups", "cross", n), (i,))
+               for i in range(g) for n in VLM_GATES])
+
+
+def audio_grad_picks(cfg) -> list:
+    """The encoder's first and last wq, every decoder layer's cross
+    projections."""
+    return ([(f"encoder[{i}].attn.wq", ("encoder", "attn", "wq"), (i,))
+             for i in (0, cfg.encoder_layers - 1)]
+            + [(f"decoder[{i}].xattn.{n}", ("decoder", "xattn", n), (i,))
+               for i in range(cfg.n_layers) for n in ("wq", "wk", "wv", "wo")])
+
+
+def serve_media(cfg, dev, slots: int, prompts: tuple, new: int, max_len: int,
+                per_wave: int) -> dict:
+    """Seeded weights served through ``ServingEngine`` in one wave of
+    ``slots`` requests (each with its own media) a prompt length, twice;
+    only these flash launches are counted, each on the wgmma route."""
+    params = media_params(cfg, device=dev)
+    engine = ServingEngine(cfg, params, slots=slots, max_len=max_len, device=dev)
+    requests = lm_requests(cfg, np.random.default_rng(SEED), slots, prompts, new, media=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve_lm(engine, requests) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches, routes = flash_attention.launches, dict(flash_attention.route_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if routes["wgmma"] != launches:
+        raise AssertionError(f"{cfg.name}: flash launches by route {routes}: all {launches} "
+                             "must be the wgmma kernel's")
+    check_lm_waves(cfg.name, cfg, runs, requests, per_wave)
+    return {"params": params, "engine": engine, "requests": requests, "runs": runs,
+            "launches": launches, "routes": routes, "peak_mem_gb": peak_gb,
+            "waves": lm_wave_stats(runs, slots, prompts, new)}
+
+
+def train_media(cfg, opt, batches: list, accum: int, dev, n_attn: int) -> dict:
+    """``train_lm`` twice from the same seed (a VLM's gates set first, after
+    the seeded draw), its gates (``check_lm_runs``: bitwise, the loss
+    falling, ``n_attn`` flash layers a microbatch, every launch on the
+    wgmma routes) and one more step profiled."""
+    reset_counts()
+    trains, copies = [], []
+    for _ in range(2):
+        res, params, state, step, gen = train_lm(cfg, opt, batches, accum, 0.0, dev,
+                                                 init=media_params)
+        trains.append(res)
+        copies.append(param_copy(params))
+        if len(trains) == 1:
+            del params, state, step, gen
+    torch.cuda.synchronize()
+    counts = {"fwd": flash_attention.launches, "bwd": flash_attention.bwd_launches}
+    routes = {"fwd": dict(flash_attention.route_launches),
+              "bwd": dict(flash_attention.bwd_route_launches)}
+    check_lm_runs(f"{cfg.name} training", trains, copies, n_attn, accum, aux_max=0)
+    del copies
+    for kind in ("fwd", "bwd"):
+        if routes[kind]["wgmma"] != counts[kind]:
+            raise AssertionError(f"{cfg.name}: flash {kind} launches by route {routes[kind]}: "
+                                 "all must be the wgmma kernels'")
+    profile = profile_train_step(step, params, state, batches[-1], gen)
+    profile["device_busy_share"] = busy(profile, profile["device_ms"],
+                                        float(np.median(trains[1]["step_ms"][1:])))
+    del params, state, step, gen
+    torch.cuda.empty_cache()
+    return {"runs": trains, "launches": counts, "launches_by_route": routes,
+            "profile": profile}
+
+
+def print_media(tag: str, cfg, served: dict, cache: dict, changed: dict, trained: dict,
+                tokens: int, card: str) -> None:
+    waves = served["waves"]
+    n = len(waves["prefill_ms_per_wave"]) // 2
+    for i in range(n):
+        print(f"serve {tag} wave {i}: prefill " + " / ".join(
+            f"{waves['prefill_ms_per_wave'][r * n + i]:.1f}" for r in range(2)) + " ms, decode "
+            + " / ".join(f"{waves['decode_ms_per_token'][r * n + i]:.2f}" for r in range(2))
+            + " ms a token, " + " / ".join(
+                f"{waves['tokens_per_s_per_wave'][r * n + i]:.1f}" for r in range(2))
+            + f" generated tokens/s (two runs) [{card}]", flush=True)
+    print(f"serve {tag}: flash launches {served['launches']} (by route {served['routes']}); "
+          f"tokens in the vocab and equal across two runs; KV ring "
+          f"{cache['ring_bytes'] / 1e9:.4f} GB, media caches {cache['media_bytes'] / 1e9:.4f} "
+          f"GB; two media, one prompt: logits max |diff| {changed['max_abs_diff']:.4g} (scale "
+          f"{changed['logit_scale']:.4g}); peak device memory {served['peak_mem_gb']:.2f} GB "
+          f"[{card}]", flush=True)
+    for phase, prof in served["profile"].items():
+        print(f"profile ({tag} {phase}): device {prof['device_ms']:.2f} ms a "
+              f"{'wave' if phase == 'prefill' else 'step'} ({prof['device_ms_by']}), wall "
+              f"{prof['wall_ms_profiled']:.2f} ms profiled, busy "
+              f"{pct(prof['device_busy_share'])}; " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in prof["by_group_ms"].items()) + f" [{card}]",
+              flush=True)
+    for i, res in enumerate(trained["runs"]):
+        med = float(np.median(res["step_ms"][1:]))
+        print(f"train {tag} run {i + 1}: losses " + " ".join(f"{x:.4f}" for x in res["loss"])
+              + "; step ms " + " ".join(f"{x:.1f}" for x in res["step_ms"])
+              + f"; median {med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s; peak device "
+              f"memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    prof = trained["profile"]
+    print(f"profile ({tag} train step): device {prof['device_ms']:.1f} ms "
+          f"({prof['device_ms_by']}), wall {prof['wall_ms_profiled']:.1f} ms profiled, busy "
+          f"{pct(prof['device_busy_share'])} of an unprofiled step's wall time; " + ", ".join(
+              f"{k} {v:.1f}" for k, v in prof["by_group_ms"].items()) + f" [{card}]",
+          flush=True)
+
+
+def family_line(names: dict, launches: dict, stats: dict, tag: str) -> list:
+    """A model family's ``kernels``-line entries: each of ``names`` (source,
+    replaces) with its launches on the family's path, which must be some,
+    and its stats."""
     line = []
-    for name, (source, replaces) in MOE_KERNELS.items():
+    for name, (source, replaces) in names.items():
         if launches[name] <= 0:
-            raise AssertionError(f"{name}: no launch on the MoE path")
+            raise AssertionError(f"{name}: no launch on the {tag} path")
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], **stats[name]})
     return line
+
+
+def drive_vlm(dev: torch.device, report: dict) -> list:
+    """The VLM family's serving and training paths (llama-3.2-vision-90b at
+    full width); returns its kernels' entries."""
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def lap(name: str) -> None:  # seconds since the last lap, by part
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    card = report.get("nvidia_smi", "card not queried")
+    fwd, bwd = media_flash_checks(dev, report, VLM_ARCH, "_vlm", (LM_SLOTS, LM_PROMPTS[0]), [])
+    lap("kernel checks")
+
+    base = lm_configs.get(VLM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=VLM_SERVE_LAYERS, attn_impl="flash")
+    g, spg = TT.vlm_layout(cfg)
+    torch.cuda.empty_cache()
+    served = serve_media(cfg, dev, LM_SLOTS, LM_PROMPTS, LM_NEW, LM_MAX_LEN, g * spg)
+    params, requests = served["params"], served["requests"]
+    n_params = count_params(params)
+    # ModelConfig.param_count counts the weight matrices, not the norm scales
+    # or the gates.
+    if n_params != cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model + 2 * g:
+        raise AssertionError(f"{VLM_ARCH}: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    lap("serve")
+    wave = requests[:LM_SLOTS]
+    _, _, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, wave_batch(cfg, wave, dev))
+    cache_bytes = media_cache_bytes(cfg, cache, g * spg, g, LM_SLOTS, LM_MAX_LEN)
+    del cache
+    changed = media_changes_logits(cfg, params, wave[0].prompt, LM_MAX_LEN, dev)
+    served["profile"] = profile_lm(served.pop("engine"), requests, steps=2)
+    lap("serve checks and profile")
+    del params
+    served.pop("params")
+    torch.cuda.empty_cache()
+
+    # One group: the accuracy gates (an f32 copy fits), then training.
+    cfg = dataclasses.replace(base, n_layers=VLM_TRAIN_LAYERS, attn_impl="flash")
+    params = media_params(cfg, device=dev)
+    batch = wave_batch(cfg, wave, dev)
+    vs = prefill_against_f32(cfg, params, batch)
+    drift = decode_drift(cfg, params, batch["tokens"].cpu().numpy(), None, dev,
+                         media=batch["media"])
+    del params, batch
+    torch.cuda.empty_cache()
+    lap("accuracy")
+    b, s = VLM_TRAIN_BATCH, LM_PROMPTS[0]
+    fresh = list(synthetic_batches(cfg, b, s, 2, seed=SEED, device=dev))
+    batches = [fresh[i % 2] for i in range(VLM_TRAIN_STEPS)]
+    trained = train_media(cfg, sgd(VLM_SGD_LR), batches, TRAIN_ACCUM, dev, spg)
+    loss = trained["runs"][0]["loss"]
+    if not all(loss[i + 2] < loss[i] for i in range(VLM_TRAIN_STEPS - 2)):
+        raise AssertionError(f"{VLM_ARCH}: a batch's loss did not fall the second time it was "
+                             f"seen: {loss}")
+    lap("train")
+    params = media_params(cfg, device=dev)
+    mb = {k: v[:b // TRAIN_ACCUM] for k, v in fresh[0].items()}
+    grads = leaf_grads(cfg, params, mb, vlm_grad_picks(cfg))
+    del params
+    torch.cuda.empty_cache()
+    lap("train gradients")
+    phase_s = time.perf_counter() - t_phase
+    tag = (f"{VLM_ARCH} ({VLM_SERVE_LAYERS} of {base.n_layers} layers served, "
+           f"{VLM_TRAIN_LAYERS} trained; d_model {cfg.d_model}, {cfg.dtype}, {cfg.attn_impl}, "
+           f"gates {VLM_GATES})")
+    print_media(tag, cfg, served, cache_bytes, changed, trained, b * s, card)
+    print(f"{VLM_ARCH} at one group: flash vs chunked prefill logits max |diff| "
+          f"{vs['max_abs_diff']:.4g} (tolerance {vs['tolerance']:.4g}; against f32: chunked "
+          f"{vs['chunked_vs_f32']:.4g}, flash {vs['flash_vs_f32']:.4g}); decode vs the f32 "
+          f"teacher-forced forward over {drift['steps']} steps: worst "
+          f"{drift['worst_ratio']:.3f} of the bf16 forward's own error (limit 2); gradients "
+          f"finite and non-zero: {json.dumps(grads['grad_norms'])}; the VLM phase took "
+          f"{phase_s:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f") [{card}]", flush=True)
+    report["vlm"] = {
+        "config": {"arch": VLM_ARCH, "serve_layers": VLM_SERVE_LAYERS,
+                   "train_layers": VLM_TRAIN_LAYERS, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                   "media_tokens": cfg.n_media_tokens, "dtype": cfg.dtype,
+                   "serve_params": n_params, "gates": VLM_GATES, "sgd_lr": VLM_SGD_LR,
+                   "train_batch": b, "seq": s, "steps": VLM_TRAIN_STEPS,
+                   "accum": TRAIN_ACCUM},
+        "serve": {k: v for k, v in served.items() if k not in ("requests", "runs")},
+        "cache": cache_bytes, "media_changes_logits": changed, "train": trained,
+        "accuracy": {"flash_vs_chunked": vs, "decode_drift": drift},
+        "gradients": grads, "phase_s": phase_s, "phase_s_by_part": parts,
+    }
+    launches = {"flash_attention_vlm": served["launches"],
+                "flash_attention_bwd_dq_vlm": trained["launches"]["bwd"],
+                "flash_attention_bwd_dkv_vlm": trained["launches"]["bwd"]}
+    stats = {"flash_attention_vlm": fwd,
+             "flash_attention_bwd_dq_vlm": bwd["flash_attention_bwd_dq"],
+             "flash_attention_bwd_dkv_vlm": bwd["flash_attention_bwd_dkv"]}
+    return family_line(VLM_KERNELS, launches, stats, "VLM")
+
+
+def drive_audio(dev: torch.device, report: dict) -> list:
+    """The audio family's serving and training paths (whisper-small whole);
+    returns its kernels' entries."""
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def lap(name: str) -> None:  # seconds since the last lap, by part
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+    card = report.get("nvidia_smi", "card not queried")
+    rows, seq = AUDIO_TRAIN
+    fwd, bwd = media_flash_checks(dev, report, AUDIO_ARCH, "_whisper",
+                                  (rows // TRAIN_ACCUM, seq), AUDIO_FLASH_SERVE)
+    lap("kernel checks")
+    cfg = dataclasses.replace(lm_configs.get(AUDIO_ARCH), attn_impl="flash")
+    served = serve_media(cfg, dev, AUDIO_SLOTS, AUDIO_PROMPTS, AUDIO_NEW, AUDIO_MAX_LEN,
+                         cfg.n_layers)
+    params, requests = served["params"], served["requests"]
+    n_params = count_params(params)
+    if n_params != cfg.param_count() + (3 * cfg.n_layers + 2 * cfg.encoder_layers + 2) * \
+            cfg.d_model:
+        raise AssertionError(f"{AUDIO_ARCH}: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    lap("serve")
+    wave = requests[-AUDIO_SLOTS:]  # the longest prompts
+    batch = wave_batch(cfg, wave, dev)
+    _, _, cache = make_prefill_step(cfg, AUDIO_MAX_LEN)(params, batch)
+    cache_bytes = media_cache_bytes(cfg, cache, cfg.n_layers, cfg.n_layers, AUDIO_SLOTS,
+                                    AUDIO_MAX_LEN)
+    del cache
+    changed = media_changes_logits(cfg, params, wave[0].prompt, AUDIO_MAX_LEN, dev)
+    vs = prefill_against_f32(cfg, params, batch, AUDIO_MAX_LEN)
+    drift = decode_drift(cfg, params, batch["tokens"].cpu().numpy(),
+                         np.stack([c.tokens for c in served["runs"][0][0][-AUDIO_SLOTS:]]),
+                         dev, media=batch["media"], new=AUDIO_NEW, max_len=AUDIO_MAX_LEN)
+    served["profile"] = profile_lm(served.pop("engine"), requests, steps=2)
+    del params, batch
+    served.pop("params")
+    lap("serve checks and profile")
+    batches = list(synthetic_batches(cfg, rows, seq, TRAIN_STEPS, seed=SEED, device=dev))
+    recipe = adamw(cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS),
+                   weight_decay=0.01, max_grad_norm=1.0)
+    trained = train_media(cfg, recipe, batches, TRAIN_ACCUM, dev, cfg.n_layers)
+    lap("train")
+    params = media_params(cfg, device=dev)
+    grads = leaf_grads(cfg, params, {k: v[:rows // TRAIN_ACCUM] for k, v in batches[0].items()},
+                       audio_grad_picks(cfg))
+    del params
+    lap("train gradients")
+    cli = io.StringIO()
+    with contextlib.redirect_stdout(cli):
+        for arch in (VLM_ARCH, AUDIO_ARCH):
+            train_cli.main(["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "64",
+                            "--log-every", "1", "--accum", "2"])
+            serve_cli.main(["--arch", arch, "--batch", "2", "--prompt-len", "32", "--gen", "8"])
+    lap("CLIs")
+    phase_s = time.perf_counter() - t_phase
+    tag = (f"{AUDIO_ARCH} ({cfg.encoder_layers} + {cfg.n_layers} layers, d_model "
+           f"{cfg.d_model}, {cfg.dtype}, {cfg.attn_impl}, {n_params / 1e6:.1f} M parameters)")
+    print_media(tag, cfg, served, cache_bytes, changed, trained, rows * seq, card)
+    print(f"{AUDIO_ARCH}: flash vs chunked prefill logits max |diff| {vs['max_abs_diff']:.4g} "
+          f"(tolerance {vs['tolerance']:.4g}; against f32: chunked {vs['chunked_vs_f32']:.4g}, "
+          f"flash {vs['flash_vs_f32']:.4g}); decode vs the f32 teacher-forced forward over "
+          f"{drift['steps']} steps: worst {drift['worst_ratio']:.3f} of the bf16 forward's own "
+          f"error (limit 2); gradients finite and non-zero ({len(grads['grad_norms'])} "
+          f"leaves); the train and serve CLIs ran for {VLM_ARCH} and {AUDIO_ARCH} (reduced); "
+          f"the audio phase took {phase_s:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]", flush=True)
+    report["audio"] = {
+        "config": {"arch": AUDIO_ARCH, "encoder_layers": cfg.encoder_layers,
+                   "n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "head_dim": cfg.head_dim, "media_tokens": cfg.n_media_tokens,
+                   "dtype": cfg.dtype, "params": n_params, "slots": AUDIO_SLOTS,
+                   "prompts": AUDIO_PROMPTS, "new_tokens": AUDIO_NEW,
+                   "max_len": AUDIO_MAX_LEN, "train": AUDIO_TRAIN, "steps": TRAIN_STEPS,
+                   "accum": TRAIN_ACCUM, "lr": TRAIN_LR},
+        "serve": {k: v for k, v in served.items() if k not in ("requests", "runs")},
+        "cache": cache_bytes, "media_changes_logits": changed, "train": trained,
+        "accuracy": {"flash_vs_chunked": vs, "decode_drift": drift}, "gradients": grads,
+        "clis": cli.getvalue(), "phase_s": phase_s, "phase_s_by_part": parts,
+    }
+    launches = {"flash_attention_whisper": served["launches"],
+                "flash_attention_bwd_dq_whisper": trained["launches"]["bwd"],
+                "flash_attention_bwd_dkv_whisper": trained["launches"]["bwd"]}
+    stats = {"flash_attention_whisper": fwd,
+             "flash_attention_bwd_dq_whisper": bwd["flash_attention_bwd_dq"],
+             "flash_attention_bwd_dkv_whisper": bwd["flash_attention_bwd_dkv"]}
+    return family_line(AUDIO_KERNELS, launches, stats, "audio")
+
+
+def drive_media(dev: torch.device, report: dict) -> list:
+    """The media families (the VLM, then whisper); their kernels' entries."""
+    return drive_vlm(dev, report) + drive_audio(dev, report)
 
 
 def ptxas_kernels(lines: list) -> list:
@@ -5335,6 +5929,7 @@ def main() -> None:
     drive_lm_packed(torch.device("cuda"), report)
     line += drive_hybrid(torch.device("cuda"), report)
     line += drive_moe(torch.device("cuda"), report)
+    line += drive_media(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")
     report["profiler_traces_taken_again"] = _PROFILER.get("traces_taken_again", 0)
     out_dir = ROOT / "chiprun_out"

@@ -5,8 +5,9 @@ prefilled once, then greedy decode against the cache:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b \
         [--full] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0]
 
-Configs are reduced unless ``--full``; the families the port does not
-carry yet (VLM, audio, xLSTM) raise ``NotImplementedError``.
+Configs are reduced unless ``--full``; the VLM and audio families also
+get seeded media (B, M, D), normals x 0.02 in ``cfg.dtype``; the family the
+port does not carry yet (xLSTM) raises ``NotImplementedError``.
 
 ``--arch gbdt`` serves the paper's own model: train an asynch-SGBDT forest
 on the PS engine, checkpoint it mid-run and at the end, then answer
@@ -44,7 +45,7 @@ def run_lm(args) -> np.ndarray:
     import repro_torch.configs as configs
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_params
-    from repro_torch.models.cache import require_ported
+    from repro_torch.models.cache import require_ported, torch_dtype
 
     cfg = configs.get(args.arch)
     if args.reduced:
@@ -57,6 +58,10 @@ def run_lm(args) -> np.ndarray:
     decode_fn = make_decode_step(cfg)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
                             device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    if cfg.family in ("vlm", "audio"):
+        batch["media"] = (torch.randn((args.batch, cfg.n_media_tokens, cfg.d_model),
+                                      generator=gen, device=dev) * 0.02).to(torch_dtype(cfg))
 
     def sync():
         if dev.type == "cuda":
@@ -64,7 +69,7 @@ def run_lm(args) -> np.ndarray:
 
     sync()
     t0 = time.time()
-    tok, _, cache = prefill_fn(params, {"tokens": prompts})
+    tok, _, cache = prefill_fn(params, batch)
     sync()
     t1 = time.time()
     out = [tok]

@@ -56,7 +56,7 @@ import repro_torch.configs as configs
 from repro_torch import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params
-from repro_torch.models.cache import require_ported
+from repro_torch.models.cache import require_ported, torch_dtype
 from repro_torch.optim import adamw, cosine_schedule, delayed_gradient, staleness_step_scale
 from repro_torch.optim.optimizers import tree_leaves
 
@@ -65,7 +65,11 @@ def synthetic_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
                       device: str | torch.device | None = None):
     """Markov-chain token stream with learnable (non-uniform) bigram
     structure: the reference's numpy stream bit for bit, as int32 tensors
-    on ``device``."""
+    on ``device``. The VLM and audio families also get ``media`` (B, M, D):
+    standard normals x 0.02 from the same generator, drawn after each
+    step's tokens (so they shift every later step's tokens, as in the
+    reference), cast f64 -> f32 -> ``cfg.dtype`` as the reference's 32-bit
+    JAX casts them."""
     require_ported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -81,10 +85,15 @@ def synthetic_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
         for t in range(seq):
             step_tok = nxt[toks[:, t], choice[:, t]]
             toks[:, t + 1] = np.where(mix[:, t], noise[:, t], step_tok)
-        yield {
+        out = {
             "tokens": torch.as_tensor(toks[:, :-1].astype(np.int32), device=dev),
             "labels": torch.as_tensor(toks[:, 1:].astype(np.int32), device=dev),
         }
+        if cfg.family in ("vlm", "audio"):
+            media = rng.standard_normal((batch, cfg.n_media_tokens, cfg.d_model)) * 0.02
+            out["media"] = torch.as_tensor(media.astype(np.float32), device=dev).to(
+                torch_dtype(cfg))
+        yield out
 
 
 def gbdt_dataset_for(objective, seed: int, n: int = 4_000,

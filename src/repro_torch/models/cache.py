@@ -1,5 +1,5 @@
-"""Decode caches of the dense, MoE and hybrid families (twin of those
-parts of ``repro.models.cache``).
+"""Decode caches of the dense, MoE, hybrid, VLM and audio families (twin
+of those parts of ``repro.models.cache``).
 
 Dense and MoE layout: ``{"pos": () int32, "self": {"k", "v": (L, B, cap, KV, hd),
 "slot_pos": (L, cap) int32}}``. The attention cache is a ring buffer of
@@ -12,6 +12,14 @@ B, 3, conv channels), "shared": the ring above over ``L //
 shared_attn_every`` slots}``: each Mamba2 layer's recurrent state and its
 last three conv inputs, and each invocation of the shared attention
 block's K/V. All in the model's dtype.
+
+VLM layout (llama-3.2-vision): ``{"pos", "self": the ring above over the
+g x spg self layers, group-major (g = n_layers / cross_attn_every groups
+of spg = cross_attn_every - 1), "media_k", "media_v": (g, B, M, KV,
+hd)}``: each group's cross layer's K/V of the media, computed once at
+prefill. Audio layout (whisper): ``{"pos", "self": the ring over the
+decoder's layers, "media_k", "media_v": (L, B, M, KV, hd)}``: each decoder
+layer's K/V of the encoder's output.
 """
 from __future__ import annotations
 
@@ -22,18 +30,16 @@ from repro_torch.models.config import ModelConfig
 
 Cache = dict
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")
 # Where each family still refused is queued (ROADMAP.md, queue A).
 _QUEUED = {
-    "vlm": "A10, VLM: cross_attention and the media cache",
-    "audio": "A10, audio: whisper's encoder_attention",
     "ssm": "A10, xLSTM: models/xlstm.py",
 }
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not carry
-    yet (every one but dense, MoE and hybrid), naming its ROADMAP item."""
+    yet (xLSTM), naming its ROADMAP item."""
     if cfg.family not in PORTED_FAMILIES:
         where = _QUEUED.get(cfg.family, "A10, the other LM families")
         raise NotImplementedError(
@@ -60,10 +66,21 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     dev = resolve_device(device)
     cap = cfg.window_for(seq_len)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    dt = torch_dtype(cfg)
     if cfg.family in ("dense", "moe"):
         cache["self"] = _ring(cfg.n_layers, batch, cap, cfg, dev)
         return cache
-    dt = torch_dtype(cfg)
+    if cfg.family in ("vlm", "audio"):
+        if cfg.family == "vlm":
+            g = cfg.n_layers // cfg.cross_attn_every
+            n_self, n_media = g * (cfg.cross_attn_every - 1), g
+        else:
+            n_self = n_media = cfg.n_layers
+        cache["self"] = _ring(n_self, batch, cap, cfg, dev)
+        media = (n_media, batch, cfg.n_media_tokens, cfg.n_kv_heads, cfg.head_dim)
+        cache["media_k"] = torch.zeros(media, dtype=dt, device=dev)
+        cache["media_v"] = torch.zeros(media, dtype=dt, device=dev)
+        return cache
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
     cache["ssm"] = torch.zeros(
         (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),

@@ -1,7 +1,8 @@
 """Transformer building blocks: norms, rope, self-attention, the SwiGLU
 MLP and the MoE FFN (twin of ``repro.models.layers`` without its
-expert-parallel branch), which the dense and MoE layers and the hybrid
-family's shared block are made of.
+expert-parallel branch), which the dense and MoE layers, the hybrid
+family's shared block, whisper's encoder and decoder and the VLM's gated
+cross-attention layers are made of.
 
 Attention is q-chunked on the plain path (a loop over query chunks), so
 peak score memory is bounded by (B, H, chunk, S_kv). With
@@ -160,6 +161,39 @@ def ring_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, cap: int):
         raise ValueError("ring capacity must divide prefill length")
     slot_pos = torch.arange(cap, dtype=torch.int32, device=k.device) + (s - cap)
     return k[:, s - cap:], v[:, s - cap:], slot_pos
+
+
+def encoder_attention(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional self-attention (whisper's encoder): rope on q and k,
+    every query sees every key, through the chunked path (the reference's
+    plain chunked attention; no flash kernel)."""
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    out = chunked_attention(q, k, v, pos, pos, s, False, cfg.attn_chunk)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def cross_attention(p: Params, x: torch.Tensor, kv_src, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, D) attends to media or encoder states: ``kv_src`` is (B, M,
+    D), projected here by wk and wv, or a cached ``(k, v)`` pair of (B, M,
+    KV, hd) when serving. No rope on this path; not causal (every query
+    sees all M keys), through the chunked path as in the reference."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    if isinstance(kv_src, tuple):
+        k, v = kv_src
+    else:
+        m = kv_src.shape[1]
+        k = (kv_src @ p["wk"]).reshape(b, m, cfg.n_kv_heads, cfg.head_dim)
+        v = (kv_src @ p["wv"]).reshape(b, m, cfg.n_kv_heads, cfg.head_dim)
+    m = k.shape[1]
+    pos_q = torch.arange(s, device=x.device)
+    pos_k = torch.arange(m, device=x.device)
+    out = chunked_attention(q, k, v, pos_q, pos_k, m + s + 1, False, cfg.attn_chunk)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
 def self_attention_decode(

@@ -1,6 +1,6 @@
-"""Model assembly of the dense, MoE and hybrid families: parameter schema,
-init, the train forward, prefill and decode (twin of those parts of
-``repro.models.transformer``).
+"""Model assembly of the dense, MoE, hybrid, VLM and audio families:
+parameter schema, init, the train forward, prefill and decode (twin of
+those parts of ``repro.models.transformer``).
 
 ``param_schema(cfg)`` is the one source of truth for parameter names and
 shapes: a nested dict of ``Entry(shape, axes, init)`` with layers stacked
@@ -30,6 +30,22 @@ same weights at every call), then the tail Mamba2 layers:
 and each tail layer is checkpointed, as the reference's ``_scan`` does;
 ``remat_policy`` is not read there, as in the reference. The Mamba2
 layers' ``a_log`` and ``dt_bias`` are f32 whatever ``cfg.dtype`` is.
+
+The VLM family (llama-3.2-vision) scans groups of ``cross_attn_every - 1``
+dense self layers, each group closed by a gated cross-attention layer
+that reads the media (B, M, D): ``groups.self`` is stacked (g, spg, ...),
+``groups.cross`` (g, ...) with the scalar gates ``gate_attn`` and
+``gate_mlp`` (zero at init, so a fresh cross layer is the identity:
+``tanh`` of the f32 gate, cast to the activations' dtype, scales its
+attention and its MLP). With ``cfg.remat`` each group is checkpointed as
+one; its self layers are not checkpointed apart. The audio family
+(whisper) runs the encoder's bidirectional layers over the media (one
+checkpoint a layer), ``enc_ln``, then decoder layers of causal self
+attention, cross-attention to the encoder's output and the MLP (one
+checkpoint a layer). Neither reads ``remat_policy``, as in the
+reference. Prefill computes each cross layer's media K/V once (a group's,
+or a decoder layer's) into the cache's ``media_k`` / ``media_v``; decode
+reads them and never projects the media again.
 """
 from __future__ import annotations
 
@@ -129,6 +145,28 @@ def _moe_layer(cfg: ModelConfig) -> dict:
     }
 
 
+def _cross_layer(cfg: ModelConfig) -> dict:
+    return {
+        "xattn": _attn_schema(cfg),
+        "mlp": _mlp_schema(cfg),
+        "ln1": Entry((cfg.d_model,), ("embed",), "ones"),
+        "ln2": Entry((cfg.d_model,), ("embed",), "ones"),
+        "gate_attn": Entry((), (), "zeros"),
+        "gate_mlp": Entry((), (), "zeros"),
+    }
+
+
+def _decoder_layer(cfg: ModelConfig) -> dict:  # audio decoder: self + cross + mlp
+    return {
+        "attn": _attn_schema(cfg),
+        "xattn": _attn_schema(cfg),
+        "mlp": _mlp_schema(cfg),
+        "ln1": Entry((cfg.d_model,), ("embed",), "ones"),
+        "lnx": Entry((cfg.d_model,), ("embed",), "ones"),
+        "ln2": Entry((cfg.d_model,), ("embed",), "ones"),
+    }
+
+
 def _stack(schema: dict, n: int) -> dict:
     return {
         k: _stack(v, n) if isinstance(v, dict)
@@ -144,6 +182,12 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return g, every, cfg.n_layers - g * every
 
 
+def vlm_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, self layers a group) of a VLM model: each group closes with
+    one cross-attention layer."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
 def param_schema(cfg: ModelConfig) -> dict:
     require_ported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
@@ -155,6 +199,16 @@ def param_schema(cfg: ModelConfig) -> dict:
     if cfg.family in ("dense", "moe"):
         layer_schema = _dense_layer(cfg) if cfg.family == "dense" else _moe_layer(cfg)
         schema["layers"] = _stack(layer_schema, cfg.n_layers)
+        return schema
+    if cfg.family == "vlm":
+        g, spg = vlm_layout(cfg)
+        schema["groups"] = {"self": _stack(_stack(_dense_layer(cfg), spg), g),
+                            "cross": _stack(_cross_layer(cfg), g)}
+        return schema
+    if cfg.family == "audio":
+        schema["encoder"] = _stack(_dense_layer(cfg), cfg.encoder_layers)
+        schema["decoder"] = _stack(_decoder_layer(cfg), cfg.n_layers)
+        schema["enc_ln"] = Entry((d,), ("embed",), "ones")
         return schema
     g, every, tail = hybrid_layout(cfg)
     schema["groups"] = {"mamba": _stack(_stack(_mamba_schema(cfg), every), g)}
@@ -293,6 +347,36 @@ def _hybrid_group(ps: list, x: torch.Tensor, shared: dict, cfg: ModelConfig,
     return _dense_block(shared, x, cfg, window)
 
 
+def _cross_block(p: dict, x: torch.Tensor, media, cfg: ModelConfig) -> torch.Tensor:
+    """A gated cross-attention layer: ``media`` is (B, M, D), or a cached
+    ``(k, v)`` pair; each gate is ``tanh`` of the f32 scalar in x's dtype."""
+    g1 = torch.tanh(p["gate_attn"].float()).to(x.dtype)
+    g2 = torch.tanh(p["gate_mlp"].float()).to(x.dtype)
+    x = x + g1 * L.cross_attention(p["xattn"], L.rms_norm(x, p["ln1"]), media, cfg)
+    return x + g2 * L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+
+
+def _vlm_group(ps: list, cross: dict, x: torch.Tensor, media: torch.Tensor,
+               cfg: ModelConfig, window: int) -> torch.Tensor:
+    """One VLM group: its self layers, then its gated cross layer."""
+    for p in ps:
+        x = _dense_block(p, x, cfg, window)
+    return _cross_block(cross, x, media, cfg)
+
+
+def _enc_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = x + L.encoder_attention(p["attn"], L.rms_norm(x, p["ln1"]), cfg)
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+
+
+def _dec_block(p: dict, x: torch.Tensor, enc, cfg: ModelConfig, window: int) -> torch.Tensor:
+    """An audio decoder layer: causal self-attention, cross-attention to
+    ``enc`` (the encoder's output, or a cached ``(k, v)`` pair), the MLP."""
+    x = x + L.self_attention_train(p["attn"], L.rms_norm(x, p["ln1"]), cfg, window)
+    x = x + L.cross_attention(p["xattn"], L.rms_norm(x, p["lnx"]), enc, cfg)
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+
+
 def unstack(stacked: dict) -> list[dict]:
     """Every layer's tree of a stacked (L, ...) tree, split once by
     ``torch.unbind``: its backward is one ``stack`` a leaf, where L indexing
@@ -330,13 +414,15 @@ def _maybe_checkpoint(cfg: ModelConfig, fn, *args, policy: str = "full"):
 
 
 def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                   segments: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                   segments: torch.Tensor | None = None,
+                   media: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Hidden states (B, S, D) of the teacher-forced sequence, and the MoE
     aux loss (the sum of the layers' router losses; 0 for the other
     families), from embedded tokens x (B, S, D). ``segments`` (B, S),
     packed-document ids (0 = padding), mask the dense and MoE families'
     attention; their layers read ``cfg.remat_policy`` ("dots", or anything
-    else for "full"), the hybrid ones do not."""
+    else for "full"), the other families' do not. ``media`` (B, M, D) is
+    what the VLM's cross layers and whisper's encoder read."""
     require_ported(cfg)
     window = cfg.window_for(x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -345,6 +431,17 @@ def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
             x, a = _maybe_checkpoint(cfg, _moe_block, p, x, cfg, window, segments,
                                      policy=cfg.remat_policy)
             aux = aux + a
+    elif cfg.family == "vlm":  # one checkpoint a group, no policy (the reference's)
+        for group in unstack(params["groups"]):
+            x = _maybe_checkpoint(cfg, _vlm_group, unstack(group["self"]), group["cross"], x,
+                                  media, cfg, window)
+    elif cfg.family == "audio":  # the encoder over the media, one checkpoint a layer
+        enc = media
+        for p in unstack(params["encoder"]):
+            enc = _maybe_checkpoint(cfg, _enc_block, p, enc, cfg)
+        enc = L.rms_norm(enc, params["enc_ln"])
+        for p in unstack(params["decoder"]):
+            x = _maybe_checkpoint(cfg, _dec_block, p, x, enc, cfg, window)
     elif cfg.family == "hybrid":  # the reference's hybrid branch takes no policy
         for group in unstack(params["groups"]["mamba"]):
             x = _maybe_checkpoint(cfg, _hybrid_group, unstack(group), x, params["shared"],
@@ -361,6 +458,7 @@ def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
 def forward_train(params: Params, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, dict]:
     """Teacher-forced LM loss. batch: tokens (B, S), labels (B, S),
+    [media (B, M, D) — the VLM's and whisper's frontend embeddings],
     [segments (B, S) — packed-document ids, 0 = padding, dense and MoE],
     [weights (B,) — Bernoulli importance weights m'_i / R, the paper's
     sampled objective lifted to sequence level]. Returns (loss, {"ce",
@@ -368,7 +466,7 @@ def forward_train(params: Params, cfg: ModelConfig,
     cast to f32; the loss is logsumexp - gold, averaged per sequence, pad
     positions included, as in the reference. Packed rows run the chunked
     attention even under ``attn_impl="flash"``
-    (``layers.self_attention_train``); the recurrent hybrid family raises
+    (``layers.self_attention_train``); the other families raise
     ``ValueError`` for them, as the reference does."""
     require_ported(cfg)
     segments = batch.get("segments")
@@ -377,7 +475,7 @@ def forward_train(params: Params, cfg: ModelConfig,
             "packed segments need attention masking; recurrent families "
             "would need per-segment state resets (not implemented)")
     x = params["embed"][batch["tokens"].long()]
-    x, aux = backbone_train(params, cfg, x, segments)
+    x, aux = backbone_train(params, cfg, x, segments, batch.get("media"))
     logits = _logits(params, cfg, x).float()  # (B, S, Vpad)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
@@ -439,7 +537,8 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, capacity: int | None = None
 @torch.inference_mode()
 def prefill(params: Params, cfg: ModelConfig, batch: dict,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
-    """Score the prompt and build the decode cache. batch: tokens (B, S).
+    """Score the prompt and build the decode cache. batch: tokens (B, S),
+    [media (B, M, D): the VLM's and whisper's frontend embeddings].
     ``max_len`` is the total context budget (prompt + decode headroom);
     the attention cache capacity is ``cfg.window_for(max_len)``. Returns
     (last-position logits (B, Vpad), cache) in the ``models.cache`` layout.
@@ -452,12 +551,15 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
     window = cfg.window_for(s)
     ks, vs = [], []
 
-    def attn_block(p, x):
+    def self_attn(p, x):
         a, (k, v) = L.self_attention_train(
             p["attn"], L.rms_norm(x, p["ln1"]), cfg, window, return_kv=True)
-        x = x + a
         ks.append(k)
         vs.append(v)
+        return x + a
+
+    def attn_block(p, x):
+        x = self_attn(p, x)
         return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg)
 
     cache: dict = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device)}
@@ -465,6 +567,39 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
         for i in range(cfg.n_layers):
             x = attn_block(layer(params["layers"], i), x)
         cache["self"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
+        return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
+
+    if cfg.family in ("vlm", "audio"):
+        media, mks, mvs = batch["media"], [], []
+
+        def media_kv(p_attn, src):  # once a cross layer: the cache's media K/V
+            mks.append((src @ p_attn["wk"]).reshape(
+                src.shape[0], src.shape[1], cfg.n_kv_heads, cfg.head_dim))
+            mvs.append((src @ p_attn["wv"]).reshape(
+                src.shape[0], src.shape[1], cfg.n_kv_heads, cfg.head_dim))
+            return mks[-1], mvs[-1]
+
+        if cfg.family == "vlm":
+            g, spg = vlm_layout(cfg)
+            for i in range(g):
+                group = layer(params["groups"], i)
+                for j in range(spg):
+                    x = attn_block(layer(group["self"], j), x)
+                x = _cross_block(group["cross"], x, media_kv(group["cross"]["xattn"], media),
+                                 cfg)
+        else:
+            enc = media
+            for i in range(cfg.encoder_layers):
+                enc = _enc_block(layer(params["encoder"], i), enc, cfg)
+            enc = L.rms_norm(enc, params["enc_ln"])
+            for i in range(cfg.n_layers):
+                p = layer(params["decoder"], i)
+                x = self_attn(p, x)
+                x = x + L.cross_attention(p["xattn"], L.rms_norm(x, p["lnx"]),
+                                          media_kv(p["xattn"], enc), cfg)
+                x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+        cache["self"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
+        cache["media_k"], cache["media_v"] = torch.stack(mks), torch.stack(mvs)
         return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
 
     states, convs = [], []
@@ -497,7 +632,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     The cache is updated in place (each attention layer writes the slot of
     ``pos``, each Mamba2 layer its state and conv rows) and returned with
     ``pos`` advanced; the reference returns a new cache and leaves the old
-    one as it was.
+    one as it was. The cross layers read the cached media K/V (the VLM's
+    g x spg self layers index the flat ring group-major).
     """
     require_ported(cfg)
     x = params["embed"][tokens.long()]  # (B, 1, D)
@@ -505,12 +641,18 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ring = cache["shared"] if cfg.family == "hybrid" else cache["self"]
     cap = ring["k"].shape[2]
 
-    def attn_block(p, x, i):
+    def self_attn(p, x, i):
         out, _, _, _ = L.self_attention_decode(
             p["attn"], L.rms_norm(x, p["ln1"]), ring["k"][i], ring["v"][i],
             ring["slot_pos"][i], pos, cfg, cap)
-        x = x + out
+        return x + out
+
+    def attn_block(p, x, i):
+        x = self_attn(p, x, i)
         return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg, capacity=-1)
+
+    def media(i):
+        return cache["media_k"][i], cache["media_v"][i]
 
     def mamba(p, x, i):
         out, st, cv = S.mamba2_decode(p, L.rms_norm(x, p["ln"]), cache["ssm"][i],
@@ -522,6 +664,19 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x = attn_block(layer(params["layers"], i), x, i)
+    elif cfg.family == "vlm":
+        g, spg = vlm_layout(cfg)
+        for i in range(g):
+            group = layer(params["groups"], i)
+            for j in range(spg):
+                x = attn_block(layer(group["self"], j), x, i * spg + j)
+            x = _cross_block(group["cross"], x, media(i), cfg)
+    elif cfg.family == "audio":
+        for i in range(cfg.n_layers):
+            p = layer(params["decoder"], i)
+            x = self_attn(p, x, i)
+            x = x + L.cross_attention(p["xattn"], L.rms_norm(x, p["lnx"]), media(i), cfg)
+            x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
     else:
         g, every, tail = hybrid_layout(cfg)
         for i in range(g):

@@ -1,11 +1,14 @@
 """Batched serving engine: request queue -> same-length waves -> greedy decode
-(twin of ``repro.serving.engine``, for the dense, MoE and hybrid families).
+(twin of ``repro.serving.engine``, for the dense, MoE, hybrid, VLM and
+audio families).
 
 Requests are bucketed by prompt length, packed into waves of ``slots``
 sequences (a short wave is padded with its last prompt), prefilled once,
 then decoded together against the ring cache until every sequence hits EOS
 or its token budget. Positions are shared by a wave (the cache carries
-one ``pos``), which is the same-length-bucket contract.
+one ``pos``), which is the same-length-bucket contract. The VLM and audio
+families read each request's ``media`` (M, D): a request without media,
+and each pad slot, gets zeros; the wave's media are cast to ``cfg.dtype``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.cache import require_ported
+from repro_torch.models.cache import require_ported, torch_dtype
 from repro_torch.models.config import ModelConfig
 
 
@@ -28,6 +31,7 @@ class Request:
     uid: int
     prompt: np.ndarray  # (P,) int32
     max_new_tokens: int = 32
+    media: np.ndarray | None = None  # (M, D) frontend embeddings (VLM, audio)
 
 
 @dataclasses.dataclass
@@ -94,6 +98,12 @@ class ServingEngine:
         pad = self.slots - n
         prompts = np.stack([r.prompt for r in wave] + [wave[-1].prompt] * pad)
         batch = {"tokens": torch.as_tensor(prompts.astype(np.int32), device=self.device)}
+        cfg = self.cfg
+        if cfg.family in ("vlm", "audio"):
+            zero = np.zeros((cfg.n_media_tokens, cfg.d_model), np.float32)
+            media = [zero if r.media is None else r.media for r in wave] + [zero] * pad
+            batch["media"] = torch.as_tensor(np.stack(media), device=self.device).to(
+                torch_dtype(cfg))
 
         self._sync()
         t0 = time.perf_counter()

@@ -8,8 +8,9 @@ rules; batch specs shard the batch over ('pod', 'data') and, when the batch
 is too small, the attention cache's capacity takes the leftover axes so a
 long context still distributes. Every function reads only ``mesh.shape``
 (a ``launch.mesh.make_dry_mesh`` will do) and returns the nested dicts,
-``PartitionSpec`` leaves, of ``sharding.rules``. The families the port
-does not carry raise ``NotImplementedError`` (``models.cache.require_ported``).
+``PartitionSpec`` leaves, of ``sharding.rules``. The family the port
+does not carry (xLSTM) raises ``NotImplementedError``
+(``models.cache.require_ported``).
 """
 from __future__ import annotations
 
@@ -32,10 +33,14 @@ def param_specs(cfg: ModelConfig, mesh, rules=None) -> dict:
 
 # ------------------------------------------------------------------ batches
 def data_specs(cfg: ModelConfig, mesh, batch: int) -> dict:
-    """Specs of a training / prefill batch dict (tokens, labels)."""
+    """Specs of a training / prefill batch dict (tokens, labels, [media])."""
     cache_mod.require_ported(cfg)
-    tok = P(divisible_batch_axes(mesh, batch) or None)
-    return {"tokens": tok, "labels": tok}
+    baxes = divisible_batch_axes(mesh, batch)
+    tok = P(baxes or None)
+    out = {"tokens": tok, "labels": tok}
+    if cfg.family in ("vlm", "audio"):
+        out["media"] = P(baxes or None, None, None)
+    return out
 
 
 def divisible_batch_axes(mesh, batch: int) -> tuple[str, ...]:
@@ -86,8 +91,12 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, seq_len: int) -> dict:
         return "model" if model > 1 and dim % model == 0 else None
 
     out: dict = {"pos": P()}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         out["self"] = _attn_cache_spec(mesh, struct["self"]["k"].shape, baxes)
+        if cfg.family in ("vlm", "audio"):
+            mk = struct["media_k"].shape  # (g or L, B, M, KV, hd)
+            out["media_k"] = out["media_v"] = P(None, baxes or None, None, model_if(mk[3]),
+                                                None)
         return out
     ssm = struct["ssm"].shape  # (L, B, nh, hp, st)
     out["ssm"] = P(None, baxes or None, model_if(ssm[2]), None, None)

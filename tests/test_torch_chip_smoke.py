@@ -986,3 +986,130 @@ def test_packed_flash_gate_fails_when_a_packed_microbatch_launches_flash(lm_trai
     monkeypatch.setattr(layers, "self_attention_train", flash_anyway)
     with pytest.raises(AssertionError, match="packed runs launched flash"):
         chip_smoke.drive_lm_packed(torch.device("cpu"), {}, lm_train_cpu, seq=64, batch=4)
+
+
+# ------------------------------------------------------- device groups
+class _Range:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _Event:
+    """A ``FunctionEvent`` as ``device_groups`` reads it: host ops, their
+    kernel lists filled as the profiler fills them, and device activities."""
+
+    def __init__(self, name, cuda=False, span=(0, 1), parent=None, kernels=(), ms=0.0,
+                 annotation=False):
+        self.name = self.key = name
+        self.device_type = (torch.autograd.DeviceType.CUDA if cuda
+                            else torch.autograd.DeviceType.CPU)
+        self.time_range = _Range(*span)
+        self.cpu_parent, self.cpu_children = parent, []
+        if parent is not None:
+            parent.cpu_children.append(self)
+        self.kernels = list(kernels)
+        self.self_device_time_total = 1e3 * ms
+        self.is_async, self.is_user_annotation = False, annotation
+        self.scope, self.sequence_nr, self.thread, self.fwd_thread = 0, -1, 1, 1
+        self.count = 1
+
+
+class _Trace:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+    def key_averages(self):
+        return [e for e in self._events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _kernel(name, ms):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(name=name, duration=1e3 * ms)
+
+
+def _nested_trace():
+    """A cross-attention range holding a bmm (2.0 ms, its kernel listed by
+    both the bmm and the einsum around it) and a projection mm (1.0 ms);
+    the range op lists its own 80 ms span on the device as a kernel, as the
+    profiler does; an SSD op's elementwise kernel (0.5 ms); a flash kernel
+    (0.25 ms) and two launches of one copy kernel of equal time outside any
+    range (0.125 ms each, one listed by no op)."""
+    rng = _Event(chip_smoke.CHUNKED_RANGE, span=(0, 100),
+                 kernels=[_kernel(chip_smoke.CHUNKED_RANGE, 80.0)])
+    outer = _Event("aten::einsum", span=(10, 50), parent=rng, kernels=[_kernel("cutlass_bmm", 2.0)])
+    bmm = _Event("aten::bmm", span=(20, 40), parent=outer, kernels=[_kernel("cutlass_bmm", 2.0)])
+    mm = _Event("aten::mm", span=(60, 70), parent=rng, kernels=[_kernel("sm90_xmma_gemm", 1.0)])
+    ssd = _Event(chip_smoke.SSD_RANGE, span=(200, 300))
+    exp = _Event("aten::exp", span=(210, 220), parent=ssd,
+                 kernels=[_kernel("elementwise_exp", 0.5)])
+    flash = _Event("FlashAttention", span=(400, 410), kernels=[_kernel("flash_fwd_wgmma", 0.25)])
+    copy = _Event("aten::copy_", span=(500, 510), kernels=[_kernel("copy_kernel", 0.125)])
+    device = [_Event(name, cuda=True, ms=ms) for name, ms in (
+        ("cutlass_bmm", 2.0), ("sm90_xmma_gemm", 1.0), ("elementwise_exp", 0.5),
+        ("flash_fwd_wgmma", 0.25), ("copy_kernel", 0.125), ("copy_kernel", 0.125))]
+    device.append(_Event(chip_smoke.CHUNKED_RANGE, cuda=True, ms=80.0, annotation=True))
+    return _Trace([rng, outer, bmm, mm, ssd, exp, flash, copy] + device), bmm
+
+
+def test_device_groups_count_a_kernel_under_two_nested_ops_once():
+    """The bmm's kernel sits in two nested ops' lists and the range lists
+    its own span: a sum over the host ops' lists reads 85.875 ms against a
+    device total of 4.0; the groups count each kernel once, the bmm's under
+    the inner bmm, a kernel no op lists by its name, and sum to the device
+    total (the range's span excluded)."""
+    trace, bmm = _nested_trace()
+    total = sum(ms for _, ms, _ in chip_smoke.device_rows(trace))
+    assert total == 4.0
+    naive = sum(k.duration for e in trace.events() for k in e.kernels) / 1e3
+    assert naive == 85.875
+    filed = chip_smoke.device_kernels(trace)
+    assert sum(ms for _, ms, _ in filed) == total
+    assert [o for n, _, o in filed if n == "cutlass_bmm"] == [bmm]
+    assert sorted(o is None for n, _, o in filed if n == "copy_kernel") == [False, True]
+    groups = chip_smoke.device_groups(trace)
+    assert groups == {chip_smoke.CHUNKED_GROUP: 2.0, "cuBLAS GEMMs": 1.0,
+                      chip_smoke.SSD_GROUP: 0.5, "flash_fwd": 0.25,
+                      chip_smoke.REST_GROUP: 0.25}
+    assert chip_smoke.groups_cover("trace", groups, total) == 1.0
+    with pytest.raises(AssertionError, match="groups sum"):
+        chip_smoke.groups_cover("trace", {"x": naive}, total)
+
+
+def test_chunked_range_takes_the_encoder_and_cross_attention():
+    """A profiled whisper forward and backward on the CPU: the encoder's and
+    the cross layers' attention run inside the chunked-attention ranges
+    (forward and remat recompute) and the backward of their ops belongs to
+    them; the decoder's self-attention does not."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = dataclasses.replace(lm_configs.get("whisper-small").reduced(), n_layers=1,
+                              encoder_layers=1)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g)
+    media = torch.randn((2, cfg.n_media_tokens, cfg.d_model), generator=g)
+    with chip_smoke.op_ranges(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss, _ = TT.forward_train(params, cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                                                 "media": media})
+        torch.autograd.grad(loss, leaves)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    chunked = chip_smoke.range_events(events, chip_smoke.CHUNKED_RANGE)
+    ranges = [e for e in events if e.name == chip_smoke.CHUNKED_RANGE]
+    assert len(ranges) == 2 * 2  # encoder and cross, forward and recompute
+    names = {e.name for e in events if id(e) in chunked}
+    assert {"aten::bmm", "aten::softmax", "SoftmaxBackward0", "BmmBackward0"} <= names
+    softmax = [e for e in events if e.name == "aten::softmax"]
+    assert len(softmax) == 6 and sum(id(e) in chunked for e in softmax) == 4  # not self's
+    assert chip_smoke.lm_layers.cross_attention.__name__ == "cross_attention"
+    assert chip_smoke.lm_layers.encoder_attention.__name__ == "encoder_attention"

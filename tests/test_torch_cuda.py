@@ -1486,3 +1486,115 @@ def test_engine_int8_version_on_the_card(dev, tmp_path):
         assert r.version == routed[r.uid] == ("f32" if route_hash(r.uid) < 0.25 else "q8")
         want = forest_predict(state.forest, data.bins[50 * r.uid: 50 * r.uid + 50])
         np.testing.assert_allclose(r.scores, want.cpu().numpy(), rtol=0, atol=atol + 1e-6)
+
+
+# ------------------------------------------------------- the media families
+@pytest.mark.parametrize("b,s,h,kv,d", [(4, 2048, 64, 8, 128), (8, 64, 12, 12, 64),
+                                        (8, 320, 12, 12, 64), (8, 448, 12, 12, 64)],
+                         ids=["vlm", "whisper64", "whisper320", "whisper448"])
+def test_flash_at_the_media_shapes(dev, b, s, h, kv, d):
+    """The VLM's self layers (64 q heads on 8 kv heads, d 128: group 8) and
+    whisper's decoder (12 on 12, d 64) at its serving prompts (one partial
+    key tile; 2.5 tiles) and its training rows (3.5 tiles), bf16, causal:
+    the forward and the backward on the wgmma routes, each against its
+    plain version with the tolerances above."""
+    args = _bwd_case(dev, b, s, s, h, kv, d, True, torch.bfloat16, s + h)
+    q, k, v, out, lse, do = args
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert max(_flash_rel_l2(out, want)) <= FLASH_OUT_REL_L2
+    torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3)
+    before = dict(flash_attention.bwd_route_launches)
+    got = flash_attention.flash_attention_bwd(*args, True)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_route_launches["wgmma"] == before["wgmma"] + 1
+    _bwd_close(got, args, True, torch.bfloat16)
+
+
+def _media_cfg(arch: str, dtype: str):
+    changes = {"n_layers": 6, "cross_attn_every": 3} if arch.startswith("llama") else {}
+    return dataclasses.replace(lm_configs.get(arch).reduced(), attn_impl="flash", dtype=dtype,
+                               **changes)
+
+
+def _media_params(cfg):
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if cfg.family == "vlm":
+        params["groups"]["cross"]["gate_attn"].fill_(0.5)
+        params["groups"]["cross"]["gate_mlp"].fill_(-0.3)
+    return params
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small"])
+def test_media_forward_train_gradients_on_the_card(dev, arch, dtype):
+    """Reduced VLM (2 groups of 2 self layers + 1 cross, gates non-zero) and
+    whisper: the loss and every gradient on the card against the CPU route;
+    2 x L forward and L backward flash launches (L the self-attention
+    layers, under per-group or per-layer remat). A bf16 gate's gradient is
+    one sum over every (row, token, channel) product of its layer's output,
+    so its relative error is that of a sum with cancellation: the gates are
+    held to twice the CPU route's own bf16 error against the same weights
+    in f32, or the bf16 limit above, whichever is larger."""
+    cfg = _media_cfg(arch, dtype)
+    params = _media_params(cfg)
+    batch = next(synthetic_batches(cfg, 2, 64, 1, seed=3, device="cpu"))
+    n_attn = 4 if cfg.family == "vlm" else cfg.n_layers
+    results = []
+    runs = [("cpu", cfg), (dev, cfg)]
+    if dtype == "bfloat16":
+        runs.append(("cpu", dataclasses.replace(cfg, dtype="float32")))
+    for device, c in runs:
+        p = tree_map(lambda t: t.detach().to(device, getattr(torch, c.dtype)).requires_grad_(),
+                     params)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        b = {k: v.to(device, getattr(torch, c.dtype)) if v.is_floating_point() else v.to(device)
+             for k, v in batch.items()}
+        loss, _ = TT.forward_train(p, c, b)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        results.append((loss.detach(), grads))
+        if device != "cpu":
+            assert flash_attention.launches - fwd == 2 * n_attn
+            assert flash_attention.bwd_launches - bwd == n_attn
+    (l_cpu, g_cpu), (l_dev, g_dev) = results[:2]
+    torch.testing.assert_close(l_dev.float().cpu(), l_cpu.float(),
+                               rtol=1e-4 if dtype == "float32" else 2e-2, atol=0)
+    names = []
+    TT.map_schema(lambda path, _: names.append(".".join(path)), TT.param_schema(cfg))
+    for i, (name, a, b) in enumerate(zip(names, g_dev, g_cpu)):
+        if dtype == "bfloat16" and name.endswith(("gate_attn", "gate_mlp")):
+            f32 = results[2][1][i]
+            own = float((b.float() - f32).norm() / f32.norm())
+            rel = float((a.float().cpu() - b.float()).norm() / b.float().norm())
+            assert rel <= max(5e-2, 2 * own), f"{name}: relative L2 error {rel} (own {own})"
+        else:
+            _grad_close(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small"])
+def test_media_prefill_and_decode_on_the_card(dev, arch):
+    """Reduced VLM and whisper in f32: prefill with media and 4 decode steps
+    on the card against the CPU route; the ring and the media K/V caches."""
+    cfg = _media_cfg(arch, "float32")
+    params = _media_params(cfg)
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 36), generator=g, dtype=torch.int32)
+    media = torch.randn((2, cfg.n_media_tokens, cfg.d_model), generator=g)
+    out = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        logits, cache = TT.prefill(p, cfg, {"tokens": toks[:, :32].to(device),
+                                            "media": media.to(device)}, max_len=40)
+        steps = [logits]
+        for i in range(32, 36):
+            logits, cache = TT.decode_step(p, cfg, toks[:, i:i + 1].to(device), cache)
+            steps.append(logits)
+        out.append(([x.cpu() for x in steps],
+                    {n: t.cpu() for n, t in (("k", cache["self"]["k"]),
+                                             ("media_k", cache["media_k"]),
+                                             ("media_v", cache["media_v"]))}))
+    (l_cpu, c_cpu), (l_dev, c_dev) = out
+    for a, b in zip(l_dev, l_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for n in c_cpu:
+        torch.testing.assert_close(c_dev[n], c_cpu[n], rtol=1e-4, atol=1e-4)

@@ -146,10 +146,10 @@ def test_train_cli_flags_not_ported_raise(flags, item):
 
 def test_serve_cli_lm_arch_points_at_a11():
     """The LM form of the serve CLI (ROADMAP A11's first item) is ported
-    (tests/test_torch_moe.py runs it); an LM family the port does not
-    carry yet raises with its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, VLM"):
-        tserve.main(["--arch", "llama-3.2-vision-90b", "--device", "cpu"])
+    (tests/test_torch_moe.py and test_torch_media.py run it); an LM family
+    the port does not carry yet (xLSTM) raises with its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, xLSTM"):
+        tserve.main(["--arch", "xlstm-1.3b", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [[], ["--backend", "fused", "--objective", "multiclass:3"],

@@ -303,7 +303,17 @@ def test_optimizer_state_specs_are_the_reference_s(opt):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small", "xlstm-1.3b"])
 def test_specs_of_unported_families_raise(arch):
+    """The family the port does not carry (xLSTM) raises; the VLM and audio
+    families are ported, and their specs are the reference's (every mesh:
+    tests/test_torch_media.py)."""
     cfg, mesh = tconfigs.get(arch), make_dry_mesh(MESHES["small"])
+    if cfg.family in ("vlm", "audio"):
+        jcfg, jmesh = jconfigs.get(arch), FakeMesh(MESHES["small"])
+        _same_specs(TSH.param_specs(cfg, mesh), JSH.param_specs(jcfg, jmesh), arch)
+        _same_specs(TSH.data_specs(cfg, mesh, 4), JSH.data_specs(jcfg, jmesh, 4), arch)
+        _same_specs(TSH.cache_specs(cfg, mesh, 4, 128), JSH.cache_specs(jcfg, jmesh, 4, 128),
+                    arch)
+        return
     for fn in (lambda: TSH.param_specs(cfg, mesh), lambda: TSH.data_specs(cfg, mesh, 4),
                lambda: TSH.cache_specs(cfg, mesh, 4, 128)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

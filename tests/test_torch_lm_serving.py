@@ -127,9 +127,10 @@ def test_engine_refuses_parameters_on_another_device(setup):
 
 
 def test_engine_serves_only_the_dense_family(setup):
-    """Only the ported families: a VLM config raises with its ROADMAP item
-    (the MoE and hybrid engines: tests/test_torch_moe.py, test_torch_hybrid.py)."""
+    """Only the ported families: an xLSTM config raises with its ROADMAP item
+    (the MoE, hybrid and media engines: tests/test_torch_moe.py,
+    test_torch_hybrid.py, test_torch_media.py)."""
     _, _, _, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tconfigs.get("llama-3.2-vision-90b").reduced(), params, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, xLSTM"):
+        ServingEngine(tconfigs.get("xlstm-1.3b").reduced(), params, device="cpu")
     assert isinstance(params["embed"], torch.Tensor)

@@ -165,14 +165,15 @@ def test_remat_gives_the_same_gradients(attn_impl, policy):
 
 
 def test_forward_train_refuses_what_is_not_ported():
-    """The VLM family is not ported; packed rows on the recurrent hybrid
+    """The xLSTM family is not ported; packed rows on the recurrent hybrid
     family raise as in the reference. ("dots" and dense packed rows train:
-    the tests above; the MoE family: tests/test_torch_moe.py.)"""
+    the tests above; the MoE family: tests/test_torch_moe.py; the VLM and
+    audio families: tests/test_torch_media.py.)"""
     _, _, cfg, params = _pair()
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1, 8, 1)[0].items()}
-    vlm = tconfigs.get("llama-3.2-vision-90b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward_train(params, vlm, batch)
+    xlstm = tconfigs.get("xlstm-1.3b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, xLSTM"):
+        TT.forward_train(params, xlstm, batch)
     hybrid = tconfigs.get("zamba2-1.2b").reduced()
     with pytest.raises(ValueError, match="per-segment state resets"):
         TT.forward_train(params, hybrid, {**batch, "segments": batch["tokens"]})
