@@ -207,6 +207,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -241,9 +242,10 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import gbdt_config, synthetic_batches  # noqa: E402
-from repro_torch.models import forward_train, init_params  # noqa: E402
+from repro_torch.models import forward_train, init_cache, init_params  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
+from repro_torch.models import xlstm as lm_xlstm  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
@@ -490,8 +492,12 @@ PACKED_PAD = 0.15
 # groups of 6 + 2 tail layers, one shared attention block of 32 q heads on
 # 32 kv heads), served on LM_PROMPTS' waves and trained on the dense
 # path's batches and recipe (run A). Its flash entries in the kernels
-# line are the kernels at the shared block's shape (group 1).
+# line are the kernels at the shared block's shape (group 1). Its step
+# profile takes a step's rows cut to HYBRID_PROFILE_SEQ tokens (one SSM
+# chunk): the profiler took 77 s over a whole step, 49 s over 4 x 512
+# (PERF.md §6).
 HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PROFILE_SEQ = 256
 HYBRID_KERNELS = {
     "flash_attention_zamba2": LM_KERNELS["flash_attention"][1:],
     "flash_attention_bwd_dq_zamba2": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
@@ -549,6 +555,35 @@ AUDIO_KERNELS = {
     "flash_attention_bwd_dq_whisper": TRAIN_KERNELS["flash_attention_bwd_dq"][1:],
     "flash_attention_bwd_dkv_whisper": TRAIN_KERNELS["flash_attention_bwd_dkv"][1:],
 }
+# The xLSTM family: xlstm-1.3b whole (48 layers: 6 groups of 7 mLSTM layers
+# and one sLSTM layer, d_model 2048, 4 heads of 512, vocab 50,304, bf16;
+# XLSTM_PARAMS parameters), served on LM_PROMPTS' waves and trained with
+# run A's recipe (AdamW, accum TRAIN_ACCUM) on XLSTM_TRAIN (rows, tokens) a
+# step for XLSTM_TRAIN_STEPS steps: the sLSTM's loop over positions is
+# host-bound (tools/xlstm_probe.py, PERF.md section 4: a 4 x 512
+# microbatch takes 8.3 s), so a microbatch is 4 x 128 (at 4 x 64 the loss
+# moves less than the batches differ). No kernel of the
+# port is on its path (the reference's xLSTM is plain jnp). Its accuracy
+# gates hold the served model against the same weights at ssm_chunk
+# XLSTM_OTHER["ssm_chunk"] (the same sums grouped otherwise) and both
+# against f32 on the XLSTM_CHECK_PROMPT wave's prompts cut to
+# XLSTM_CHECK_LEN tokens (two chunks), its decode on that wave, and its
+# gradients on a run's microbatch (the two paths' chunks must differ at
+# both lengths, or the comparison would hold a path to itself). The
+# profiler's cost grows with the host ops it records (65.5 s for a 4 x
+# 1024 prefill's and two decode steps', PERF.md §6), and a position of
+# the sLSTM is about 27 host ops (94 with its backward), so the prefill
+# profile takes the wave's first XLSTM_PROFILE["prefill"] tokens and the
+# step profile one group (8 layers, the model's repeating unit) on
+# XLSTM_PROFILE["train"] (rows, tokens); the share of a run's step that
+# grows with the positions is read from an unprofiled step on
+# XLSTM_PROFILE["positions"] (rows, tokens) beside the run's median.
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PARAMS = 1_239_206_224
+XLSTM_TRAIN, XLSTM_TRAIN_STEPS = (8, 128), 4
+XLSTM_OTHER = {"ssm_chunk": 64}
+XLSTM_CHECK_PROMPT, XLSTM_CHECK_LEN = 1024, 512
+XLSTM_PROFILE = {"prefill": 32, "train": (8, 32), "positions": (8, 8)}
 # (b, sq, sk, h, kv, d, causal, dtype, seq_k): the ragged edges of each
 # route (the wgmma kernel off its 128-row q tiles and 128-key tiles last;
 # the 1000-row shapes give its persistent grid of 132 blocks 256 work
@@ -3693,6 +3728,8 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
                       "device_ms_by": "profiler" if rows else "events",
                       "wall_ms_profiled": wall / n, "by_group_ms": groups,
                       "range_spans_ms": {k: v / n for k, v in range_spans(prof).items()},
+                      "range_host_ms": {k: v / n
+                                        for k, v in range_spans(prof, host=True).items()},
                       "groups_over_device": groups_cover(f"{cfg.name} {phase}", groups, dev_ms)
                       if rows else None}
         res[phase].update({"device_busy_share": busy(res[phase], dev_ms, wall / n),
@@ -3749,7 +3786,8 @@ def last_routes(calls: list, batch: int) -> torch.Tensor | None:
     return torch.stack([c.reshape(batch, -1, c.shape[-1])[:, -1] for c in calls], dim=1)
 
 
-def prefill_against_f32(cfg, params: dict, batch: dict, max_len: int | None = None) -> dict:
+def prefill_against_f32(cfg, params: dict, batch: dict, max_len: int | None = None,
+                        other: dict | None = None) -> dict:
     """Flash against chunked on one wave: last-position prefill logits, same
     weights. Tolerance: twice what bf16 costs the chunked path itself,
     measured against the chunked path in f32 (the same weights upcast; no
@@ -3758,14 +3796,17 @@ def prefill_against_f32(cfg, params: dict, batch: dict, max_len: int | None = No
     both paths must pick the same first token. For an MoE model only the
     rows whose last position the three paths route alike are compared
     (``route_agreement``). A batch's media are cast to each path's dtype;
-    ``max_len`` is LM_MAX_LEN unless given. Returns the figures."""
+    ``max_len`` is LM_MAX_LEN unless given. ``other`` names the config
+    changes of the compared ("chunked") path, ``attn_impl="chunked"``
+    unless given (a model without attention takes another SSM chunk: the
+    same sums grouped otherwise). Returns the figures."""
     max_len = max_len or LM_MAX_LEN
     flash_step = make_prefill_step(cfg, max_len)
     b = batch["tokens"].shape[0]
     with recorded_routes() as rf:
         tok_f, lf, _ = flash_step(params, batch)
     _, lf2, _ = flash_step(params, batch)
-    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    chunked = dataclasses.replace(cfg, **(other or {"attn_impl": "chunked"}))
     with recorded_routes() as rc:
         tok_c, lc, _ = make_prefill_step(chunked, max_len)(params, batch)
     params32 = to_f32(params)
@@ -4112,12 +4153,18 @@ def train_lm(cfg, opt, batches, accum: int, sample: float, dev, warm_up: int = 0
 # and the chunked attention of whisper's encoder and of the cross layers.
 SSD_RANGE = "ssd_scan"
 SSD_GROUP = "SSD scan (einsums, exp, cumsum)"
+MLSTM_RANGE = "mlstm_chunk_scan"
+MLSTM_GROUP = "mLSTM (chunk scan; decode step with its projections)"
+SLSTM_RANGE = "slstm_scan"
+SLSTM_GROUP = "sLSTM (a step a position; decode step with its projections)"
 MOE_RANGE = "moe_ffn"
 MOE_GROUP = "router, dispatch and combine"
 CHUNKED_RANGE = "chunked_attention"
 CHUNKED_GROUP = "chunked attention (encoder, cross)"
 REST_GROUP = "elementwise, reductions and copies"
-RANGES = (SSD_RANGE, MOE_RANGE, CHUNKED_RANGE)
+RANGES = (SSD_RANGE, MLSTM_RANGE, SLSTM_RANGE, MOE_RANGE, CHUNKED_RANGE)
+# The ranges whose every kernel, GEMMs included, is their group's.
+WHOLE_RANGES = {SSD_RANGE: SSD_GROUP, MLSTM_RANGE: MLSTM_GROUP, SLSTM_RANGE: SLSTM_GROUP}
 # The host ops of a range's projections (x @ W, and their backward's
 # products), whose GEMMs stay in the GEMM group.
 PROJECTION_OPS = ("aten::mm", "aten::addmm")
@@ -4127,16 +4174,26 @@ PROJECTION_OPS = ("aten::mm", "aten::addmm")
 def op_ranges():
     """While it is open, each call of ``models.ssm.ssd_scan`` (the SSD chunk
     loop and its cumsum) runs inside a ``record_function`` range named
-    ``SSD_RANGE``, each call of ``models.layers.moe_ffn`` (the router, the
-    experts' dispatch, products and combine) inside one named
-    ``MOE_RANGE``, and each call of ``layers.encoder_attention`` and
-    ``layers.cross_attention`` (plain chunked attention, as in the
-    reference) inside one named ``CHUNKED_RANGE``; training's recompute
-    included."""
-    inner = {(lm_ssm, "ssd_scan"): lm_ssm.ssd_scan, (lm_layers, "moe_ffn"): lm_layers.moe_ffn,
+    ``SSD_RANGE``, each call of ``models.xlstm._mlstm_chunk_scan`` or
+    ``mlstm_decode`` inside one named ``MLSTM_RANGE``, each of
+    ``models.xlstm.slstm_scan`` (the sLSTM's loop over positions) or
+    ``slstm_decode`` inside one named ``SLSTM_RANGE``, each call of
+    ``models.layers.moe_ffn`` (the router, the experts' dispatch, products
+    and combine) inside one named ``MOE_RANGE``, and each call of
+    ``layers.encoder_attention`` and ``layers.cross_attention`` (plain
+    chunked attention, as in the reference) inside one named
+    ``CHUNKED_RANGE``; training's recompute included."""
+    inner = {(lm_ssm, "ssd_scan"): lm_ssm.ssd_scan,
+             (lm_xlstm, "_mlstm_chunk_scan"): lm_xlstm._mlstm_chunk_scan,
+             (lm_xlstm, "mlstm_decode"): lm_xlstm.mlstm_decode,
+             (lm_xlstm, "slstm_scan"): lm_xlstm.slstm_scan,
+             (lm_xlstm, "slstm_decode"): lm_xlstm.slstm_decode,
+             (lm_layers, "moe_ffn"): lm_layers.moe_ffn,
              (lm_layers, "encoder_attention"): lm_layers.encoder_attention,
              (lm_layers, "cross_attention"): lm_layers.cross_attention}
-    names = {"ssd_scan": SSD_RANGE, "moe_ffn": MOE_RANGE,
+    names = {"ssd_scan": SSD_RANGE, "_mlstm_chunk_scan": MLSTM_RANGE,
+             "mlstm_decode": MLSTM_RANGE, "slstm_scan": SLSTM_RANGE,
+             "slstm_decode": SLSTM_RANGE, "moe_ffn": MOE_RANGE,
              "encoder_attention": CHUNKED_RANGE, "cross_attention": CHUNKED_RANGE}
 
     def ranged(fn, name):
@@ -4218,8 +4275,9 @@ def device_kernels(prof) -> list:
 def device_groups(prof) -> dict:
     """Device ms by group of a finished trace, each kernel counted once,
     under the innermost host op that launched it (``device_kernels``): the
-    flash kernels by name; then every kernel an op of the SSD range
-    launched, as ``SSD_GROUP``; then every kernel an op of the chunked
+    flash kernels by name; then every kernel an op of the SSD range, the
+    mLSTM chunk scan's or the sLSTM scan's launched, as its group
+    (``WHOLE_RANGES``); then every kernel an op of the chunked
     attention's range launched, as ``CHUNKED_GROUP``, except its
     projections' GEMMs (``PROJECTION_OPS``); then cuBLAS GEMMs by name (the
     experts' and the router's products among them); then every other
@@ -4227,14 +4285,17 @@ def device_groups(prof) -> dict:
     The groups sum to the trace's device total (``device_rows``)."""
     cpu = torch.autograd.DeviceType.CPU
     host = [e for e in prof.events() if e.device_type == cpu]
-    ssd, moe, chunked = (range_events(host, r) for r in (SSD_RANGE, MOE_RANGE, CHUNKED_RANGE))
+    whole = {g: range_events(host, r) for r, g in WHOLE_RANGES.items()
+             if any(e.name == r for e in host)}
+    moe, chunked = (range_events(host, r) for r in (MOE_RANGE, CHUNKED_RANGE))
     groups: dict = {}
     for name, ms, owner in device_kernels(prof):
         g = kernel_group(name)
         where = id(owner) if owner is not None else None
         if not g.startswith("flash"):
-            if where in ssd:
-                g = SSD_GROUP
+            inside = next((w for w, ids in whole.items() if where in ids), None)
+            if inside is not None:
+                g = inside
             elif where in chunked and owner.name not in PROJECTION_OPS:
                 g = CHUNKED_GROUP
             elif where in moe and g == REST_GROUP:
@@ -4243,12 +4304,15 @@ def device_groups(prof) -> dict:
     return groups
 
 
-def range_spans(prof) -> dict:
-    """The device spans of the ``op_ranges`` ranges in a finished trace, ms
-    by range: what a sum over the host ops' kernel lists would add."""
+def range_spans(prof, host: bool = False) -> dict:
+    """The spans of the ``op_ranges`` ranges in a finished trace, ms by
+    range: on the device (what a sum over the host ops' kernel lists would
+    add), or with ``host`` on the host (a checkpointed range counts its
+    forward and its recompute)."""
+    cpu = torch.autograd.DeviceType.CPU
     out: dict = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU and e.name in RANGES:
+        if (e.device_type == cpu) == host and e.name in RANGES:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return out
 
@@ -4282,8 +4346,24 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
     groups = device_groups(prof) if rows else {}
     return {"device_ms": dev_ms, "device_ms_by": "profiler" if rows else "events",
             "wall_ms_profiled": wall, "by_group_ms": groups, "range_spans_ms": range_spans(prof),
+            "range_host_ms": range_spans(prof, host=True),
             "groups_over_device": groups_cover("train step", groups, dev_ms) if rows else None,
             "top": [{"name": k[:80], "device_ms": ms, "calls": c} for k, ms, c in rows[:15]]}
+
+
+def profile_step_on(step, params, state, batch, gen) -> dict:
+    """``profile_train_step`` on ``batch``, after one unprofiled step on it,
+    whose wall time is the busy share's denominator
+    (``unprofiled_wall_ms``)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, batch, gen)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    profile = profile_train_step(step, params, state, batch, gen)
+    profile["device_busy_share"] = busy(profile, profile["device_ms"], wall_ms)
+    profile["unprofiled_wall_ms"] = wall_ms
+    return profile
 
 
 def dense_grad_picks(cfg) -> list:
@@ -4313,7 +4393,8 @@ def _with_leaves(tree: dict, subs: dict, path: tuple = ()) -> dict:
             else subs.get(path + (k,), v) for k, v in tree.items()}
 
 
-def check_train_grads(cfg, batch: dict, dev, picks: list | None = None) -> dict:
+def check_train_grads(cfg, batch: dict, dev, picks: list | None = None,
+                      other: dict | None = None) -> dict:
     """One full-width microbatch's loss and gradients from the seeded
     initial weights, flash against chunked, of the leaves ``picks`` names
     ((name, path, index) each; ``dense_grad_picks`` by default). Tolerance,
@@ -4322,11 +4403,13 @@ def check_train_grads(cfg, batch: dict, dev, picks: list | None = None) -> dict:
     TF32), by relative L2 a leaf; the loss within twice the chunked path's
     own error or twice one bf16 rounding of a token's loss averaged over the
     microbatch's tokens (2^-8 |loss| / sqrt(tokens)), whichever is larger,
-    since one number's error may land near zero by chance."""
+    since one number's error may land near zero by chance. ``other`` names
+    the config changes of the compared ("chunked") path, as
+    ``prefill_against_f32`` takes them."""
     picks = dense_grad_picks(cfg) if picks is None else picks
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, device=dev)
-    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    chunked = dataclasses.replace(cfg, **(other or {"attn_impl": "chunked"}))
     routes = {"flash": cfg, "chunked": chunked,
               "chunked_f32": dataclasses.replace(chunked, dtype="float32")}
     paths = sorted({path for _, path, _ in picks})
@@ -4758,8 +4841,13 @@ def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | No
     (prompt + new tokens - 1). For an MoE model each step's error is taken
     over the rows that the decode and the f32 forward route alike at that
     position (``route_agreement``). A VLM or audio model reads ``media``
-    (B, M, D), cast to each path's dtype. ``new`` and ``max_len`` are
-    LM_NEW and LM_MAX_LEN unless given."""
+    (B, M, D), cast to each path's dtype. An xLSTM model's decode rounds
+    its carries (C, n, c, h) to bf16 every token and the chunked forward
+    once a chunk, so their errors at a step are independent draws of bf16
+    noise (the reference's decode parts from its forward the same way);
+    its steps are held to twice the bf16 forward's largest error over the
+    steps, far below what a carry left unwritten costs. ``new`` and
+    ``max_len`` are LM_NEW and LM_MAX_LEN unless given."""
     new, max_len = new or LM_NEW, max_len or LM_MAX_LEN
     toks = torch.as_tensor(prompts, device=dev)
     b, plen = toks.shape
@@ -4804,17 +4892,20 @@ def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | No
     # Errors by step over the rows routed alike (0 where none is).
     err_dec = torch.where(pairs, (dec - tf["f32"]).abs().amax(dim=2), 0).amax(dim=0)
     err_bf16 = torch.where(pairs, (tf["bf16"] - tf["f32"]).abs().amax(dim=2), 0).amax(dim=0)
-    over = (err_dec > 2 * err_bf16).nonzero().flatten().tolist()
+    scale = err_bf16.amax().expand_as(err_bf16) if cfg.family == "ssm" else err_bf16
+    over = (err_dec > 2 * scale).nonzero().flatten().tolist()
     if over:
         raise AssertionError(
             f"{cfg.name}: decode logits drift from the f32 teacher-forced forward at steps "
             f"{over}: {[float(err_dec[i]) for i in over]} against twice the bf16 forward's "
-            f"{[2 * float(err_bf16[i]) for i in over]}")
+            f"{[2 * float(scale[i]) for i in over]}")
     kept = pairs.any(dim=0)
     return {"steps": new, "teacher_forced_ssm_chunk": chunk,
             "decode_vs_f32": err_dec.tolist(), "bf16_forward_vs_f32": err_bf16.tolist(),
             "pairs_compared": int(pairs.sum()), "pairs": pairs.numel(),
-            "worst_ratio": float((err_dec[kept] / err_bf16[kept]).max())}
+            "limit_by": "largest over the steps" if cfg.family == "ssm" else "step",
+            "worst_ratio": float((err_dec[kept] / scale[kept]).max()),
+            "worst_step_ratio": float((err_dec[kept] / err_bf16[kept]).max())}
 
 
 def f32_leaves(params: dict) -> list:
@@ -4937,9 +5028,8 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
                              f"{f32_leaves(params)}")
     bad_moments = [i for i, m in enumerate(tree_leaves(state[-1].mu))
                    if m.dtype != torch.float32] if hasattr(state[-1], "mu") else []
-    profile = profile_train_step(step, params, state, batches[-1], gen)
-    profile["device_busy_share"] = busy(profile, profile["device_ms"],
-                                        float(np.median(trains[1]["step_ms"][1:])))
+    profile = profile_step_on(step, params, state, {k: v[:, :HYBRID_PROFILE_SEQ]
+                                                    for k, v in batches[-1].items()}, gen)
     lap("train profile")
     del params, state, step, gen
     torch.cuda.empty_cache()
@@ -4979,9 +5069,10 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
           f"{grads['loss']['chunked_f32']:.6f}); {len(grads['leaves'])} gradients within "
           f"twice the chunked path's own error, closest {worst[0]}: relative L2 "
           f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}", flush=True)
-    print(f"profile ({HYBRID_ARCH} train step): device {profile['device_ms']:.1f} ms "
-          f"({profile['device_ms_by']}), busy {pct(profile['device_busy_share'])} of an "
-          "unprofiled step's wall time; " + ", ".join(
+    print(f"profile ({HYBRID_ARCH} train step, {b} x {HYBRID_PROFILE_SEQ}): device "
+          f"{profile['device_ms']:.1f} ms ({profile['device_ms_by']}), busy "
+          f"{pct(profile['device_busy_share'])} of an unprofiled step's wall time "
+          f"({profile['unprofiled_wall_ms']:.1f} ms); " + ", ".join(
               f"{k} {v:.1f}" for k, v in profile["by_group_ms"].items())
           + f"; the hybrid phase took {phase_s:.1f} s (" + ", ".join(
               f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]", flush=True)
@@ -5794,6 +5885,291 @@ def drive_media(dev: torch.device, report: dict) -> list:
     return drive_vlm(dev, report) + drive_audio(dev, report)
 
 
+class CountOps(TorchDispatchMode):
+    """While it is open, counts each aten op dispatched (views included),
+    by name: the host ops of the code it wraps."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def slstm_ops_per_position(cfg, dev, positions: int = 64, batch: int = LM_SLOTS) -> dict:
+    """The host ops a position of ``models.xlstm.slstm_scan`` dispatches at
+    the model's width, in inference and under autograd (the forward and its
+    backward), over ``positions`` seeded positions."""
+    h, hd, dt = cfg.n_heads, cfg.head_dim, getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pre = torch.randn((batch, positions, 4, h, hd), generator=gen, device=dev).to(dt)
+    r = (torch.randn((h, 4, hd, hd), generator=gen, device=dev) / hd ** 0.5).to(dt)
+    with torch.inference_mode(), CountOps() as fwd:
+        lm_xlstm.slstm_scan(pre, r)
+    pre, r = pre.clone().requires_grad_(), r.clone().requires_grad_()
+    with CountOps() as train:
+        y, _ = lm_xlstm.slstm_scan(pre, r)
+        torch.autograd.grad(y.float().sum(), [pre, r])
+    return {"inference": sum(fwd.ops.values()) / positions,
+            "forward_and_backward": sum(train.ops.values()) / positions,
+            "inference_by_op": {k: v / positions for k, v in fwd.ops.most_common()}}
+
+
+def xlstm_cache_bytes(cfg, batch: int) -> int:
+    """The bytes of an xLSTM decode cache, reckoned from the layout: each
+    mLSTM layer's C (H, hd, hd) and n (H, hd) in the model's dtype and m
+    (H,) f32, each sLSTM layer's c, n, h (H, hd) in it and m (H, hd) f32,
+    a row each; ``pos`` int32. It does not depend on the context."""
+    g, mpg = TT.xlstm_layout(cfg)
+    e = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    h, hd = cfg.n_heads, cfg.head_dim
+    return g * batch * h * (mpg * ((hd * hd + hd) * e + 4) + hd * (3 * e + 4)) + 4
+
+
+def xlstm_grad_picks(cfg) -> list:
+    """The xLSTM gradients ``check_train_grads`` holds: wq, w_if and b_if of
+    the first and the last mLSTM layer, w_gates and r_gates of the first
+    and the last sLSTM layer."""
+    g, mpg = TT.xlstm_layout(cfg)
+    return ([(f"mlstm[{i}].{n}", ("groups", "mlstm", n), idx) for n in ("wq", "w_if", "b_if")
+             for i, idx in ((0, (0, 0)), (g * mpg - 1, (g - 1, mpg - 1)))]
+            + [(f"slstm[{i}].{n}", ("groups", "slstm", n), (i,))
+               for n in ("w_gates", "r_gates") for i in (0, g - 1)])
+
+
+def check_xlstm_cache(cfg, params: dict, batch: dict) -> dict:
+    """One prefill's cache: every leaf of ``init_cache``'s shape and dtype
+    (C, n, c, h in the model's dtype, m f32), finite, and its bytes the
+    reckoning's (``xlstm_cache_bytes``)."""
+    _, _, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, batch)
+    b = batch["tokens"].shape[0]
+    blank = init_cache(cfg, b, LM_MAX_LEN, device="meta")
+    leaves = {f"{k}.{n}": t for k in ("mlstm", "slstm") for n, t in cache[k].items()}
+    for name, t in leaves.items():
+        want = blank[name.split(".")[0]][name.split(".")[1]]
+        if (t.shape, t.dtype) != (want.shape, want.dtype) or not torch.isfinite(t).all():
+            raise AssertionError(f"{cfg.name} cache {name}: {tuple(t.shape)} {t.dtype}, "
+                                 f"expected {tuple(want.shape)} {want.dtype}, finite")
+    nbytes = sum(t.numel() * t.element_size() for t in [cache["pos"], *leaves.values()])
+    if nbytes != xlstm_cache_bytes(cfg, b):
+        raise AssertionError(f"{cfg.name}: the cache holds {nbytes} bytes, the reckoning "
+                             f"{xlstm_cache_bytes(cfg, b)}")
+    return {"bytes": nbytes, "matrix_memory_bytes": leaves["mlstm.c"].numel()
+            * leaves["mlstm.c"].element_size(), "pos": int(cache["pos"])}
+
+
+def drive_xlstm(dev: torch.device, report: dict) -> None:
+    """The xLSTM family's serving and training paths (xlstm-1.3b whole).
+    No kernel of the port is on them, so it adds no entry to the kernels
+    line; it fails if any launches."""
+    t_phase = time.perf_counter()
+    parts: dict = {}
+
+    def lap(name: str) -> None:  # seconds since the last lap, by part
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    def none_launched(where: str) -> None:  # since the last reset_counts
+        launched = {name: count for name, count in gbdt_counts().items() if count}
+        if flash_attention.launches or flash_attention.bwd_launches or launched:
+            raise AssertionError(f"{XLSTM_ARCH} {where}: kernels launched on a path that has "
+                                 f"none: flash {flash_attention.launches} forward, "
+                                 f"{flash_attention.bwd_launches} backward, {launched}")
+    card = report.get("nvidia_smi", "card not queried")
+    cfg = lm_configs.get(XLSTM_ARCH)
+    g, mpg = TT.xlstm_layout(cfg)
+    for n in (XLSTM_CHECK_LEN, XLSTM_TRAIN[1]):  # else a gate compares a path with itself
+        if min(cfg.ssm_chunk, n) == min(XLSTM_OTHER["ssm_chunk"], n):
+            raise AssertionError(f"{XLSTM_ARCH}: at {n} tokens the compared path's chunk is "
+                                 "the served path's")
+    ops = slstm_ops_per_position(cfg, dev)
+
+    # Serving: two waves, twice; no kernel launches.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    n_params = count_params(params)
+    if n_params != XLSTM_PARAMS:
+        raise AssertionError(f"{XLSTM_ARCH}: {n_params} parameters, expected {XLSTM_PARAMS}")
+    engine = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN, device=dev)
+    requests = lm_requests(cfg, np.random.default_rng(SEED))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve_lm(engine, requests) for _ in range(2)]
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check_lm_waves(XLSTM_ARCH, cfg, runs, requests, 0)
+    waves = lm_wave_stats(runs)
+    lap("serve")
+    check = [r for r in requests if len(r.prompt) == XLSTM_CHECK_PROMPT]
+    prompts = np.stack([r.prompt for r in check])
+    batch = {"tokens": torch.as_tensor(prompts[:, :XLSTM_CHECK_LEN], device=dev)}
+    cache = check_xlstm_cache(cfg, params, batch)
+    vs = prefill_against_f32(cfg, params, batch, other=XLSTM_OTHER)
+    served = {c.uid: c.tokens for c in runs[0][0]}
+    drift = decode_drift(cfg, params, prompts, np.stack([served[r.uid] for r in check]), dev)
+    lap("serve checks")
+    serve_profile = profile_lm(engine, [dataclasses.replace(
+        r, prompt=r.prompt[:XLSTM_PROFILE["prefill"]]) for r in check], steps=1)
+    lap("serve profile")
+    none_launched("serving")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # Training: run A's recipe twice (bitwise, the loss falling, no kernel
+    # launched), then one
+    # unprofiled step on fewer positions, then one group's step profiled.
+    b, s = XLSTM_TRAIN
+    batches = list(synthetic_batches(cfg, b, s, XLSTM_TRAIN_STEPS, seed=SEED, device=dev))
+    recipe = adamw(cosine_schedule(TRAIN_LR, max(XLSTM_TRAIN_STEPS // 20, 1),
+                                   XLSTM_TRAIN_STEPS), weight_decay=0.01, max_grad_norm=1.0)
+    reset_counts()
+    trains, copies = [], []
+    for _ in range(2):
+        res, params, state, step, gen = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev)
+        trains.append(res)
+        copies.append(param_copy(params))
+        if len(trains) == 1:
+            del params, state, step, gen
+    check_lm_runs(f"{XLSTM_ARCH} run A", trains, copies, 0, TRAIN_ACCUM, aux_max=0)
+    del copies
+    bad_moments = [i for i, m in enumerate(tree_leaves(state[-1].mu))
+                   if m.dtype != torch.float32]
+    if bad_moments:
+        raise AssertionError(f"{XLSTM_ARCH}: AdamW moments not f32: leaves {bad_moments}")
+    short = next(synthetic_batches(cfg, *XLSTM_PROFILE["positions"], 1, seed=SEED + 1,
+                                   device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, short, gen)
+    torch.cuda.synchronize()
+    short_ms = 1e3 * (time.perf_counter() - t0)
+    del params, state, step, gen
+    torch.cuda.empty_cache()
+    lap("train")
+    one = dataclasses.replace(cfg, n_layers=cfg.slstm_every)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(one, gen, device=dev)
+    state = recipe.init(params)
+    train_profile = profile_step_on(
+        make_train_step(one, recipe, accum=TRAIN_ACCUM), params, state,
+        next(synthetic_batches(one, *XLSTM_PROFILE["train"], 1, seed=SEED + 2, device=dev)),
+        gen)
+    del params, state, gen
+    torch.cuda.empty_cache()
+    lap("train profile")
+    grads = check_train_grads(cfg, {k: v[:b // TRAIN_ACCUM] for k, v in batches[0].items()},
+                              dev, xlstm_grad_picks(cfg), other=XLSTM_OTHER)
+    lap("train gradients")
+    none_launched("training")
+
+    # The sLSTM loop's shares: of the device time (its group; where the
+    # profiler sees the device) and of the profiled host time (its ranges'
+    # host spans: its forward and recompute; its backward runs outside).
+    def shares(prof: dict) -> dict:
+        seen = prof["device_ms_by"] == "profiler"
+        return {"device": prof["by_group_ms"].get(SLSTM_GROUP, 0.0) / prof["device_ms"]
+                if seen else None,
+                "host": prof["range_host_ms"].get(SLSTM_RANGE, 0.0) / prof["wall_ms_profiled"]}
+    profiles = {"prefill": serve_profile["prefill"], "decode": serve_profile["decode"],
+                "train step": train_profile}
+    slstm_share = {k: shares(p) for k, p in profiles.items()}
+    # The share of a run's step that grows with the positions: against the
+    # unprofiled step on fewer positions (the mLSTM's work a chunk and the
+    # optimizer's do not grow with them; the sLSTM's loop does).
+    step_ms = float(np.median(trains[1]["step_ms"][1:]))
+    positions_share = 1 - short_ms / step_ms
+    phase_s = time.perf_counter() - t_phase
+    prefill_ms, decode_ms_tok, tok_s = (waves[k] for k in (
+        "prefill_ms_per_wave", "decode_ms_per_token", "tokens_per_s_per_wave"))
+    print(f"xlstm sLSTM host ops a position ({cfg.n_heads} heads of {cfg.head_dim}, "
+          f"{LM_SLOTS} rows): {ops['inference']:.2f} in inference, "
+          f"{ops['forward_and_backward']:.2f} forward and backward; by op "
+          + json.dumps(ops["inference_by_op"]) + f" [{card}]", flush=True)
+    for i, p in enumerate(LM_PROMPTS):
+        print(f"serve {XLSTM_ARCH} ({g} groups of {mpg} mLSTM + 1 sLSTM layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, {cfg.dtype}, "
+              f"{n_params / 1e9:.3f} B parameters) wave {LM_SLOTS} x {p}: prefill "
+              + " / ".join(f"{prefill_ms[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
+              + " ms, decode " + " / ".join(
+                  f"{decode_ms_tok[r * len(LM_PROMPTS) + i]:.2f}" for r in range(2))
+              + " ms a token, " + " / ".join(
+                  f"{tok_s[r * len(LM_PROMPTS) + i]:.1f}" for r in range(2))
+              + f" generated tokens/s (two runs) [{card}]", flush=True)
+    print(f"serve {XLSTM_ARCH}: no kernel launched; tokens equal across two runs; cache "
+          f"{cache['bytes']} bytes at {LM_SLOTS} rows = the reckoning (C "
+          f"{cache['matrix_memory_bytes']}); prefill logits bitwise across runs: "
+          f"{vs['bitwise_across_runs']}; against ssm_chunk {XLSTM_OTHER['ssm_chunk']} on the "
+          f"{LM_SLOTS} x {XLSTM_CHECK_PROMPT} wave's first {XLSTM_CHECK_LEN} tokens max "
+          f"|diff| {vs['max_abs_diff']:.4g} "
+          f"(tolerance {vs['tolerance']:.4g}; against f32: ssm_chunk "
+          f"{XLSTM_OTHER['ssm_chunk']} {vs['chunked_vs_f32']:.4g}, served "
+          f"{vs['flash_vs_f32']:.4g}); decode vs the f32 teacher-forced forward over "
+          f"{LM_NEW} steps on that wave: worst {drift['worst_ratio']:.3f} of the bf16 "
+          f"forward's largest error (limit 2; a step's own: {drift['worst_step_ratio']:.3f}; "
+          f"teacher-forced chunk {drift['teacher_forced_ssm_chunk']}); peak device memory "
+          f"{peak_gb:.2f} GB [{card}]", flush=True)
+    for phase, prof in serve_profile.items():
+        share, per = slstm_share[phase], "wave" if phase == "prefill" else "token"
+        print(f"profile ({XLSTM_ARCH} {phase}, {LM_SLOTS} x {XLSTM_PROFILE['prefill']}): "
+              f"device {prof['device_ms']:.2f} ms a {per} ({prof['device_ms_by']}), wall "
+              f"{prof['wall_ms_profiled']:.2f} ms profiled, busy "
+              f"{pct(prof['device_busy_share'])}; sLSTM loop {pct(share['device'])} of the "
+              f"device time, {pct(share['host'])} of the host's; " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in prof["by_group_ms"].items()) + f" [{card}]",
+              flush=True)
+    tokens = b * s
+    for i, res in enumerate(trains):
+        med = float(np.median(res["step_ms"][1:]))
+        print(f"train {XLSTM_ARCH} run A{' again' if i else ''} ({b} x {s} a step, accum "
+              f"{TRAIN_ACCUM}): losses " + " ".join(f"{x:.4f}" for x in res["loss"])
+              + "; step ms " + " ".join(f"{x:.1f}" for x in res["step_ms"])
+              + f"; median {med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s; peak device "
+              f"memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    worst = max(grads["leaves"].items(), key=lambda kv: kv[1]["flash_vs_chunked"]
+                / kv[1]["tolerance"])
+    prof, (pb, ps), (qb, qs) = (train_profile, XLSTM_PROFILE["train"],
+                                XLSTM_PROFILE["positions"])
+    print(f"train {XLSTM_ARCH}: bitwise equal across two runs (losses and every parameter); "
+          f"the loss falls; AdamW moments f32; against ssm_chunk {XLSTM_OTHER['ssm_chunk']} "
+          f"on one {b // TRAIN_ACCUM} x {s} microbatch: loss "
+          f"{grads['loss']['flash']:.6f} / {grads['loss']['chunked']:.6f} (f32 "
+          f"{grads['loss']['chunked_f32']:.6f}); "
+          f"{len(grads['leaves'])} gradients within twice that path's own error, closest "
+          f"{worst[0]}: relative L2 {worst[1]['flash_vs_chunked']:.4g} against "
+          f"{worst[1]['tolerance']:.4g}", flush=True)
+    print(f"profile ({XLSTM_ARCH} train step, one group of {cfg.slstm_every} layers, {pb} x "
+          f"{ps}): device {prof['device_ms']:.1f} ms ({prof['device_ms_by']}), wall "
+          f"{prof['wall_ms_profiled']:.1f} ms profiled, {prof['unprofiled_wall_ms']:.1f} "
+          "unprofiled, busy "
+          f"{pct(prof['device_busy_share'])} of the unprofiled step's wall time; sLSTM loop "
+          f"{pct(slstm_share['train step']['device'])} of the device time, "
+          f"{pct(slstm_share['train step']['host'])} of the host's; " + ", ".join(
+              f"{k} {v:.1f}" for k, v in prof["by_group_ms"].items())
+          + f"; the positions' share of a {b} x {s} step's wall time "
+          f"{pct(positions_share)} (its median {step_ms:.1f} ms against {short_ms:.1f} at "
+          f"{qb} x {qs})"
+          + f"; the xLSTM phase took {phase_s:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]", flush=True)
+    report["xlstm"] = {
+        "config": {"arch": XLSTM_ARCH, "n_layers": cfg.n_layers, "groups": g,
+                   "mlstm_per_group": mpg, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "head_dim": cfg.head_dim, "ssm_chunk": cfg.ssm_chunk, "dtype": cfg.dtype,
+                   "params": n_params, "train": [b, s], "steps": XLSTM_TRAIN_STEPS,
+                   "accum": TRAIN_ACCUM, "lr": TRAIN_LR, "other": XLSTM_OTHER,
+                   "profile": XLSTM_PROFILE},
+        "slstm_ops_per_position": ops,
+        "serve": {"waves": [f"{LM_SLOTS} x {p}" for p in LM_PROMPTS], "new_tokens": LM_NEW,
+                  "prefill_ms_per_wave": prefill_ms, "decode_ms_per_token": decode_ms_tok,
+                  "tokens_per_s_per_wave": tok_s, "peak_mem_gb": peak_gb, "cache": cache,
+                  "against_other_chunk": vs, "decode_drift": drift, "profile": serve_profile},
+        "train": {"runs": trains, "profile_one_group": train_profile,
+                  "step_ms_at_positions": short_ms, "against_other_chunk": grads},
+        "slstm_share": slstm_share, "positions_share_of_step": positions_share,
+        "phase_s": phase_s, "phase_s_by_part": parts,
+    }
+
+
 def ptxas_kernels(lines: list) -> list:
     """Each kernel of a ``-Xptxas -v`` log (its lines holding "registers",
     "spill" or "wgmma"): the function, its registers, its spill bytes and
@@ -5930,6 +6306,7 @@ def main() -> None:
     line += drive_hybrid(torch.device("cuda"), report)
     line += drive_moe(torch.device("cuda"), report)
     line += drive_media(torch.device("cuda"), report)
+    drive_xlstm(torch.device("cuda"), report)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")
     report["profiler_traces_taken_again"] = _PROFILER.get("traces_taken_again", 0)
     out_dir = ROOT / "chiprun_out"

@@ -6,8 +6,9 @@ prefilled once, then greedy decode against the cache:
         [--full] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0]
 
 Configs are reduced unless ``--full``; the VLM and audio families also
-get seeded media (B, M, D), normals x 0.02 in ``cfg.dtype``; the family the
-port does not carry yet (xLSTM) raises ``NotImplementedError``.
+get seeded media (B, M, D), normals x 0.02 in ``cfg.dtype``. The recurrent
+families (zamba2, xLSTM) need a prompt that divides into chunks of
+``min(ssm_chunk, prompt)``, else ``ValueError``.
 
 ``--arch gbdt`` serves the paper's own model: train an asynch-SGBDT forest
 on the PS engine, checkpoint it mid-run and at the end, then answer

@@ -1,5 +1,5 @@
-"""Decode caches of the dense, MoE, hybrid, VLM and audio families (twin
-of those parts of ``repro.models.cache``).
+"""Decode caches of every family of the LM zoo (twin of
+``repro.models.cache``).
 
 Dense and MoE layout: ``{"pos": () int32, "self": {"k", "v": (L, B, cap, KV, hd),
 "slot_pos": (L, cap) int32}}``. The attention cache is a ring buffer of
@@ -20,6 +20,14 @@ hd)}``: each group's cross layer's K/V of the media, computed once at
 prefill. Audio layout (whisper): ``{"pos", "self": the ring over the
 decoder's layers, "media_k", "media_v": (L, B, M, KV, hd)}``: each decoder
 layer's K/V of the encoder's output.
+
+xLSTM layout (``ssm``): ``{"pos", "mlstm": {"c": (g, mpg, B, H, hd, hd),
+"n": (g, mpg, B, H, hd), "m": (g, mpg, B, H) f32}, "slstm": {"c", "n",
+"h": (g, B, H, hd), "m": (g, B, H, hd) f32}}`` (g = n_layers /
+slstm_every groups of mpg = slstm_every - 1 mLSTM layers and one sLSTM
+layer): each layer's recurrent carry, the matrix memory C and its
+normaliser n pre-scaled by exp(-m), in the model's dtype but the
+stabilisers m. It does not grow with the context.
 """
 from __future__ import annotations
 
@@ -30,20 +38,14 @@ from repro_torch.models.config import ModelConfig
 
 Cache = dict
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")
-# Where each family still refused is queued (ROADMAP.md, queue A).
-_QUEUED = {
-    "ssm": "A10, xLSTM: models/xlstm.py",
-}
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not carry
-    yet (xLSTM), naming its ROADMAP item."""
+    """Raise ``ValueError`` for a family the LM zoo does not have (the
+    reference's ``raise ValueError(fam)``)."""
     if cfg.family not in PORTED_FAMILIES:
-        where = _QUEUED.get(cfg.family, "A10, the other LM families")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md, {where})")
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -81,12 +83,25 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         cache["media_k"] = torch.zeros(media, dtype=dt, device=dev)
         cache["media_v"] = torch.zeros(media, dtype=dt, device=dev)
         return cache
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
-    cache["ssm"] = torch.zeros(
-        (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-        dtype=dt, device=dev)
-    cache["conv"] = torch.zeros((cfg.n_layers, batch, 3, conv_ch), dtype=dt, device=dev)
-    cache["shared"] = _ring(cfg.n_layers // cfg.shared_attn_every, batch, cap, cfg, dev)
+    if cfg.family == "hybrid":
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+        cache["ssm"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=dt, device=dev)
+        cache["conv"] = torch.zeros((cfg.n_layers, batch, 3, conv_ch), dtype=dt, device=dev)
+        cache["shared"] = _ring(cfg.n_layers // cfg.shared_attn_every, batch, cap, cfg, dev)
+        return cache
+    g, mpg = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+    h, hd = cfg.n_heads, cfg.head_dim
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    cache["mlstm"] = {"c": zeros((g, mpg, batch, h, hd, hd)),
+                      "n": zeros((g, mpg, batch, h, hd)),
+                      "m": zeros((g, mpg, batch, h), torch.float32)}
+    state = (g, batch, h, hd)
+    cache["slstm"] = {"c": zeros(state), "n": zeros(state), "m": zeros(state, torch.float32),
+                      "h": zeros(state)}
     return cache
 
 
@@ -95,3 +110,8 @@ def cache_structure(cfg: ModelConfig, batch: int, seq_len: int) -> Cache:
     with shapes and dtypes and no storage (the reference's
     ``ShapeDtypeStruct`` leaves)."""
     return init_cache(cfg, batch, seq_len, device="meta")
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Cache:
+    """The cache's blueprint (``cache_structure``), as the dry runs take it."""
+    return cache_structure(cfg, batch, seq_len)

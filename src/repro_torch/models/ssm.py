@@ -26,6 +26,17 @@ from repro_torch.models.config import ModelConfig
 Params = dict[str, torch.Tensor]
 
 
+def chunk_of(s: int, chunk: int) -> int:
+    """The chunk length of an S-token sequence, ``min(chunk, S)``; raises
+    ``ValueError`` unless it divides S (the reference's chunk scans assert
+    it; the xLSTM's mLSTM scan takes it too)."""
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"a sequence of {s} tokens does not divide into chunks of {c} "
+                         f"(ssm_chunk {chunk}): give a length that is a multiple of it")
+    return c
+
+
 def _split_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """in_proj -> z (gate), xin, B, C, dt; dt (B, S, nh) in f32."""
     di, st = cfg.d_inner, cfg.ssm_state
@@ -101,9 +112,7 @@ def mamba2_train(p: Params, x: torch.Tensor, cfg: ModelConfig, return_state: boo
     chunks of ``min(cfg.ssm_chunk, S)``."""
     b, s, _ = x.shape
     nh, hp, st = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    c = min(cfg.ssm_chunk, s)
-    if s % c:
-        raise ValueError(f"seq {s} must divide ssm_chunk {c}")
+    c = chunk_of(s, cfg.ssm_chunk)
     nc = s // c
 
     z, xin, bmat, cmat, dt = _split_proj(p, x, cfg)

@@ -1,6 +1,6 @@
-"""Model assembly of the dense, MoE, hybrid, VLM and audio families:
-parameter schema, init, the train forward, prefill and decode (twin of
-those parts of ``repro.models.transformer``).
+"""Model assembly of the LM zoo (the dense, MoE, hybrid, VLM, audio and
+xLSTM families): parameter schema, init, the train forward, prefill and
+decode (twin of ``repro.models.transformer``).
 
 ``param_schema(cfg)`` is the one source of truth for parameter names and
 shapes: a nested dict of ``Entry(shape, axes, init)`` with layers stacked
@@ -46,6 +46,13 @@ checkpoint a layer). Neither reads ``remat_policy``, as in the
 reference. Prefill computes each cross layer's media K/V once (a group's,
 or a decoder layer's) into the cache's ``media_k`` / ``media_v``; decode
 reads them and never projects the media again.
+
+The xLSTM family (``ssm``: xlstm-1.3b) scans groups of ``slstm_every - 1``
+mLSTM layers, each group closed by one sLSTM layer (``models.xlstm``):
+``groups.mlstm`` is stacked (g, mpg, ...), ``groups.slstm`` (g, ...).
+With ``cfg.remat`` each group is checkpointed as one, with no policy, as
+in the reference. Prefill returns each mLSTM layer's carry (C, n, m) and
+each sLSTM layer's (c, n, m, h); decode writes them in place.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.cache import require_ported, torch_dtype
 from repro_torch.models.config import ModelConfig
 
@@ -127,6 +135,31 @@ def _mamba_schema(cfg: ModelConfig) -> dict:
     }
 
 
+def _mlstm_schema(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq": Entry((d, d), ("embed", "q_flat")),
+        "wk": Entry((d, d), ("embed", "q_flat")),
+        "wv": Entry((d, d), ("embed", "q_flat")),
+        "w_if": Entry((d, 2 * h), ("embed", None)),
+        "b_if": Entry((2 * h,), (None,), "zeros"),
+        "wo_gate": Entry((d, d), ("embed", "q_flat")),
+        "wo": Entry((d, d), ("q_flat", "embed")),
+        "ln": Entry((d,), ("embed",), "ones"),
+    }
+
+
+def _slstm_schema(cfg: ModelConfig) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "w_gates": Entry((d, 4 * d), ("embed", "gates")),
+        "b_gates": Entry((4 * d,), ("gates",), "zeros"),
+        "r_gates": Entry((h, 4, hd, hd), (None, None, None, "head_dim")),
+        "wo": Entry((d, d), ("q_flat", "embed")),
+        "ln": Entry((d,), ("embed",), "ones"),
+    }
+
+
 def _dense_layer(cfg: ModelConfig) -> dict:
     return {
         "attn": _attn_schema(cfg),
@@ -188,6 +221,12 @@ def vlm_layout(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
 
+def xlstm_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, mLSTM layers a group) of an xLSTM model: each group closes
+    with one sLSTM layer."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
 def param_schema(cfg: ModelConfig) -> dict:
     require_ported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
@@ -210,11 +249,16 @@ def param_schema(cfg: ModelConfig) -> dict:
         schema["decoder"] = _stack(_decoder_layer(cfg), cfg.n_layers)
         schema["enc_ln"] = Entry((d,), ("embed",), "ones")
         return schema
-    g, every, tail = hybrid_layout(cfg)
-    schema["groups"] = {"mamba": _stack(_stack(_mamba_schema(cfg), every), g)}
-    if tail:
-        schema["tail"] = _stack(_mamba_schema(cfg), tail)
-    schema["shared"] = _dense_layer(cfg)
+    if cfg.family == "hybrid":
+        g, every, tail = hybrid_layout(cfg)
+        schema["groups"] = {"mamba": _stack(_stack(_mamba_schema(cfg), every), g)}
+        if tail:
+            schema["tail"] = _stack(_mamba_schema(cfg), tail)
+        schema["shared"] = _dense_layer(cfg)
+        return schema
+    g, mpg = xlstm_layout(cfg)
+    schema["groups"] = {"mlstm": _stack(_stack(_mlstm_schema(cfg), mpg), g),
+                        "slstm": _stack(_slstm_schema(cfg), g)}
     return schema
 
 
@@ -265,6 +309,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         return out
 
     return map_schema(make, param_schema(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameters' blueprint: tensors on the ``meta`` device with each
+    entry's shape and dtype and no storage (the reference's
+    ``ShapeDtypeStruct`` leaves)."""
+    return map_schema(lambda path, e: torch.empty(e.shape, dtype=entry_dtype(cfg, e),
+                                                  device="meta"), param_schema(cfg))
 
 
 def layer(stacked: dict, i: int) -> dict:
@@ -364,6 +416,13 @@ def _vlm_group(ps: list, cross: dict, x: torch.Tensor, media: torch.Tensor,
     return _cross_block(cross, x, media, cfg)
 
 
+def _xlstm_group(ps: list, sp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One xLSTM group: its mLSTM layers, then its sLSTM layer."""
+    for p in ps:
+        x = x + X.mlstm_train(p, L.rms_norm(x, p["ln"]), cfg)
+    return x + X.slstm_train(sp, L.rms_norm(x, sp["ln"]), cfg)
+
+
 def _enc_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = x + L.encoder_attention(p["attn"], L.rms_norm(x, p["ln1"]), cfg)
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
@@ -448,6 +507,10 @@ def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
                                   cfg, window)
         for p in unstack(params["tail"]) if "tail" in params else ():
             x = _maybe_checkpoint(cfg, _mamba_block, p, x, cfg)
+    elif cfg.family == "ssm":  # one checkpoint a group, no policy (the reference's)
+        for group in unstack(params["groups"]):
+            x = _maybe_checkpoint(cfg, _xlstm_group, unstack(group["mlstm"]), group["slstm"],
+                                  x, cfg)
     else:
         for p in unstack(params["layers"]):
             x = _maybe_checkpoint(cfg, _dense_block, p, x, cfg, window, segments,
@@ -602,25 +665,47 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
         cache["media_k"], cache["media_v"] = torch.stack(mks), torch.stack(mvs)
         return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
 
-    states, convs = [], []
+    if cfg.family == "hybrid":
+        states, convs = [], []
 
-    def mamba(p, x):
-        out, h, conv = S.mamba2_train(p, L.rms_norm(x, p["ln"]), cfg, return_state=True)
-        states.append(h)
-        convs.append(conv)
-        return x + out
+        def mamba(p, x):
+            out, h, conv = S.mamba2_train(p, L.rms_norm(x, p["ln"]), cfg, return_state=True)
+            states.append(h)
+            convs.append(conv)
+            return x + out
 
-    g, every, tail = hybrid_layout(cfg)
+        g, every, tail = hybrid_layout(cfg)
+        for i in range(g):
+            group = layer(params["groups"]["mamba"], i)
+            for j in range(every):
+                x = mamba(layer(group, j), x)
+            x = attn_block(params["shared"], x)
+        for i in range(tail):
+            x = mamba(layer(params["tail"], i), x)
+        cache["ssm"] = torch.stack(states)
+        cache["conv"] = torch.stack(convs)
+        cache["shared"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
+        return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
+
+    g, mpg = xlstm_layout(cfg)  # the ssm family (xLSTM)
+    mstates, sstates = [], []
     for i in range(g):
-        group = layer(params["groups"]["mamba"], i)
-        for j in range(every):
-            x = mamba(layer(group, j), x)
-        x = attn_block(params["shared"], x)
-    for i in range(tail):
-        x = mamba(layer(params["tail"], i), x)
-    cache["ssm"] = torch.stack(states)
-    cache["conv"] = torch.stack(convs)
-    cache["shared"] = _ring_from_kv(torch.stack(ks), torch.stack(vs), cap)
+        group = layer(params["groups"], i)
+        for j in range(mpg):
+            p = layer(group["mlstm"], j)
+            out, state = X.mlstm_train(p, L.rms_norm(x, p["ln"]), cfg, return_state=True)
+            mstates.append(state)
+            x = x + out
+        sp = group["slstm"]
+        out, state = X.slstm_train(sp, L.rms_norm(x, sp["ln"]), cfg, return_state=True)
+        sstates.append(state)
+        x = x + out
+
+    def stacked(states, k, lead):  # carry part k of every layer, (lead..., B, ...)
+        out = torch.stack([s[k] for s in states])
+        return out.reshape(lead + out.shape[1:])
+    cache["mlstm"] = {n: stacked(mstates, k, (g, mpg)) for k, n in enumerate("cnm")}
+    cache["slstm"] = {n: stacked(sstates, k, (g,)) for k, n in enumerate("cnmh")}
     return _logits(params, cfg, x[:, -1:, :])[:, 0], cache
 
 
@@ -630,7 +715,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One token (B, 1) against the cache -> (logits (B, Vpad), cache').
 
     The cache is updated in place (each attention layer writes the slot of
-    ``pos``, each Mamba2 layer its state and conv rows) and returned with
+    ``pos``, each Mamba2 layer its state and conv rows, each mLSTM and
+    sLSTM layer its carry) and returned with
     ``pos`` advanced; the reference returns a new cache and leaves the old
     one as it was. The cross layers read the cached media K/V (the VLM's
     g x spg self layers index the flat ring group-major).
@@ -638,13 +724,12 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     require_ported(cfg)
     x = params["embed"][tokens.long()]  # (B, 1, D)
     pos = cache["pos"]
-    ring = cache["shared"] if cfg.family == "hybrid" else cache["self"]
-    cap = ring["k"].shape[2]
+    ring = cache.get("shared", cache.get("self"))  # the attention ring, if any
 
     def self_attn(p, x, i):
         out, _, _, _ = L.self_attention_decode(
             p["attn"], L.rms_norm(x, p["ln1"]), ring["k"][i], ring["v"][i],
-            ring["slot_pos"][i], pos, cfg, cap)
+            ring["slot_pos"][i], pos, cfg, ring["k"].shape[2])
         return x + out
 
     def attn_block(p, x, i):
@@ -677,7 +762,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x = self_attn(p, x, i)
             x = x + L.cross_attention(p["xattn"], L.rms_norm(x, p["lnx"]), media(i), cfg)
             x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
-    else:
+    elif cfg.family == "hybrid":
         g, every, tail = hybrid_layout(cfg)
         for i in range(g):
             group = layer(params["groups"]["mamba"], i)
@@ -686,5 +771,25 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x = attn_block(params["shared"], x, i)
         for i in range(tail):
             x = mamba(layer(params["tail"], i), x, g * every + i)
+    elif cfg.family == "ssm":
+        g, mpg = xlstm_layout(cfg)
+        mc, sc = cache["mlstm"], cache["slstm"]
+        for i in range(g):
+            group = layer(params["groups"], i)
+            for j in range(mpg):
+                p = layer(group["mlstm"], j)
+                out, *state = X.mlstm_decode(p, L.rms_norm(x, p["ln"]), mc["c"][i, j],
+                                             mc["n"][i, j], mc["m"][i, j], cfg)
+                for n, t in zip("cnm", state):
+                    mc[n][i, j].copy_(t)
+                x = x + out
+            sp = group["slstm"]
+            out, *state = X.slstm_decode(sp, L.rms_norm(x, sp["ln"]), sc["c"][i], sc["n"][i],
+                                         sc["m"][i], sc["h"][i], cfg)
+            for n, t in zip("cnmh", state):
+                sc[n][i].copy_(t)
+            x = x + out
+    else:
+        raise ValueError(cfg.family)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x)[:, 0], cache

@@ -1,6 +1,5 @@
 """Batched serving engine: request queue -> same-length waves -> greedy decode
-(twin of ``repro.serving.engine``, for the dense, MoE, hybrid, VLM and
-audio families).
+(twin of ``repro.serving.engine``, for every family of the LM zoo).
 
 Requests are bucketed by prompt length, packed into waves of ``slots``
 sequences (a short wave is padded with its last prompt), prefilled once,
@@ -9,6 +8,9 @@ or its token budget. Positions are shared by a wave (the cache carries
 one ``pos``), which is the same-length-bucket contract. The VLM and audio
 families read each request's ``media`` (M, D): a request without media,
 and each pad slot, gets zeros; the wave's media are cast to ``cfg.dtype``.
+The recurrent families (hybrid, xLSTM) refuse at ``submit`` a prompt that
+does not divide into chunks of ``min(ssm_chunk, P)`` (the reference's
+chunk scans assert it), rather than pad it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.cache import require_ported, torch_dtype
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import chunk_of
 
 
 @dataclasses.dataclass
@@ -71,6 +74,11 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.uid}: prompt+budget exceeds max_len={self.max_len}"
             )
+        if self.cfg.family in ("hybrid", "ssm"):
+            try:
+                chunk_of(len(req.prompt), self.cfg.ssm_chunk)
+            except ValueError as e:
+                raise ValueError(f"request {req.uid}: {e}") from None
         self._queue.append(req)
 
     def _sync(self) -> None:

@@ -8,9 +8,8 @@ rules; batch specs shard the batch over ('pod', 'data') and, when the batch
 is too small, the attention cache's capacity takes the leftover axes so a
 long context still distributes. Every function reads only ``mesh.shape``
 (a ``launch.mesh.make_dry_mesh`` will do) and returns the nested dicts,
-``PartitionSpec`` leaves, of ``sharding.rules``. The family the port
-does not carry (xLSTM) raises ``NotImplementedError``
-(``models.cache.require_ported``).
+``PartitionSpec`` leaves, of ``sharding.rules``. An unknown family raises
+``ValueError`` (``models.cache.require_ported``).
 """
 from __future__ import annotations
 
@@ -98,11 +97,26 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, seq_len: int) -> dict:
             out["media_k"] = out["media_v"] = P(None, baxes or None, None, model_if(mk[3]),
                                                 None)
         return out
-    ssm = struct["ssm"].shape  # (L, B, nh, hp, st)
-    out["ssm"] = P(None, baxes or None, model_if(ssm[2]), None, None)
-    conv = struct["conv"].shape  # (L, B, K-1, conv_ch)
-    out["conv"] = P(None, baxes or None, None, model_if(conv[3]))
-    out["shared"] = _attn_cache_spec(mesh, struct["shared"]["k"].shape, baxes)
+    if cfg.family == "hybrid":
+        ssm = struct["ssm"].shape  # (L, B, nh, hp, st)
+        out["ssm"] = P(None, baxes or None, model_if(ssm[2]), None, None)
+        conv = struct["conv"].shape  # (L, B, K-1, conv_ch)
+        out["conv"] = P(None, baxes or None, None, model_if(conv[3]))
+        out["shared"] = _attn_cache_spec(mesh, struct["shared"]["k"].shape, baxes)
+        return out
+    # xLSTM. The matrix memory shards on its output dim (q of C[p, q]): the
+    # read contracts p, so a p shard would gather C every step; a q shard
+    # keeps the read and the update local. Heads first, else head_dim.
+    mc = struct["mlstm"]["c"].shape  # (g, mpg, B, H, hd, hd)
+    hspec = model_if(mc[3])
+    hdspec = None if hspec else model_if(mc[4])
+    out["mlstm"] = {"c": P(None, None, baxes or None, hspec, None, hdspec),
+                    "n": P(None, None, baxes or None, hspec, hdspec),
+                    "m": P(None, None, baxes or None, hspec)}
+    sc = struct["slstm"]["c"].shape  # (g, B, H, hd)
+    shs = model_if(sc[2])
+    sspec = P(None, baxes or None, shs, None if shs else model_if(sc[3]))
+    out["slstm"] = {"c": sspec, "n": sspec, "m": sspec, "h": sspec}
     return out
 
 

@@ -1113,3 +1113,155 @@ def test_chunked_range_takes_the_encoder_and_cross_attention():
     assert len(softmax) == 6 and sum(id(e) in chunked for e in softmax) == 4  # not self's
     assert chip_smoke.lm_layers.cross_attention.__name__ == "cross_attention"
     assert chip_smoke.lm_layers.encoder_attention.__name__ == "encoder_attention"
+
+
+# ------------------------------------------------------------------ xLSTM
+def _small_xlstm():
+    """Reduced xlstm-1.3b (2 groups of one mLSTM and one sLSTM layer, d
+    256, 4 heads of 64, chunk 16) in bf16, seeded."""
+    import dataclasses
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(lm_configs.get("xlstm-1.3b").reduced(), dtype="bfloat16")
+    return cfg, TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.fixture
+def xlstm_phase_cpu(monkeypatch):
+    """``drive_xlstm`` at the reduced model on the CPU: waves of 2 x 32 and
+    2 x 16 prompts and 4 new tokens, 2 x 16 microbatches at lr 1e-2 (at
+    1e-3 the small model's loss moves less than its batches differ), the
+    card's memory and sync calls and the two profilers stubbed (they time
+    with CUDA events)."""
+    cfg, _ = _small_xlstm()
+    for name, value in (("synchronize", None), ("empty_cache", None),
+                        ("reset_peak_memory_stats", None), ("max_memory_allocated", 0)):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, _v=value, **k: _v)
+    monkeypatch.setattr(chip_smoke.lm_configs, "get", lambda arch: cfg)
+    for name, value in (("LM_SLOTS", 2), ("LM_PROMPTS", (32, 16)), ("LM_NEW", 4),
+                        ("LM_MAX_LEN", 40), ("XLSTM_TRAIN", (4, 16)), ("XLSTM_TRAIN_STEPS", 3),
+                        ("XLSTM_CHECK_PROMPT", 16), ("XLSTM_CHECK_LEN", 8),
+                        ("XLSTM_PROFILE", {"prefill": 8, "train": (4, 8),
+                                           "positions": (4, 8)}),
+                        ("XLSTM_OTHER", {"ssm_chunk": 4}),
+                        ("TRAIN_LR", 1e-2),
+                        ("XLSTM_PARAMS", sum(t.numel() for t in chip_smoke.tree_leaves(
+                            chip_smoke.TT.abstract_params(cfg))))):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+    def profiled(*args, **kw):
+        groups = {chip_smoke.SLSTM_GROUP: 1.0, chip_smoke.REST_GROUP: 3.0}
+        return {"device_ms": 4.0, "device_ms_by": "profiler", "wall_ms_profiled": 8.0,
+                "by_group_ms": groups, "range_host_ms": {chip_smoke.SLSTM_RANGE: 2.0},
+                "device_busy_share": 0.5}
+    monkeypatch.setattr(chip_smoke, "profile_lm",
+                        lambda *a, **k: {"prefill": profiled(), "decode": profiled()})
+    monkeypatch.setattr(chip_smoke, "profile_train_step", lambda *a, **k: profiled())
+    chip_smoke.reset_counts()
+    yield cfg
+    chip_smoke.reset_counts()
+
+
+def test_xlstm_phase_passes_on_a_small_cpu_run(xlstm_phase_cpu, capsys):
+    report = {}
+    chip_smoke.drive_xlstm(torch.device("cpu"), report)
+    out = report["xlstm"]
+    assert out["serve"]["cache"]["bytes"] == chip_smoke.xlstm_cache_bytes(xlstm_phase_cpu, 2)
+    assert out["serve"]["decode_drift"]["worst_ratio"] <= 2
+    assert out["train"]["runs"][0]["loss"] == out["train"]["runs"][1]["loss"]
+    assert out["train"]["profile_one_group"]["unprofiled_wall_ms"] > 0
+    assert len(out["train"]["against_other_chunk"]["leaves"]) == 10
+    assert out["slstm_share"]["prefill"] == {"device": 0.25, "host": 0.25}
+    assert 20 <= out["slstm_ops_per_position"]["inference"] <= 40
+    assert "the xLSTM phase took" in capsys.readouterr().out
+
+
+def test_xlstm_phase_fails_a_launched_kernel(xlstm_phase_cpu, monkeypatch):
+    """A kernel launched anywhere in the phase (here a flash forward counted
+    at the first decode step) fails it: the xLSTM path has none."""
+    from repro_torch.kernels import flash_attention
+
+    inner = chip_smoke.TT.decode_step
+
+    def counted(*args, **kw):
+        flash_attention.launches += 1
+        return inner(*args, **kw)
+    monkeypatch.setattr(chip_smoke.TT, "decode_step", counted)
+    with pytest.raises(AssertionError, match="kernels launched on a path that has none"):
+        chip_smoke.drive_xlstm(torch.device("cpu"), {})
+
+
+def test_xlstm_phase_refuses_to_compare_a_path_with_itself(xlstm_phase_cpu, monkeypatch):
+    """A compared path whose chunk is the served one's at a gate's length
+    would hold the served path to itself: the phase refuses it."""
+    monkeypatch.setattr(chip_smoke, "XLSTM_OTHER", {"ssm_chunk": 64})
+    with pytest.raises(AssertionError, match="at 8 tokens the compared path's chunk"):
+        chip_smoke.drive_xlstm(torch.device("cpu"), {})
+
+
+def test_xlstm_cache_bytes_are_the_reckoning_at_full_width():
+    """xlstm-1.3b at 4 rows: 0.35 GB, nearly all of it the 42 mLSTM layers'
+    C (4 heads of 512 x 512, bf16)."""
+    import repro_torch.configs as lm_configs
+
+    cfg = lm_configs.get("xlstm-1.3b")
+    c = 42 * 4 * 4 * 512 * 512 * 2
+    assert chip_smoke.xlstm_cache_bytes(cfg, 4) == c + 42 * 4 * 4 * (512 * 2 + 4) + \
+        6 * 4 * 4 * 512 * (3 * 2 + 4) + 4
+    blank = chip_smoke.init_cache(cfg, 4, 2112, device="meta")
+    assert chip_smoke.xlstm_cache_bytes(cfg, 4) == sum(
+        t.numel() * t.element_size() for t in chip_smoke.tree_leaves(blank))
+    picks = {name: (path, idx) for name, path, idx in chip_smoke.xlstm_grad_picks(cfg)}
+    assert picks["mlstm[41].wq"] == (("groups", "mlstm", "wq"), (5, 6))
+    assert picks["slstm[5].r_gates"] == (("groups", "slstm", "r_gates"), (5,))
+
+
+@pytest.fixture(scope="module")
+def xlstm_drift_model():
+    """The reduced bf16 xLSTM's greedy decode of 2 x 32-token prompts, 8 new
+    tokens, on the CPU, with the tokens it serves."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg, params = _small_xlstm()
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    tok, _, cache = make_prefill_step(cfg, 48)(params, {"tokens": torch.from_numpy(prompts)})
+    served = [tok]
+    for _ in range(7):
+        tok, cache = make_decode_step(cfg)(params, tok[:, None], cache)
+        served.append(tok)
+    return cfg, params, prompts, torch.stack(served, 1).numpy()
+
+
+def test_xlstm_decode_drift_passes_on_a_small_cpu_run(xlstm_drift_model, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "LM_MAX_LEN", 48)
+    monkeypatch.setattr(chip_smoke, "LM_NEW", 8)
+    cfg, params, prompts, served = xlstm_drift_model
+    out = chip_smoke.decode_drift(cfg, params, prompts, served, "cpu")
+    assert out["teacher_forced_ssm_chunk"] == 13 and out["worst_ratio"] <= 2  # 39 = 3 x 13
+
+
+@pytest.mark.parametrize("fault", ["mLSTM memory not written", "sLSTM carry not written"])
+def test_xlstm_decode_drift_fails_a_cache_that_is_not_updated(xlstm_drift_model, monkeypatch,
+                                                             fault):
+    """An mLSTM decode that hands back its old C, or an sLSTM decode its
+    old (c, n, m, h): the gate rejects the drift that follows."""
+    monkeypatch.setattr(chip_smoke, "LM_MAX_LEN", 48)
+    monkeypatch.setattr(chip_smoke, "LM_NEW", 8)
+    cfg, params, prompts, served = xlstm_drift_model
+    if fault.startswith("mLSTM"):
+        inner = chip_smoke.lm_xlstm.mlstm_decode
+
+        def faulty(p, x, c, n, m, cfg_):
+            y, _, n2, m2 = inner(p, x, c, n, m, cfg_)
+            return y, c, n2, m2
+        monkeypatch.setattr(chip_smoke.lm_xlstm, "mlstm_decode", faulty)
+    else:
+        inner = chip_smoke.lm_xlstm.slstm_decode
+
+        def faulty(p, x, c, n, m, h, cfg_):
+            return (inner(p, x, c, n, m, h, cfg_)[0], c, n, m, h)
+        monkeypatch.setattr(chip_smoke.lm_xlstm, "slstm_decode", faulty)
+    with pytest.raises(AssertionError, match="drift|other tokens"):
+        chip_smoke.decode_drift(cfg, params, prompts, served, "cpu")

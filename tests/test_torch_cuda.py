@@ -1207,6 +1207,36 @@ def test_hybrid_prefill_and_decode_on_the_card(dev):
         torch.testing.assert_close(c_dev[n], c_cpu[n], rtol=1e-4, atol=1e-4)
 
 
+def test_xlstm_bf16_prefill_and_decode_on_the_card(dev):
+    """Reduced xlstm-1.3b in bf16 (2 groups of one mLSTM and one sLSTM
+    layer): a 32-token prefill (two chunks) and 4 decode steps on the card
+    against the CPU route, by relative L2 a tensor (5e-2, as the bf16
+    gradients above: bf16 roundings in other places), the carries written
+    in place on the card, C and n bf16, m f32."""
+    cfg = dataclasses.replace(lm_configs.get("xlstm-1.3b").reduced(), dtype="bfloat16")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 36), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    out = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        logits, cache = TT.prefill(p, cfg, {"tokens": toks[:, :32].to(device)})
+        steps = [logits]
+        for i in range(32, 36):
+            logits, cache = TT.decode_step(p, cfg, toks[:, i:i + 1].to(device), cache)
+            steps.append(logits)
+        out.append(([x.float().cpu() for x in steps],
+                    {f"{k}.{n}": t.cpu() for k in ("mlstm", "slstm")
+                     for n, t in cache[k].items()}))
+    (l_cpu, c_cpu), (l_dev, c_dev) = out
+    for i, (a, b) in enumerate(zip(l_dev, l_cpu)):
+        assert float((a - b).norm() / b.norm()) <= 5e-2, f"logits {i}"
+    for n in c_cpu:
+        assert c_dev[n].dtype == (torch.float32 if n.endswith(".m") else torch.bfloat16), n
+        a, b = c_dev[n].float(), c_cpu[n].float()
+        assert float((a - b).norm() / b.norm()) <= 5e-2, n
+
+
 def _granite(dtype: str, **changes):
     return dataclasses.replace(lm_configs.get("granite-3-2b").reduced(), attn_impl="flash",
                                dtype=dtype, **changes)

@@ -144,12 +144,17 @@ def test_train_cli_flags_not_ported_raise(flags, item):
                      "threads", *flags])
 
 
-def test_serve_cli_lm_arch_points_at_a11():
+def test_serve_cli_lm_arch_points_at_a11(capsys):
     """The LM form of the serve CLI (ROADMAP A11's first item) is ported
-    (tests/test_torch_moe.py and test_torch_media.py run it); an LM family
-    the port does not carry yet (xLSTM) raises with its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, xLSTM"):
-        tserve.main(["--arch", "xlstm-1.3b", "--device", "cpu"])
+    (tests/test_torch_moe.py and test_torch_media.py run it), for every
+    family: the xLSTM one serves reduced on the CPU; a prompt that does
+    not divide into its chunks raises ``ValueError``."""
+    tokens = tserve.main(["--arch", "xlstm-1.3b", "--reduced", "--device", "cpu", "--batch",
+                          "2", "--prompt-len", "32", "--gen", "4"])
+    assert tokens.shape == (2, 4)
+    assert "xlstm-1.3b-reduced: prefill 2x32" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="chunks of 16"):
+        tserve.main(["--arch", "xlstm-1.3b", "--device", "cpu", "--prompt-len", "24"])
 
 
 @pytest.mark.parametrize("flags", [[], ["--backend", "fused", "--objective", "multiclass:3"],

@@ -289,22 +289,24 @@ def test_family_gate_admits_moe():
 
 @pytest.mark.parametrize("family,item", [("vlm", "VLM"), ("audio", "audio"), ("ssm", "xLSTM")])
 def test_family_gate_names_each_roadmap_item(family, item):
-    """Only the xLSTM family is still refused, naming its ROADMAP item. The
-    VLM and audio families are ported (tests/test_torch_media.py): the
-    schema, the cache and the engine take them, and the engine serves."""
+    """Every registered family is admitted now (the VLM and audio ones:
+    tests/test_torch_media.py; ``item``, xLSTM: tests/test_torch_xlstm.py):
+    the schema, the cache and the engine take it, and the engine serves. A
+    family the zoo does not have raises ``ValueError`` in each."""
     arch = next(a for a in jconfigs.ALIASES if tconfigs.get(a).family == family)
     cfg = tconfigs.get(arch).reduced()
-    if family in ("vlm", "audio"):
-        params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        assert set(init_cache(cfg, 1, 8, device="cpu")) == {"pos", "self", "media_k",
-                                                            "media_v"}
-        out = ServingEngine(cfg, params, slots=2, max_len=24, device="cpu").run(
-            [Request(uid=0, prompt=np.arange(8, dtype=np.int32), max_new_tokens=3)])
-        assert out[0].tokens.shape == (3,) and (out[0].tokens < cfg.vocab_size).all()
-        return
-    for fn in (lambda: TT.param_schema(cfg), lambda: init_cache(cfg, 1, 8, device="cpu"),
-               lambda: ServingEngine(cfg, {"embed": torch.zeros(1)}, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, A10, {item}"):
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    keys = {"pos", "mlstm", "slstm"} if family == "ssm" else {"pos", "self", "media_k",
+                                                               "media_v"}
+    assert set(init_cache(cfg, 1, 8, device="cpu")) == keys, item
+    out = ServingEngine(cfg, params, slots=2, max_len=24, device="cpu").run(
+        [Request(uid=0, prompt=np.arange(8, dtype=np.int32), max_new_tokens=3)])
+    assert out[0].tokens.shape == (3,) and (out[0].tokens < cfg.vocab_size).all()
+    unknown = dataclasses.replace(cfg, family="rwkv")
+    for fn in (lambda: TT.param_schema(unknown),
+               lambda: init_cache(unknown, 1, 8, device="cpu"),
+               lambda: ServingEngine(unknown, params, device="cpu")):
+        with pytest.raises(ValueError, match="unknown model family"):
             fn()
 
 

@@ -303,21 +303,29 @@ def test_optimizer_state_specs_are_the_reference_s(opt):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small", "xlstm-1.3b"])
 def test_specs_of_unported_families_raise(arch):
-    """The family the port does not carry (xLSTM) raises; the VLM and audio
-    families are ported, and their specs are the reference's (every mesh:
-    tests/test_torch_media.py)."""
+    """Every family is ported now: the VLM, audio and xLSTM families' specs
+    are the reference's (every mesh: tests/test_torch_media.py and
+    tests/test_torch_shapes.py); a family the zoo does not have raises
+    ``ValueError``, and the xLSTM family refuses packed rows, as the hybrid
+    one does (the reference's rule)."""
     cfg, mesh = tconfigs.get(arch), make_dry_mesh(MESHES["small"])
-    if cfg.family in ("vlm", "audio"):
-        jcfg, jmesh = jconfigs.get(arch), FakeMesh(MESHES["small"])
-        _same_specs(TSH.param_specs(cfg, mesh), JSH.param_specs(jcfg, jmesh), arch)
-        _same_specs(TSH.data_specs(cfg, mesh, 4), JSH.data_specs(jcfg, jmesh, 4), arch)
-        _same_specs(TSH.cache_specs(cfg, mesh, 4, 128), JSH.cache_specs(jcfg, jmesh, 4, 128),
-                    arch)
-        return
-    for fn in (lambda: TSH.param_specs(cfg, mesh), lambda: TSH.data_specs(cfg, mesh, 4),
-               lambda: TSH.cache_specs(cfg, mesh, 4, 128)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    jcfg, jmesh = jconfigs.get(arch), FakeMesh(MESHES["small"])
+    _same_specs(TSH.param_specs(cfg, mesh), JSH.param_specs(jcfg, jmesh), arch)
+    _same_specs(TSH.data_specs(cfg, mesh, 4), JSH.data_specs(jcfg, jmesh, 4), arch)
+    _same_specs(TSH.cache_specs(cfg, mesh, 4, 128), JSH.cache_specs(jcfg, jmesh, 4, 128),
+                arch)
+    unknown = dataclasses.replace(cfg, family="rwkv")
+    for fn in (lambda: TSH.param_specs(unknown, mesh),
+               lambda: TSH.data_specs(unknown, mesh, 4),
+               lambda: TSH.cache_specs(unknown, mesh, 4, 128)):
+        with pytest.raises(ValueError, match="unknown model family"):
             fn()
+    if cfg.family == "ssm":
+        small = cfg.reduced()
+        params = TT.init_params(small, torch.Generator().manual_seed(0), device="cpu")
+        toks = torch.zeros((1, 16), dtype=torch.int32)
+        with pytest.raises(ValueError, match="per-segment state resets"):
+            TT.forward_train(params, small, {"tokens": toks, "labels": toks, "segments": toks})
 
 
 def test_the_specs_cover_every_parameter_and_optimizer_leaf():

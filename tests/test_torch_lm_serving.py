@@ -19,6 +19,7 @@ import repro_torch.configs as tconfigs
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models import transformer as TT
 from repro_torch.serving import Request, ServingEngine
 
 
@@ -127,10 +128,16 @@ def test_engine_refuses_parameters_on_another_device(setup):
 
 
 def test_engine_serves_only_the_dense_family(setup):
-    """Only the ported families: an xLSTM config raises with its ROADMAP item
-    (the MoE, hybrid and media engines: tests/test_torch_moe.py,
-    test_torch_hybrid.py, test_torch_media.py)."""
+    """Every family of the zoo is served (the MoE, hybrid, media and xLSTM
+    engines: tests/test_torch_moe.py, test_torch_hybrid.py,
+    test_torch_media.py, test_torch_xlstm.py): an xLSTM engine serves a
+    wave; a family the zoo does not have raises ``ValueError``."""
     _, _, _, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, xLSTM"):
-        ServingEngine(tconfigs.get("xlstm-1.3b").reduced(), params, device="cpu")
+    xlstm = tconfigs.get("xlstm-1.3b").reduced()
+    xparams = TT.init_params(xlstm, torch.Generator().manual_seed(0), device="cpu")
+    out = ServingEngine(xlstm, xparams, slots=2, max_len=32, device="cpu").run(
+        [Request(uid=0, prompt=np.arange(16, dtype=np.int32), max_new_tokens=4)])
+    assert out[0].tokens.shape == (4,)
+    with pytest.raises(ValueError, match="unknown model family"):
+        ServingEngine(dataclasses.replace(xlstm, family="rwkv"), params, device="cpu")
     assert isinstance(params["embed"], torch.Tensor)

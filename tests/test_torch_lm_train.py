@@ -165,18 +165,24 @@ def test_remat_gives_the_same_gradients(attn_impl, policy):
 
 
 def test_forward_train_refuses_what_is_not_ported():
-    """The xLSTM family is not ported; packed rows on the recurrent hybrid
-    family raise as in the reference. ("dots" and dense packed rows train:
-    the tests above; the MoE family: tests/test_torch_moe.py; the VLM and
-    audio families: tests/test_torch_media.py.)"""
+    """Packed rows on the recurrent families (hybrid, xLSTM) raise as in
+    the reference, and a family the zoo does not have raises ``ValueError``;
+    an xLSTM model trains. ("dots" and dense packed rows train: the tests
+    above; the MoE family: tests/test_torch_moe.py; the VLM and audio
+    families: tests/test_torch_media.py; xLSTM against the reference:
+    tests/test_torch_xlstm.py.)"""
     _, _, cfg, params = _pair()
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1, 8, 1)[0].items()}
     xlstm = tconfigs.get("xlstm-1.3b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A10, xLSTM"):
-        TT.forward_train(params, xlstm, batch)
-    hybrid = tconfigs.get("zamba2-1.2b").reduced()
-    with pytest.raises(ValueError, match="per-segment state resets"):
-        TT.forward_train(params, hybrid, {**batch, "segments": batch["tokens"]})
+    xparams = TT.init_params(xlstm, torch.Generator().manual_seed(0), device="cpu")
+    loss, metrics = TT.forward_train(xparams, xlstm, batch)
+    assert torch.isfinite(loss) and float(metrics["aux"]) == 0.0
+    for arch, p in (("zamba2-1.2b", params), ("xlstm-1.3b", xparams)):
+        with pytest.raises(ValueError, match="per-segment state resets"):
+            TT.forward_train(p, tconfigs.get(arch).reduced(),
+                             {**batch, "segments": batch["tokens"]})
+    with pytest.raises(ValueError, match="unknown model family"):
+        TT.forward_train(params, dataclasses.replace(cfg, family="rwkv"), batch)
 
 
 def _recipe(O, lr, steps):

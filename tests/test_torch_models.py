@@ -64,24 +64,29 @@ def test_config_registry_is_the_reference(arch):
 
 @pytest.mark.parametrize("arch", NOT_DENSE)
 def test_other_families_are_not_ported_yet(arch):
-    """The xLSTM family is refused by the schema and the cache. The VLM and
-    audio families are ported (tests/test_torch_media.py): their schema is
-    the reference's, name for name, and their cache's leaves its shapes."""
+    """Every family is ported now (the VLM and audio ones:
+    tests/test_torch_media.py; xLSTM: tests/test_torch_xlstm.py): the
+    schema is the reference's, name for name, and the cache's leaves have
+    the shapes of its layout. A family the zoo does not have raises
+    ``ValueError``, as the reference's schema does."""
     cfg = tconfigs.get(arch).reduced()
+    cfg_j = jconfigs.get(arch).reduced()
+    want, got = {}, {}
+    JT._map_schema(lambda p, e: want.setdefault(p, e), JT.param_schema(cfg_j))
+    TT.map_schema(lambda p, e: got.setdefault(p, e), TT.param_schema(cfg))
+    assert {p: tuple(e) for p, e in got.items()} == {p: tuple(e) for p, e in want.items()}
+    cache = init_cache(cfg, 1, 8, device="cpu")
     if cfg.family in ("vlm", "audio"):
-        cfg_j = jconfigs.get(arch).reduced()
-        want, got = {}, {}
-        JT._map_schema(lambda p, e: want.setdefault(p, e), JT.param_schema(cfg_j))
-        TT.map_schema(lambda p, e: got.setdefault(p, e), TT.param_schema(cfg))
-        assert {p: tuple(e) for p, e in got.items()} == {p: tuple(e) for p, e in want.items()}
-        cache = init_cache(cfg, 1, 8, device="cpu")
         assert tuple(cache["media_k"].shape[2:]) == (cfg.n_media_tokens, cfg.n_kv_heads,
                                                      cfg.head_dim)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.param_schema(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, device="cpu")
+    else:
+        assert tuple(cache["mlstm"]["c"].shape[2:]) == (1, cfg.n_heads, cfg.head_dim,
+                                                        cfg.head_dim)
+    unknown = dataclasses.replace(cfg, family="rwkv")
+    with pytest.raises(ValueError, match="unknown model family 'rwkv'"):
+        TT.param_schema(unknown)
+    with pytest.raises(ValueError, match="unknown model family"):
+        init_cache(unknown, 1, 8, device="cpu")
 
 
 def test_param_schema_is_the_reference(granite):
