@@ -181,6 +181,21 @@ the cross layers (``CHUNKED_RANGE``), and the rest; each kernel is
 counted once, under the innermost host op that launched it
 (``device_kernels``), and the groups must sum to the device total.
 
+Then the xLSTM family (``drive_xlstm``), and last the sharded LM step
+(``drive_lm_mesh``): phi3.5-moe-42b at full width, its single-device
+results first on the card, then four rank processes on a (data 2, model
+2) mesh sharing the card over gloo (``lm_mesh_rank``). One layer is
+trained, run A of the reference's distributed test (AdamW 1e-3 clipped
+at 1.0, 3 steps of 4 x 512 tokens) twice: losses and every parameter
+shard bitwise across the runs, every holder of a block the same bits,
+loss and parameters within 5e-2 of the single device, no expert weight
+and no gradient on 'model', 2 forward and 1 backward flash launches a
+microbatch on every rank (wgmma). Two layers are served through
+``ServingEngine(mesh=)`` under ``serving_rules`` placement: the prefill
+logits and the decode logits of the engine's own steps, teacher-forced
+on the single device's tokens, within twice the single device's bf16
+error against f32, greedy tokens equal where the top-2 gap exceeds it. Each phase's seconds are printed (``phase``).
+
 It prints the card's name and power limit, a ``kernels`` JSON line (per
 kernel, and per form of the traversal kernel: launches on its path, error
 against the plain version, time as a CUDA-event mean and as device time
@@ -433,9 +448,9 @@ DECISIVE_CFG = CFG._replace(loss="mse")
 DECISIVE_BITS, DECISIVE_DECAY = 12, 0.9
 DECISIVE_LEAF_ATOL = 1e-5
 MESH_CLIS = {
-    "1d x4": ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--mesh", "1d",
+    "1d x4": ["--arch", "gbdt", "--steps", "8", "--workers", "4", "--mesh", "1d",
               "--mesh-shape", "4", "--mesh-backend", MESH_BACKEND],
-    "2d 1x4 sparse": ["--arch", "gbdt", "--steps", "16", "--workers", "4", "--mesh", "2d",
+    "2d 1x4 sparse": ["--arch", "gbdt", "--steps", "8", "--workers", "4", "--mesh", "2d",
                       "--mesh-shape", "1x4", "--sparse", "--mesh-backend", MESH_BACKEND],
 }
 # That phase's entries in the kernels line: name -> KERNELS key.
@@ -493,9 +508,10 @@ PACKED_PAD = 0.15
 # 32 kv heads), served on LM_PROMPTS' waves and trained on the dense
 # path's batches and recipe (run A). Its flash entries in the kernels
 # line are the kernels at the shared block's shape (group 1). Its step
-# profile takes a step's rows cut to HYBRID_PROFILE_SEQ tokens (one SSM
-# chunk): the profiler took 77 s over a whole step, 49 s over 4 x 512
-# (PERF.md §6).
+# profile takes one group's step (its Mamba2 layers and the shared block)
+# on a step's rows cut to HYBRID_PROFILE_SEQ tokens (one SSM chunk): the
+# profiler took 77 s over a whole step, 49 s over 4 x 512 and 44 s over 4 x
+# 256 of the 38 layers (PERF.md §6).
 HYBRID_ARCH = "zamba2-1.2b"
 HYBRID_PROFILE_SEQ = 256
 HYBRID_KERNELS = {
@@ -581,6 +597,10 @@ AUDIO_KERNELS = {
 XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_PARAMS = 1_239_206_224
 XLSTM_TRAIN, XLSTM_TRAIN_STEPS = (8, 128), 4
+# One microbatch a step: the sLSTM's loop a position runs once a step (at
+# accum 2 it ran twice, 70-73% of a step's wall time); the gradient gate
+# takes the first batch's first XLSTM_GRAD_ROWS rows.
+XLSTM_ACCUM, XLSTM_GRAD_ROWS = 1, 4
 XLSTM_OTHER = {"ssm_chunk": 64}
 XLSTM_CHECK_PROMPT, XLSTM_CHECK_LEN = 1024, 512
 XLSTM_PROFILE = {"prefill": 32, "train": (8, 32), "positions": (8, 8)}
@@ -635,6 +655,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(fn, dev: torch.device) -> tuple:
+    """``fn()`` and the ms of that one call: CUDA events on the card, the
+    host clock elsewhere. The plain versions' times: one call of the
+    check's own, which costs no more calls of a function that takes up to
+    a second at the traversal's shapes."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), 1e3 * (time.perf_counter() - t0)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 # Device times waiting to be taken: (fn, reps, into, key). torch.profiler
@@ -1232,8 +1269,9 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
         def run(b=b, args=args):
             return forest_traversal.forest_traverse(b, *args)
         got = run()
-        torch.cuda.synchronize()
-        if not torch.equal(got, forest_traversal.forest_traverse_plain(b, *args)):
+        want, plain_ms = timed_once(lambda: forest_traversal.forest_traverse_plain(b, *args),
+                                    dev)
+        if not torch.equal(got, want):
             raise AssertionError(f"forest_traverse {tag}: differs from the plain version")
         # Bytes the function needs: the bin cells the walks read, the live
         # trees' arrays, n_trees and the output.
@@ -1241,9 +1279,7 @@ def check_kernels(data, sp, rng, report: dict) -> dict:
         trav_shapes[tag] = event_times(run)
         trav_shapes[tag].update({
             "max_abs_err": 0.0,
-            "plain_ms": cuda_ms(lambda b=b, args=args: forest_traversal.forest_traverse_plain(
-                b, *args), reps=2, warmup=1),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
             "plan": traversal_plan_of(b, forest),
         })
         report.setdefault("forest_traverse_bin_cells_read", {})[tag] = cells
@@ -2725,9 +2761,10 @@ def mesh_rank(rank: int, dev: torch.device, out_dir: str, spec, rounds: int,
     results to ``out_dir/rank{rank}.pt``."""
     from repro_torch.launch.mesh import make_gbdt_mesh
 
-    if dev.type == "cpu":  # a rehearsal: the ranks share the host's cores
+    if dev.type == "cpu":  # a rehearsal: each plain call counts as a launch
         count_plain_calls()
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
+    # The ranks share the host's cores: no rank's thread pool takes them all.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
     x, y, mult = synthetic.raw(spec)
     data = bin_dataset(x, y, n_bins=64, multiplicity=mult, device=dev)
     sets = {"dense": data,
@@ -2774,7 +2811,7 @@ def drive_mesh(dev: torch.device, realsim: dict, spec=None, rounds: int = ROUNDS
     launch_mesh.init_ranks(0, 1, f"tcp://127.0.0.1:{launch_mesh.free_port()}",
                            one_rank_backend, dev)
     try:
-        host = launch_mesh.make_host_mesh(device=dev, backend=one_rank_backend)
+        host = launch_mesh.make_gbdt_mesh(1, 1, device=dev, backend=one_rank_backend)
         reset_counts()
         nccl = mesh_train(data, host, "feature", rounds)
         nccl["counts"] = gbdt_counts()
@@ -3248,8 +3285,8 @@ def traversal_case(tag: str, b: torch.Tensor, fo, live: int, timed: bool = True)
     when ``timed``, event ms, device ms (pending), plain ms and the bound."""
     args = traversal_args(fo, live)
     got = forest_traversal.forest_traverse(b, *args)
-    want = forest_traversal.forest_traverse_plain(b, *args)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: forest_traversal.forest_traverse_plain(b, *args),
+                                b.device)
     if got.shape != want.shape or not torch.equal(got, want):
         bad = int((got != want).sum()) if got.shape == want.shape else -1
         raise AssertionError(f"{tag}: {bad} outputs differ from the plain version")
@@ -3259,9 +3296,7 @@ def traversal_case(tag: str, b: torch.Tensor, fo, live: int, timed: bool = True)
         bms, by, cells = traversal_bound(b, fo, live)
         event_times(lambda: forest_traversal.forest_traverse(b, *args), out)
         out.update({
-            "plain_ms": cuda_ms(lambda: forest_traversal.forest_traverse_plain(b, *args),
-                                reps=2, warmup=1),
-            "bound_ms": bms, "bound_by": by, "library_ms": None, "bin_cells_read": cells,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None, "bin_cells_read": cells,
         })
     return out
 
@@ -3699,7 +3734,7 @@ def profile_lm(engine, requests, steps: int = 8) -> dict:
     longest = max(len(r.prompt) for r in requests)
     batch = wave_batch(cfg, [r for r in requests if len(r.prompt) == longest][:engine.slots],
                        dev)
-    prefill_step = make_prefill_step(cfg, engine.max_len)
+    prefill_step = make_prefill_step(cfg, max_len=engine.max_len)
     decode = make_decode_step(cfg)
     res = {}
     for phase in ("prefill", "decode"):
@@ -3801,18 +3836,18 @@ def prefill_against_f32(cfg, params: dict, batch: dict, max_len: int | None = No
     unless given (a model without attention takes another SSM chunk: the
     same sums grouped otherwise). Returns the figures."""
     max_len = max_len or LM_MAX_LEN
-    flash_step = make_prefill_step(cfg, max_len)
+    flash_step = make_prefill_step(cfg, max_len=max_len)
     b = batch["tokens"].shape[0]
     with recorded_routes() as rf:
         tok_f, lf, _ = flash_step(params, batch)
     _, lf2, _ = flash_step(params, batch)
     chunked = dataclasses.replace(cfg, **(other or {"attn_impl": "chunked"}))
     with recorded_routes() as rc:
-        tok_c, lc, _ = make_prefill_step(chunked, max_len)(params, batch)
+        tok_c, lc, _ = make_prefill_step(chunked, max_len=max_len)(params, batch)
     params32 = to_f32(params)
     with recorded_routes() as rr:
         _, lr, _ = make_prefill_step(dataclasses.replace(chunked, dtype="float32"),
-                                     max_len)(params32, to_f32(batch))
+                                     max_len=max_len)(params32, to_f32(batch))
     del params32
     rows = route_agreement(f"{cfg.name} prefill", [last_routes(r, b) for r in (rf, rc, rr)],
                            (b,)).to(lf.device)
@@ -3906,7 +3941,7 @@ def drive_lm(dev: torch.device, report: dict) -> dict:
         "prefill_logits_bitwise_across_runs": vs["bitwise_across_runs"],
         "tokens_equal_across_runs": True,
     }
-    lm["profile"] = profile_lm(engine, requests)
+    lm["profile"] = profile_lm(engine, requests, steps=2)
     report["lm_serving"] = lm
     card = report.get("nvidia_smi", "card not queried")
     for i, p in enumerate(LM_PROMPTS):
@@ -4351,6 +4386,26 @@ def profile_train_step(step, params, state, batch, gen) -> dict:
             "top": [{"name": k[:80], "device_ms": ms, "calls": c} for k, ms, c in rows[:15]]}
 
 
+# The granite train step's profiles take a step of LM_PROFILE_LAYERS of its
+# layers (``profile_cut_step``): the trace's parse grows with its events
+# (28.6 s for a whole "dots" step, PERF.md §6) and every layer's are alike.
+LM_PROFILE_LAYERS = 4
+
+
+def profile_cut_step(cfg, recipe, batch, dev, layers: int = LM_PROFILE_LAYERS) -> dict:
+    """``profile_step_on`` a step of ``cfg`` cut to ``layers`` layers, with
+    seeded weights and a fresh state of ``recipe``, on ``batch``."""
+    one = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(one, gen, device=dev)
+    state = recipe.init(params)
+    prof = profile_step_on(make_train_step(one, recipe, accum=TRAIN_ACCUM), params, state,
+                           batch, gen)
+    del params, state
+    torch.cuda.empty_cache()
+    return prof
+
+
 def profile_step_on(step, params, state, batch, gen) -> dict:
     """``profile_train_step`` on ``batch``, after one unprofiled step on it,
     whose wall time is the busy share's denominator
@@ -4475,7 +4530,13 @@ def check_dots_run(res: dict, full: dict, params: dict, full_params: list, count
 
 def drive_lm_train(dev: torch.device, report: dict) -> list:
     """The LM zoo's training path; returns the backward kernels' entries."""
+    t_part, parts = time.perf_counter(), {}
+
+    def lap(name: str) -> None:  # seconds since the last lap, by part
+        nonlocal t_part
+        parts[name], t_part = time.perf_counter() - t_part, time.perf_counter()
     kstats = check_flash_bwd(dev, report)
+    lap("kernel checks")
     print("flash_attention_bwd check (max abs, relative L2 error): " + json.dumps(
         {k: {n: [v["max_abs_err"][n], v["rel_l2_err"][n]] for n in v["max_abs_err"]}
          for k, v in report["flash_attention_bwd_shapes"].items()}), flush=True)
@@ -4513,14 +4574,13 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
         copies.append(param_copy(params))
         if len(runs) == 1:
             del params, state, step, gen
-    profile = profile_train_step(step, params, state, batches[-1], gen)
-    # Busy share: profiled device time over the median wall time of an
-    # unprofiled step (the profiler's own host cost inflates the profiled one).
-    profile["device_busy_share"] = busy(profile, profile["device_ms"],
-                                        float(np.median(runs[1]["step_ms"][1:])))
+    lap("run A twice")
     del params, state, step, gen
+    profile = profile_cut_step(cfg, recipe, batches[-1], dev)
+    lap("profile")
     res_b, params, state, _, _ = train_lm(cfg, delayed, batches, 1, TRAIN_SAMPLE, dev,
                                           warm_up=TRAIN_DELAY)
+    lap("run B")
     torch.cuda.synchronize()
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches}
@@ -4548,15 +4608,16 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
                    "bwd_routes": dict(flash_attention.bwd_route_launches)}
     check_dots_run(res_dots, runs[0], params, copies[0], dots_counts, TRAIN_ACCUM,
                    cfg.n_layers)
-    dots_profile = profile_train_step(step, params, state, batches[-1], gen)
-    dots_profile["device_busy_share"] = busy(dots_profile, dots_profile["device_ms"],
-                                             float(np.median(res_dots["step_ms"][1:])))
+    lap("dots")
     del params, state, step, gen
-    torch.cuda.empty_cache()
+    dots_profile = profile_cut_step(dataclasses.replace(cfg, remat_policy="dots"), recipe,
+                                    batches[-1], dev)
+    lap("dots profile")
     # Flash against chunked at full width (after the counts are read): one
     # microbatch of run A, from the initial weights.
     grads = check_train_grads(
         cfg, {k: v[:b // TRAIN_ACCUM] for k, v in batches[0].items()}, dev)
+    lap("gradients")
 
     card = report.get("nvidia_smi", "card not queried")
     tokens = b * s
@@ -4606,7 +4667,8 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
           f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}",
           flush=True)
     for tag, prof in (("run A", profile), ('run A, remat_policy="dots"', dots_profile)):
-        print(f"profile ({LM_ARCH} train step, {tag}): device {prof['device_ms']:.1f} ms "
+        print(f"profile ({LM_ARCH} train step of {LM_PROFILE_LAYERS} of its {cfg.n_layers} "
+              f"layers, {tag}): device {prof['device_ms']:.1f} ms "
               f"({prof['device_ms_by']}), busy "
               f"{pct(prof['device_busy_share'])} of an unprofiled step's wall time;"
               " " + ", ".join(f"{k} {v:.1f}" for k, v in prof["by_group_ms"].items())
@@ -4621,6 +4683,7 @@ def drive_lm_train(dev: torch.device, report: dict) -> list:
           f"{dots_profile['device_ms']:.1f} / {profile['device_ms']:.1f} ms [{card}]",
           flush=True)
     report["lm_train"] = {
+        "phase_s_by_part": parts,
         "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                    "dtype": cfg.dtype, "attn_impl": cfg.attn_impl, "remat": cfg.remat,
                    "batch": b, "seq": s, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
@@ -4853,7 +4916,7 @@ def decode_drift(cfg, params: dict, prompts: np.ndarray, served: np.ndarray | No
     b, plen = toks.shape
     batch = {"tokens": toks} if media is None else {"tokens": toks, "media": media}
     with recorded_routes() as calls:
-        tok, logits, cache = make_prefill_step(cfg, max_len)(params, batch)
+        tok, logits, cache = make_prefill_step(cfg, max_len=max_len)(params, batch)
         routes = [last_routes(calls, b)]
         steps, gen = [logits], [tok]
         for _ in range(new - 1):
@@ -5028,10 +5091,19 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
                              f"{f32_leaves(params)}")
     bad_moments = [i for i, m in enumerate(tree_leaves(state[-1].mu))
                    if m.dtype != torch.float32] if hasattr(state[-1], "mu") else []
-    profile = profile_step_on(step, params, state, {k: v[:, :HYBRID_PROFILE_SEQ]
-                                                    for k, v in batches[-1].items()}, gen)
-    lap("train profile")
     del params, state, step, gen
+    torch.cuda.empty_cache()
+    # The profile: one group's step (its Mamba2 layers and the shared
+    # block) on the last batch's rows cut to HYBRID_PROFILE_SEQ tokens.
+    one = dataclasses.replace(cfg, n_layers=every)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(one, gen, device=dev)
+    state = recipe.init(params)
+    profile = profile_step_on(make_train_step(one, recipe, accum=TRAIN_ACCUM), params, state,
+                              {k: v[:, :HYBRID_PROFILE_SEQ] for k, v in batches[-1].items()},
+                              gen)
+    lap("train profile")
+    del params, state, gen
     torch.cuda.empty_cache()
     a1, a2 = trains
     per_mb = {"fwd": 2 * g, "bwd": g}  # forward + the group's remat recompute
@@ -5069,7 +5141,8 @@ def drive_hybrid(dev: torch.device, report: dict) -> list:
           f"{grads['loss']['chunked_f32']:.6f}); {len(grads['leaves'])} gradients within "
           f"twice the chunked path's own error, closest {worst[0]}: relative L2 "
           f"{worst[1]['flash_vs_chunked']:.4g} against {worst[1]['tolerance']:.4g}", flush=True)
-    print(f"profile ({HYBRID_ARCH} train step, {b} x {HYBRID_PROFILE_SEQ}): device "
+    print(f"profile ({HYBRID_ARCH} train step of one group, {every} Mamba2 layers and the "
+          f"shared block, {b} x {HYBRID_PROFILE_SEQ}): device "
           f"{profile['device_ms']:.1f} ms ({profile['device_ms_by']}), busy "
           f"{pct(profile['device_busy_share'])} of an unprofiled step's wall time "
           f"({profile['unprofiled_wall_ms']:.1f} ms); " + ", ".join(
@@ -5266,7 +5339,7 @@ def drive_moe(dev: torch.device, report: dict) -> list:
     lap("serve")
     batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in requests[:LM_SLOTS]]),
                                        device=dev)}
-    _, _, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, batch)
+    _, _, cache = make_prefill_step(cfg, max_len=LM_MAX_LEN)(params, batch)
     ring = cache["self"]
     ring_bytes = sum(t.numel() * t.element_size() for t in ring.values())
     want_ring = (2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.kv_dim * 2
@@ -5517,7 +5590,7 @@ def media_changes_logits(cfg, params: dict, prompt: np.ndarray, max_len: int, de
     prefill logits must differ (the media reach the logits)."""
     batch = wave_batch(cfg, [Request(uid=i, prompt=prompt, media=media_of(cfg, 500 + i))
                              for i in range(2)], dev)
-    _, logits, _ = make_prefill_step(cfg, max_len)(params, batch)
+    _, logits, _ = make_prefill_step(cfg, max_len=max_len)(params, batch)
     diff = float((logits[0, :cfg.vocab_size] - logits[1, :cfg.vocab_size]).float().abs().max())
     if not diff > 0:
         raise AssertionError(f"{cfg.name}: two media give the same prefill logits")
@@ -5720,7 +5793,8 @@ def drive_vlm(dev: torch.device, report: dict) -> list:
                              f"{cfg.param_count()}")
     lap("serve")
     wave = requests[:LM_SLOTS]
-    _, _, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, wave_batch(cfg, wave, dev))
+    _, _, cache = make_prefill_step(cfg, max_len=LM_MAX_LEN)(params,
+                                                             wave_batch(cfg, wave, dev))
     cache_bytes = media_cache_bytes(cfg, cache, g * spg, g, LM_SLOTS, LM_MAX_LEN)
     del cache
     changed = media_changes_logits(cfg, params, wave[0].prompt, LM_MAX_LEN, dev)
@@ -5816,7 +5890,7 @@ def drive_audio(dev: torch.device, report: dict) -> list:
     lap("serve")
     wave = requests[-AUDIO_SLOTS:]  # the longest prompts
     batch = wave_batch(cfg, wave, dev)
-    _, _, cache = make_prefill_step(cfg, AUDIO_MAX_LEN)(params, batch)
+    _, _, cache = make_prefill_step(cfg, max_len=AUDIO_MAX_LEN)(params, batch)
     cache_bytes = media_cache_bytes(cfg, cache, cfg.n_layers, cfg.n_layers, AUDIO_SLOTS,
                                     AUDIO_MAX_LEN)
     del cache
@@ -5943,7 +6017,7 @@ def check_xlstm_cache(cfg, params: dict, batch: dict) -> dict:
     """One prefill's cache: every leaf of ``init_cache``'s shape and dtype
     (C, n, c, h in the model's dtype, m f32), finite, and its bytes the
     reckoning's (``xlstm_cache_bytes``)."""
-    _, _, cache = make_prefill_step(cfg, LM_MAX_LEN)(params, batch)
+    _, _, cache = make_prefill_step(cfg, max_len=LM_MAX_LEN)(params, batch)
     b = batch["tokens"].shape[0]
     blank = init_cache(cfg, b, LM_MAX_LEN, device="meta")
     leaves = {f"{k}.{n}": t for k in ("mlstm", "slstm") for n, t in cache[k].items()}
@@ -6026,12 +6100,12 @@ def drive_xlstm(dev: torch.device, report: dict) -> None:
     reset_counts()
     trains, copies = [], []
     for _ in range(2):
-        res, params, state, step, gen = train_lm(cfg, recipe, batches, TRAIN_ACCUM, 0.0, dev)
+        res, params, state, step, gen = train_lm(cfg, recipe, batches, XLSTM_ACCUM, 0.0, dev)
         trains.append(res)
         copies.append(param_copy(params))
         if len(trains) == 1:
             del params, state, step, gen
-    check_lm_runs(f"{XLSTM_ARCH} run A", trains, copies, 0, TRAIN_ACCUM, aux_max=0)
+    check_lm_runs(f"{XLSTM_ARCH} run A", trains, copies, 0, XLSTM_ACCUM, aux_max=0)
     del copies
     bad_moments = [i for i, m in enumerate(tree_leaves(state[-1].mu))
                    if m.dtype != torch.float32]
@@ -6052,13 +6126,13 @@ def drive_xlstm(dev: torch.device, report: dict) -> None:
     params = init_params(one, gen, device=dev)
     state = recipe.init(params)
     train_profile = profile_step_on(
-        make_train_step(one, recipe, accum=TRAIN_ACCUM), params, state,
+        make_train_step(one, recipe, accum=XLSTM_ACCUM), params, state,
         next(synthetic_batches(one, *XLSTM_PROFILE["train"], 1, seed=SEED + 2, device=dev)),
         gen)
     del params, state, gen
     torch.cuda.empty_cache()
     lap("train profile")
-    grads = check_train_grads(cfg, {k: v[:b // TRAIN_ACCUM] for k, v in batches[0].items()},
+    grads = check_train_grads(cfg, {k: v[:XLSTM_GRAD_ROWS] for k, v in batches[0].items()},
                               dev, xlstm_grad_picks(cfg), other=XLSTM_OTHER)
     lap("train gradients")
     none_launched("training")
@@ -6122,7 +6196,7 @@ def drive_xlstm(dev: torch.device, report: dict) -> None:
     for i, res in enumerate(trains):
         med = float(np.median(res["step_ms"][1:]))
         print(f"train {XLSTM_ARCH} run A{' again' if i else ''} ({b} x {s} a step, accum "
-              f"{TRAIN_ACCUM}): losses " + " ".join(f"{x:.4f}" for x in res["loss"])
+              f"{XLSTM_ACCUM}): losses " + " ".join(f"{x:.4f}" for x in res["loss"])
               + "; step ms " + " ".join(f"{x:.1f}" for x in res["step_ms"])
               + f"; median {med:.1f} ms, {tokens / med * 1e3:.0f} tokens/s; peak device "
               f"memory {res['peak_mem_gb']:.2f} GB [{card}]", flush=True)
@@ -6132,7 +6206,7 @@ def drive_xlstm(dev: torch.device, report: dict) -> None:
                                 XLSTM_PROFILE["positions"])
     print(f"train {XLSTM_ARCH}: bitwise equal across two runs (losses and every parameter); "
           f"the loss falls; AdamW moments f32; against ssm_chunk {XLSTM_OTHER['ssm_chunk']} "
-          f"on one {b // TRAIN_ACCUM} x {s} microbatch: loss "
+          f"on one {XLSTM_GRAD_ROWS} x {s} microbatch: loss "
           f"{grads['loss']['flash']:.6f} / {grads['loss']['chunked']:.6f} (f32 "
           f"{grads['loss']['chunked_f32']:.6f}); "
           f"{len(grads['leaves'])} gradients within twice that path's own error, closest "
@@ -6156,7 +6230,7 @@ def drive_xlstm(dev: torch.device, report: dict) -> None:
                    "mlstm_per_group": mpg, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                    "head_dim": cfg.head_dim, "ssm_chunk": cfg.ssm_chunk, "dtype": cfg.dtype,
                    "params": n_params, "train": [b, s], "steps": XLSTM_TRAIN_STEPS,
-                   "accum": TRAIN_ACCUM, "lr": TRAIN_LR, "other": XLSTM_OTHER,
+                   "accum": XLSTM_ACCUM, "lr": TRAIN_LR, "other": XLSTM_OTHER,
                    "profile": XLSTM_PROFILE},
         "slstm_ops_per_position": ops,
         "serve": {"waves": [f"{LM_SLOTS} x {p}" for p in LM_PROMPTS], "new_tokens": LM_NEW,
@@ -6168,6 +6242,523 @@ def drive_xlstm(dev: torch.device, report: dict) -> None:
         "slstm_share": slstm_share, "positions_share_of_step": positions_share,
         "phase_s": phase_s, "phase_s_by_part": parts,
     }
+
+
+# The sharded LM phase: phi3.5-moe-42b at full width over a (data 2, model
+# 2) mesh of four rank processes sharing the card over gloo (NCCL refuses
+# two ranks on one card). LM_MESH_TRAIN_LAYERS layers are trained with the
+# recipe of the reference's distributed test (AdamW 1e-3, clipped at 1.0;
+# 4 x 512 tokens a step, 2 rows a data rank) and LM_MESH_LAYERS served.
+# Two trained layers fit (14.7-16.1 GB a rank) but took 13-16 s a step,
+# 12-15 s of it gloo on 'data' (PERF.md §6), so one is trained.
+LM_MESH_SHAPE = (2, 2)  # (data, model)
+LM_MESH_LAYERS, LM_MESH_TRAIN_LAYERS = 2, 1
+LM_MESH_ROWS, LM_MESH_SEQ, LM_MESH_STEPS, LM_MESH_LR = 4, 512, 3, 1e-3
+LM_MESH_PROMPT, LM_MESH_NEW = 512, 8
+LM_MESH_DIR = ROOT / "build" / "lm_mesh"
+LM_MESH_BOUND = 5e-2  # the reference's bound on loss and parameters
+MOE_WEIGHTS = ("wg", "wu", "wd")  # the expert weights
+
+
+def lm_mesh_cfg(layers: int = LM_MESH_LAYERS):
+    return dataclasses.replace(lm_configs.get(MOE_ARCH), n_layers=layers, attn_impl="flash")
+
+
+def cpu_rehearsal() -> None:
+    """For a rehearsal of a rank program on the CPU, where no kernel
+    launches and no card is: each plain flash forward and backward counts
+    as a wgmma launch, and the card's memory calls answer nothing."""
+    fwd, bwd = ops.flash_attention, flash_attention.flash_attention_bwd
+
+    def fwd_counted(*args, **kw):
+        flash_attention.launches += 1
+        flash_attention.route_launches["wgmma"] += 1
+        return fwd(*args, **kw)
+
+    def bwd_counted(*args, **kw):
+        flash_attention.bwd_launches += 1
+        flash_attention.bwd_route_launches["wgmma"] += 1
+        return bwd(*args, **kw)
+
+    ops.flash_attention, flash_attention.flash_attention_bwd = fwd_counted, bwd_counted
+    for name, value in (("empty_cache", None), ("reset_peak_memory_stats", None),
+                        ("max_memory_allocated", 0)):
+        setattr(torch.cuda, name, lambda *a, _v=value, **k: _v)
+
+
+def lm_mesh_requests(cfg) -> list:
+    """LM_MESH_ROWS seeded requests of LM_MESH_PROMPT tokens, LM_MESH_NEW new."""
+    return lm_requests(cfg, np.random.default_rng(SEED + 32), slots=LM_MESH_ROWS,
+                       prompts=(LM_MESH_PROMPT,), new=LM_MESH_NEW)
+
+
+def param_paths(cfg) -> list:
+    """Each parameter's dotted path, in ``tree_leaves`` order."""
+    return tree_leaves(TT.map_schema(lambda path, e: ".".join(path), TT.param_schema(cfg)))
+
+
+def model_axis_bytes(by_tag: dict) -> dict:
+    """A step's realized bytes on the 'model' axis (``ByteRecorder.by_tag``:
+    (kind, tag) -> bytes) by what they carry: the expert weights' gathers,
+    any gradient's reduction, the MoE activations (the output's psum and
+    its input's gradient), the router's share (the combine weights'
+    gradient, which carries wr's), the dense weights' gathers, the rest."""
+    out = dict.fromkeys(("expert weights", "gradients", "moe activations", "router",
+                         "dense weights", "other"), 0)
+    for (_, tag), n in by_tag.items():
+        path = tag.split(":", 1)[-1].split(".")
+        if tag.startswith("param:") and path[-2:-1] == ["moe"] and path[-1] in MOE_WEIGHTS:
+            out["expert weights"] += n
+        elif tag.startswith("grad:"):
+            out["gradients"] += n
+        elif tag in ("moe.out", "moe.x.grad"):
+            out["moe activations"] += n
+        elif tag == "moe.weights.grad":
+            out["router"] += n
+        elif tag.startswith("param:"):
+            out["dense weights"] += n
+        else:
+            out["other"] += n
+    return out
+
+
+def check_model_axis(tag: str, by_tag: dict, activations: int) -> dict:
+    """No expert weight and no gradient on 'model', and ``activations``
+    bytes of MoE activations (one psum a layer each way)."""
+    got = model_axis_bytes(by_tag)
+    if got["expert weights"] or got["gradients"]:
+        raise AssertionError(f"{tag}: expert weights or gradients crossed 'model': {got}")
+    if got["moe activations"] != activations:
+        raise AssertionError(f"{tag}: MoE activations on 'model' {got['moe activations']} "
+                             f"B, expected {activations}")
+    return got
+
+
+def gap_filtered_tokens(tag: str, got: np.ndarray, want: np.ndarray, gaps: np.ndarray,
+                        err: float) -> dict:
+    """Greedy tokens (rows, steps) against the reference's where its top-2
+    logit gap ``gaps`` exceeds ``err``: each row is compared up to its first
+    step whose gap is ``err`` or less (there the paths may pick apart, and
+    every later step follows its pick). Fails on a compared token that
+    differs; how many were compared is a figure, not a gate (at random
+    weights the gaps may all lie within the error)."""
+    compared = 0
+    for r in range(want.shape[0]):
+        for t in range(want.shape[1]):
+            if gaps[r, t] <= err:
+                break
+            if got[r, t] != want[r, t]:
+                raise AssertionError(f"{tag}: row {r} step {t}: token {got[r, t]}, the "
+                                     f"reference's {want[r, t]} (top-2 gap {gaps[r, t]:.4g} "
+                                     f"> {err:.4g})")
+            compared += 1
+    return {"compared": compared, "tokens": int(want.size), "err": err}
+
+
+@contextlib.contextmanager
+def decode_logits_into(out: list):
+    """Inside the block, each decode that the serving steps of
+    ``launch.steps`` run appends its logits (f32, on the host) to ``out``:
+    the engine's own decode steps, observed as they run."""
+    from repro_torch.launch import steps
+
+    orig = steps.decode_step
+
+    def kept(*args, **kwargs):
+        logits, cache = orig(*args, **kwargs)
+        out.append(logits.float().cpu())
+        return logits, cache
+
+    steps.decode_step = kept
+    try:
+        yield out
+    finally:
+        steps.decode_step = orig
+
+
+def top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def lm_mesh_single(dev: torch.device, train_cfg, cfg) -> dict:
+    """The single-device results on the card, on the ranks' weights and
+    batches: run A's steps at ``train_cfg`` (losses; the final parameters
+    on the host, by path); serving at ``cfg`` with each data shard's rows
+    as one wave of the single-device engine (the sharded prefill gives
+    each shard its own expert capacity, as the reference's does): the
+    engine's tokens, each wave's bf16 prefill logits and the f32 chunked
+    path's, their last position's routes, and each greedy step's logits
+    and top-2 gap."""
+    batches = list(synthetic_batches(train_cfg, LM_MESH_ROWS, LM_MESH_SEQ, LM_MESH_STEPS, SEED,
+                                     dev))
+    res, params, state, _, _ = train_lm(train_cfg, adamw(LM_MESH_LR, max_grad_norm=1.0),
+                                        batches, 1, 0.0, dev)
+    out = {"loss": res["loss"], "step_ms": res["step_ms"], "peak_gb": res["peak_mem_gb"],
+           "params": dict(zip(param_paths(train_cfg), param_copy(params)))}
+    del params, state
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    requests = lm_mesh_requests(cfg)
+    half = LM_MESH_ROWS // LM_MESH_SHAPE[0]
+    engine = ServingEngine(cfg, params, slots=half, max_len=LM_MESH_PROMPT + LM_MESH_NEW,
+                           device=dev)
+    out["tokens"] = np.stack([c.tokens for c in engine.run(requests)])
+    prefill = make_prefill_step(cfg, max_len=engine.max_len)
+    waves = [wave_batch(cfg, requests[i:i + half], dev) for i in range(0, LM_MESH_ROWS, half)]
+    l16, r16, gaps, toks, decoded = [], [], [], [], []
+    for batch in waves:
+        with recorded_routes() as rr:
+            tok, logits, cache = prefill(params, batch)
+        l16.append(logits.float().cpu())
+        r16.append(last_routes(rr, half))
+        steps, step_logits = [tok], [logits.float().cpu()]
+        for _ in range(LM_MESH_NEW - 1):
+            logits, cache = TT.decode_step(params, cfg, steps[-1][:, None], cache)
+            steps.append(torch.argmax(logits, dim=-1).to(torch.int32))
+            step_logits.append(logits.float().cpu())
+        toks.append(torch.stack(steps, 1).cpu())
+        decoded.append(torch.stack(step_logits, 1))
+        gaps.append(top2_gap(decoded[-1]))
+    if not np.array_equal(torch.cat(toks).numpy(), out["tokens"]):
+        raise AssertionError("lm mesh: the single-device steps' tokens are not its engine's")
+    params32 = to_f32(params)
+    del params, engine
+    f32 = dataclasses.replace(cfg, dtype="float32", attn_impl="chunked")
+    l32, r32 = [], []
+    for batch in waves:
+        with recorded_routes() as rr:
+            _, logits, _ = make_prefill_step(f32, max_len=LM_MESH_PROMPT + LM_MESH_NEW)(
+                params32, to_f32(batch))
+        l32.append(logits.float().cpu())
+        r32.append(last_routes(rr, half))
+    del params32
+    torch.cuda.empty_cache()
+    out.update(l16=torch.cat(l16), l32=torch.cat(l32), gaps=torch.cat(gaps).numpy(),
+               routes=[torch.cat(r16), torch.cat(r32)], decoded=torch.cat(decoded))
+    return out
+
+
+def lm_mesh_rank(rank: int, dev: torch.device, out_dir: str, train_cfg, cfg,
+                 tokens: np.ndarray) -> None:
+    """``lm_mesh_ranked``, its traceback written to ``out_dir/rank{rank}.err``
+    if it raises (a rank that fails first closes its peers' connections,
+    and the peers' errors would hide its own)."""
+    try:
+        lm_mesh_ranked(rank, dev, out_dir, train_cfg, cfg, tokens)
+    except BaseException:
+        import traceback
+
+        (pathlib.Path(out_dir) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def lm_mesh_ranked(rank: int, dev: torch.device, out_dir: str, train_cfg, cfg,
+                   tokens: np.ndarray) -> None:
+    """One of the four rank processes of the sharded LM phase, on the (data,
+    model) mesh over gloo: run A twice at ``train_cfg`` from the seeded
+    weights, sharded by ``param_specs`` (each step's wall ms, collective ms
+    by axis, bytes by axis and kind, and the 'model' axis's bytes by tag;
+    flash launches by route; peak memory; the second run's last step
+    profiled for its device time); whether the two runs' losses and
+    parameter shards are bitwise equal and every holder of a block holds
+    the same bits; the first run's final shards to
+    ``out_dir/rank{rank}_params.pt``; then ``ServingEngine`` on the mesh at
+    ``cfg`` under ``serving_rules`` placement on the LM_MESH_ROWS requests
+    (its tokens), and its prefill and decode steps teacher-forced on the
+    single device's ``tokens`` (each step's logits). Writes the results to
+    ``out_dir/rank{rank}.pt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.sharding import map_specs, named, param_specs, serving_rules
+    from repro_torch.sharding.rules import entry_axes
+
+    if dev.type == "cpu":
+        cpu_rehearsal()
+    # Four ranks share the host's cores: no rank's thread pool takes them all.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1])))
+    mesh = make_lm_mesh(*LM_MESH_SHAPE, backend="gloo", device=dev)
+    groups = {id(a.group): a.name for a in mesh.axes}
+    out: dict = {"rank": rank, "coords": [a.index for a in mesh.axes]}
+
+    def shards_of(cfg, specs: dict) -> dict:
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        shards = map_specs(lambda s, w: named(mesh, s).shard(w), specs, full)
+        del full
+        torch.cuda.empty_cache()
+        return shards
+
+    def replicas_agree(spec, x) -> bool:
+        ok = True
+        for a in mesh.axes:
+            if a.size > 1 and all(a.name not in entry_axes(spec, d) for d in range(len(spec))):
+                every = collectives.gather(x[None], a, 0)
+                ok &= all(torch.equal(every[i], x) for i in range(a.size))
+        return ok
+
+    specs = param_specs(train_cfg, mesh)
+    batches = list(synthetic_batches(train_cfg, LM_MESH_ROWS, LM_MESH_SEQ, LM_MESH_STEPS, SEED,
+                                     dev))
+    orig, calls = torch.distributed.all_reduce, []
+
+    def timed(tensor, *args, group=None, **kwargs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = orig(tensor, *args, group=group, **kwargs)
+        _sync(dev)
+        calls.append((groups.get(id(group), "world"), 1e3 * (time.perf_counter() - t0)))
+        return res
+
+    runs, first = [], None
+    for run in range(2):
+        shards = shards_of(train_cfg, specs)
+        opt = adamw(LM_MESH_LR, max_grad_norm=1.0)
+        state = opt.init(shards)
+        step = make_train_step(train_cfg, opt, mesh, ("data",), grad_specs=specs)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        torch.distributed.all_reduce = timed
+        try:
+            for i, b in enumerate(batches):
+                rec, n0 = collectives.ByteRecorder(), len(calls)
+                # The second run's last step under the profiler, for its device
+                # time; every rank traces the same step, once, and only the
+                # device (the trace's parse grows with its events).
+                traced = run == 1 and i == len(batches) - 1 and dev.type == "cuda"
+                _sync(dev)
+                t0 = time.perf_counter()
+                with collectives.recording(rec), (
+                        profile(activities=[ProfilerActivity.CUDA]) if traced
+                        else contextlib.nullcontext()) as prof:
+                    shards, state, m = step(shards, state, b)
+                    _sync(dev)
+                wall = 1e3 * (time.perf_counter() - t0)
+                if traced:
+                    rows = device_rows(prof)
+                    out["device_ms"] = sum(ms for _, ms, _ in rows) if rows else None
+                nbytes, coll = collections.Counter(), collections.Counter()
+                for e in rec.events:
+                    if e.axis_size > 1:
+                        nbytes[f"{e.axis} {e.kind}"] += e.bytes
+                for axis, ms in calls[n0:]:
+                    coll[axis] += ms
+                if rank == 0:
+                    print(f"lm mesh rank 0, run {run} step {len(steps)}: {wall:.0f} ms, "
+                          f"collectives {dict(coll)} ms, peak "
+                          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GB", flush=True)
+                steps.append({"loss": float(m["loss"]), "ce": float(m["ce"]),
+                              "aux": float(m["aux"]), "wall_ms": wall,
+                              "collective_ms": dict(coll), "bytes": dict(nbytes),
+                              "model_by_tag": rec.by_tag("model")})
+        finally:
+            torch.distributed.all_reduce = orig
+        runs.append({"steps": steps, "fwd": dict(flash_attention.route_launches),
+                     "bwd": dict(flash_attention.bwd_route_launches),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+        leaves = [t.detach() for t in tree_leaves(shards)]
+        if run == 0:
+            first = [t.clone() for t in leaves]
+            torch.save(dict(zip(param_paths(train_cfg), [t.cpu() for t in leaves])),
+                       pathlib.Path(out_dir) / f"rank{rank}_params.pt")
+        else:
+            out["bitwise"] = (all(torch.equal(a, b) for a, b in zip(first, leaves))
+                              and [s["loss"] for s in runs[0]["steps"]]
+                              == [s["loss"] for s in steps])
+            agree: list = []
+            map_specs(lambda s, w: agree.append(replicas_agree(s, w.detach())), specs, shards)
+            out["replicas_agree"] = all(agree)
+            del first
+        del shards, state, step, leaves
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    out.setdefault("device_ms", None)
+    sspecs = param_specs(cfg, mesh, serving_rules())
+    shards = shards_of(cfg, sspecs)
+    requests = lm_mesh_requests(cfg)
+    engine = ServingEngine(cfg, shards, slots=LM_MESH_ROWS,
+                           max_len=LM_MESH_PROMPT + LM_MESH_NEW, device=dev, mesh=mesh,
+                           specs=sspecs)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    done = engine.run(requests)
+    out["serve"] = {"tokens": np.stack([c.tokens for c in done]),
+                    "prefill_ms": 1e3 * done[0].prefill_s,
+                    "decode_ms": 1e3 * done[0].decode_s / (LM_MESH_NEW - 1),
+                    "fwd": dict(flash_attention.route_launches),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    # Teacher-forced on the single device's tokens, through the engine's own
+    # prefill and decode steps (their working sets are gathered already);
+    # each decode's logits are taken as it runs.
+    _, logits, cache = engine._prefill(shards, wave_batch(cfg, requests, dev))
+    steps = [logits.float().cpu()]
+    fed = torch.as_tensor(tokens, device=dev)
+    with decode_logits_into(steps):
+        for t in range(LM_MESH_NEW - 1):
+            _, cache = engine._decode(shards, fed[:, t:t + 1], cache)
+    out["serve"]["logits"] = logits.float().cpu()
+    out["serve"]["decoded"] = torch.stack(steps, 1)
+    torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
+
+
+def lm_mesh_param_gap(cfg, ranks: list, single: dict, dev) -> float:
+    """The largest |difference| of any parameter element between the ranks'
+    shards (``rank{r}_params.pt``) and the single device's, each rank's
+    block of it cut by the rank's coordinates and ``param_specs``."""
+    from repro_torch.launch.mesh import Mesh, MeshAxis
+    from repro_torch.sharding import map_specs, param_specs
+    from repro_torch.sharding.rules import P, reshard
+
+    worst = 0.0
+    for rk in ranks:
+        held = torch.load(LM_MESH_DIR / f"rank{rk['rank']}_params.pt", mmap=True)
+        view = Mesh(tuple(MeshAxis(name, size, i, None, dry=True) for name, size, i in
+                          zip(("data", "model"), LM_MESH_SHAPE, rk["coords"])), dev, None)
+        specs: list = []
+        map_specs(specs.append, param_specs(cfg, view))
+        for path, spec in zip(param_paths(cfg), specs):
+            want = reshard(single["params"][path], view, P(), spec)
+            diff = (held[path].to(dev).float() - want.to(dev).float()).abs().max()
+            worst = max(worst, float(diff))
+    return worst
+
+
+def drive_lm_mesh(dev: torch.device, report: dict, cfg=None) -> None:
+    """The sharded LM phase: the single-device results first
+    (``lm_mesh_single``, on the same card, freed before the ranks start),
+    then the four rank processes (``lm_mesh_rank``), then the gates, none
+    caught: both sharded runs bitwise on every rank; every holder of a
+    block the same bits; losses and every parameter within LM_MESH_BOUND
+    of the single device's; on 'model' no expert weight and no gradient,
+    the MoE activations one psum a layer each way; 2L forward and L
+    backward flash launches a microbatch on every rank, all on the wgmma
+    routes; the sharded prefill logits within twice the single device's
+    bf16 error against f32 on the rows the two route alike; greedy tokens
+    over LM_MESH_NEW steps equal where the single device's top-2 gap
+    exceeds that bound (``gap_filtered_tokens``). Prints step, collective,
+    memory and serving figures by rank. ``cfg`` is ``lm_mesh_cfg()``'s
+    unless given."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    t_phase = time.perf_counter()
+    card = report.get("nvidia_smi", "card not queried")
+    cfg = cfg or lm_mesh_cfg()
+    train_cfg = dataclasses.replace(cfg, n_layers=LM_MESH_TRAIN_LAYERS)
+    tag = (f"lm mesh ({cfg.name}, {train_cfg.n_layers} layers trained, {cfg.n_layers} served; "
+           f"(data, model) {LM_MESH_SHAPE})")
+    single = lm_mesh_single(dev, train_cfg, cfg)
+    single_s = time.perf_counter() - t_phase
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    world = LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    try:
+        launch_mesh.spawn(lm_mesh_rank, world, (str(LM_MESH_DIR), train_cfg, cfg,
+                                                 single["tokens"]), backend="gloo", device=dev)
+    except Exception:
+        for err in sorted(LM_MESH_DIR.glob("rank*.err")):
+            print(f"{err.name}:\n{err.read_text()}", file=sys.stderr, flush=True)
+        raise
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(LM_MESH_DIR / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    for rk in ranks:
+        if not (rk["bitwise"] and rk["replicas_agree"]):
+            raise AssertionError(f"{tag}: rank {rk['rank']}: two runs bitwise "
+                                 f"{rk['bitwise']}, every holder of a block the same bits "
+                                 f"{rk['replicas_agree']}")
+    losses = [s["loss"] for s in ranks[0]["runs"][0]["steps"]]
+    if any([s["loss"] for s in rk["runs"][0]["steps"]] != losses for rk in ranks):
+        raise AssertionError(f"{tag}: the ranks report other losses")
+    loss_gap = max(abs(a - b) for a, b in zip(losses, single["loss"]))
+    param_gap = lm_mesh_param_gap(train_cfg, ranks, single, dev)
+    if not (loss_gap < LM_MESH_BOUND and param_gap < LM_MESH_BOUND):
+        raise AssertionError(f"{tag}: against the single device: loss gap {loss_gap}, "
+                             f"parameter gap {param_gap} (bound {LM_MESH_BOUND})")
+    # One psum a layer each way of a data shard's tokens in bf16.
+    rows = LM_MESH_ROWS // LM_MESH_SHAPE[0]
+    activations = 2 * train_cfg.n_layers * rows * LM_MESH_SEQ * cfg.d_model * 2
+    model_bytes = [check_model_axis(f"{tag}: rank {rk['rank']} step {i}", s["model_by_tag"],
+                                    activations)
+                   for rk in ranks for i, s in enumerate(rk["runs"][0]["steps"])]
+    micro = LM_MESH_STEPS
+    for rk in ranks:
+        run = rk["runs"][0]
+        want = ({"wgmma": 2 * train_cfg.n_layers * micro},
+                {"wgmma": train_cfg.n_layers * micro})
+        got = ({k: v for k, v in run["fwd"].items() if v}, {k: v for k, v in run["bwd"].items()
+                                                            if v})
+        if got != want:
+            raise AssertionError(f"{tag}: rank {rk['rank']}: flash launches (forward, "
+                                 f"backward) by route {got}, expected {want}")
+    # Serving: the sharded prefill's logits against each shard's single wave.
+    agree = route_agreement(f"{tag} prefill", single["routes"], (LM_MESH_ROWS,))
+    v = cfg.vocab_size
+    err = float((single["l16"] - single["l32"])[:, :v].abs().amax(-1)[agree].max())
+    gaps_seen = {"prefill": 0.0, "decoded": 0.0}
+    for rk in ranks:
+        got = rk["serve"]["logits"]
+        gap = float((got - single["l16"])[:, :v].abs().amax(-1)[agree].max())
+        gaps_seen["prefill"] = max(gaps_seen["prefill"], gap)
+        if not gap <= 2 * err:
+            raise AssertionError(f"{tag}: rank {rk['rank']}: prefill logits {gap:.4g} from "
+                                 f"the single device's, over twice its bf16 error {err:.4g}")
+        tokens = gap_filtered_tokens(f"{tag}: rank {rk['rank']} decode", rk["serve"]["tokens"],
+                                     single["tokens"], single["gaps"], 2 * err)
+        decoded = float((rk["serve"]["decoded"] - single["decoded"])[..., :v].abs().amax(-1)
+                        [agree].max())
+        gaps_seen["decoded"] = max(gaps_seen["decoded"], decoded)
+        if not decoded <= 2 * err:
+            raise AssertionError(f"{tag}: rank {rk['rank']}: teacher-forced decode logits "
+                                 f"{decoded:.4g} from the single device's, over twice its bf16 "
+                                 f"error {err:.4g}")
+    phase_s = time.perf_counter() - t_phase
+    step_ms = [[s["wall_ms"] for s in rk["runs"][0]["steps"]] for rk in ranks]
+    coll = [{axis: round(np.median([s["collective_ms"].get(axis, 0.0)
+                                    for s in rk["runs"][0]["steps"][1:]]), 1)
+             for axis in ("data", "model")} for rk in ranks]
+    summary = {
+        "config": {"arch": cfg.name, "layers": cfg.n_layers,
+                   "train_layers": train_cfg.n_layers, "mesh": LM_MESH_SHAPE,
+                   "tokens_a_step": [LM_MESH_ROWS, LM_MESH_SEQ], "steps": LM_MESH_STEPS,
+                   "serve": [LM_MESH_ROWS, LM_MESH_PROMPT, LM_MESH_NEW]},
+        "losses": losses, "single_losses": single["loss"], "loss_gap": loss_gap,
+        "param_gap": param_gap, "step_ms_by_rank": step_ms,
+        "device_ms_by_rank": [rk["device_ms"] for rk in ranks],
+        "collective_ms_by_rank": coll,
+        "bytes_a_step": ranks[0]["runs"][0]["steps"][-1]["bytes"],
+        "model_axis_bytes": model_bytes[0], "peak_gb_by_rank": [
+            max(r["peak_gb"] for r in rk["runs"]) for rk in ranks],
+        "serve_peak_gb_by_rank": [rk["serve"]["peak_gb"] for rk in ranks],
+        "prefill_ms_by_rank": [rk["serve"]["prefill_ms"] for rk in ranks],
+        "decode_ms_by_rank": [rk["serve"]["decode_ms"] for rk in ranks],
+        "single": {"step_ms": single["step_ms"], "peak_gb": single["peak_gb"]},
+        "prefill_err": err, "tokens": tokens, "rows_routed_alike": int(agree.sum()),
+        "prefill_gap": gaps_seen["prefill"], "decoded_gap": gaps_seen["decoded"],
+        "single_s": single_s, "ranks_s": ranks_s, "phase_s": phase_s,
+    }
+    report["lm_mesh"] = summary
+    print(f"{tag}: two runs bitwise on every rank, every block's holders the same bits; "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)} (single device "
+          f"{' '.join(f'{x:.4f}' for x in single['loss'])}; gap {loss_gap:.3g}), parameters "
+          f"within {param_gap:.3g} (bound {LM_MESH_BOUND}); flash launches a microbatch "
+          f"{2 * train_cfg.n_layers} forward, {train_cfg.n_layers} backward on every rank "
+          "(wgmma)",
+          flush=True)
+    print(f"{tag}: step ms by rank {step_ms}; device ms a step by rank "
+          f"{summary['device_ms_by_rank']}; collective ms a step (median of steps 2-"
+          f"{LM_MESH_STEPS}) by rank {coll}; bytes a step by axis and kind "
+          f"{summary['bytes_a_step']}; on 'model' {model_bytes[0]}; peak GB by rank "
+          f"{[round(x, 2) for x in summary['peak_gb_by_rank']]} [{card}]", flush=True)
+    print(f"{tag}: serving under serving_rules: prefill {LM_MESH_ROWS} x {LM_MESH_PROMPT} "
+          f"ms by rank {[round(x, 1) for x in summary['prefill_ms_by_rank']]}, decode ms a "
+          f"token {[round(x, 2) for x in summary['decode_ms_by_rank']]}; prefill logits "
+          f"within twice the single device's bf16 error {err:.4g} on "
+          f"{summary['rows_routed_alike']} of {LM_MESH_ROWS} rows, teacher-forced decode "
+          f"logits within {summary['decoded_gap']:.4g}; greedy tokens equal on "
+          f"{tokens['compared']} of {tokens['tokens']} (top-2 gap above {2 * err:.4g}); single "
+          f"device {single_s:.1f} s, ranks {ranks_s:.1f} s, phase {phase_s:.1f} s [{card}]",
+          flush=True)
 
 
 def ptxas_kernels(lines: list) -> list:
@@ -6209,6 +6800,18 @@ def split_label(fn: str) -> str:
             if m else fn[:40])
 
 
+PHASE_S: dict = {}  # each phase of ``main``: its wall seconds
+
+
+def phase(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``PHASE_S[name]`` and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6226,9 +6829,8 @@ def main() -> None:
                     "l2_bytes": torch.cuda.get_device_properties(0).L2_cache_size}
 
     # Phase 1: build.
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    report["build_s"] = time.perf_counter() - t0
+    libs = phase("build", _build.build_all)
+    report["build_s"] = PHASE_S["build"]
     print(f"build: {len(libs)} kernel libraries in {report['build_s']:.1f} s", flush=True)
     for name, lib in libs.items():
         log = (lib.parent / f"{name}.log").read_text()
@@ -6282,31 +6884,36 @@ def main() -> None:
     # Both GBDT main paths run before any kernel check (see ``drive``); the
     # realsim checks take every pending device time, the multiclass
     # checks' too.
-    gbdt = drive(torch.device("cuda"))
-    drive_handoff(gbdt, report)
-    phase = drive_e2006(torch.device("cuda"), gbdt)
-    check_e2006(phase, report)
-    threads = drive_threads(torch.device("cuda"), gbdt)
-    threads_checked = check_threads(threads, report)
-    mesh = drive_mesh(torch.device("cuda"), gbdt)
-    mesh_checked = check_mesh(mesh, gbdt, report)
-    multi = drive_multiclass(torch.device("cuda"), gbdt)
-    checked = check_multiclass(multi, gbdt, report)
-    phase_shapes = check_e2006_kernels(phase, report)
-    mesh_shapes = check_mesh_kernels(gbdt, report)
-    line = check_drive(gbdt, report)
+    cuda = torch.device("cuda")
+    gbdt = phase("drive", drive, cuda)
+    phase("handoff", drive_handoff, gbdt, report)
+    e2006 = phase("e2006", drive_e2006, cuda, gbdt)
+    phase("check_e2006", check_e2006, e2006, report)
+    threads = phase("threads", drive_threads, cuda, gbdt)
+    threads_checked = phase("check_threads", check_threads, threads, report)
+    mesh = phase("mesh", drive_mesh, cuda, gbdt)
+    mesh_checked = phase("check_mesh", check_mesh, mesh, gbdt, report)
+    multi = phase("multiclass", drive_multiclass, cuda, gbdt)
+    checked = phase("check_multiclass", check_multiclass, multi, gbdt, report)
+    e2006_shapes = phase("check_e2006_kernels", check_e2006_kernels, e2006, report)
+    mesh_shapes = phase("check_mesh_kernels", check_mesh_kernels, gbdt, report)
+    line = phase("check_drive", check_drive, gbdt, report)
     line += multiclass_line(multi, checked, report)
-    line += e2006_line(phase, phase_shapes, report)
+    line += e2006_line(e2006, e2006_shapes, report)
     line += threads_line(threads, threads_checked, report)
     line += mesh_line(mesh_checked, mesh_shapes)
-    del gbdt, multi, phase, threads
-    line.append(drive_lm(torch.device("cuda"), report))
-    line += drive_lm_train(torch.device("cuda"), report)
-    drive_lm_packed(torch.device("cuda"), report)
-    line += drive_hybrid(torch.device("cuda"), report)
-    line += drive_moe(torch.device("cuda"), report)
-    line += drive_media(torch.device("cuda"), report)
-    drive_xlstm(torch.device("cuda"), report)
+    del gbdt, multi, e2006, threads
+    line.append(phase("lm", drive_lm, cuda, report))
+    line += phase("lm_train", drive_lm_train, cuda, report)
+    phase("lm_packed", drive_lm_packed, cuda, report)
+    line += phase("hybrid", drive_hybrid, cuda, report)
+    line += phase("moe", drive_moe, cuda, report)
+    line += phase("media", drive_media, cuda, report)
+    phase("xlstm", drive_xlstm, cuda, report)
+    phase("lm_mesh", drive_lm_mesh, cuda, report)
+    report["phase_s"] = PHASE_S
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}),
+          flush=True)
     report["profiler_sees_device"] = _PROFILER.get("sees_device")
     report["profiler_traces_taken_again"] = _PROFILER.get("traces_taken_again", 0)
     out_dir = ROOT / "chiprun_out"

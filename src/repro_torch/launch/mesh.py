@@ -1,12 +1,16 @@
-"""The GBDT training mesh over ``torch.distributed`` (twin of the GBDT part
-of ``repro.launch.mesh``).
+"""Meshes over ``torch.distributed`` (twin of ``repro.launch.mesh``): the
+GBDT training mesh and the LM's (data, model) mesh.
 
-A mesh is the grid of ranks the sharded build runs on: ``n_data`` rows of
-samples by ``n_feature`` columns of features. Rank r sits at (r //
-n_feature, r % n_feature), as ``jax.make_mesh((n_data, n_feature))`` lays
-out devices. Each axis carries the ``torch.distributed`` subgroup of this
-rank's row or column, its size and this rank's index on it
-(``MeshAxis``); ``collectives`` reduces over those groups.
+A mesh is a grid of ranks. The GBDT mesh (``make_gbdt_mesh``) is
+``n_data`` rows of samples by ``n_feature`` columns of features; the LM
+mesh (``make_lm_mesh``) is ``n_data`` batch shards by ``n_model`` expert
+(and tensor) shards. Rank r sits at (r // n_cols, r % n_cols), as
+``jax.make_mesh`` lays out devices. Each axis carries the
+``torch.distributed`` subgroup of this rank's row or column, its size and
+this rank's index on it (``MeshAxis``); ``collectives`` reduces over those
+groups. ``make_host_mesh`` is the reference's degenerate 1 x 1 LM mesh in
+one process: its one-rank axes hold no process group, and a collective
+over them is the identity.
 
 Ranks are started by ``spawn`` (one command starts them all, through
 ``torch.multiprocessing``) or joined from the environment ``torchrun`` sets
@@ -19,9 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import socket
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -35,16 +42,17 @@ class MeshAxis:
     name: str
     size: int
     index: int  # this rank's coordinate on the axis
-    group: object | None  # the axis's process group; None on a dry mesh
+    group: object | None  # the axis's process group; None on a dry or one-rank axis
+    dry: bool = False  # a dry mesh's axis: its collectives only count bytes
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class GbdtMesh:
+class Mesh:
     """The rank grid: its axes in order, the device and the backend."""
 
     axes: tuple[MeshAxis, ...]
     device: torch.device
-    backend: str | None  # None on a dry mesh
+    backend: str | None  # None where no process group is held (dry, host)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -66,6 +74,36 @@ def default_backend(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
 
 
+def _make_grid(shape: tuple[tuple[str, int], ...], backend: str | None,
+               device: str | torch.device | None) -> Mesh:
+    """The mesh of ``shape`` ((axis, size) pairs, major first) over the
+    default process group, which must hold every rank of the grid. Every
+    rank makes every subgroup, in one order (``new_group`` requires it):
+    axis by axis, one group for each coordinate of the other axes."""
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs ranks: the default process group is not initialised "
+                           "(start the ranks with launch.mesh.spawn or torchrun)")
+    sizes = [n for _, n in shape]
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != math.prod(sizes):
+        raise ValueError(f"a {tuple(sizes)} mesh needs {math.prod(sizes)} "
+                         f"ranks, the process group has {world}")
+    dev = resolve_device(device)
+    backend = backend or default_backend(dev)
+    coords = [int(c) for c in np.unravel_index(rank, sizes)]
+    axes = []
+    for i, (name, size) in enumerate(shape):
+        mine = None
+        for rest in itertools.product(*(range(n) for j, n in enumerate(sizes) if j != i)):
+            members = [int(np.ravel_multi_index(rest[:i] + (k,) + rest[i:], sizes))
+                       for k in range(size)]
+            g = dist.new_group(members, backend=backend)
+            if list(rest) == coords[:i] + coords[i + 1:]:
+                mine = g
+        axes.append(MeshAxis(name, size, coords[i], mine))
+    return Mesh(tuple(axes), dev, backend)
+
+
 def make_gbdt_mesh(
     n_data: int = 1,
     n_feature: int = 1,
@@ -73,59 +111,49 @@ def make_gbdt_mesh(
     backend: str | None = None,
     device: str | torch.device | None = None,
     feature_axis: bool = True,
-) -> GbdtMesh:
+) -> Mesh:
     """The block-distributed GBDT mesh: ``n_data`` sample shards by
     ``n_feature`` feature shards, axes ``("data", "feature")``.
     ``feature_axis=False`` (with ``n_feature`` 1) gives the 1-D
     ``("data",)`` mesh.
 
     The default process group must be initialised with ``n_data *
-    n_feature`` ranks. Every rank makes the same meshes in the same order
-    (each makes every subgroup, as ``new_group`` requires). The device is
-    the card unless one is given.
+    n_feature`` ranks. Every rank makes the same meshes in the same order.
+    The device is the card unless one is given.
     """
     if n_data < 1 or n_feature < 1:
         raise ValueError(f"mesh shape must be positive, got ({n_data}, {n_feature})")
     if not feature_axis and n_feature != 1:
         raise ValueError("a 1-D ('data',) mesh has no feature shards")
-    if not dist.is_initialized():
-        raise RuntimeError("make_gbdt_mesh: the default process group is not initialised "
-                           "(start the ranks with launch.mesh.spawn or torchrun)")
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if world != n_data * n_feature:
-        raise ValueError(f"a ({n_data}, {n_feature}) mesh needs {n_data * n_feature} "
-                         f"ranks, the process group has {world}")
-    dev = resolve_device(device)
-    backend = backend or default_backend(dev)
-    d, f = divmod(rank, n_feature)
-    data_group = feature_group = None
-    for col in range(n_feature):  # every rank makes every group, in one order
-        g = dist.new_group([row * n_feature + col for row in range(n_data)], backend=backend)
-        if col == f:
-            data_group = g
-    axes = [MeshAxis("data", n_data, d, data_group)]
-    if feature_axis:
-        for row in range(n_data):
-            g = dist.new_group([row * n_feature + col for col in range(n_feature)],
-                               backend=backend)
-            if row == d:
-                feature_group = g
-        axes.append(MeshAxis("feature", n_feature, f, feature_group))
-    return GbdtMesh(tuple(axes), dev, backend)
+    shape = (("data", n_data), ("feature", n_feature)) if feature_axis else (("data", n_data),)
+    return _make_grid(shape, backend, device)
 
 
-def make_host_mesh(*, backend: str | None = None,
-                   device: str | torch.device | None = None) -> GbdtMesh:
-    """The degenerate 1 x 1 mesh on a world of one rank."""
-    return make_gbdt_mesh(1, 1, backend=backend, device=device)
+def make_lm_mesh(n_data: int = 1, n_model: int = 1, *, backend: str | None = None,
+                 device: str | torch.device | None = None) -> Mesh:
+    """The LM's mesh: ``n_data`` batch (and FSDP) shards by ``n_model``
+    expert shards, axes ``("data", "model")``, over a default process group
+    of ``n_data * n_model`` ranks, made as ``make_gbdt_mesh`` makes its."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"mesh shape must be positive, got ({n_data}, {n_model})")
+    return _make_grid((("data", n_data), ("model", n_model)), backend, device)
 
 
-def make_dry_mesh(shape: dict[str, int], device: str | torch.device = "cpu") -> GbdtMesh:
+def make_host_mesh(*, device: str | torch.device | None = None) -> Mesh:
+    """The reference's degenerate 1 x 1 ``("data", "model")`` mesh, in this
+    process alone: no process group, no ``torch.distributed`` world; every
+    collective over it returns its input. GBDT callers use
+    ``make_gbdt_mesh(1, 1)``."""
+    axes = (MeshAxis("data", 1, 0, None), MeshAxis("model", 1, 0, None))
+    return Mesh(axes, resolve_device(device), None)
+
+
+def make_dry_mesh(shape: dict[str, int], device: str | torch.device = "cpu") -> Mesh:
     """A mesh of the given ``{axis: size}`` without process groups, seen from
     the rank at the origin: its collectives only count bytes, inside
     ``collectives.dry`` (``ps.sharded.collective_bytes_per_build``)."""
-    axes = tuple(MeshAxis(name, int(size), 0, None) for name, size in shape.items())
-    return GbdtMesh(axes, torch.device(device), None)
+    axes = tuple(MeshAxis(name, int(size), 0, None, dry=True) for name, size in shape.items())
+    return Mesh(axes, torch.device(device), None)
 
 
 def rank_device(rank: int, device: str | torch.device) -> torch.device:

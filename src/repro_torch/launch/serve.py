@@ -1,6 +1,8 @@
 """Serving driver (twin of ``repro.launch.serve``), on the card unless
 ``--device cpu``. The LM zoo: seeded weights, a batch of seeded prompts
-prefilled once, then greedy decode against the cache:
+prefilled once, then greedy decode against the cache, through the mesh
+forms of the steps on the host mesh (``launch.mesh.make_host_mesh``, 1 x
+1), as the reference's CLI runs them:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b \
         [--full] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0]
@@ -44,9 +46,11 @@ def run_lm(args) -> np.ndarray:
     decode greedily to ``--gen`` tokens each; prints the times and a
     sample, checks every token is in the vocab and returns them (B, gen)."""
     import repro_torch.configs as configs
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_params
     from repro_torch.models.cache import require_ported, torch_dtype
+    from repro_torch.sharding import batch_axes
 
     cfg = configs.get(args.arch)
     if args.reduced:
@@ -55,8 +59,10 @@ def run_lm(args) -> np.ndarray:
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev)
-    prefill_fn = make_prefill_step(cfg, max_len=args.prompt_len + args.gen)
-    decode_fn = make_decode_step(cfg)
+    mesh = make_host_mesh(device=dev)
+    baxes = batch_axes(mesh)
+    prefill_fn = make_prefill_step(cfg, mesh, baxes, max_len=args.prompt_len + args.gen)
+    decode_fn = make_decode_step(cfg, mesh, baxes)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
                             device=dev, dtype=torch.int32)
     batch = {"tokens": prompts}

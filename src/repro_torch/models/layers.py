@@ -1,6 +1,6 @@
 """Transformer building blocks: norms, rope, self-attention, the SwiGLU
-MLP and the MoE FFN (twin of ``repro.models.layers`` without its
-expert-parallel branch), which the dense and MoE layers, the hybrid
+MLP and the MoE FFN (twin of ``repro.models.layers``), which the dense and
+MoE layers, the hybrid
 family's shared block, whisper's encoder and decoder and the VLM's gated
 cross-attention layers are made of.
 
@@ -14,18 +14,24 @@ unifies full attention (capacity = max_len) and a sliding window
 (capacity = window) under one code path.
 Dtype casts stand where the reference has them.
 
-The MoE FFN runs on one device: top-k routing, then each expert, one
-after another, on a fixed-capacity dispatch of its tokens (slot = rank
-among the expert's tokens in token order; tokens past the capacity are
-dropped), and the outputs added back to their rows in expert order. It
-syncs nothing with the host (no mask indexing, ``nonzero`` or
-``.item()``; every shape follows from T, E and the capacity), and its sum
-is the same on every run: a row takes at most one add an expert.
+The MoE FFN: top-k routing, then each expert, one after another, on a
+fixed-capacity dispatch of its tokens (slot = rank among the expert's
+tokens in token order; tokens past the capacity are dropped), and the
+outputs added back to their rows in expert order. It syncs nothing with
+the host (no mask indexing, ``nonzero`` or ``.item()``; every shape
+follows from T, E and the capacity), and its sum is the same on every
+run: a row takes at most one add an expert. On a (data, model) mesh each
+model rank runs its E / tp experts on its batch shard's tokens, with the
+capacity of its shard, and one psum over 'model' combines them (the
+reference's expert-parallel ``shard_map`` branch; ``moe_ffn``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch import collectives
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
@@ -306,15 +312,67 @@ def moe_capacity(cfg: ModelConfig, tokens: int, capacity: int | None = None) -> 
     return max(1, int(cfg.top_k * tokens / cfg.n_experts * cfg.capacity_factor))
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+def moe_ff_axis(cfg: ModelConfig, mesh, batch_axes: tuple) -> str | None:
+    """The mesh axis each expert's d_ff is cut over: 'data' when the batch
+    does not use it (``batch_axes`` empty, as at decode), it has more than
+    one rank and divides d_ff; else None (the reference's rule)."""
+    data = dict(mesh.shape).get("data", 1)
+    return "data" if not batch_axes and data > 1 and cfg.d_ff % data == 0 else None
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+            batch_axes: tuple[str, ...] = ("data",), model_axis: str = "model",
             capacity: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN on one device (the reference's ``mesh=None`` branch):
-    route the (B, S) tokens, run every expert on its fixed-capacity
-    dispatch and combine. ``capacity``: None for the capacity-factor rule,
-    -1 for all tokens (decode). Returns (out (B, S, D), aux)."""
+    """The MoE FFN -> (out (B, S, D), aux). ``capacity``: None for the
+    capacity-factor rule, -1 for every token (decode).
+
+    Without a mesh, or on one where nothing is cut (``model_axis``, the
+    batch axes and the d_ff route all of one rank: the host mesh), it runs
+    on one device (the reference's ``mesh=None`` branch): route the (B, S)
+    tokens, run every expert on its fixed-capacity dispatch and combine.
+    Where ``model_axis`` has one rank but the batch is cut, it takes the
+    mesh branch all the same (E / 1 experts; the reference takes its
+    one-device branch there on the global batch): ``x`` is then this
+    rank's block, so the capacity is the shard's and ``aux`` the mean over
+    the shards, as at tp > 1.
+
+    On a mesh (``launch.mesh.make_lm_mesh``; the reference's
+    expert-parallel branch), ``x`` is this rank's block of the batch over
+    ``batch_axes``, the same on every rank of ``model_axis`` (with
+    ``batch_axes`` empty, the whole batch on every rank: the caller cuts
+    the batch, and falls back to no cut where the batch does not divide
+    over the axes, as the reference does). ``p["wg"]``, ``"wu"`` and
+    ``"wd"`` hold this rank's E / tp experts, and on the route that cuts
+    d_ff over 'data' (``moe_ff_axis``) this rank's d_ff block of each;
+    the router ``wr`` is whole. The capacity is the shard's: T_loc =
+    (B / dp) x S tokens. The partial outputs are summed over 'model'
+    (and 'data' on the d_ff route) and ``aux`` is the mean over the batch
+    shards. For the backward, the tokens and the combine weights enter
+    the experts through ``collectives.copy_to`` (Megatron's f): each rank's
+    gradient of them holds only its experts' share, so it is summed over
+    the same axes, which also sums the router's share of ``wr``'s
+    gradient; the aux term's gradient is whole on every rank and does not
+    pass there, so it is not summed again.
+    """
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     weights, ids, aux = _router(p, xf, cfg)
-    out = _expert_block(xf, ids, weights, p["wg"], p["wu"], p["wd"], 0,
-                        moe_capacity(cfg, xf.shape[0], capacity))
+    cap = moe_capacity(cfg, xf.shape[0], capacity)
+    names = dict(mesh.shape) if mesh is not None else {}
+    shards = tuple(mesh.axis(a) for a in batch_axes if names.get(a, 1) > 1) if names else ()
+    ff_axis = moe_ff_axis(cfg, mesh, batch_axes) if names else None
+    if names.get(model_axis, 1) == 1 and not shards and ff_axis is None:
+        out = _expert_block(xf, ids, weights, p["wg"], p["wu"], p["wd"], 0, cap)
+        return out.reshape(b, s, d), aux
+    model = mesh.axis(model_axis)
+    e_loc = cfg.n_experts // model.size
+    if cfg.n_experts % model.size or p["wg"].shape[0] != e_loc:
+        raise ValueError(f"{cfg.n_experts} experts over {model.size} '{model_axis}' ranks: "
+                         f"this rank holds {p['wg'].shape[0]}, expected {e_loc}")
+    axes = (model,) + ((mesh.axis(ff_axis),) if ff_axis else ())
+    out = _expert_block(collectives.copy_to(xf, axes, "moe.x"), ids,
+                        collectives.copy_to(weights, axes, "moe.weights"),
+                        p["wg"], p["wu"], p["wd"], model.index * e_loc, cap)
+    out = collectives.reduce_from(out, axes, "moe.out")
+    aux = collectives.reduce_from(aux, shards, "moe.aux") / math.prod(a.size for a in shards)
     return out.reshape(b, s, d), aux

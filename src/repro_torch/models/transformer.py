@@ -14,13 +14,16 @@ outputs of its batch-free matmuls (``_DOTS_SAVED``). Packed rows
 (``segments``) train on the dense and MoE families. Prefill and decode
 run under ``torch.inference_mode()``.
 
-The MoE family (phi3.5-moe, dbrx) stacks layers of attention and the
-one-device ``layers.moe_ffn`` (``moe``: the router ``wr`` (D, E) and the
-experts' ``wg``, ``wu`` (E, D, F) and ``wd`` (E, F, D)); the train
-backbone sums each layer's router aux loss into the loss (weighted by
+The MoE family (phi3.5-moe, dbrx) stacks layers of attention and
+``layers.moe_ffn`` (``moe``: the router ``wr`` (D, E) and the experts'
+``wg``, ``wu`` (E, D, F) and ``wd`` (E, F, D)); the train backbone sums
+each layer's router aux loss into the loss (weighted by
 ``router_aux_weight``) and takes ``remat_policy`` as the dense one does;
 prefill routes by the capacity-factor rule, decode with every token kept
-(``capacity=-1``), as the reference does.
+(``capacity=-1``), as the reference does. ``forward_train``,
+``backbone_train``, ``prefill`` and ``decode_step`` take ``mesh`` and
+``batch_axes`` for ``moe_ffn``'s expert-parallel branch (the sharded
+steps of ``launch.steps``).
 
 The hybrid family (zamba2) scans groups of ``shared_attn_every`` Mamba2
 layers, each group followed by the one shared attention + MLP block (the
@@ -56,12 +59,13 @@ each sLSTM layer's (c, n, m, h); decode writes them in place.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch import resolve_device
+from repro_torch import collectives, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
@@ -380,10 +384,11 @@ def _dense_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
 
 
 def _moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
-               segments: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               segments: torch.Tensor | None = None, mesh=None,
+               batch_axes: tuple = ("data",)) -> tuple[torch.Tensor, torch.Tensor]:
     x = x + L.self_attention_train(p["attn"], L.rms_norm(x, p["ln1"]), cfg, window,
                                    segments=segments)
-    out, aux = L.moe_ffn(p["moe"], L.rms_norm(x, p["ln2"]), cfg)
+    out, aux = L.moe_ffn(p["moe"], L.rms_norm(x, p["ln2"]), cfg, mesh, batch_axes)
     return x + out, aux
 
 
@@ -474,21 +479,25 @@ def _maybe_checkpoint(cfg: ModelConfig, fn, *args, policy: str = "full"):
 
 def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    segments: torch.Tensor | None = None,
-                   media: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                   media: torch.Tensor | None = None, mesh=None,
+                   batch_axes: tuple = ("data",)) -> tuple[torch.Tensor, torch.Tensor]:
     """Hidden states (B, S, D) of the teacher-forced sequence, and the MoE
     aux loss (the sum of the layers' router losses; 0 for the other
     families), from embedded tokens x (B, S, D). ``segments`` (B, S),
     packed-document ids (0 = padding), mask the dense and MoE families'
     attention; their layers read ``cfg.remat_policy`` ("dots", or anything
     else for "full"), the other families' do not. ``media`` (B, M, D) is
-    what the VLM's cross layers and whisper's encoder read."""
+    what the VLM's cross layers and whisper's encoder read. ``mesh`` and
+    ``batch_axes`` go to ``layers.moe_ffn`` (x is then this rank's block of
+    the batch over ``batch_axes``); the other layers run on this rank's
+    rows alone."""
     require_ported(cfg)
     window = cfg.window_for(x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "moe":
         for p in unstack(params["layers"]):
-            x, a = _maybe_checkpoint(cfg, _moe_block, p, x, cfg, window, segments,
-                                     policy=cfg.remat_policy)
+            x, a = _maybe_checkpoint(cfg, _moe_block, p, x, cfg, window, segments, mesh,
+                                     batch_axes, policy=cfg.remat_policy)
             aux = aux + a
     elif cfg.family == "vlm":  # one checkpoint a group, no policy (the reference's)
         for group in unstack(params["groups"]):
@@ -518,8 +527,8 @@ def backbone_train(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return x, aux
 
 
-def forward_train(params: Params, cfg: ModelConfig,
-                  batch: dict) -> tuple[torch.Tensor, dict]:
+def forward_train(params: Params, cfg: ModelConfig, batch: dict, mesh=None,
+                  batch_axes: tuple = ("data",)) -> tuple[torch.Tensor, dict]:
     """Teacher-forced LM loss. batch: tokens (B, S), labels (B, S),
     [media (B, M, D) — the VLM's and whisper's frontend embeddings],
     [segments (B, S) — packed-document ids, 0 = padding, dense and MoE],
@@ -530,7 +539,13 @@ def forward_train(params: Params, cfg: ModelConfig,
     positions included, as in the reference. Packed rows run the chunked
     attention even under ``attn_impl="flash"``
     (``layers.self_attention_train``); the other families raise
-    ``ValueError`` for them, as the reference does."""
+    ``ValueError`` for them, as the reference does.
+
+    On a mesh (``launch.steps.make_train_step``) the batch is this rank's
+    block over ``batch_axes`` and the loss, ce and aux are the global
+    batch's: ce's numerator and denominator are summed over the batch
+    shards (``collectives.reduce_from``: each rank's gradient is then its
+    share of the global one, which the step sums)."""
     require_ported(cfg)
     segments = batch.get("segments")
     if segments is not None and cfg.family not in ("dense", "moe"):
@@ -538,16 +553,24 @@ def forward_train(params: Params, cfg: ModelConfig,
             "packed segments need attention masking; recurrent families "
             "would need per-segment state resets (not implemented)")
     x = params["embed"][batch["tokens"].long()]
-    x, aux = backbone_train(params, cfg, x, segments, batch.get("media"))
+    x, aux = backbone_train(params, cfg, x, segments, batch.get("media"), mesh, batch_axes)
     logits = _logits(params, cfg, x).float()  # (B, S, Vpad)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     per_seq = (logz - gold).mean(dim=-1)  # (B,)
     w = batch.get("weights")
-    if w is None:
+    shards = tuple(mesh.axis(a) for a in batch_axes
+                   if mesh.axis(a).size > 1) if mesh is not None else ()
+    if not shards and w is None:
         ce = per_seq.mean()
-    else:
+    elif not shards:
         ce = (w * per_seq).sum() / torch.clamp(w.sum(), min=1e-6)
+    elif w is None:
+        rows = per_seq.shape[0] * math.prod(a.size for a in shards)
+        ce = collectives.reduce_from(per_seq.sum() / rows, shards, "loss.ce")
+    else:
+        total = torch.clamp(collectives.psum(w.sum(), shards, "loss.weights"), min=1e-6)
+        ce = collectives.reduce_from((w * per_seq).sum() / total, shards, "loss.ce")
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -589,22 +612,25 @@ def _ring_from_kv(ks: torch.Tensor, vs: torch.Tensor, cap: int) -> dict:
     }
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, capacity: int | None = None):
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, capacity: int | None = None,
+         mesh=None, batch_axes: tuple = ("data",)):
     """A serving layer's feed-forward part: the MoE FFN (its aux dropped) on
     a layer that has one, else the MLP."""
     if "moe" in p:
-        return L.moe_ffn(p["moe"], x, cfg, capacity)[0]
+        return L.moe_ffn(p["moe"], x, cfg, mesh, batch_axes, capacity=capacity)[0]
     return L.mlp(p["mlp"], x)
 
 
 @torch.inference_mode()
-def prefill(params: Params, cfg: ModelConfig, batch: dict,
-            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int | None = None,
+            mesh=None, batch_axes: tuple = ("data",)) -> tuple[torch.Tensor, dict]:
     """Score the prompt and build the decode cache. batch: tokens (B, S),
     [media (B, M, D): the VLM's and whisper's frontend embeddings].
     ``max_len`` is the total context budget (prompt + decode headroom);
     the attention cache capacity is ``cfg.window_for(max_len)``. Returns
     (last-position logits (B, Vpad), cache) in the ``models.cache`` layout.
+    ``mesh`` and ``batch_axes`` go to ``layers.moe_ffn``, as in
+    ``backbone_train``.
     """
     require_ported(cfg)
     tokens = batch["tokens"]
@@ -623,7 +649,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
 
     def attn_block(p, x):
         x = self_attn(p, x)
-        return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg)
+        return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg, mesh=mesh, batch_axes=batch_axes)
 
     cache: dict = {"pos": torch.tensor(s, dtype=torch.int32, device=x.device)}
     if cfg.family in ("dense", "moe"):
@@ -710,9 +736,11 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
 
 
 @torch.inference_mode()
-def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: dict) -> tuple[torch.Tensor, dict]:
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                mesh=None, batch_axes: tuple = ("data",)) -> tuple[torch.Tensor, dict]:
     """One token (B, 1) against the cache -> (logits (B, Vpad), cache').
+    ``mesh`` and ``batch_axes`` go to ``layers.moe_ffn`` (the sharded
+    decode step passes ``batch_axes=()``: every rank holds every row).
 
     The cache is updated in place (each attention layer writes the slot of
     ``pos``, each Mamba2 layer its state and conv rows, each mLSTM and
@@ -734,7 +762,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     def attn_block(p, x, i):
         x = self_attn(p, x, i)
-        return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg, capacity=-1)
+        return x + _ffn(p, L.rms_norm(x, p["ln2"]), cfg, capacity=-1, mesh=mesh,
+                        batch_axes=batch_axes)
 
     def media(i):
         return cache["media_k"][i], cache["media_v"][i]

@@ -27,6 +27,7 @@ outside autograd (``torch.no_grad()``), as ``launch.steps`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -93,15 +94,34 @@ def chain(*transforms: Optimizer) -> Optimizer:
 
 
 # ---------------------------------------------------------------- transforms
+_NORM_BY: list = []
+
+
+@contextlib.contextmanager
+def global_norm_by(total: Callable[[list], torch.Tensor]):
+    """Inside the block, ``clip_by_global_norm`` takes the squared global
+    norm as ``total(squares)`` of its leaves' squared norms (in
+    ``tree_leaves`` order): the sharded train step sums each shard's over
+    the ranks that hold the rest of its leaf (``launch.steps``)."""
+    _NORM_BY.append(total)
+    try:
+        yield
+    finally:
+        _NORM_BY.pop()
+
+
 def clip_by_global_norm(max_norm: float) -> Optimizer:
     def init(params):
         return ()
 
     def update(grads, state, params):
-        total = 0
+        squares = []
         for g in tree_leaves(grads):
+            leaf = 0
             for (c,) in chunks(g):
-                total = total + c.float().square().sum()
+                leaf = leaf + c.float().square().sum()
+            squares.append(torch.as_tensor(leaf, dtype=torch.float32, device=g.device))
+        total = (_NORM_BY[-1] if _NORM_BY else sum)(squares)
         gn = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
         factor = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
         for g in tree_leaves(grads):

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch import collectives
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import GbdtMesh, make_dry_mesh
+from repro_torch.launch.mesh import Mesh, make_dry_mesh
 from repro_torch.sharding.rules import block, shard_bins
 from repro_torch.trees.binning import SparseBins
 from repro_torch.trees.learner import LearnerConfig, build_tree
@@ -45,7 +45,7 @@ def _shard_cache(cut):
     return get
 
 
-def make_sharded_builder(cfg: LearnerConfig, mesh: GbdtMesh, axis_name: str = "data"):
+def make_sharded_builder(cfg: LearnerConfig, mesh: Mesh, axis_name: str = "data"):
     """A tree builder ``(bins, g, h, feat_mask) -> Tree`` running
     data-parallel over ``axis_name``: this rank builds on its samples, the
     histograms, smaller-child counts and leaf statistics psum across the
@@ -70,7 +70,7 @@ def make_sharded_builder(cfg: LearnerConfig, mesh: GbdtMesh, axis_name: str = "d
 
 def make_sharded_builder_2d(
     cfg: LearnerConfig,
-    mesh: GbdtMesh,
+    mesh: Mesh,
     data_axis: str = "data",
     feature_axis: str = "feature",
 ):
@@ -104,7 +104,7 @@ def _cpu_bins(bins):
 
 def collective_bytes_per_build(
     cfg: LearnerConfig,
-    mesh_or_shape,  # a GbdtMesh, or its {axis: size} shape
+    mesh_or_shape,  # a Mesh, or its {axis: size} shape
     bins,  # (N, F) tensor or shape, or a SparseBins
     data_axis: str = "data",
     feature_axis: str | None = None,
@@ -135,7 +135,7 @@ def collective_bytes_per_build(
 
 
 def build_histogram_sharded(
-    mesh: GbdtMesh,
+    mesh: Mesh,
     bins: torch.Tensor,
     node_ids: torch.Tensor,
     grad: torch.Tensor,

@@ -11,6 +11,13 @@ and each pad slot, gets zeros; the wave's media are cast to ``cfg.dtype``.
 The recurrent families (hybrid, xLSTM) refuse at ``submit`` a prompt that
 does not divide into chunks of ``min(ssm_chunk, P)`` (the reference's
 chunk scans assert it), rather than pad it.
+
+On a mesh (``mesh=``, a ``launch.mesh.make_lm_mesh`` grid or the host
+mesh) every rank runs the engine on the same requests with its shards of
+the parameters (placed by ``specs``, ``param_specs(cfg, mesh)`` if None):
+the prefill cuts a wave's rows over ``sharding.batch_axes(mesh)`` and
+every rank gets the whole wave's tokens back, so every rank's answers
+are the same (``launch.steps``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.cache import require_ported, torch_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import chunk_of
+from repro_torch.sharding import batch_axes
 
 
 @dataclasses.dataclass
@@ -54,6 +62,8 @@ class ServingEngine:
         max_len: int = 512,
         eos_id: int | None = None,
         device: str | torch.device | None = None,
+        mesh=None,
+        specs: dict | None = None,
     ):
         require_ported(cfg)
         self.device = resolve_device(device)
@@ -65,8 +75,10 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
-        self._prefill = make_prefill_step(cfg, max_len=max_len)
-        self._decode = make_decode_step(cfg)
+        self.mesh = mesh
+        baxes = batch_axes(mesh) if mesh is not None else ()
+        self._prefill = make_prefill_step(cfg, mesh, baxes, max_len=max_len, specs=specs)
+        self._decode = make_decode_step(cfg, mesh, baxes, specs=specs)
         self._queue: collections.deque[Request] = collections.deque()
 
     def submit(self, req: Request) -> None:

@@ -11,9 +11,17 @@ shard, is not used by an earlier dim of the same tensor, and divides what
 is left of the dim, is taken. A ``PartitionSpec`` here is a tuple of
 entries (an axis name, a tuple of names, or None), normalised as the
 reference's is. These functions read only ``mesh.shape``, so a
-``launch.mesh.make_dry_mesh`` stands in for a mesh of any size; placing
-tensors by the specs (the reference's ``named`` and ``tree_shardings``)
-comes with the sharded LM step.
+``launch.mesh.make_dry_mesh`` stands in for a mesh of any size.
+
+Placing tensors by the specs: ``named(mesh, spec)`` is the reference's
+``NamedSharding``, a ``Placement`` whose ``shard`` cuts this rank's block
+of a whole tensor along every dim the spec names (a tuple entry is taken
+major first, as a ``PartitionSpec``'s is) and whose ``gather`` gives the
+whole back (``collectives.gather``); ``tree_shardings`` maps ``named``
+over a tree of specs (``sharding.policy``'s), and ``map_specs`` maps a
+function over such a tree and the trees that match it. ``reshard`` moves a
+tensor from one spec's block to another's, gathering only the axes the
+first has and the second lacks on a dim.
 
 GBDT part. The reference names a ``PartitionSpec`` per leaf and lets
 ``shard_map`` cut the blocks. Here every rank holds the whole dataset (the
@@ -26,10 +34,12 @@ sharded builders (``ps.sharded``) share.
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Sequence
+import dataclasses
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch import collectives
 from repro_torch.trees.binning import BinnedData, SparseBins
 
 # Logical axis -> mesh-axis candidates, in order (the reference's table).
@@ -120,6 +130,75 @@ def spec_for(
             rem //= size
         parts.append(tuple(got))
     return P(*parts)
+
+
+def entry_axes(spec: PartitionSpec, dim: int) -> tuple[str, ...]:
+    """The mesh axes of ``spec``'s entry for ``dim``, major first (none past
+    its end)."""
+    e = spec[dim] if dim < len(spec) else None
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def reshard(x: torch.Tensor, mesh, have: PartitionSpec, want: PartitionSpec,
+            tag: str = "") -> torch.Tensor:
+    """``x``, this rank's block under spec ``have``, as its block under
+    ``want``: on each dim the axes both entries start with stay as they
+    are; the rest of ``have``'s are gathered (minor first) and then
+    ``want``'s cut (major first). No collective runs where ``want`` only
+    adds axes."""
+    for dim in range(x.dim()):
+        h, w = entry_axes(have, dim), entry_axes(want, dim)
+        keep = 0
+        while keep < min(len(h), len(w)) and h[keep] == w[keep]:
+            keep += 1
+        for a in reversed(h[keep:]):
+            x = collectives.gather(x, mesh.axis(a), dim, tag)
+        for a in w[keep:]:
+            x = block(x, dim, mesh.axis(a))
+    return x
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """A tensor's placement on a mesh (the reference's ``NamedSharding``)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full``, a tensor of its own."""
+        return reshard(full, self.mesh, P(), self.spec).clone()
+
+    def gather(self, local: torch.Tensor, tag: str = "") -> torch.Tensor:
+        """The whole tensor of which ``local`` is this rank's block."""
+        return reshard(local, self.mesh, self.spec, P(), tag)
+
+
+def named(mesh, spec: PartitionSpec) -> Placement:
+    return Placement(mesh, P(*spec))
+
+
+def map_specs(fn: Callable, specs, *trees):
+    """``fn(spec, *leaves)`` over the leaves of ``specs`` (``PartitionSpec``
+    or ``Placement`` records) and the matching leaves of ``trees`` (nested
+    dicts, named tuples and plain tuples or lists, as ``sharding.policy``
+    builds them), rebuilding ``specs``'s structure. Any other node is a
+    leaf: a ``PartitionSpec`` is told by not being a plain tuple, not by
+    its class, which a reload of this module would replace."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees)) for k, v in specs.items()}
+    if hasattr(specs, "_fields"):
+        return type(specs)(*(map_specs(fn, v, *(t[i] for t in trees))
+                             for i, v in enumerate(specs)))
+    if type(specs) in (tuple, list):
+        return type(specs)(map_specs(fn, v, *(t[i] for t in trees))
+                           for i, v in enumerate(specs))
+    return fn(specs, *trees)
+
+
+def tree_shardings(mesh, specs):
+    """``named`` over a tree of specs."""
+    return map_specs(lambda s: named(mesh, s), specs)
 
 
 def batch_axes(mesh) -> tuple[str, ...]:

@@ -208,7 +208,7 @@ def build_tree(
     g: torch.Tensor,  # (N,) f32 weighted gradient target
     h: torch.Tensor,  # (N,) f32 weighted hessian / sample weight
     feat_mask: torch.Tensor,  # (F,) bool — the features this tree may split on
-    mesh=None,  # launch.mesh.GbdtMesh naming cfg.axis_name / cfg.feature_axis
+    mesh=None,  # launch.mesh.Mesh naming cfg.axis_name / cfg.feature_axis
 ) -> Tree:
     """One tree. Under ``cfg.axis_name`` / ``cfg.feature_axis`` this is one
     rank's part of a sharded build (``ps.sharded``): ``bins``, ``g`` and

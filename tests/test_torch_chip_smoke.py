@@ -821,7 +821,8 @@ def drift_model():
 
     cfg, params = _small_hybrid()
     prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
-    tok, _, cache = make_prefill_step(cfg, 48)(params, {"tokens": torch.from_numpy(prompts)})
+    tok, _, cache = make_prefill_step(cfg, max_len=48)(params,
+                                                       {"tokens": torch.from_numpy(prompts)})
     served = [tok]
     for _ in range(7):
         tok, cache = make_decode_step(cfg)(params, tok[:, None], cache)
@@ -1226,7 +1227,8 @@ def xlstm_drift_model():
 
     cfg, params = _small_xlstm()
     prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
-    tok, _, cache = make_prefill_step(cfg, 48)(params, {"tokens": torch.from_numpy(prompts)})
+    tok, _, cache = make_prefill_step(cfg, max_len=48)(params,
+                                                       {"tokens": torch.from_numpy(prompts)})
     served = [tok]
     for _ in range(7):
         tok, cache = make_decode_step(cfg)(params, tok[:, None], cache)
@@ -1265,3 +1267,76 @@ def test_xlstm_decode_drift_fails_a_cache_that_is_not_updated(xlstm_drift_model,
         monkeypatch.setattr(chip_smoke.lm_xlstm, "slstm_decode", faulty)
     with pytest.raises(AssertionError, match="drift|other tokens"):
         chip_smoke.decode_drift(cfg, params, prompts, served, "cpu")
+
+
+# --------------------------------------------------- the sharded LM phase
+def test_model_axis_bytes_sort_by_what_they_carry():
+    """Expert weights by their path, gradients, the MoE activations, the
+    router's share, the dense weights and the rest."""
+    by_tag = {("gather", "param:layers.moe.wg"): 7, ("gather", "param:layers.attn.wq"): 5,
+              ("psum", "moe.out"): 11, ("psum", "moe.x.grad"): 13,
+              ("psum", "moe.weights.grad"): 3, ("psum_scatter", "grad:layers.moe.wd"): 2,
+              ("psum", "grad_norm"): 4, ("gather", "param:layers.moe.wr"): 1}
+    assert chip_smoke.model_axis_bytes(by_tag) == {
+        "expert weights": 7, "gradients": 2, "moe activations": 24, "router": 3,
+        "dense weights": 6, "other": 4}
+
+
+@pytest.mark.parametrize("fault", [None, "expert", "gradient", "activations"])
+def test_model_axis_gate_passes_and_fails_planted_faults(fault):
+    by_tag = {("gather", "param:layers.attn.wq"): 5, ("psum", "moe.out"): 8,
+              ("psum", "moe.x.grad"): 8, ("psum", "moe.weights.grad"): 3}
+    if fault == "expert":
+        by_tag[("gather", "param:layers.moe.wu")] = 9
+    elif fault == "gradient":
+        by_tag[("psum", "grad:embed")] = 9
+    elif fault == "activations":
+        by_tag[("psum", "moe.out")] = 16  # a psum too many
+    if fault is None:
+        assert chip_smoke.check_model_axis("t", by_tag, 16)["moe activations"] == 16
+    else:
+        with pytest.raises(AssertionError, match="crossed 'model'|MoE activations"):
+            chip_smoke.check_model_axis("t", by_tag, 16)
+
+
+def test_gap_filtered_tokens_compare_up_to_each_rows_first_close_call():
+    want = np.array([[1, 2, 3, 4], [5, 6, 7, 8]])
+    gaps = np.array([[0.9, 0.9, 0.1, 0.9], [0.9, 0.9, 0.9, 0.9]])
+    got = want.copy()
+    got[0, 2:] = [9, 9]  # row 0 parts at its close call (gap 0.1): not compared
+    out = chip_smoke.gap_filtered_tokens("t", got, want, gaps, 0.2)
+    assert out == {"compared": 6, "tokens": 8, "err": 0.2}
+    got[1, 3] = 0  # a clear pick that differs
+    with pytest.raises(AssertionError, match="row 1 step 3"):
+        chip_smoke.gap_filtered_tokens("t", got, want, gaps, 0.2)
+
+
+def test_decode_logits_into_takes_the_engines_own_decode_logits():
+    """Teacher-forced through ``ServingEngine(mesh=)``'s decode step (on the
+    host mesh here), each step's logits are those of ``decode_step`` on the
+    same cache, and the hook is gone after the block."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(chip_smoke.lm_configs.get("granite-3-2b").reduced(),
+                              dtype="float32")
+    params = chip_smoke.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    engine = ServingEngine(cfg, params, slots=2, max_len=24, device="cpu",
+                           mesh=make_host_mesh(device="cpu"))
+    prompts = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    fed = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 3)).astype(np.int32))
+    _, _, cache = engine._prefill(params, {"tokens": prompts})
+    _, _, ref = chip_smoke.make_prefill_step(cfg, max_len=24)(params, {"tokens": prompts})
+    orig = steps.decode_step
+    with chip_smoke.decode_logits_into([]) as got:
+        for t in range(3):
+            _, cache = engine._decode(params, fed[:, t:t + 1], cache)
+    assert steps.decode_step is orig and len(got) == 3
+    for t in range(3):
+        want, ref = chip_smoke.TT.decode_step(params, cfg, fed[:, t:t + 1], ref)
+        torch.testing.assert_close(got[t], want.float(), rtol=0, atol=0)

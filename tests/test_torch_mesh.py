@@ -48,7 +48,7 @@ from repro_torch import collectives
 from repro_torch.core import baselines
 from repro_torch.core.sgbdt import SGBDTConfig
 from repro_torch.data import sampling
-from repro_torch.launch.mesh import GbdtMesh, MeshAxis, free_port, make_dry_mesh, make_gbdt_mesh
+from repro_torch.launch.mesh import Mesh, MeshAxis, free_port, make_dry_mesh, make_gbdt_mesh
 from repro_torch.ps.engine import Trainer
 from repro_torch.ps.sharded import collective_bytes_per_build, make_sharded_builder
 from repro_torch.sharding import gbdt_data_specs
@@ -564,7 +564,7 @@ def test_gbdt_data_specs_cuts_each_ranks_block():
                       torch.arange(12, dtype=torch.float32), torch.ones(12), 8)
 
     def mesh(d, f, i, j):
-        return GbdtMesh((MeshAxis("data", d, i, None), MeshAxis("feature", f, j, None)),
+        return Mesh((MeshAxis("data", d, i, None), MeshAxis("feature", f, j, None)),
                         torch.device("cpu"), None)
 
     for i in range(2):

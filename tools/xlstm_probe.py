@@ -91,7 +91,7 @@ def main() -> None:
     for plen in prompts:
         toks = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen, device=dev,
                              dtype=torch.int32)
-        step = make_prefill_step(cfg, plen + new)
+        step = make_prefill_step(cfg, max_len=plen + new)
         res = {"prefill": timed(lambda: step(params, {"tokens": toks}), dev)}
         tok, _, cache = step(params, {"tokens": toks})
         decode = make_decode_step(cfg)
